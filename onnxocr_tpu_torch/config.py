@@ -1,0 +1,86 @@
+"""Config registry for the PyTorch port.
+
+Own copy of the flag table of onnxocr_tpu/config.py (the reference kwargs
+surface of ONNXPaddleOcr, plus the engine's `tpu_*` knobs that the ported
+one-call path reads). Unknown keys are accepted and stored, as in the
+reference. Two defaults differ from the JAX package because only one form is
+ported so far: `tpu_pipeline='onecall'` (the staged pipeline is not ported)
+and `tpu_warp_stage='off'` (the gather warp; the shear-staged warp is not
+ported).
+
+Model assets are read by path from the JAX package's committed data files
+(`onnxocr_tpu/assets/`), never by importing that package.
+"""
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from types import SimpleNamespace
+
+_REPO = Path(__file__).resolve().parent.parent
+ASSETS = _REPO / "onnxocr_tpu" / "assets"
+
+
+def find_asset(rel_path: str) -> str:
+    """Resolve a model-asset path (e.g. 'ppocrv5/det/det.onnx') under
+    $ONNXOCR_TPU_ASSETS or the committed asset tree; returns the committed
+    tree's path when no candidate exists."""
+    rel_path = rel_path.lstrip("/")
+    for root in (os.environ.get("ONNXOCR_TPU_ASSETS", ""), str(ASSETS)):
+        if root:
+            cand = os.path.join(root, rel_path)
+            if os.path.exists(cand):
+                return cand
+    return os.path.join(str(ASSETS), rel_path)
+
+
+# flag → default for every flag the ported path reads (reference names and
+# defaults); other reference flags are accepted and ignored
+DEFAULTS = {
+    # text detector
+    "det_model_dir": find_asset("ppocrv5/det/det.onnx"),
+    "det_limit_side_len": 960.0,
+    "det_limit_type": "max",
+    "det_box_type": "quad",
+    "det_db_thresh": 0.3,
+    "det_db_box_thresh": 0.6,
+    "det_db_unclip_ratio": 1.5,
+    "use_dilation": False,
+    "det_db_score_mode": "fast",
+    # text recognizer
+    "rec_algorithm": "SVTR_LCNet",
+    "rec_model_dir": find_asset("ppocrv5/rec/rec.onnx"),
+    "rec_image_shape": "3, 48, 320",
+    "rec_char_dict_path": find_asset("ppocrv5/ppocrv5_dict.txt"),
+    "use_space_char": True,
+    "drop_score": 0.5,
+    # the angle classifier is not ported: use_angle_cls=True raises
+    "use_angle_cls": False,
+    "save_crop_res": False,
+    # engine knobs of the one-call path
+    "tpu_det_bucket": 320,
+    "tpu_rec_width_buckets": (640, 960, 1280),
+    "tpu_batch_buckets": (4, 16, 64),
+    "tpu_warp_interp": "bilinear",
+    "tpu_warp_stage": "off",
+    "tpu_pipeline": "onecall",
+    "tpu_det_extract_scale": "1x2",
+    "tpu_det_score_k": 128,
+    "tpu_det_extract_window": 320,
+    "tpu_onecall_rec_width": 640,
+    "tpu_onecall_max_boxes": 48,
+    "tpu_onecall_det_candidates": 1024,
+    "tpu_decode_support": "trained",
+}
+
+
+def make_params() -> SimpleNamespace:
+    """A fresh namespace of the defaults."""
+    return SimpleNamespace(**DEFAULTS)
+
+
+def parse_shape(s) -> tuple:
+    """Parse "3, 48, 320" → (3, 48, 320)."""
+    if isinstance(s, (tuple, list)):
+        return tuple(int(v) for v in s)
+    return tuple(int(v) for v in str(s).split(","))

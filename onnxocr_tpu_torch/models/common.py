@@ -1,0 +1,126 @@
+"""NCHW building blocks for the ported models.
+
+Counterpart of onnxocr_tpu/models/common.py. Module and parameter names
+mirror the JAX parameter trees (`conv/w` → `conv.weight`, `bn/scale` →
+`bn.scale`, ...) so models/convert.py can map a checkpoint onto a model by
+name. Arithmetic follows the JAX forms where PyTorch's built-ins differ:
+hardsigmoid is clip(0.2x + 0.5) (ONNX's default, not torch's x/6 + 0.5),
+batch norm is x·inv + (bias − mean·inv) with eps 1e-5, convolutions pad
+k//2 on both sides, and the 2x transposed conv takes the JAX kernel flipped
+on both spatial axes (models/convert.py does the flip).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def make_divisible(v: float, divisor: int = 8, min_value=None) -> int:
+    """Channel rounding used by the MobileNetV3 family (PaddleOCR scheme)."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def hardswish(x):
+    return x * torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+
+
+def hardsigmoid(x, alpha: float = 0.2, beta: float = 0.5):
+    return torch.clamp(alpha * x + beta, 0.0, 1.0)
+
+
+ACTS = {
+    "relu": torch.relu,
+    "hswish": hardswish,
+    "none": lambda x: x,
+}
+
+
+class BatchNorm(nn.Module):
+    """Inference batch norm with the JAX tree's names (scale, bias, mean,
+    var) and arithmetic."""
+
+    def __init__(self, c: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(c), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(c), requires_grad=False)
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x):
+        inv = self.scale * torch.rsqrt(self.var + self.eps)
+        shift = self.bias - self.mean * inv
+        return x * inv[:, None, None] + shift[:, None, None]
+
+
+def conv(k: int, cin: int, cout: int, stride=1, groups: int = 1,
+         bias: bool = False) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2,
+                     groups=groups, bias=bias)
+
+
+class ConvBN(nn.Module):
+    def __init__(self, k: int, cin: int, cout: int, stride=1,
+                 groups: int = 1, act: str = "none"):
+        super().__init__()
+        self.conv = conv(k, cin, cout, stride, groups)
+        self.bn = BatchNorm(cout)
+        self.act = ACTS[act]
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+
+def mask_valid_(x, vh: int, vw: int):
+    """Zero x (N, C, H, W) beyond the (vh, vw) valid region IN PLACE (the
+    callers pass intermediates they own) and return it."""
+    if vh < x.shape[2]:
+        x[:, :, vh:] = 0
+    if vw < x.shape[3]:
+        x[:, :, :, vw:] = 0
+    return x
+
+
+class SE(nn.Module):
+    """Squeeze-and-excitation with the global pool restricted to the valid
+    region (JAX `se_module` with valid_hw)."""
+
+    def __init__(self, c: int, mid: int):
+        super().__init__()
+        self.reduce = nn.Conv2d(c, mid, 1, bias=True)
+        self.expand = nn.Conv2d(mid, c, 1, bias=True)
+
+    def forward(self, x, valid_hw=None):
+        if valid_hw is None:
+            s = x.mean(dim=(2, 3), keepdim=True)
+        else:
+            vh, vw = valid_hw
+            s = x[:, :, :vh, :vw].sum(dim=(2, 3), keepdim=True) / \
+                max(vh * vw, 1)
+        s = torch.relu(self.reduce(s))
+        s = hardsigmoid(self.expand(s))
+        return x * s
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(d), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(d), requires_grad=False)
+
+    def forward(self, x):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.square(x - mean).mean(dim=-1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.scale + \
+            self.bias
+
+
+def upsample_nearest_2x(x):
+    return F.interpolate(x, scale_factor=2.0, mode="nearest")

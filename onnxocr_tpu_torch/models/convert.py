@@ -1,0 +1,88 @@
+"""JAX parameter trees → PyTorch state_dicts and built models.
+
+The input is a nested dict/list of numpy arrays as utils/params_io.load_tree
+returns it (or as the JAX `init()` functions build it). Each tensor of the
+model is looked up by its module path (`mixer.3.qkv.weight` ↔
+`mixer/#3/qkv/w`) and re-laid out by module type:
+
+* Conv2d weight: HWIO → OIHW (depthwise (k, k, 1, C) → (C, 1, k, k));
+* ConvTranspose2d weight: (2, 2, I, O) flipped on both spatial axes →
+  (I, O, 2, 2) (JAX's conv_transpose does not flip the kernel, torch's
+  transposed conv does);
+* Linear weight: (in, out) → (out, in);
+* everything else (batch-norm and LayerNorm leaves, the CTC head's (D, V)
+  w and (V,) b) as it is.
+
+Every tree leaf must be used and every model tensor filled, with its shape.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from . import dbnet, svtr
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}#{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def state_dict_from_tree(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
+    flat = flatten(tree)
+    modules = dict(model.named_modules())
+    sd: Dict[str, torch.Tensor] = {}
+    for key, ref in model.state_dict().items():
+        mod_name, _, leaf = key.rpartition(".")
+        mod = modules[mod_name]
+        path = "/".join("#" + p if p.isdigit() else p
+                        for p in mod_name.split("."))
+        layer = isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))
+        jleaf = {"weight": "w", "bias": "b"}[leaf] if layer else leaf
+        jkey = f"{path}/{jleaf}"
+        if jkey not in flat:
+            raise KeyError(f"checkpoint has no {jkey!r} for {key!r}")
+        arr = flat.pop(jkey).astype(np.float32)
+        if leaf == "weight" and isinstance(mod, nn.Conv2d):
+            arr = arr.transpose(3, 2, 0, 1)
+        elif leaf == "weight" and isinstance(mod, nn.ConvTranspose2d):
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif leaf == "weight" and isinstance(mod, nn.Linear):
+            arr = arr.T
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{jkey}: shape {arr.shape} does not fit "
+                             f"{key} {tuple(ref.shape)}")
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    if flat:
+        raise ValueError(f"unused checkpoint leaves: {sorted(flat)[:8]}")
+    return sd
+
+
+def build_dbnet(tree, device="cpu") -> dbnet.DBNet:
+    model = dbnet.DBNet()
+    model.load_state_dict(state_dict_from_tree(tree, model))
+    return model.requires_grad_(False).to(device).eval()
+
+
+def build_svtr(tree, device="cpu") -> svtr.SVTR:
+    """SVTR sized from the tree: vocab and dim from the head, depth from the
+    mixer list, channel width from the stem, MLP ratio from fc1."""
+    dim, vocab = tree["head"]["w"].shape
+    mixer = tree["mixer"]
+    mlp_ratio = mixer[0]["fc1"]["w"].shape[1] // dim if mixer else 2
+    width_mult = tree["stem"]["conv"]["w"].shape[-1] / 32.0
+    model = svtr.SVTR(vocab, dim=dim, depth=len(mixer),
+                      width_mult=width_mult, mlp_ratio=mlp_ratio)
+    model.load_state_dict(state_dict_from_tree(tree, model))
+    return model.requires_grad_(False).to(device).eval()

@@ -1,0 +1,63 @@
+"""DBNet text detector (NCHW): MobileNetV3-large backbone + DB FPN +
+binarization head. Counterpart of onnxocr_tpu/models/dbnet.py (mbv3
+backbone only; the ResNet18-vd server backbone is not ported).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from . import common as cm
+from . import mobilenetv3 as mbv3
+
+# backbone taps at 1/4, 1/8, 1/16; the post-`last` map is 1/32
+_TAPS = (3, 6, 12)
+
+
+class DBNet(nn.Module):
+    def __init__(self, scale: float = 0.5, inner: int = 96, out: int = 24):
+        super().__init__()
+        self.backbone = mbv3.MobileNetV3(scale)
+        cfg = self.backbone.cfg
+        in_chs = [cfg[i - 1][2] for i in _TAPS] + \
+            [self.backbone.last.conv.out_channels]
+        self.lateral = nn.ModuleList(
+            [cm.conv(1, c, inner) for c in in_chs])
+        self.smooth = nn.ModuleList(
+            [cm.conv(3, inner, out) for _ in range(4)])
+        self.head = nn.Module()
+        self.head.conv = cm.ConvBN(3, out * 4, out, act="relu")
+        self.head.up1 = nn.ConvTranspose2d(out, out, 2, stride=2)
+        self.head.bn1 = cm.BatchNorm(out)
+        self.head.up2 = nn.ConvTranspose2d(out, 1, 2, stride=2)
+
+    def forward(self, x: torch.Tensor,
+                valid_hw: Optional[tuple] = None) -> torch.Tensor:
+        """x (N, 3, H, W) ImageNet-normalized → (N, H, W) shrink-prob map.
+        valid_hw = (vh, vw) makes the map over the valid region
+        independent of the canvas padding (JAX dbnet.apply)."""
+        if valid_hw is not None:
+            x = cm.mask_valid_(x.clone(), *valid_hw)
+        feats = self.backbone(x, _TAPS, valid_hw)
+        lat = [conv(f) for f, conv in zip(feats, self.lateral)]
+        for i in range(len(lat) - 1, 0, -1):
+            up = lat[i]
+            while up.shape[2] < lat[i - 1].shape[2]:
+                up = cm.upsample_nearest_2x(up)
+            lat[i - 1] = lat[i - 1] + up
+        outs = [conv(f) for f, conv in zip(lat, self.smooth)]
+        ups = []
+        for o in outs:
+            while o.shape[2] < outs[0].shape[2]:
+                o = cm.upsample_nearest_2x(o)
+            ups.append(o)
+        fused = torch.cat(ups, dim=1)
+        if valid_hw is not None:
+            cm.mask_valid_(fused, (valid_hw[0] + 3) // 4,
+                           (valid_hw[1] + 3) // 4)
+        h = self.head
+        y = h.conv(fused)
+        y = torch.relu(h.bn1(h.up1(y)))
+        return torch.sigmoid(h.up2(y)[:, 0])

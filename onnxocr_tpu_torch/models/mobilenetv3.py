@@ -1,0 +1,97 @@
+"""MobileNetV3-large backbone of the det model (NCHW), PaddleOCR channel
+scheme. Counterpart of onnxocr_tpu/models/mobilenetv3.py, large config only
+(the small config belongs to the angle classifier, which is not ported).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch.nn as nn
+
+from . import common as cm
+
+# (kernel, expand, out, use_se, act, stride)
+LARGE_CFG = [
+    (3, 16, 16, False, "relu", 1),
+    (3, 64, 24, False, "relu", 2),
+    (3, 72, 24, False, "relu", 1),
+    (5, 72, 40, True, "relu", 2),
+    (5, 120, 40, True, "relu", 1),
+    (5, 120, 40, True, "relu", 1),
+    (3, 240, 80, False, "hswish", 2),
+    (3, 200, 80, False, "hswish", 1),
+    (3, 184, 80, False, "hswish", 1),
+    (3, 184, 80, False, "hswish", 1),
+    (3, 480, 112, True, "hswish", 1),
+    (3, 672, 112, True, "hswish", 1),
+    (5, 672, 160, True, "hswish", 2),
+    (5, 960, 160, True, "hswish", 1),
+    (5, 960, 160, True, "hswish", 1),
+]
+
+
+def scaled_cfg(scale: float):
+    return [(k, cm.make_divisible(exp * scale), cm.make_divisible(c * scale),
+             se, act, s) for k, exp, c, se, act, s in LARGE_CFG]
+
+
+class Block(nn.Module):
+    def __init__(self, cin, k, exp, cout, se, act, stride):
+        super().__init__()
+        self.expand = cm.ConvBN(1, cin, exp, act=act)
+        self.dw = cm.ConvBN(k, exp, exp, stride=stride, groups=exp, act=act)
+        self.se = cm.SE(exp, exp // 4) if se else None
+        self.project = cm.ConvBN(1, exp, cout)
+        self.residual = stride == 1 and cin == cout
+
+
+class MobileNetV3(nn.Module):
+    def __init__(self, scale: float = 0.5):
+        super().__init__()
+        self.cfg = scaled_cfg(scale)
+        stem_ch = cm.make_divisible(16 * scale)
+        self.stem = cm.ConvBN(3, 3, stem_ch, stride=2, act="hswish")
+        blocks = []
+        cin = stem_ch
+        for k, exp, cout, se, act, s in self.cfg:
+            blocks.append(Block(cin, k, exp, cout, se, act, s))
+            cin = cout
+        self.blocks = nn.ModuleList(blocks)
+        self.last = cm.ConvBN(1, cin, cm.make_divisible(960 * scale),
+                              act="hswish")
+
+    def forward(self, x, feature_taps: Sequence[int] = (),
+                valid_hw: Optional[tuple] = None) -> List:
+        """x (N, 3, H, W) → the block inputs at `feature_taps` plus the
+        post-`last` map. valid_hw = (vh, vw) valid extent at input
+        resolution: every stage is re-zeroed beyond ceil(v / stride) and the
+        SE pools see only that region (JAX mobilenetv3.apply)."""
+
+        def strided(s):
+            if valid_hw is None:
+                return None
+            return -(-valid_hw[0] // s), -(-valid_hw[1] // s)
+
+        def mask(x, s):
+            if valid_hw is None:
+                return x
+            return cm.mask_valid_(x, *strided(s))
+
+        x = mask(self.stem(x), 2)
+        stride = 2
+        feats = []
+        for i, blk in enumerate(self.blocks):
+            if i in feature_taps:
+                feats.append(x)
+            y = blk.expand(x)
+            y = blk.dw(y)
+            stride *= blk.dw.conv.stride[0]
+            if blk.se is not None:
+                y = blk.se(y, strided(stride))
+            y = blk.project(y)
+            if blk.residual:
+                y = y + x
+            x = mask(y, stride)
+        x = mask(self.last(x), stride)
+        feats.append(x)
+        return feats

@@ -1,0 +1,91 @@
+"""Native checkpoint loading and its load-time adjustments. Port of the
+parts of onnxocr_tpu/pipeline/backends.py the one-call path reads:
+the committed `native_params.npz` beside a stage's model path, the det
+`calibration.json` sidecar, and the CTC-head decode-support mask read from
+the committed `<dict>.trained_support.json` sidecar.
+"""
+from __future__ import annotations
+
+import glob
+import json
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+
+from .. import config
+from ..utils.params_io import load_tree
+
+
+def pick_arch(kind: str, model_path: str, algorithm: str = "") -> str:
+    """SVTR vs CRNN rec, MobileNetV3 vs ResNet18-vd det (JAX rules)."""
+    if kind == "rec":
+        if "CRNN" in (algorithm or "") or "server" in (model_path or ""):
+            return "crnn"
+        return "svtr"
+    return "resnet18" if "server" in (model_path or "") else "mbv3"
+
+
+def load_native_params(kind: str, model_path: str) -> Tuple[dict, str]:
+    """→ (parameter tree, npz path) from <dir of model_path>/native_params.npz.
+    The ONNX graph executor is not ported, so an existing .onnx model file
+    cannot be run."""
+    if model_path and os.path.exists(model_path) and \
+            model_path.endswith(".onnx"):
+        raise NotImplementedError(
+            f"{kind}: running an .onnx model ({model_path}) needs the graph "
+            "executor, which is not ported; only native checkpoints run")
+    path = os.path.join(os.path.dirname(model_path), "native_params.npz")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{kind}: no native checkpoint at {path}")
+    return load_tree(path), path
+
+
+def checkpoint_calibration(ckpt_path: str) -> dict:
+    """Flag-name → value pairs from <ckpt dir>/calibration.json ({} if none
+    or unreadable)."""
+    cal = os.path.join(os.path.dirname(ckpt_path), "calibration.json")
+    if not os.path.exists(cal):
+        return {}
+    try:
+        with open(cal) as f:
+            return dict(json.load(f))
+    except (ValueError, OSError):
+        return {}
+
+
+def trained_support(dict_path: str) -> Optional[np.ndarray]:
+    """Dictionary indices the native checkpoints were trained on (blank
+    included), from the committed sidecar `<dict>.trained_support.json`
+    next to the dictionary or, by the dictionary's file name, anywhere under
+    the committed asset tree. None when there is no sidecar (no masking)."""
+    candidates = [dict_path + ".trained_support.json"]
+    candidates += sorted(glob.glob(os.path.join(
+        str(config.ASSETS), "**",
+        os.path.basename(dict_path) + ".trained_support.json"),
+        recursive=True))
+    for sidecar in candidates:
+        if not os.path.exists(sidecar):
+            continue
+        try:
+            with open(sidecar) as f:
+                return np.asarray(sorted(set(json.load(f)["indices"]) | {0}),
+                                  np.int64)
+        except (ValueError, KeyError, OSError):
+            continue
+    return None
+
+
+def apply_support_bias(params: dict, support: np.ndarray) -> dict:
+    """b[v] −= 1e30 for vocab v outside the support: argmax never picks an
+    untrained glyph and the max-prob renormalizes over the support."""
+    head = params.get("head")
+    if not isinstance(head, dict) or "b" not in head:
+        return params
+    b = np.asarray(head["b"], np.float32)
+    mask = np.full(b.shape, -1e30, np.float32)
+    mask[support[support < b.shape[0]]] = 0.0
+    out = dict(params)
+    out["head"] = dict(head)
+    out["head"]["b"] = (b + mask).astype(np.asarray(head["b"]).dtype)
+    return out

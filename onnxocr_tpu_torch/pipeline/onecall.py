@@ -1,0 +1,170 @@
+"""One-call OCR on the device: det → DB boxes → crop matrices → rec → CTC
+head, with one device→host copy of a packed buffer per page.
+
+Port of onnxocr_tpu/pipeline/onecall.py (single page, classifier off):
+
+    upload the edge-padded page → resize + normalize into the fixed det
+    canvas → DBNet → device DB extraction in the extraction window →
+    rescale / clockwise / clip / side filter → compact valid boxes into a
+    K_rec prefix → crop homographies → gather-warp rec crops at one width →
+    SVTR → fused CTC head → one packed (K_rec + 1 + det rows, 12 + 2T)
+    float32 buffer
+
+Packed layout (as in the JAX package): K_rec body rows [quad (8), score,
+valid, valid width, desired width, idx (T), prob (T)]; a tail row whose
+first entry is n_valid; then all K_det filtered quads + valid flags,
+flattened into rows of the same width. Wide lines (desired width > the rec
+width) and boxes past K_rec re-run through the recognizer's per-bucket
+path against the same uploaded page.
+"""
+from __future__ import annotations
+
+import math
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..ops import db_device, det_pre, resize_dev, warp_dev
+from ..ops import warp as warp_ops
+
+
+class OneCallPipeline:
+    def __init__(self, detector, recognizer, args, device: torch.device):
+        self.detector = detector
+        self.recognizer = recognizer
+        self.device = device
+        self.rec_w = int(args.tpu_onecall_rec_width)
+        self.k_rec = int(args.tpu_onecall_max_boxes)
+        self.k_det = int(args.tpu_onecall_det_candidates)
+        self.imgH = recognizer.rec_image_shape[1]
+        self.extract_scale = db_device.parse_extract_scale(
+            args.tpu_det_extract_scale)
+        self.score_k = int(args.tpu_det_score_k)
+        self.ex_bucket = int(args.tpu_det_extract_window)
+
+    def _ex_window(self, rh: int, rw: int, hb: int, wb: int
+                   ) -> Tuple[int, int]:
+        """Extraction window for a page's valid size; (0, 0) = off."""
+        b = self.ex_bucket
+        if not b:
+            return 0, 0
+        return (min(hb, det_pre.round_up(max(rh, 1), b)),
+                min(wb, det_pre.round_up(max(rw, 1), b)))
+
+    def canvas(self, src_h: int, src_w: int):
+        """→ (rh, rw) resize target, (hb, wb) det canvas, (eh, ew) window."""
+        det = self.detector
+        rh, rw = det_pre.det_resize_target(src_h, src_w, det.limit_side_len)
+        # one fixed square canvas for every page: the valid_hw masking makes
+        # the det map over the valid region independent of the padding
+        cap = det_pre.round_up(int(det.limit_side_len), det.bucket)
+        hb = wb = max(cap, det_pre.round_up(max(rh, rw), det.bucket))
+        return (rh, rw), (hb, wb), self._ex_window(rh, rw, hb, wb)
+
+    @torch.inference_mode()
+    def step(self, image_u8: torch.Tensor, src_h: int, src_w: int,
+             r_h: int, r_w: int, out_h: int, out_w: int, ex_h: int = 0,
+             ex_w: int = 0) -> torch.Tensor:
+        """The single-page program: → packed float32 buffer on the device."""
+        pp = self.detector.postprocess_op
+        x = resize_dev.resize_normalize_det(image_u8, src_h, src_w, r_h, r_w,
+                                            out_h, out_w)
+        prob = self.detector.model(x.permute(2, 0, 1)[None],
+                                   valid_hw=(r_h, r_w))[0]
+        if ex_h and ex_w and (ex_h < out_h or ex_w < out_w):
+            prob = prob[:ex_h, :ex_w]
+        quads_m, scores, valid = db_device.device_boxes(
+            prob.contiguous(), r_h, r_w, max_k=self.k_det, thresh=pp.thresh,
+            box_thresh=pp.box_thresh, unclip_ratio=pp.unclip_ratio,
+            min_size=float(pp.min_size), scale=self.extract_scale,
+            score_k=self.score_k)
+
+        # map → source coords (round, clip to [0, src]), then the
+        # reference's clockwise order + clip + side filter
+        qx = torch.clamp(torch.round(quads_m[..., 0] / float(r_w) * src_w),
+                         0.0, float(src_w))
+        qy = torch.clamp(torch.round(quads_m[..., 1] / float(r_h) * src_h),
+                         0.0, float(src_h))
+        quads_s = warp_dev.order_points_clockwise(torch.stack([qx, qy], -1))
+        quads_s, keep = warp_dev.clip_filter_boxes(quads_s, src_h, src_w)
+        valid = valid & keep
+        n_valid = valid.sum()
+
+        # valid rows into the K_rec prefix, raster order kept
+        take = torch.argsort((~valid).to(torch.int32), stable=True)[:self.k_rec]
+        quads_c, scores_c, valid_c = quads_s[take], scores[take], valid[take]
+        rec_m, _, rec_vw, desired = warp_dev.crop_matrices(
+            quads_c, valid_c, self.imgH, self.rec_w)
+        rec_vw = torch.where(valid_c, rec_vw, 0)
+        crops = warp_ops.warp_crops(image_u8, rec_m, rec_vw, self.imgH,
+                                    self.rec_w, self.recognizer.interp)
+        idx, prob_max = self.recognizer.forward(crops, (rec_vw + 7) // 8)
+
+        k_rec = quads_c.shape[0]
+        T = idx.shape[1]
+        wbuf = 12 + 2 * T
+        f32 = torch.float32
+        body = torch.cat([quads_c.reshape(k_rec, 8), scores_c[:, None],
+                          valid_c[:, None].to(f32), rec_vw[:, None].to(f32),
+                          desired[:, None].to(f32), idx.to(f32),
+                          prob_max.to(f32)], -1)
+        tail = torch.zeros((1, wbuf), dtype=f32, device=body.device)
+        tail[0, 0] = n_valid.to(f32)
+        det_flat = torch.cat([quads_s.reshape(-1, 8),
+                              valid[:, None].to(f32)], -1).reshape(-1)
+        n_det_rows = -(-det_flat.shape[0] // wbuf)
+        det_block = torch.cat([det_flat, det_flat.new_zeros(
+            n_det_rows * wbuf - det_flat.shape[0])]).reshape(n_det_rows, wbuf)
+        return torch.cat([body, tail, det_block], 0)
+
+    def run_packed(self, img: np.ndarray):
+        """Upload a BGR page and run the program → (packed numpy buffer,
+        uploaded page on the device)."""
+        image_dev, src_h, src_w = resize_dev.put_src_bucket(img, self.device)
+        (rh, rw), (hb, wb), (eh, ew) = self.canvas(src_h, src_w)
+        packed = self.step(image_dev, src_h, src_w, rh, rw, hb, wb, eh, ew)
+        return packed.cpu().numpy(), image_dev
+
+    def __call__(self, img: np.ndarray
+                 ) -> Tuple[np.ndarray, List[Tuple[str, float]]]:
+        """→ (boxes (N, 4, 2) float32, [(text, score)]) in device (raster)
+        order; the caller applies the sorted-boxes pairing and drop_score."""
+        packed, image_dev = self.run_packed(img)
+        return self.decode_packed(packed, image_dev)
+
+    def decode_packed(self, packed: np.ndarray, image_dev: torch.Tensor
+                      ) -> Tuple[np.ndarray, List[Tuple[str, float]]]:
+        body = packed[:self.k_rec]
+        n_valid = int(packed[self.k_rec, 0])
+        rows = body[body[:, 9] > 0.5]
+        if n_valid == 0 or rows.shape[0] == 0:
+            return np.zeros((0, 4, 2), np.float32), []
+        boxes = rows[:, :8].reshape(-1, 4, 2).astype(np.float32)
+        rec_vw = rows[:, 10].astype(np.int32)
+        desired = rows[:, 11].astype(np.int32)
+        T = (body.shape[1] - 12) // 2
+        idx = rows[:, 12:12 + T].astype(np.int32)
+        prob_max = rows[:, 12 + T:]
+        stride = self.rec_w // T
+        valid_t = [min(T, int(math.ceil(w / stride))) for w in rec_vw]
+        rec_res = self.recognizer.postprocess_op.decode_indices(
+            idx, prob_max, is_remove_duplicate=True, valid_t=valid_t)
+
+        wide = np.nonzero(desired > self.rec_w)[0]
+        if len(wide):
+            redo = self.recognizer.run_boxes(image_dev, boxes[wide])
+            for i, res in zip(wide, redo):
+                rec_res[i] = res
+
+        if n_valid > self.k_rec:
+            # the det block carries every filtered quad: keep the K_rec
+            # prefix results, recognize only the remainder
+            det_flat = packed[self.k_rec + 1:].reshape(-1)
+            det_rows = det_flat[:self.k_det * 9].reshape(self.k_det, 9)
+            boxes_all = det_rows[det_rows[:, 8] > 0.5, :8].reshape(
+                -1, 4, 2).astype(np.float32)
+            rest = self.recognizer.run_boxes(image_dev,
+                                             boxes_all[self.k_rec:])
+            return boxes_all, rec_res + rest
+        return boxes, rec_res

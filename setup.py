@@ -7,10 +7,13 @@ setup(
     description="TPU-native OCR engine (JAX/XLA/Pallas) with the "
                 "ding113/OnnxOCR API surface",
     packages=find_packages(include=["onnxocr_tpu", "onnxocr_tpu.*",
-                                    "onnxocr", "onnxocr.*"]),
+                                    "onnxocr", "onnxocr.*",
+                                    "onnxocr_tpu_torch",
+                                    "onnxocr_tpu_torch.*"]),
     package_data={
         "onnxocr_tpu": ["runtime/native/*.cc",
                         "assets/**/*.npz"],
+        "onnxocr_tpu_torch": ["csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=["jax>=0.4.30", "numpy", "optax"],

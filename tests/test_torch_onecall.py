@@ -1,0 +1,138 @@
+"""The ported one-call slice as a whole vs the JAX package on the CPU: the
+same committed PP-OCRv5 checkpoints, the same pages, the same kwargs.
+
+The recognition dictionary (ppocrv5_dict.txt) is not in the repository, so
+both sides read a stand-in with 18383 unique placeholder entries (blank +
+18383 + space = the head's 18385 classes); the trained-support sidecar is
+found by the dictionary's file name. Both then decode the same strings from
+the same indices. Tolerances are those of tests/test_onecall.py."""
+import numpy as np
+import pytest
+import torch
+
+from onnxocr_tpu import ONNXPaddleOcr as JaxOcr
+from onnxocr_tpu.ops import resize_dev as jresize
+
+from onnxocr_tpu_torch import ONNXPaddleOcr, config
+from onnxocr_tpu_torch.utils.png import read_bgr
+
+HELDOUT = config.ASSETS.parent / "test_images_heldout"
+BASE = dict(use_angle_cls=False, drop_score=0.0, tpu_pipeline="onecall",
+            tpu_warp_stage="off", det_limit_side_len=320)
+
+
+@pytest.fixture(scope="module")
+def dict_path(tmp_path_factory):
+    path = tmp_path_factory.mktemp("dict") / "ppocrv5_dict.txt"
+    path.write_text("".join(f"<{i}>\n" for i in range(18383)))
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def pages():
+    return {n: read_bgr(str(HELDOUT / f"{n}.png"))
+            for n in ("synth_00_doc", "synth_08_table")}
+
+
+@pytest.fixture(scope="module")
+def pair(dict_path):
+    """(port on the CPU, JAX reference) built with the same kwargs, one
+    pair per distinct kwargs for the module."""
+    models = {}
+
+    def get(**extra):
+        key = tuple(sorted(extra.items()))
+        if key not in models:
+            kw = dict(BASE, rec_char_dict_path=dict_path, **extra)
+            models[key] = (ONNXPaddleOcr(device="cpu", **kw), JaxOcr(**kw))
+        return models[key]
+
+    return get
+
+
+def _assert_same(got, ref):
+    assert [l[1][0] for l in got] == [l[1][0] for l in ref]
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert np.abs(np.asarray(g[0], np.float64) -
+                      np.asarray(r[0], np.float64)).max() <= 2.0
+        assert abs(float(g[1][1]) - float(r[1][1])) < 2e-3
+
+
+@pytest.mark.parametrize("page,extra", [
+    ("synth_00_doc", {}),
+    ("synth_08_table", {}),
+    ("synth_00_doc", {"tpu_onecall_max_boxes": 4}),      # overflow path
+    ("synth_08_table", {"tpu_onecall_rec_width": 160}),  # wide-line path
+])
+def test_slice_matches_jax(pair, pages, page, extra):
+    port, ref = pair(**extra)
+    got = port.ocr(pages[page], cls=False)[0]
+    want = ref.ocr(pages[page], cls=False)[0]
+    assert len(want) > 4
+    _assert_same(got, want)
+    if "tpu_onecall_max_boxes" in extra:
+        assert len(got) > extra["tpu_onecall_max_boxes"]
+    if "tpu_onecall_rec_width" in extra:
+        packed, _ = port._onecall.run_packed(pages[page])
+        k = port._onecall.k_rec
+        assert (packed[:k, 11] > 160).any()
+
+
+def test_blank_page(pair):
+    port, ref = pair()
+    blank = np.full((320, 320, 3), 250, np.uint8)
+    assert port.ocr(blank, cls=False) == [[]]
+    assert ref.ocr(blank, cls=False)[0] == []
+
+
+def test_packed_buffer_matches_jax(pair, pages):
+    """The single-page program's download: same n_valid, same argmax on
+    every valid time step of every valid row."""
+    port, ref = pair()
+    img = pages["synth_00_doc"]
+    oc = port._onecall
+    packed, _ = oc.run_packed(img)
+    src, h, w = jresize.pad_src_bucket(img)
+    (rh, rw), (hb, wb), (eh, ew) = oc.canvas(h, w)
+    jpacked = ref._onecall._run_single(False, src, h, w, rh, rw, hb, wb,
+                                       eh, ew)
+    assert packed.shape == jpacked.shape
+    k = oc.k_rec
+    assert packed[k, 0] == jpacked[k, 0] > 0
+    np.testing.assert_array_equal(packed[:k, 9], jpacked[:k, 9])
+    T = (packed.shape[1] - 12) // 2
+    stride = oc.rec_w // T
+    for row, jrow in zip(packed[:k], jpacked[:k]):
+        if row[9] > 0.5:
+            vt = min(T, -(-int(row[10]) // stride))
+            np.testing.assert_array_equal(row[12:12 + vt],
+                                          jrow[12:12 + vt])
+
+
+def test_tiny_image_is_not_ported(pair):
+    port, _ = pair()
+    with pytest.raises(NotImplementedError):
+        port.ocr(np.full((20, 30, 3), 255, np.uint8), cls=False)
+
+
+def test_default_device_is_cuda_and_never_falls_back(dict_path,
+                                                     monkeypatch):
+    import inspect
+    sig = inspect.signature(ONNXPaddleOcr.__init__)
+    assert sig.parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ONNXPaddleOcr(rec_char_dict_path=dict_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ONNXPaddleOcr(device="cuda:0", rec_char_dict_path=dict_path)
+    assert ONNXPaddleOcr(device="cpu",
+                         rec_char_dict_path=dict_path).device.type == "cpu"
+
+
+def test_unported_settings_raise(dict_path):
+    for extra in ({"use_angle_cls": True}, {"tpu_pipeline": "staged"},
+                  {"tpu_warp_stage": "shear"}):
+        with pytest.raises(NotImplementedError):
+            ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
+                          **extra)

@@ -1,0 +1,222 @@
+"""PyTorch port ops vs the JAX reference on the CPU: det input resize, crop
+matrices and the gather warp, the labelling scans and device DB box
+extraction. Inputs are made with numpy from a seed and fed to both."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from onnxocr_tpu.ops import db_device as jdb
+from onnxocr_tpu.ops import det_pre as jdet_pre
+from onnxocr_tpu.ops import resize_dev as jresize
+from onnxocr_tpu.ops import warp as jwarp
+from onnxocr_tpu.ops import warp_dev as jwarp_dev
+
+from onnxocr_tpu_torch import config
+from onnxocr_tpu_torch.ops import db_device, det_pre, resize_dev, warp, \
+    warp_dev
+from onnxocr_tpu_torch.utils.png import read_bgr
+
+PAGE = str(config.ASSETS.parent / "test_images_heldout" / "synth_00_doc.png")
+
+
+@pytest.mark.parametrize("h,w,limit", [(680, 900, 960), (680, 900, 320),
+                                       (2000, 300, 960), (20, 45, 960),
+                                       (1000, 1000, 960)])
+def test_det_resize_target_matches(h, w, limit):
+    assert det_pre.det_resize_target(h, w, limit) == \
+        jdet_pre.det_resize_target(h, w, limit)
+
+
+def test_resize_normalize_det_matches():
+    """700×500 page into a 960² canvas. Rounding to uint8 happens before
+    normalizing, so an element may differ by one uint8 quantum (≤ 0.1% of
+    them); all others agree to 1e-5."""
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, size=(700, 500, 3), dtype=np.uint8)
+    padded, h, w = resize_dev.pad_src_bucket(img)
+    jpadded, jh, jw = jresize.pad_src_bucket(img)
+    np.testing.assert_array_equal(padded, jpadded)
+    rh, rw = 672, 480
+    ref = np.asarray(jresize.resize_normalize_det(
+        jnp.asarray(padded), jnp.int32(h), jnp.int32(w), jnp.int32(rh),
+        jnp.int32(rw), 960, 960))
+    got = resize_dev.resize_normalize_det(torch.from_numpy(padded), h, w,
+                                          rh, rw, 960, 960).numpy()
+    diff = np.abs(got - ref)
+    quantum = 1.0 / 255.0 / 0.224 + 1e-5
+    off = diff > 1e-5
+    assert off.mean() <= 1e-3
+    assert diff[off].max(initial=0.0) <= quantum
+    assert (got[rh:] == 0).all() and (got[:, rw:] == 0).all()
+
+
+def _quads(rng, n):
+    """Random convex-ish text quads (some tall, some tilted, some tiny)."""
+    out = []
+    for _ in range(n):
+        cx, cy = rng.uniform(20, 600), rng.uniform(20, 400)
+        w, h = rng.uniform(2, 200), rng.uniform(2, 60)
+        if rng.random() < 0.2:
+            w, h = h, w
+        a = rng.uniform(-0.3, 0.3)
+        c, s = np.cos(a), np.sin(a)
+        pts = np.array([[-w, -h], [w, -h], [w, h], [-w, h]]) / 2
+        pts = pts @ np.array([[c, s], [-s, c]]) + [cx, cy]
+        pts += rng.normal(0, 0.7, size=pts.shape)
+        out.append(pts)
+    return np.round(np.asarray(out, np.float32))
+
+
+def test_order_clip_filter_match():
+    rng = np.random.default_rng(1)
+    q = _quads(rng, 64)[:, rng.permutation(4)]
+    ref = np.asarray(jwarp_dev.order_points_clockwise(jnp.asarray(q)))
+    got = warp_dev.order_points_clockwise(torch.from_numpy(q)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    rq, rk = jwarp_dev.clip_filter_boxes(jnp.asarray(ref), jnp.int32(380),
+                                         jnp.int32(560))
+    gq, gk = warp_dev.clip_filter_boxes(torch.from_numpy(got), 380, 560)
+    np.testing.assert_array_equal(gq.numpy(), np.asarray(rq))
+    np.testing.assert_array_equal(gk.numpy(), np.asarray(rk))
+
+
+def test_crop_matrices_and_warp_crops_match():
+    rng = np.random.default_rng(2)
+    q = _quads(rng, 24)
+    q = np.asarray(jwarp_dev.order_points_clockwise(jnp.asarray(q)))
+    valid = rng.random(24) < 0.85
+    ref = jwarp_dev.crop_matrices(jnp.asarray(q), jnp.asarray(valid), 48,
+                                  320)
+    got = warp_dev.crop_matrices(torch.from_numpy(q),
+                                 torch.from_numpy(valid), 48, 320)
+    for g, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4,
+                                   atol=1e-3)
+    for g, r in zip(got[2:], ref[2:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    # the host matrix (ops/warp.py) agrees with the device one
+    for i in np.nonzero(valid)[0][:4]:
+        m, vw = warp.build_crop_matrix(q[i], 48, 320)
+        jm, jvw = jwarp.build_crop_matrix(q[i], 48, 320)
+        np.testing.assert_array_equal(m, jm)
+        assert vw == jvw == int(got[2][i])
+
+    img = resize_dev.pad_src_bucket(read_bgr(PAGE))[0]
+    mats = np.asarray(ref[0])
+    vw = np.where(valid, np.asarray(ref[2]), 0).astype(np.int32)
+    rc = np.asarray(jwarp.warp_crops(jnp.asarray(img), jnp.asarray(mats),
+                                     jnp.asarray(vw), 48, 320, "bilinear",
+                                     False))
+    gc = warp.warp_crops(torch.from_numpy(img), torch.from_numpy(mats),
+                         torch.from_numpy(vw), 48, 320).numpy()
+    np.testing.assert_allclose(gc, rc, atol=1e-4)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_segmented_scan_matches(axis, reverse):
+    rng = np.random.default_rng(3)
+    # labels are raster seeds: 0 <= label <= number of cells
+    vals = rng.integers(0, 37 * 53 + 1, size=(37, 53)).astype(np.int32)
+    resets = rng.random((37, 53)) < 0.2
+    scan = jax.jit(lambda v, r: jdb._seg_scan(v, r, axis=axis,
+                                              reverse=reverse))
+    ref = np.asarray(scan(vals, resets))
+    got = db_device._seg_scan(torch.from_numpy(vals),
+                              torch.from_numpy(resets), axis, reverse)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def _blocks(rng, H, W):
+    prob = (rng.random((H, W)) * 0.25).astype(np.float32)
+    prob[12:22, 10:70] = 0.85
+    prob[40:52, 30:110] = 0.75
+    prob[70:78, 5:40] = 0.9
+    prob[60:64, 100:104] = 0.95       # too small after min_size
+    return prob
+
+
+def _staircase(rng, H, W):
+    """Dashes (3 rows × 8 px) that touch only diagonally, corner to corner:
+    no row or column run joins two of them, so the axis scans leave one
+    label per dash and the 3×3 dilation to fixpoint has to join them."""
+    prob = (rng.random((H, W)) * 0.2).astype(np.float32)
+    for k in range(12):
+        prob[10 + 3 * k:13 + 3 * k, 12 + 8 * k:20 + 8 * k] = 0.95
+    return prob
+
+
+def _spiral(rng, H, W):
+    """One 2 px wide rectangular spiral, 6 px between turns: the 3 sweeps
+    of axis scans carry a label around only the first turns, and the
+    dilation that joins the rest runs into its 256-pool cap."""
+    prob = (rng.random((H, W)) * 0.2).astype(np.float32)
+    t, step = 2, 6
+    y0, x0, y1, x1 = 8, 8, H - 12, W - 20
+    first = True
+    while y1 - y0 > 2 * step and x1 - x0 > 2 * step:
+        prob[y0:y0 + t, x0 if first else x0 - step:x1] = 0.95   # top
+        prob[y0:y1, x1 - t:x1] = 0.95                           # right
+        prob[y1 - t:y1, x0:x1] = 0.95                           # bottom
+        prob[y0 + step:y1, x0:x0 + t] = 0.95                    # left
+        y0, x0, y1, x1 = y0 + step, x0 + step, y1 - step, x1 - step
+        first = False
+    return prob
+
+
+@pytest.mark.parametrize("case", ["staircase", "spiral"])
+def test_labelling_needs_dilation(case):
+    prob = torch.from_numpy({"staircase": _staircase, "spiral": _spiral}[case](
+        np.random.default_rng(4), 96, 128))
+    mask = prob > 0.3
+    ys, xs = np.mgrid[0:96, 0:128]
+    seed = torch.where(mask, torch.from_numpy((ys * 128 + xs + 1)
+                                              .astype(np.int32)), 0)
+    flooded = db_device._flood_scans(seed, mask)
+    closed = db_device._dilate_converge(flooded, mask)
+    n_flooded = len(torch.unique(flooded[mask]))
+    n_closed = len(torch.unique(closed[mask]))
+    assert n_closed < n_flooded
+    if case == "staircase":
+        assert n_closed == 1
+
+
+def _blobs(rng, H, W, n=180):
+    prob = (rng.random((H, W)) * 0.2).astype(np.float32)
+    for _ in range(n):
+        y, x = rng.integers(0, H - 8), rng.integers(0, W - 20)
+        prob[y:y + rng.integers(4, 8), x:x + rng.integers(8, 20)] = \
+            rng.uniform(0.5, 1.0)
+    return prob
+
+
+@pytest.mark.parametrize("case,scale,max_k,score_k", [
+    ("blocks", "1x2", 128, 128),
+    ("blocks", "1x1", 128, 0),
+    ("staircase", "1x2", 128, 128),
+    ("spiral", "1x2", 128, 128),
+    ("blobs", "1x2", 256, 16),     # survivors overflow score_k
+    ("blobs", "1x2", 256, 128),    # survivors fit score_k
+    ("blobs", "1x2", 32, 16),      # components overflow max_k
+])
+def test_device_boxes_matches(case, scale, max_k, score_k):
+    rng = np.random.default_rng(4)
+    # the spiral is made wide so that its PCA axis is well conditioned
+    H, W = {"blobs": (160, 256), "spiral": (96, 256)}.get(case, (96, 128))
+    prob = {"blocks": _blocks, "staircase": _staircase, "spiral": _spiral,
+            "blobs": _blobs}[case](rng, H, W)
+    rh, rw = H - 8, W - 16
+    # a spiral fills little more than a third of its box
+    box_thresh = 0.3 if case == "spiral" else 0.4
+    kw = dict(max_k=max_k, thresh=0.3, box_thresh=box_thresh, unclip_ratio=1.5,
+              min_size=3.0, scale=scale, score_k=score_k)
+    rq, rs, rv = jdb.device_boxes(jnp.asarray(prob), rh, rw, reduce="scan",
+                                  **kw)
+    gq, gs, gv = db_device.device_boxes(torch.from_numpy(prob), rh, rw, **kw)
+    rv = np.asarray(rv)
+    np.testing.assert_array_equal(gv.numpy(), rv)
+    assert rv.sum() > 0
+    np.testing.assert_allclose(gq.numpy()[rv], np.asarray(rq)[rv], atol=1e-3)
+    np.testing.assert_allclose(gs.numpy()[rv], np.asarray(rs)[rv], atol=1e-5)

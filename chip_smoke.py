@@ -5,15 +5,23 @@
 1. requires CUDA and prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written kernels from onnxocr_tpu_torch/csrc into
    build/kernels/ (one nvcc per source, started together);
-3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes — the CTC head at 48 crops × 80 steps over the v5
-   head (192 × 18385), the label reductions on a real page's det map on the
-   1×2 working grid with K = 1024 — and times kernel, plain version and,
-   for the CTC head, the library yardstick (addmm + max + logsumexp);
-4. with TF32 off, runs ONNXPaddleOcr(device="cuda") — the committed v5
-   checkpoints at the 960² det canvas — on committed held-out pages, checks
-   that every kernel launched on that path, and compares one page with the
-   same port on the CPU;
+3. holds each of the five kernels against its plain PyTorch version on the
+   card at the main paths' shapes — the CTC head at 48 crops × 80 steps
+   over the v5 head (192 × 18385), the label-keyed and the slot-keyed
+   reductions on a real page's det map on the 1×2 working grid with
+   K = 1024 — and times kernel, plain version and, where one PyTorch call
+   computes the same function, that call (addmm + max + logsumexp,
+   index_add_, scatter_reduce_ amin);
+4. with TF32 off and the committed v5 checkpoints, drives three paths on
+   committed held-out pages, each with the launch counts set to 0 just
+   before it and read just after, and checks that its kernels launched:
+   B  the one-call path (960² det canvas, label-keyed reductions,
+      classifier off);
+   A  the staged device-det path (per-page det canvas, slot-keyed
+      reductions, untrained angle classifier on, fused cls + rec);
+   B' the one-call path with the slot-keyed reductions and the classifier;
+   one page of each is compared with the same port on the CPU, and the
+   classifier's probabilities on seeded crops are compared card vs CPU;
 5. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero without the "ok" line. The
@@ -153,6 +161,110 @@ def check_seg_reduce2(ocr, img):
                  lab, axes, ids, sy, sx)), bound_ms=t2, bound_by=b2)]
 
 
+def check_seg_reduce(ocr, img):
+    """Kernels 4 and 5 on the slot / stats / projection columns that
+    db_device builds from a real page's labelled grid."""
+    import torch
+    from onnxocr_tpu_torch.ops import db_device
+    from onnxocr_tpu_torch.ops.kernels import seg_reduce as sr
+    lab, prob, ids, sy, sx = page_grid(ocr, img)
+    K, n = ids.shape[0], lab.numel()
+    slot, hit = db_device.label_slots(lab, K)
+    fx, fy = db_device.cell_coords(*lab.shape, sy, sx, lab.device)
+    stats = db_device.moment_stats(prob, hit, fx, fy).contiguous()
+    hits = int(hit.sum())
+    assert hits > 0, "the page labelled no component"
+    sums = sr.seg_sum_bands(slot, stats, K)
+    psums = sr.seg_sum_bands_plain(slot, stats, K)
+    torch.testing.assert_close(sums, psums, rtol=1e-5, atol=0)
+    cols = db_device.proj_columns(slot, hit, db_device.pca_axes(psums),
+                                  fx, fy).contiguous()
+    ext = sr.seg_min_bands(slot, cols, K, db_device.BIG)
+    pext = sr.seg_min_bands_plain(slot, cols, K, db_device.BIG)
+    torch.testing.assert_close(ext, pext, rtol=0, atol=1e-4)
+    # a caller's own sentinel comes back for empty slots
+    torch.testing.assert_close(sr.seg_min_bands(slot, cols, K, 1e30),
+                               sr.seg_min_bands_plain(slot, cols, K, 1e30),
+                               rtol=0, atol=1e-4)
+    torch.cuda.synchronize()
+
+    # the library yardsticks: one call each into a (K + 1, C) buffer whose
+    # last row takes the no-op cells (index made int64 outside the timing)
+    rows = slot.to(torch.int64)
+    rows4 = rows[:, None].expand(-1, 4)
+
+    def lib_sum():
+        return torch.zeros((K + 1, 7), device=slot.device).index_add_(
+            0, rows, stats)
+
+    def lib_min():
+        return torch.full((K + 1, 4), db_device.BIG, device=slot.device
+                          ).scatter_reduce_(0, rows4, cols, "amin")
+
+    torch.testing.assert_close(lib_sum()[:K], psums, rtol=1e-4, atol=1e-2)
+    torch.testing.assert_close(lib_min()[:K], pext, rtol=0, atol=1e-4)
+    present = ids < db_device.MAXINT
+    common = {"route": "cuda", "source": "onnxocr_tpu_torch/csrc/seg_reduce.cu",
+              "grid": list(lab.shape), "K": K,
+              "components": int(present.sum()), "labelled_cells": hits}
+    t4, b4 = bound(4 * n + 28 * n + 28 * K, 7.0 * hits, F64_FLOPS)
+    t5, b5 = bound(4 * n + 16 * n + 16 * K, 4.0 * hits, F32_FLOPS)
+    return [
+        dict(common, name="seg_sum_bands",
+             replaces="onnxocr_tpu/ops/pallas/seg_reduce.py:118",
+             max_abs_err=float((sums - psums).abs().max()),
+             ms=timed(lambda: sr.seg_sum_bands(slot, stats, K)),
+             plain_ms=timed(lambda: sr.seg_sum_bands_plain(slot, stats, K)),
+             library_ms=timed(lib_sum), bound_ms=t4, bound_by=b4),
+        dict(common, name="seg_min_bands",
+             replaces="onnxocr_tpu/ops/pallas/seg_reduce.py:127",
+             max_abs_err=float((ext - pext).abs().max()),
+             ms=timed(lambda: sr.seg_min_bands(slot, cols, K)),
+             plain_ms=timed(lambda: sr.seg_min_bands_plain(slot, cols, K)),
+             library_ms=timed(lib_min), bound_ms=t5, bound_by=b5)]
+
+
+def check_classifier(gpu, cpu, seed):
+    """The angle classifier on the card vs on the CPU, on seeded crops."""
+    import torch
+    rng = np.random.default_rng(seed)
+    crops = torch.from_numpy(rng.uniform(-1, 1, size=(16, 48, 192, 3))
+                             .astype(np.float32))
+    got = gpu.text_classifier.forward(crops.cuda()).cpu()
+    want = cpu.text_classifier.forward(crops)
+    assert got.shape == (16, 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    return float((got - want).abs().max())
+
+
+def drive(ocr, pages, names, cls, label):
+    """Warm up on one page, set the launch counts to 0, run `names` through
+    ocr() → (results by page name, launch counts of the run)."""
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import build
+    ocr.ocr(pages[names[0]], cls=cls)                # warm-up page
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    results, times = {}, []
+    for name in names:
+        t0 = time.perf_counter()
+        res = ocr.ocr(pages[name], cls=cls)[0]
+        ms = (time.perf_counter() - t0) * 1e3
+        times.append(ms)
+        results[name] = res
+        boxes = np.asarray([l[0] for l in res], np.float64)
+        scores = np.asarray([l[1][1] for l in res], np.float64)
+        assert np.isfinite(boxes).all() and np.isfinite(scores).all()
+        print(f"path {label} page {name}: {ms:.1f} ms, {len(res)} boxes, "
+              f"{sum(bool(l[1][0]) for l in res)} lines")
+    launches = dict(build.LAUNCHES)
+    print(f"path {label}: {len(names)} pages in {sum(times):.1f} ms "
+          f"(mean {np.mean(times):.1f}, median {np.median(times):.1f} "
+          f"ms/page); launches {launches}")
+    assert sum(len(r) for r in results.values()) > 0
+    return results, launches
+
+
 def same_result(got, ref):
     assert len(got) == len(ref), (len(got), len(ref))
     assert [l[1][0] for l in got] == [l[1][0] for l in ref]
@@ -192,43 +304,59 @@ def main() -> int:
         dict_path = os.path.join(tmp, "ppocrv5_dict.txt")
         with open(dict_path, "w") as f:
             f.write("".join(f"<{i}>\n" for i in range(18383)))
-        ocr = ONNXPaddleOcr(device="cuda", use_angle_cls=False,
-                            rec_char_dict_path=dict_path)
+        def model(device, **kw):
+            return ONNXPaddleOcr(device=device, rec_char_dict_path=dict_path,
+                                 **kw)
+
+        # B: one-call, label-keyed reductions, classifier off
+        kw_b = dict(use_angle_cls=False)
+        # A: staged device-det, slot-keyed reductions, classifier on
+        kw_a = dict(tpu_pipeline="staged", tpu_det_postprocess="device",
+                    tpu_db_reduce="pallas", use_angle_cls=True,
+                    tpu_allow_untrained=True)
+        # B': one-call, slot-keyed reductions, classifier on
+        kw_b2 = dict(tpu_db_reduce="pallas", use_angle_cls=True,
+                     tpu_allow_untrained=True)
+        ocr = model("cuda", **kw_b)
+        ocr_a = model("cuda", **kw_a)
+        ocr_b2 = model("cuda", **kw_b2)
 
         kernels = [check_ctc_head(ocr, seed=0)]
         kernels += check_seg_reduce2(ocr, pages[PAGES[0]])
+        kernels += check_seg_reduce(ocr, pages[PAGES[0]])
         print("kernels agree with their plain versions on the card")
 
-        ocr.ocr(pages[PAGES[0]], cls=False)          # warm-up page
-        torch.cuda.synchronize()
-        build.LAUNCHES.clear()
-        results, total = {}, 0.0
-        for name, img in pages.items():
-            t0 = time.perf_counter()
-            res = ocr.ocr(img, cls=False)[0]
-            ms = (time.perf_counter() - t0) * 1e3
-            total += ms
-            results[name] = res
-            boxes = np.asarray([l[0] for l in res], np.float64)
-            scores = np.asarray([l[1][1] for l in res], np.float64)
-            assert np.isfinite(boxes).all() and np.isfinite(scores).all()
-            print(f"page {name}: {ms:.1f} ms, {len(res)} boxes, "
-                  f"{sum(bool(l[1][0]) for l in res)} lines")
-        launches = dict(build.LAUNCHES)
-        print(f"{len(pages)} pages in {total:.1f} ms "
-              f"({total / len(pages):.1f} ms/page); launches {launches}")
+        runs = {}
+        for label, gpu, kw, names, cls, needs in (
+                ("B", ocr, kw_b, PAGES[:4], False,
+                 ("ctc_head_reduce", "label_moment_sums",
+                  "label_proj_extents")),
+                ("A", ocr_a, kw_a, PAGES, True,
+                 ("ctc_head_reduce", "seg_sum_bands", "seg_min_bands")),
+                ("B'", ocr_b2, kw_b2, PAGES[:3], True,
+                 ("ctc_head_reduce", "seg_sum_bands", "seg_min_bands"))):
+            results, launches = drive(gpu, pages, names, cls, label)
+            for name in needs:
+                assert launches.get(name, 0) > 0, \
+                    f"path {label}: {name} never launched"
+            runs[label] = launches
+            cpu = model("cpu", **kw)
+            same_result(results[PAGES[0]],
+                        cpu.ocr(pages[PAGES[0]], cls=cls)[0])
+            print(f"path {label} page {PAGES[0]}: GPU and CPU runs agree "
+                  f"({len(results[PAGES[0]])} boxes)")
+            if label == "A":
+                err = check_classifier(gpu, cpu, seed=1)
+                print(f"classifier on the card vs the CPU: max abs err "
+                      f"{err:.2e} over 16 seeded crops")
+        # launches: the count of the path that is a kernel's own (B for the
+        # CTC head and the label-keyed pair, A for the slot-keyed pair)
         for k in kernels:
-            k["kernel_ms"] = k["ms"]
-            k["launches"] = launches.get(k["name"], 0)
+            own = "A" if k["name"].startswith("seg_") else "B"
+            k["launches"] = runs[own].get(k["name"], 0)
+            k["launches_by_path"] = {p: r.get(k["name"], 0)
+                                     for p, r in runs.items()}
             assert k["launches"] > 0, f"{k['name']} never launched"
-        assert sum(len(r) for r in results.values()) > 0
-
-        cpu = ONNXPaddleOcr(device="cpu", use_angle_cls=False,
-                            rec_char_dict_path=dict_path)
-        same_result(results[PAGES[0]],
-                    cpu.ocr(pages[PAGES[0]], cls=False)[0])
-        print(f"page {PAGES[0]}: GPU and CPU runs agree "
-              f"({len(results[PAGES[0]])} boxes)")
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 Own copy of the flag table of onnxocr_tpu/config.py (the reference kwargs
 surface of ONNXPaddleOcr, plus the engine's `tpu_*` knobs that the ported
-one-call path reads). Unknown keys are accepted and stored, as in the
-reference. Two defaults differ from the JAX package because only one form is
-ported so far: `tpu_pipeline='onecall'` (the staged pipeline is not ported)
-and `tpu_warp_stage='off'` (the gather warp; the shear-staged warp is not
+paths read). Unknown keys are accepted and stored, as in the reference. Two
+defaults differ from the JAX package because only part of what they select
+is ported so far: `tpu_pipeline='onecall'` (of the staged pipeline only the
+device-det form, `tpu_det_postprocess='device'`, is ported; the JAX
+package's staged default with the host DB postprocess is not) and
+`tpu_warp_stage='off'` (the gather warp; the shear-staged warp is not
 ported).
 
 Model assets are read by path from the JAX package's committed data files
@@ -54,18 +56,32 @@ DEFAULTS = {
     "rec_char_dict_path": find_asset("ppocrv5/ppocrv5_dict.txt"),
     "use_space_char": True,
     "drop_score": 0.5,
-    # the angle classifier is not ported: use_angle_cls=True raises
+    # angle classifier (no trained cls weights are committed: it runs only
+    # from a native checkpoint beside cls_model_dir, or untrained under
+    # tpu_allow_untrained)
     "use_angle_cls": False,
+    "cls_model_dir": find_asset("ppocrv4/cls/cls.onnx"),
+    "cls_image_shape": "3, 48, 192",
+    "label_list": ["0", "180"],
+    "cls_batch_num": 6,
+    "cls_thresh": 0.9,
     "save_crop_res": False,
-    # engine knobs of the one-call path
+    # engine knobs of the one-call and staged device-det paths
     "tpu_det_bucket": 320,
     "tpu_rec_width_buckets": (640, 960, 1280),
     "tpu_batch_buckets": (4, 16, 64),
     "tpu_warp_interp": "bilinear",
     "tpu_warp_stage": "off",
     "tpu_pipeline": "onecall",
+    "tpu_fused_cls_rec": True,
+    "tpu_det_postprocess": "host",
+    "tpu_det_max_boxes": 1024,
     "tpu_det_extract_scale": "1x2",
+    "tpu_det_score_scale": "1x1",
     "tpu_det_score_k": 128,
+    "tpu_det_axis_snap": 0.0,
+    "tpu_db_reduce": "pallas2",
+    "tpu_allow_untrained": False,
     "tpu_det_extract_window": 320,
     "tpu_onecall_rec_width": 640,
     "tpu_onecall_max_boxes": 48,

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from . import dbnet, svtr
+from . import cls, dbnet, svtr
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -71,6 +71,13 @@ def state_dict_from_tree(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
 
 def build_dbnet(tree, device="cpu") -> dbnet.DBNet:
     model = dbnet.DBNet()
+    model.load_state_dict(state_dict_from_tree(tree, model))
+    return model.requires_grad_(False).to(device).eval()
+
+
+def build_cls(tree, device="cpu") -> cls.Cls:
+    """The angle classifier, its class count from the `fc` linear."""
+    model = cls.Cls(num_classes=tree["fc"]["w"].shape[1])
     model.load_state_dict(state_dict_from_tree(tree, model))
     return model.requires_grad_(False).to(device).eval()
 

@@ -19,7 +19,7 @@ _TAPS = (3, 6, 12)
 class DBNet(nn.Module):
     def __init__(self, scale: float = 0.5, inner: int = 96, out: int = 24):
         super().__init__()
-        self.backbone = mbv3.MobileNetV3(scale)
+        self.backbone = mbv3.MobileNetV3("large", scale)
         cfg = self.backbone.cfg
         in_chs = [cfg[i - 1][2] for i in _TAPS] + \
             [self.backbone.last.conv.out_channels]

@@ -1,6 +1,8 @@
-"""MobileNetV3-large backbone of the det model (NCHW), PaddleOCR channel
-scheme. Counterpart of onnxocr_tpu/models/mobilenetv3.py, large config only
-(the small config belongs to the angle classifier, which is not ported).
+"""MobileNetV3 backbone (NCHW), PaddleOCR channel scheme. Counterpart of
+onnxocr_tpu/models/mobilenetv3.py: `large` at scale 0.5 with square strides
+is the det backbone (feature taps for the DB FPN); `small` at scale 0.35
+with height-only (2, 1) strides and a 576-wide last conv is the angle
+classifier's.
 """
 from __future__ import annotations
 
@@ -10,29 +12,45 @@ import torch.nn as nn
 
 from . import common as cm
 
-# (kernel, expand, out, use_se, act, stride)
-LARGE_CFG = [
-    (3, 16, 16, False, "relu", 1),
-    (3, 64, 24, False, "relu", 2),
-    (3, 72, 24, False, "relu", 1),
-    (5, 72, 40, True, "relu", 2),
-    (5, 120, 40, True, "relu", 1),
-    (5, 120, 40, True, "relu", 1),
-    (3, 240, 80, False, "hswish", 2),
-    (3, 200, 80, False, "hswish", 1),
-    (3, 184, 80, False, "hswish", 1),
-    (3, 184, 80, False, "hswish", 1),
-    (3, 480, 112, True, "hswish", 1),
-    (3, 672, 112, True, "hswish", 1),
-    (5, 672, 160, True, "hswish", 2),
-    (5, 960, 160, True, "hswish", 1),
-    (5, 960, 160, True, "hswish", 1),
+# (kernel, expand, out, use_se, act, (stride_h, stride_w))
+SMALL_CFG = [
+    (3, 16, 16, True, "relu", (2, 1)),
+    (3, 72, 24, False, "relu", (2, 1)),
+    (3, 88, 24, False, "relu", (1, 1)),
+    (5, 96, 40, True, "hswish", (2, 1)),
+    (5, 240, 40, True, "hswish", (1, 1)),
+    (5, 240, 40, True, "hswish", (1, 1)),
+    (5, 120, 48, True, "hswish", (1, 1)),
+    (5, 144, 48, True, "hswish", (1, 1)),
+    (5, 288, 96, True, "hswish", (2, 1)),
+    (5, 576, 96, True, "hswish", (1, 1)),
+    (5, 576, 96, True, "hswish", (1, 1)),
 ]
 
+LARGE_CFG = [
+    (3, 16, 16, False, "relu", (1, 1)),
+    (3, 64, 24, False, "relu", (2, 2)),
+    (3, 72, 24, False, "relu", (1, 1)),
+    (5, 72, 40, True, "relu", (2, 2)),
+    (5, 120, 40, True, "relu", (1, 1)),
+    (5, 120, 40, True, "relu", (1, 1)),
+    (3, 240, 80, False, "hswish", (2, 2)),
+    (3, 200, 80, False, "hswish", (1, 1)),
+    (3, 184, 80, False, "hswish", (1, 1)),
+    (3, 184, 80, False, "hswish", (1, 1)),
+    (3, 480, 112, True, "hswish", (1, 1)),
+    (3, 672, 112, True, "hswish", (1, 1)),
+    (5, 672, 160, True, "hswish", (2, 2)),
+    (5, 960, 160, True, "hswish", (1, 1)),
+    (5, 960, 160, True, "hswish", (1, 1)),
+]
+# config name → (block table, width of the last conv before scaling)
+CONFIGS = {"small": (SMALL_CFG, 576), "large": (LARGE_CFG, 960)}
 
-def scaled_cfg(scale: float):
+
+def scaled_cfg(cfg, scale: float):
     return [(k, cm.make_divisible(exp * scale), cm.make_divisible(c * scale),
-             se, act, s) for k, exp, c, se, act, s in LARGE_CFG]
+             se, act, s) for k, exp, c, se, act, s in cfg]
 
 
 class Block(nn.Module):
@@ -42,13 +60,14 @@ class Block(nn.Module):
         self.dw = cm.ConvBN(k, exp, exp, stride=stride, groups=exp, act=act)
         self.se = cm.SE(exp, exp // 4) if se else None
         self.project = cm.ConvBN(1, exp, cout)
-        self.residual = stride == 1 and cin == cout
+        self.residual = tuple(stride) == (1, 1) and cin == cout
 
 
 class MobileNetV3(nn.Module):
-    def __init__(self, scale: float = 0.5):
+    def __init__(self, cfg_name: str = "large", scale: float = 0.5):
         super().__init__()
-        self.cfg = scaled_cfg(scale)
+        table, last_ch = CONFIGS[cfg_name]
+        self.cfg = scaled_cfg(table, scale)
         stem_ch = cm.make_divisible(16 * scale)
         self.stem = cm.ConvBN(3, 3, stem_ch, stride=2, act="hswish")
         blocks = []
@@ -57,7 +76,7 @@ class MobileNetV3(nn.Module):
             blocks.append(Block(cin, k, exp, cout, se, act, s))
             cin = cout
         self.blocks = nn.ModuleList(blocks)
-        self.last = cm.ConvBN(1, cin, cm.make_divisible(960 * scale),
+        self.last = cm.ConvBN(1, cin, cm.make_divisible(last_ch * scale),
                               act="hswish")
 
     def forward(self, x, feature_taps: Sequence[int] = (),
@@ -67,31 +86,31 @@ class MobileNetV3(nn.Module):
         resolution: every stage is re-zeroed beyond ceil(v / stride) and the
         SE pools see only that region (JAX mobilenetv3.apply)."""
 
-        def strided(s):
+        def strided(sh, sw):
             if valid_hw is None:
                 return None
-            return -(-valid_hw[0] // s), -(-valid_hw[1] // s)
+            return -(-valid_hw[0] // sh), -(-valid_hw[1] // sw)
 
-        def mask(x, s):
+        def mask(x, sh, sw):
             if valid_hw is None:
                 return x
-            return cm.mask_valid_(x, *strided(s))
+            return cm.mask_valid_(x, *strided(sh, sw))
 
-        x = mask(self.stem(x), 2)
-        stride = 2
+        x = mask(self.stem(x), 2, 2)
+        sh = sw = 2                      # cumulative stride after the stem
         feats = []
         for i, blk in enumerate(self.blocks):
             if i in feature_taps:
                 feats.append(x)
             y = blk.expand(x)
             y = blk.dw(y)
-            stride *= blk.dw.conv.stride[0]
+            sh, sw = sh * blk.dw.conv.stride[0], sw * blk.dw.conv.stride[1]
             if blk.se is not None:
-                y = blk.se(y, strided(stride))
+                y = blk.se(y, strided(sh, sw))
             y = blk.project(y)
             if blk.residual:
                 y = y + x
-            x = mask(y, stride)
-        x = mask(self.last(x), stride)
+            x = mask(y, sh, sw)
+        x = mask(self.last(x), sh, sw)
         feats.append(x)
         return feats

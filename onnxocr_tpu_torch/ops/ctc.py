@@ -1,9 +1,10 @@
 """CTC decoding: on-device argmax/max-prob reduce + host string assembly.
 
 Port of onnxocr_tpu/ops/ctc.py: `ctc_reduce_logits` is the plain form of the
-fused head (ops/kernels/ctc_head.py), and `CTCLabelDecode` is a copy of the
+fused head (ops/kernels/ctc_head.py), `CTCLabelDecode` is a copy of the
 reference host decoder (rec_postprocess.py contract: blank at index 0,
-optional space appended, dedup then drop blank, mean confidence).
+optional space appended, dedup then drop blank, mean confidence), and
+`ClsPostProcess` is the angle classifier's (label, score) postprocess.
 """
 from __future__ import annotations
 
@@ -86,3 +87,19 @@ class CTCLabelDecode:
                 text = self.pred_reverse(text)
             results.append((text, float(np.mean(confs))))
         return results
+
+
+class ClsPostProcess:
+    """Angle-classifier postprocess: (N, C) probabilities → [(label,
+    score)] of each row's argmax."""
+
+    def __init__(self, label_list=None):
+        self.label_list = label_list
+
+    def __call__(self, preds) -> List[Tuple[str, float]]:
+        preds = np.asarray(preds)
+        label_list = self.label_list
+        if label_list is None:
+            label_list = {i: i for i in range(preds.shape[-1])}
+        return [(label_list[i], float(preds[n, i]))
+                for n, i in enumerate(preds.argmax(axis=1))]

@@ -1,8 +1,10 @@
 """Device-side DB box extraction: connected components → PCA-oriented quads
 → scores, on the card. Port of onnxocr_tpu/ops/db_device.py
-(`device_boxes` / `_device_boxes_impl`) with the label-keyed reductions
-(`tpu_db_reduce='pallas2'`), which are the hand-written kernels of
-ops/kernels/seg_reduce2.py on a CUDA tensor.
+(`device_boxes` / `_device_boxes_impl`). The two per-component reductions
+run label-keyed (`tpu_db_reduce='pallas2'`, ops/kernels/seg_reduce2.py) or
+slot-keyed (`'pallas'`, ops/kernels/seg_reduce.py; `'scatter'`, plain
+index_add_ / scatter_reduce_); on a CUDA tensor the two 'pallas' forms are
+the hand-written kernels.
 
 1. binarize the valid region on the working grid (block max-pool of the
    map for the mask, block mean for scores);
@@ -23,13 +25,17 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .kernels import seg_reduce2
+from .kernels import seg_reduce, seg_reduce2
 
 MAXINT = 2147483647
 BIG = 3.4e38
+# tpu_db_reduce values: 'scan' and 'dot' are XLA lowerings of the scatter
+# sums in the JAX package and compute the scatter form here
+REDUCES = ("scatter", "scan", "dot", "pallas", "pallas2")
 
 
 def parse_extract_scale(val) -> Tuple[int, int]:
@@ -119,8 +125,59 @@ def label_components(prob_mask: torch.Tensor, resize_h: int, resize_w: int,
     return lab.contiguous(), ids[:max_k].contiguous(), in_valid
 
 
-def pca_axes(acc: torch.Tensor) -> torch.Tensor:
-    """(K, 7) moment sums → (K, 2) unit major axes [ux, uy]."""
+def label_slots(lab: torch.Tensor, max_k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """lab (H, W) int32 labels → (slot (N,) int32 in [0, max_k], hit (N,)
+    bool). Every representative (the cell whose label is its own raster
+    index + 1) scatters its raster rank at its label's index of a slot map
+    and every cell gathers slot_map[label]; cells of the background and of
+    components past the budget get max_k and hit False."""
+    flat = lab.reshape(-1).to(torch.int64)
+    n = flat.shape[0]
+    reps = flat == torch.arange(1, n + 1, device=lab.device)
+    rank = torch.cumsum(reps.to(torch.int64), 0) - 1
+    slot_map = torch.full((n + 2,), max_k, dtype=torch.int32,
+                          device=lab.device)
+    # non-representatives write to a dump entry that no label reads
+    slot_map.scatter_(0, torch.where(reps, flat, n + 1),
+                      torch.clamp(rank, max=max_k).to(torch.int32))
+    slot = slot_map[flat]
+    return slot, (flat > 0) & (slot < max_k)
+
+
+def cell_coords(H: int, W: int, sy: int, sx: int, device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N,) float32 full-map x and y of the working grid's cell centres."""
+    ys = torch.arange(H, device=device, dtype=torch.float32)
+    xs = torch.arange(W, device=device, dtype=torch.float32)
+    fy = (ys * sy + (sy - 1) * 0.5)[:, None].expand(H, W).reshape(-1)
+    fx = (xs * sx + (sx - 1) * 0.5)[None, :].expand(H, W).reshape(-1)
+    return fx, fy
+
+
+def moment_stats(prob: torch.Tensor, hit: torch.Tensor, fx, fy
+                 ) -> torch.Tensor:
+    """(N, 7) float32 [1, x, y, x², y², xy, p] per cell, 0 where not hit."""
+    stats = torch.stack([torch.ones_like(fx), fx, fy, fx * fx, fy * fy,
+                         fx * fy, prob.reshape(-1)], -1)
+    return torch.where(hit[:, None], stats, 0.0)
+
+
+def proj_columns(slot: torch.Tensor, hit: torch.Tensor, axes: torch.Tensor,
+                 fx, fy) -> torch.Tensor:
+    """(N, 4) float32 [pu, pv, −pu, −pv]: each cell projected on its slot's
+    axes, 3.4e38 where not hit."""
+    a = axes[torch.clamp(slot, max=axes.shape[0] - 1).to(torch.int64)]
+    ux, uy = a[:, 0], a[:, 1]
+    pu = fx * ux + fy * uy
+    pv = fx * (-uy) + fy * ux
+    cols = torch.stack([pu, pv, -pu, -pv], -1)
+    return torch.where(hit[:, None], cols, BIG)
+
+
+def pca_axes(acc: torch.Tensor, axis_snap: float = 0.0) -> torch.Tensor:
+    """(K, 7) moment sums → (K, 2) unit major axes [ux, uy]. axis_snap > 0
+    snaps axes within tan(angle) <= axis_snap of an image axis onto it."""
     n = torch.clamp(acc[:, 0], min=1.0)
     mx, my = acc[:, 1] / n, acc[:, 2] / n
     cxx = acc[:, 3] / n - mx * mx
@@ -133,7 +190,15 @@ def pca_axes(acc: torch.Tensor) -> torch.Tensor:
     ex = torch.where(small, (cxx >= cyy).to(acc.dtype), cxy)
     ey = torch.where(small, (cxx < cyy).to(acc.dtype), l1 - cxx)
     norm = torch.sqrt(ex * ex + ey * ey)
-    return torch.stack([ex / norm, ey / norm], -1).contiguous()
+    ux, uy = ex / norm, ey / norm
+    if axis_snap > 0:
+        horiz = torch.abs(uy) <= axis_snap * torch.abs(ux)
+        vert = ~horiz & (torch.abs(ux) <= axis_snap * torch.abs(uy))
+        sgn_x = torch.where(ux >= 0, 1.0, -1.0)
+        sgn_y = torch.where(uy >= 0, 1.0, -1.0)
+        ux, uy = (torch.where(horiz, sgn_x, torch.where(vert, 0.0, ux)),
+                  torch.where(horiz, 0.0, torch.where(vert, sgn_y, uy)))
+    return torch.stack([ux, uy], -1).contiguous()
 
 
 def quads_vs_csum(csum: torch.Tensor, quads: torch.Tensor) -> torch.Tensor:
@@ -178,24 +243,55 @@ def quads_vs_csum(csum: torch.Tensor, quads: torch.Tensor) -> torch.Tensor:
 def device_boxes(prob: torch.Tensor, resize_h: int, resize_w: int,
                  max_k: int = 256, thresh: float = 0.3,
                  box_thresh: float = 0.6, unclip_ratio: float = 1.5,
-                 min_size: float = 3.0, scale=1, score_k: int = 0
+                 min_size: float = 3.0, scale=1, score_scale=1,
+                 reduce: str = "scatter", score_k: int = 0,
+                 axis_snap: float = 0.0
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """prob (H, W) float32 map (padded; valid resize_h × resize_w).
     → (quads (max_k, 4, 2) float32 map coords, unclipped PCA rectangles
-    [tl, tr, br, bl]; scores (max_k,); valid (max_k,) bool)."""
+    [tl, tr, br, bl]; scores (max_k,); valid (max_k,) bool).
+
+    reduce picks the per-component reductions: 'pallas2' the label-keyed
+    kernels, 'pallas' the slot-keyed kernels (both launch on a CUDA tensor
+    or raise, and run their plain versions on a CPU tensor), 'scatter'
+    plain index_add_ / scatter_reduce_. 'scan' and 'dot' name XLA lowerings
+    of the same sums in the JAX package; here they compute the scatter
+    form. score_scale pools the score grid further; axis_snap snaps
+    near-axis-aligned PCA axes (see pca_axes)."""
+    if reduce not in REDUCES:
+        raise ValueError(f"tpu_db_reduce must be one of {REDUCES}, got "
+                         f"{reduce!r}")
     sy, sx = parse_extract_scale(scale)
+    ssy, ssx = parse_extract_scale(score_scale)
     prob_mask, prob_score, resize_h, resize_w = working_grid(
         prob, resize_h, resize_w, sy, sx)
+    prob_mask = prob_mask.contiguous()
     lab, ids, in_valid = label_components(prob_mask, resize_h, resize_w,
                                           max_k, thresh)
     present = ids < MAXINT
+    H, W = lab.shape
 
-    acc = seg_reduce2.label_moment_sums(lab, prob_mask.contiguous(), ids,
-                                        sy, sx)
-    axes = pca_axes(acc)
+    if reduce == "pallas2":
+        acc = seg_reduce2.label_moment_sums(lab, prob_mask, ids, sy, sx)
+    else:
+        slot, hit = label_slots(lab, max_k)
+        fx, fy = cell_coords(H, W, sy, sx, lab.device)
+        stats = moment_stats(prob_mask, hit, fx, fy)
+        if reduce == "pallas":
+            acc = seg_reduce.seg_sum_bands(slot, stats, max_k)
+        else:
+            acc = seg_reduce.seg_sum_bands_plain(slot, stats, max_k)
+    axes = pca_axes(acc, axis_snap)
     ux, uy = axes[:, 0], axes[:, 1]
     vx, vy = -uy, ux
-    ext = seg_reduce2.label_proj_extents(lab, axes, ids, sy, sx)
+    if reduce == "pallas2":
+        ext = seg_reduce2.label_proj_extents(lab, axes, ids, sy, sx)
+    else:
+        cols = proj_columns(slot, hit, axes, fx, fy)
+        if reduce == "pallas":
+            ext = seg_reduce.seg_min_bands(slot, cols, max_k, BIG)
+        else:
+            ext = seg_reduce.seg_min_bands_plain(slot, cols, max_k, BIG)
     mins = ext[:, :2]
     maxs = -ext[:, 2:]
 
@@ -222,11 +318,22 @@ def device_boxes(prob: torch.Tensor, resize_h: int, resize_w: int,
     quads = rect(w2, h2)
     pre_quads = rect(w_rect * 0.5, h_rect * 0.5)
 
-    # scorer on the working grid: full coords → grid coords
-    off = torch.tensor([(sx - 1) * 0.5, (sy - 1) * 0.5], device=prob.device)
-    sc = torch.tensor([float(sx), float(sy)], device=prob.device)
+    # scorer on the working grid: full coords → grid coords; score_scale
+    # (ssy, ssx) mean-pools the score grid further
+    grid_prob, grid_valid, tx, ty = prob_score, in_valid, sx, sy
+    if ssy > 1 or ssx > 1:
+        Hs, Ws = H // ssy, W // ssx
+        grid_prob = prob_score[:Hs * ssy, :Ws * ssx].reshape(
+            Hs, ssy, Ws, ssx).mean(dim=(1, 3))
+        grid_valid = (torch.arange(Hs, device=prob.device)[:, None]
+                      < -(-resize_h // ssy)) & \
+            (torch.arange(Ws, device=prob.device)[None, :]
+             < -(-resize_w // ssx))
+        tx, ty = sx * ssx, sy * ssy
+    off = torch.tensor([(tx - 1) * 0.5, (ty - 1) * 0.5], device=prob.device)
+    sc = torch.tensor([float(tx), float(ty)], device=prob.device)
     q_grid = (pre_quads - off) / sc
-    masked = torch.where(in_valid, prob_score, 0.0)
+    masked = torch.where(grid_valid, grid_prob, 0.0)
     csum = F.pad(torch.cumsum(masked, dim=1), (1, 0))
 
     post_sside = torch.minimum(w_rect + 2 * d, h_rect + 2 * d)
@@ -241,3 +348,17 @@ def device_boxes(prob: torch.Tensor, resize_h: int, resize_w: int,
         score = quads_vs_csum(csum, q_grid)
     valid = geo & (score >= box_thresh)
     return quads, score, valid
+
+
+def unpack_boxes(packed: np.ndarray, resize_w: int, resize_h: int,
+                 src_w: int, src_h: int) -> np.ndarray:
+    """Host side of the device det path: the valid rows of a (K, 10) packed
+    array [quad (8), score, valid], rescaled map → source coords with the
+    reference's round / clip contract. → (N, 4, 2) int32."""
+    rows = packed[packed[:, 9] > 0.5]
+    quads = rows[:, :8].reshape(-1, 4, 2).astype(np.float64)
+    quads[..., 0] = np.clip(np.round(quads[..., 0] / resize_w * src_w),
+                            0, src_w)
+    quads[..., 1] = np.clip(np.round(quads[..., 1] / resize_h * src_h),
+                            0, src_h)
+    return quads.astype(np.int32)

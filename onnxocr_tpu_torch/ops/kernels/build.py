@@ -25,7 +25,7 @@ from typing import Dict, List, Sequence
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("ctc_head", "seg_reduce2")
+SOURCES = ("ctc_head", "seg_reduce2", "seg_reduce")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

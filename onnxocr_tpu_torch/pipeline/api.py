@@ -3,6 +3,8 @@
 only when the caller passes it."""
 from __future__ import annotations
 
+import numpy as np
+
 from .. import config as cfg_mod
 from .system import TextSystem
 
@@ -17,8 +19,10 @@ class ONNXPaddleOcr(TextSystem):
         super().__init__(params, device)
 
     def ocr(self, img, det: bool = True, rec: bool = True, cls: bool = True):
-        """det+rec → [[[box_as_lists, (text, score)], ...]]. The det-only
-        and rec-only forms need the staged pipeline, which is not ported."""
+        """det+rec → [[[box_as_lists, (text, score)], ...]]; `cls` runs the
+        angle classifier when it was built (use_angle_cls=True). The
+        det-only and rec-only forms need the staged host pipeline, which is
+        not ported."""
         if cls and not self.use_angle_cls:
             # observable stdout contract of the reference, typo included
             print("Since the angle classifier is not initialized, "
@@ -26,6 +30,7 @@ class ONNXPaddleOcr(TextSystem):
                   "process")
         if not (det and rec):
             raise NotImplementedError("det-only and rec-only calls need the "
-                                      "staged pipeline, which is not ported")
+                                      "staged host pipeline, which is not "
+                                      "ported")
         boxes, texts = self(img, cls)
-        return [[[b.tolist(), t] for b, t in zip(boxes, texts)]]
+        return [[[np.asarray(b).tolist(), t] for b, t in zip(boxes, texts)]]

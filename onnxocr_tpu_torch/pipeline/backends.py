@@ -1,19 +1,22 @@
 """Native checkpoint loading and its load-time adjustments. Port of the
-parts of onnxocr_tpu/pipeline/backends.py the one-call path reads:
+parts of onnxocr_tpu/pipeline/backends.py the ported paths read:
 the committed `native_params.npz` beside a stage's model path, the det
-`calibration.json` sidecar, and the CTC-head decode-support mask read from
-the committed `<dict>.trained_support.json` sidecar.
+`calibration.json` sidecar, the CTC-head decode-support mask read from
+the committed `<dict>.trained_support.json` sidecar, and the angle
+classifier's weight resolution.
 """
 from __future__ import annotations
 
 import glob
 import json
 import os
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 
 from .. import config
+from ..models import cls as cls_model
 from ..utils.params_io import load_tree
 
 
@@ -39,6 +42,39 @@ def load_native_params(kind: str, model_path: str) -> Tuple[dict, str]:
     if not os.path.exists(path):
         raise FileNotFoundError(f"{kind}: no native checkpoint at {path}")
     return load_tree(path), path
+
+
+def load_cls_params(model_path: str, allow_untrained: bool = False) -> dict:
+    """The angle classifier's parameter tree, resolved as the reference
+    does: a model file is lifted into the native model (`lift_cls`, not
+    ported, so a present cls.onnx raises), else the native checkpoint beside
+    it, else — only under `allow_untrained` or
+    ONNXOCR_TPU_ALLOW_UNTRAINED=1 — the seeded untrained tree, with a
+    warning. Without any of these it fails loudly."""
+    allow_untrained = allow_untrained or \
+        os.environ.get("ONNXOCR_TPU_ALLOW_UNTRAINED", "") in ("1", "true")
+    if model_path and os.path.exists(model_path):
+        raise NotImplementedError(
+            f"cls: lifting {model_path} into the native classifier needs "
+            "lift_cls and the ONNX reader, which are not ported")
+    if model_path:
+        path = os.path.join(os.path.dirname(model_path), "native_params.npz")
+        if os.path.exists(path):
+            return load_tree(path)
+    if not allow_untrained:
+        raise FileNotFoundError(
+            f"cls: no weights found — neither a model file at "
+            f"{model_path!r} nor a native checkpoint "
+            "(native_params.npz) next to it. Stage assets (see "
+            "tools/fetch_assets.py), train with "
+            "tools/train_synthetic.py, or opt in to untrained "
+            "weights with tpu_allow_untrained=True / "
+            "ONNXOCR_TPU_ALLOW_UNTRAINED=1.")
+    warnings.warn(
+        f"cls: no weights at {model_path!r}; using randomly "
+        "initialized native model (functional pipeline, untrained "
+        "outputs).")
+    return cls_model.init_tree(0)
 
 
 def checkpoint_calibration(ckpt_path: str) -> dict:

@@ -1,0 +1,78 @@
+"""Text angle classifier (0° / 180°) on the device. Counterpart of
+onnxocr_tpu/pipeline/classifier.py: the forward over (N, 48, 192, 3) crops
+and `run_boxes`, which classifies crops warped straight from the uploaded
+page and returns only the rotation verdicts — the 180° turn itself is folded
+into the recognizer's warp homography. The reference's host `__call__`
+(cv2 resize and rotate of materialized crops) is not ported.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from .. import config
+from ..models import convert
+from ..ops import ctc
+from ..ops import warp as warp_ops
+from . import backends, batching
+
+
+class ClsForward:
+    """(N, 48, 192, 3) float32 crops in [−1, 1] → (N, 2) softmax probs."""
+
+    def __init__(self, tree, device: torch.device):
+        self.model = convert.build_cls(tree, device)
+
+    @torch.inference_mode()
+    def __call__(self, crops: torch.Tensor) -> torch.Tensor:
+        return self.model(crops.permute(0, 3, 1, 2))
+
+
+class TextClassifier:
+    def __init__(self, args, device: torch.device):
+        self.device = device
+        self.cls_image_shape = config.parse_shape(args.cls_image_shape)
+        self.cls_batch_num = args.cls_batch_num
+        self.cls_thresh = args.cls_thresh
+        self.label_list = args.label_list
+        # index of the "180" label; None turns the classifier off
+        self.idx180 = next((i for i, l in enumerate(self.label_list)
+                            if "180" in str(l)), None)
+        self.batch_ladder = tuple(args.tpu_batch_buckets)
+        self.interp = args.tpu_warp_interp
+        self.postprocess_op = ctc.ClsPostProcess(label_list=args.label_list)
+        self.forward = ClsForward(
+            backends.load_cls_params(args.cls_model_dir,
+                                     args.tpu_allow_untrained), device)
+
+    def run_boxes(self, image_u8: torch.Tensor, boxes: np.ndarray
+                  ) -> Tuple[np.ndarray, List[List]]:
+        """image_u8 (H, W, 3) uint8 source on the device; boxes (N, 4, 2)
+        → (rot180 (N,) bool, [[label, score]]). One device call per chunk
+        of at most the top batch size."""
+        n = len(boxes)
+        if n == 0:
+            return np.zeros(0, bool), []
+        _, imgH, imgW = self.cls_image_shape
+        max_batch = self.batch_ladder[-1]
+        probs_all = np.zeros((n, 2), np.float32)
+        for start in range(0, n, max_batch):
+            idxs = range(start, min(start + max_batch, n))
+            bsz = batching.pick_batch_bucket(len(idxs), self.batch_ladder)
+            mats = np.tile(np.eye(3, dtype=np.float32), (bsz, 1, 1))
+            valid = np.zeros(bsz, np.int32)
+            for row, i in enumerate(idxs):
+                mats[row], valid[row] = warp_ops.build_crop_matrix(
+                    boxes[i], imgH, imgW)
+            crops = warp_ops.warp_crops(
+                image_u8, torch.from_numpy(mats).to(self.device),
+                torch.from_numpy(valid).to(self.device), imgH, imgW,
+                self.interp)
+            probs = self.forward(crops).cpu().numpy()
+            probs_all[start:start + len(idxs)] = probs[:len(idxs)]
+        cls_res = self.postprocess_op(probs_all)
+        rot = np.array([("180" in label and score > self.cls_thresh)
+                        for label, score in cls_res], dtype=bool)
+        return rot, [[label, score] for label, score in cls_res]

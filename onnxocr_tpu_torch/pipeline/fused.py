@@ -1,0 +1,70 @@
+"""Fused cls→rec device step: one pass per width bucket with one download.
+Counterpart of onnxocr_tpu/pipeline/fused.py (`FusedClsRec.__call__`):
+
+    warp 48×192 cls crops from the uploaded page → cls forward → rotation
+    verdict on the device → select between the two precomputed homographies
+    (upright / turned by 180°) → warp 48×W rec crops → SVTR → fused CTC head
+
+and the only download is one packed (N, 2T + 3) float32 buffer
+[idx (T), prob (T), cls probs (2), rot (1)]. The cross-page and
+score-carrying variants of the reference (`call_multi`, `call_scored`,
+`call_multi_scored`) belong to its batchers and bitmap wire and are not
+ported.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..ops import warp as warp_ops
+
+
+class FusedClsRec:
+    def __init__(self, cls_forward, rec_forward, cls_shape=(48, 192),
+                 cls_thresh: float = 0.9, idx180: Optional[int] = 1,
+                 interp: str = "bilinear"):
+        self.cls_forward = cls_forward
+        self.rec_forward = rec_forward
+        self.cls_h, self.cls_w = cls_shape
+        self.cls_thresh = cls_thresh
+        self.idx180 = idx180
+        self.interp = interp
+
+    def select_mats(self, image_u8, cls_mats, cls_valid, rec_mats,
+                    rec_mats_rot):
+        """The cls half: → (mats (N, 3, 3) with the 180° homography where
+        the classifier says so, cls probs (N, 2), rot (N,) bool)."""
+        crops = warp_ops.warp_crops(image_u8, cls_mats, cls_valid,
+                                    self.cls_h, self.cls_w, self.interp)
+        probs = self.cls_forward(crops)
+        rot = (torch.argmax(probs, dim=1) == self.idx180) & \
+            (probs[:, self.idx180] > self.cls_thresh)
+        return torch.where(rot[:, None, None], rec_mats_rot, rec_mats), \
+            probs, rot
+
+    @torch.inference_mode()
+    def __call__(self, image_u8: torch.Tensor, cls_mats, cls_valid,
+                 rec_mats, rec_mats_rot, rec_valid, out_h: int, out_w: int,
+                 use_cls: bool = True) -> torch.Tensor:
+        """image_u8 (H, W, 3) uint8 on the device; matrices (N, 3, 3) and
+        valid widths (N,) as numpy arrays or tensors → packed (N, 2T + 3)
+        float32 tensor on the device."""
+        dev = image_u8.device
+        cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid = (
+            torch.as_tensor(a).to(dev) for a in
+            (cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid))
+        n = rec_mats.shape[0]
+        if use_cls:
+            mats, cls_probs, rot = self.select_mats(
+                image_u8, cls_mats, cls_valid, rec_mats, rec_mats_rot)
+        else:
+            mats = rec_mats
+            cls_probs = torch.zeros((n, 2), device=dev)
+            rot = torch.zeros((n,), dtype=torch.bool, device=dev)
+        crops = warp_ops.warp_crops(image_u8, mats, rec_valid, out_h, out_w,
+                                    self.interp)
+        idx, prob = self.rec_forward(crops, (rec_valid + 7) // 8)
+        f32 = torch.float32
+        return torch.cat([idx.to(f32), prob.to(f32), cls_probs.to(f32),
+                          rot.to(f32)[:, None]], -1)

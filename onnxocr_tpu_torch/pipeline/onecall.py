@@ -1,21 +1,22 @@
 """One-call OCR on the device: det → DB boxes → crop matrices → rec → CTC
 head, with one device→host copy of a packed buffer per page.
 
-Port of onnxocr_tpu/pipeline/onecall.py (single page, classifier off):
+Port of onnxocr_tpu/pipeline/onecall.py (single page):
 
     upload the edge-padded page → resize + normalize into the fixed det
     canvas → DBNet → device DB extraction in the extraction window →
     rescale / clockwise / clip / side filter → compact valid boxes into a
-    K_rec prefix → crop homographies → gather-warp rec crops at one width →
-    SVTR → fused CTC head → one packed (K_rec + 1 + det rows, 12 + 2T)
-    float32 buffer
+    K_rec prefix → crop homographies → (with the classifier: warp 48×192
+    cls crops → cls → select the 180°-turned homographies) → gather-warp
+    rec crops at one width → SVTR → fused CTC head → one packed
+    (K_rec + 1 + det rows, 12 + 2T) float32 buffer
 
 Packed layout (as in the JAX package): K_rec body rows [quad (8), score,
 valid, valid width, desired width, idx (T), prob (T)]; a tail row whose
 first entry is n_valid; then all K_det filtered quads + valid flags,
 flattened into rows of the same width. Wide lines (desired width > the rec
-width) and boxes past K_rec re-run through the recognizer's per-bucket
-path against the same uploaded page.
+width) and boxes past K_rec re-run through the recognizer's fused
+per-bucket path against the same uploaded page.
 """
 from __future__ import annotations
 
@@ -30,9 +31,11 @@ from ..ops import warp as warp_ops
 
 
 class OneCallPipeline:
-    def __init__(self, detector, recognizer, args, device: torch.device):
+    def __init__(self, detector, recognizer, fused, args,
+                 device: torch.device):
         self.detector = detector
         self.recognizer = recognizer
+        self.fused = fused
         self.device = device
         self.rec_w = int(args.tpu_onecall_rec_width)
         self.k_rec = int(args.tpu_onecall_max_boxes)
@@ -40,7 +43,11 @@ class OneCallPipeline:
         self.imgH = recognizer.rec_image_shape[1]
         self.extract_scale = db_device.parse_extract_scale(
             args.tpu_det_extract_scale)
+        self.score_scale = db_device.parse_extract_scale(
+            args.tpu_det_score_scale)
+        self.db_reduce = str(args.tpu_db_reduce)
         self.score_k = int(args.tpu_det_score_k)
+        self.axis_snap = float(args.tpu_det_axis_snap)
         self.ex_bucket = int(args.tpu_det_extract_window)
 
     def _ex_window(self, rh: int, rw: int, hb: int, wb: int
@@ -65,7 +72,7 @@ class OneCallPipeline:
     @torch.inference_mode()
     def step(self, image_u8: torch.Tensor, src_h: int, src_w: int,
              r_h: int, r_w: int, out_h: int, out_w: int, ex_h: int = 0,
-             ex_w: int = 0) -> torch.Tensor:
+             ex_w: int = 0, use_cls: bool = False) -> torch.Tensor:
         """The single-page program: → packed float32 buffer on the device."""
         pp = self.detector.postprocess_op
         x = resize_dev.resize_normalize_det(image_u8, src_h, src_w, r_h, r_w,
@@ -78,7 +85,8 @@ class OneCallPipeline:
             prob.contiguous(), r_h, r_w, max_k=self.k_det, thresh=pp.thresh,
             box_thresh=pp.box_thresh, unclip_ratio=pp.unclip_ratio,
             min_size=float(pp.min_size), scale=self.extract_scale,
-            score_k=self.score_k)
+            score_scale=self.score_scale, reduce=self.db_reduce,
+            score_k=self.score_k, axis_snap=self.axis_snap)
 
         # map → source coords (round, clip to [0, src]), then the
         # reference's clockwise order + clip + side filter
@@ -94,9 +102,16 @@ class OneCallPipeline:
         # valid rows into the K_rec prefix, raster order kept
         take = torch.argsort((~valid).to(torch.int32), stable=True)[:self.k_rec]
         quads_c, scores_c, valid_c = quads_s[take], scores[take], valid[take]
-        rec_m, _, rec_vw, desired = warp_dev.crop_matrices(
+        rec_m, rec_m_rot, rec_vw, desired = warp_dev.crop_matrices(
             quads_c, valid_c, self.imgH, self.rec_w)
         rec_vw = torch.where(valid_c, rec_vw, 0)
+        if use_cls:
+            fused = self.fused
+            cls_m, _, cls_vw, _ = warp_dev.crop_matrices(
+                quads_c, valid_c, fused.cls_h, fused.cls_w)
+            rec_m, _, _ = fused.select_mats(
+                image_u8, cls_m, torch.where(valid_c, cls_vw, 0), rec_m,
+                rec_m_rot)
         crops = warp_ops.warp_crops(image_u8, rec_m, rec_vw, self.imgH,
                                     self.rec_w, self.recognizer.interp)
         idx, prob_max = self.recognizer.forward(crops, (rec_vw + 7) // 8)
@@ -118,22 +133,36 @@ class OneCallPipeline:
             n_det_rows * wbuf - det_flat.shape[0])]).reshape(n_det_rows, wbuf)
         return torch.cat([body, tail, det_block], 0)
 
-    def run_packed(self, img: np.ndarray):
+    def use_cls(self, cls: bool) -> bool:
+        """Whether a call with `cls` runs the classifier."""
+        return bool(cls and self.fused.cls_forward is not None and
+                    self.fused.idx180 is not None)
+
+    def run_packed(self, img: np.ndarray, use_cls: bool = False):
         """Upload a BGR page and run the program → (packed numpy buffer,
         uploaded page on the device)."""
         image_dev, src_h, src_w = resize_dev.put_src_bucket(img, self.device)
         (rh, rw), (hb, wb), (eh, ew) = self.canvas(src_h, src_w)
-        packed = self.step(image_dev, src_h, src_w, rh, rw, hb, wb, eh, ew)
+        packed = self.step(image_dev, src_h, src_w, rh, rw, hb, wb, eh, ew,
+                           use_cls)
         return packed.cpu().numpy(), image_dev
 
-    def __call__(self, img: np.ndarray
+    def __call__(self, img: np.ndarray, cls: bool = False
                  ) -> Tuple[np.ndarray, List[Tuple[str, float]]]:
         """→ (boxes (N, 4, 2) float32, [(text, score)]) in device (raster)
         order; the caller applies the sorted-boxes pairing and drop_score."""
-        packed, image_dev = self.run_packed(img)
-        return self.decode_packed(packed, image_dev)
+        use_cls = self.use_cls(cls)
+        packed, image_dev = self.run_packed(img, use_cls)
+        return self.decode_packed(packed, image_dev, use_cls)
 
-    def decode_packed(self, packed: np.ndarray, image_dev: torch.Tensor
+    def _rerun(self, image_dev, boxes, use_cls: bool):
+        fused = self.fused
+        return self.recognizer.run_boxes_fused(
+            image_dev, boxes, fused, (fused.cls_h, fused.cls_w),
+            use_cls=use_cls)
+
+    def decode_packed(self, packed: np.ndarray, image_dev: torch.Tensor,
+                      use_cls: bool = False
                       ) -> Tuple[np.ndarray, List[Tuple[str, float]]]:
         body = packed[:self.k_rec]
         n_valid = int(packed[self.k_rec, 0])
@@ -153,7 +182,7 @@ class OneCallPipeline:
 
         wide = np.nonzero(desired > self.rec_w)[0]
         if len(wide):
-            redo = self.recognizer.run_boxes(image_dev, boxes[wide])
+            redo = self._rerun(image_dev, boxes[wide], use_cls)
             for i, res in zip(wide, redo):
                 rec_res[i] = res
 
@@ -164,7 +193,6 @@ class OneCallPipeline:
             det_rows = det_flat[:self.k_det * 9].reshape(self.k_det, 9)
             boxes_all = det_rows[det_rows[:, 8] > 0.5, :8].reshape(
                 -1, 4, 2).astype(np.float32)
-            rest = self.recognizer.run_boxes(image_dev,
-                                             boxes_all[self.k_rec:])
+            rest = self._rerun(image_dev, boxes_all[self.k_rec:], use_cls)
             return boxes_all, rec_res + rest
         return boxes, rec_res

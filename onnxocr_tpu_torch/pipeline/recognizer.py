@@ -1,13 +1,15 @@
 """CTC text recognizer on the device. Counterpart of
 onnxocr_tpu/pipeline/recognizer.py: the SVTR forward through the fused CTC
-head kernel, and `run_boxes` — the per-width-bucket path the one-call
-pipeline re-runs for wide lines and for boxes past its K_rec budget
-(`run_boxes_fused` with the classifier off).
+head kernel, and the two per-width-bucket paths over boxes of an uploaded
+page — `run_boxes_fused` (cls + rec in one pass per bucket through
+pipeline/fused.py: the staged device-det path, and the one-call pipeline's
+re-runs for wide lines and boxes past its K_rec budget) and `run_boxes`
+(rec alone, rotation verdicts given by the caller).
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,14 +70,27 @@ class TextRecognizer:
             desired.append(max(min_w, math.ceil(imgH * cw / ch)))
         return desired
 
-    def run_boxes(self, image_u8: torch.Tensor, boxes: np.ndarray
+    def _decode(self, idx: np.ndarray, prob: np.ndarray, valid_w,
+                bucket_w: int) -> List[Tuple[str, float]]:
+        """Rows of argmax / max-prob → [(text, score)] over each row's valid
+        (un-padded) time steps."""
+        stride = bucket_w // idx.shape[1]
+        valid_t = [min(idx.shape[1], math.ceil(w / stride)) for w in valid_w]
+        return self.postprocess_op.decode_indices(
+            idx, prob, is_remove_duplicate=True, valid_t=valid_t)
+
+    def run_boxes(self, image_u8: torch.Tensor, boxes: np.ndarray,
+                  rot180: Optional[np.ndarray] = None
                   ) -> List[Tuple[str, float]]:
         """image_u8: (H, W, 3) uint8 source on the device; boxes (N, 4, 2)
-        source coords → [(text, score)] in box order. One device call per
-        (width bucket, chunk of at most the top batch size)."""
+        source coords; rot180 (N,) bool from the angle classifier →
+        [(text, score)] in box order. One device call per (width bucket,
+        chunk of at most the top batch size)."""
         n = len(boxes)
         if n == 0:
             return []
+        if rot180 is None:
+            rot180 = np.zeros(n, dtype=bool)
         imgH = self.rec_image_shape[1]
         results: List[Tuple[str, float]] = [("", 0.0)] * n
         groups = batching.group_collapsed(self.desired_widths(boxes),
@@ -89,19 +104,59 @@ class TextRecognizer:
                 valid = np.zeros(bsz, np.int32)
                 for row, i in enumerate(chunk):
                     mats[row], valid[row] = warp_ops.build_crop_matrix(
-                        boxes[i], imgH, bucket_w)
+                        boxes[i], imgH, bucket_w, rotate180=bool(rot180[i]))
                 valid_dev = torch.from_numpy(valid).to(self.device)
                 crops = warp_ops.warp_crops(
                     image_u8, torch.from_numpy(mats).to(self.device),
                     valid_dev, imgH, bucket_w, self.interp)
                 idx, prob = self.forward(crops, (valid_dev + 7) // 8)
-                idx = idx[:k].cpu().numpy()
-                prob = prob[:k].cpu().numpy()
-                stride = bucket_w // idx.shape[1]
-                valid_t = [min(idx.shape[1], math.ceil(w / stride))
-                           for w in valid[:k]]
-                out = self.postprocess_op.decode_indices(
-                    idx, prob, is_remove_duplicate=True, valid_t=valid_t)
+                out = self._decode(idx[:k].cpu().numpy(),
+                                   prob[:k].cpu().numpy(), valid[:k],
+                                   bucket_w)
+                for i, res in zip(chunk, out):
+                    results[i] = res
+        return results
+
+    def run_boxes_fused(self, image_u8: torch.Tensor, boxes: np.ndarray,
+                        fused, cls_shape, use_cls: bool = True
+                        ) -> List[Tuple[str, float]]:
+        """One fused device pass and one download per (width bucket, chunk):
+        the classifier's verdicts select the 180°-turned homographies on the
+        device (pipeline/fused.py), so nothing returns to the host between
+        cls and rec. Arguments as run_boxes; cls_shape = (cls_h, cls_w)."""
+        n = len(boxes)
+        if n == 0:
+            return []
+        imgH = self.rec_image_shape[1]
+        cls_h, cls_w = cls_shape
+        results: List[Tuple[str, float]] = [("", 0.0)] * n
+        groups = batching.group_collapsed(self.desired_widths(boxes),
+                                          self.width_ladder)
+        eye = np.eye(3, dtype=np.float32)
+        for bucket_w, indices in groups.items():
+            for chunk in batching.chunks_of(indices, self.batch_ladder[-1]):
+                k = len(chunk)
+                bsz = batching.pick_batch_bucket(k, self.batch_ladder)
+                # rows past k keep the identity and a valid width of 0
+                rec_mats = np.tile(eye, (bsz, 1, 1))
+                rot_mats = np.tile(eye, (bsz, 1, 1))
+                cls_mats = np.tile(eye, (bsz, 1, 1))
+                rec_valid = np.zeros(bsz, np.int32)
+                cls_valid = np.zeros(bsz, np.int32)
+                for row, i in enumerate(chunk):
+                    rec_mats[row], rec_valid[row] = \
+                        warp_ops.build_crop_matrix(boxes[i], imgH, bucket_w)
+                    rot_mats[row], _ = warp_ops.build_crop_matrix(
+                        boxes[i], imgH, bucket_w, rotate180=True)
+                    cls_mats[row], cls_valid[row] = \
+                        warp_ops.build_crop_matrix(boxes[i], cls_h, cls_w)
+                packed = fused(image_u8, cls_mats, cls_valid, rec_mats,
+                               rot_mats, rec_valid, imgH, bucket_w,
+                               use_cls=use_cls).cpu().numpy()
+                T = (packed.shape[1] - 3) // 2
+                out = self._decode(packed[:k, :T].astype(np.int32),
+                                   packed[:k, T:2 * T], rec_valid[:k],
+                                   bucket_w)
                 for i, res in zip(chunk, out):
                     results[i] = res
         return results

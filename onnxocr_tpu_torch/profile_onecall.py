@@ -1,13 +1,18 @@
-"""Where the time goes in the one-call path on one GPU.
+"""Where the time goes in the ported paths on one GPU.
 
     python3 -m onnxocr_tpu_torch.profile_onecall [--pages N] [--out DIR]
+                                                 [--path onecall|staged_device]
 
-Runs ONNXPaddleOcr(device="cuda") (TF32 off, 960² det canvas, committed v5
-checkpoints, a stand-in dictionary) over committed held-out pages and
-reports, per page on average:
+Runs ONNXPaddleOcr(device="cuda") (TF32 off, committed v5 checkpoints, a
+stand-in dictionary) over committed held-out pages — `onecall`: the
+one-call path at the 960² det canvas with the label-keyed reductions,
+classifier off; `staged_device`: the staged device-det path on each page's
+own det canvas with the slot-keyed reductions and the (untrained) angle
+classifier, cls + rec fused per width bucket — and reports, per page on
+average:
 
-* stage times: each stage of OneCallPipeline.step re-run on its own with a
-  device synchronize after it (host clock, so launch overhead counts);
+* stage times: each stage of the path re-run on its own with a device
+  synchronize after it (host clock, so launch overhead counts);
 * end-to-end page time (`ocr()`, host clock) and the device busy share
   over a steady window (sum of CUDA kernel time from torch.profiler over
   the window's wall time), with the kernels that take the most device time.
@@ -23,22 +28,25 @@ import subprocess
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from . import ONNXPaddleOcr, config
-from .ops import db_device, resize_dev, warp_dev
+from .ops import db_device, det_pre, resize_dev, warp_dev
 from .ops import warp as warp_ops
-from .ops.kernels import build, ctc_head, seg_reduce2
+from .ops.kernels import build, ctc_head, seg_reduce, seg_reduce2
+from .pipeline.system import sorted_boxes
 from .utils.png import read_bgr
 
+KWARGS = {
+    "onecall": dict(use_angle_cls=False),
+    "staged_device": dict(tpu_pipeline="staged", tpu_det_postprocess="device",
+                          tpu_db_reduce="pallas", use_angle_cls=True,
+                          tpu_allow_untrained=True),
+}
 
-@torch.inference_mode()
-def _stages(ocr, img, acc):
-    """One page through the step's stages, timed one by one."""
-    oc = ocr._onecall
-    det = ocr.text_detector
-    pp = det.postprocess_op
 
+def _timer(acc):
     def t(name, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -46,6 +54,137 @@ def _stages(ocr, img, acc):
         torch.cuda.synchronize()
         acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
         return out
+    return t
+
+
+class _TimedFused:
+    """The fused cls + rec step, each call timed under its (width bucket,
+    batch size) and counted."""
+
+    def __init__(self, fused, t, calls):
+        self.fused, self.t, self.calls = fused, t, calls
+
+    def __call__(self, image, cls_m, cls_v, rec_m, rot_m, rec_v, out_h,
+                 out_w, use_cls=True):
+        name = f"cls_rec_w{out_w}_b{len(rec_v)}"
+        self.calls[name] = self.calls.get(name, 0) + 1
+        return self.t(name, lambda: self.fused(
+            image, cls_m, cls_v, rec_m, rot_m, rec_v, out_h, out_w,
+            use_cls=use_cls))
+
+
+# substrings of the names of the kernels in csrc/
+OWN_KERNELS = ("ctc_head_", "moment_sums_kernel", "proj_extents_kernel",
+               "to_float_kernel", "fill_int_kernel", "ord_to_float_kernel",
+               "seg_sum_kernel", "seg_min_kernel")
+
+
+def _device_ms(fn, iters=10):
+    """Mean device ms per call: everything `fn` puts on the card (kernels
+    and memsets), summed from torch.profiler. Unlike a CUDA-event time over
+    a loop of calls it does not include the gaps the host leaves between
+    launches."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == cuda) / 1e3 / iters
+
+
+def _slot_run_times(n=960 * 480, K=1024, device="cuda"):
+    """Kernels 4 and 5 on made-up slot patterns of the main path's size:
+    what a long run of one slot costs. `background`: every cell a no-op;
+    `one_run`: every cell in slot 0 (each warp reduces with shuffles, then
+    one shared atomic per channel); `alternating`: neighbouring cells in
+    slots 0 and 1 (no warp is uniform: every lane makes its own shared
+    atomics on two addresses)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    stats = torch.rand((n, 7), generator=g, device=device)
+    cols = torch.rand((n, 4), generator=g, device=device)
+    i = torch.arange(n, device=device, dtype=torch.int32)
+    patterns = {"background": torch.full_like(i, K),
+                "one_run": torch.zeros_like(i), "alternating": i % 2}
+    out = {}
+    for name, slot in patterns.items():
+        torch.testing.assert_close(
+            seg_reduce.seg_sum_bands(slot, stats, K),
+            seg_reduce.seg_sum_bands_plain(slot, stats, K),
+            rtol=1e-5, atol=0)
+        torch.testing.assert_close(
+            seg_reduce.seg_min_bands(slot, cols, K),
+            seg_reduce.seg_min_bands_plain(slot, cols, K), rtol=0, atol=0)
+        out[name] = {
+            "seg_sum_bands_device_ms": _device_ms(
+                lambda: seg_reduce.seg_sum_bands(slot, stats, K)),
+            "seg_min_bands_device_ms": _device_ms(
+                lambda: seg_reduce.seg_min_bands(slot, cols, K))}
+    return out
+
+
+@torch.inference_mode()
+def _stages_staged(ocr, img, acc, calls):
+    """One page through the staged device-det path, stage by stage."""
+    det, rec, fused = ocr.text_detector, ocr.text_recognizer, ocr._fused
+    args, pp = ocr.args, det.postprocess_op
+    t = _timer(acc)
+    image, h, w = t("upload", lambda: resize_dev.put_src_bucket(
+        img, ocr.device))
+    rh, rw = det_pre.det_resize_target(h, w, det.limit_side_len)
+    hb, wb = (det_pre.round_up(v, det.bucket) for v in (rh, rw))
+    x = t("det_resize", lambda: resize_dev.resize_normalize_det(
+        image, h, w, rh, rw, hb, wb))
+    prob = t("det_forward", lambda: det.model(
+        x.permute(2, 0, 1)[None], valid_hw=(rh, rw))[0]).contiguous()
+    K = int(args.tpu_det_max_boxes)
+    sy, sx = db_device.parse_extract_scale(args.tpu_det_extract_scale)
+    grid, _, gh, gw = db_device.working_grid(prob, rh, rw, sy, sx)
+    grid = grid.contiguous()
+    lab, ids, _ = t("db_label", lambda: db_device.label_components(
+        grid, gh, gw, K, pp.thresh))
+    slot, hit = t("db_slot_map", lambda: db_device.label_slots(lab, K))
+
+    def stats_fn():
+        fx, fy = db_device.cell_coords(*lab.shape, sy, sx, lab.device)
+        return fx, fy, db_device.moment_stats(grid, hit, fx, fy)
+
+    fx, fy, stats = t("db_stats", stats_fn)
+    sums = t("db_seg_sum", lambda: seg_reduce.seg_sum_bands(slot, stats, K))
+    cols = t("db_axes_cols", lambda: db_device.proj_columns(
+        slot, hit, db_device.pca_axes(sums), fx, fy))
+    t("db_seg_min", lambda: seg_reduce.seg_min_bands(slot, cols, K))
+    # the whole extraction on this page's map, slot-keyed as the path runs
+    # it and label-keyed (the default of the one-call path) beside it
+    for name, reduce in (("db_device_boxes_total", str(args.tpu_db_reduce)),
+                         ("db_device_boxes_pallas2", "pallas2")):
+        t(name, lambda: db_device.device_boxes(
+            prob, rh, rw, max_k=K, thresh=pp.thresh,
+            box_thresh=pp.box_thresh, unclip_ratio=pp.unclip_ratio,
+            min_size=float(pp.min_size), scale=(sy, sx), reduce=reduce,
+            score_k=int(args.tpu_det_score_k)))
+    t("det_packed_total", lambda: det.boxes_packed(image, h, w, rh, rw))
+    raw = t("det_total_with_download", lambda: det.infer_boxes_device(
+        image, h, w))
+    boxes = t("host_filter_sort", lambda: sorted_boxes(
+        det.filter_tag_det_res(raw, img.shape)))
+    if len(boxes):
+        quads = np.asarray(boxes, np.float32)
+        t("cls_rec_total", lambda: rec.run_boxes_fused(
+            image, quads, _TimedFused(fused, t, calls),
+            (fused.cls_h, fused.cls_w), use_cls=True))
+
+
+@torch.inference_mode()
+def _stages(ocr, img, acc):
+    """One page through the one-call step's stages, timed one by one."""
+    oc = ocr._onecall
+    det = ocr.text_detector
+    pp = det.postprocess_op
+    t = _timer(acc)
 
     image, h, w = t("upload", lambda: resize_dev.put_src_bucket(
         img, ocr.device))
@@ -66,7 +205,7 @@ def _stages(ocr, img, acc):
         prob, rh, rw, max_k=oc.k_det, thresh=pp.thresh,
         box_thresh=pp.box_thresh, unclip_ratio=pp.unclip_ratio,
         min_size=float(pp.min_size), scale=oc.extract_scale,
-        score_k=oc.score_k))
+        reduce=oc.db_reduce, score_k=oc.score_k))
     q = quads[valid][:oc.k_rec]
     qs = warp_dev.order_points_clockwise(q)
     vmask = torch.ones(qs.shape[0], dtype=torch.bool, device=qs.device)
@@ -94,7 +233,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pages", type=int, default=8)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--path", default="onecall", choices=sorted(KWARGS))
     args = ap.parse_args()
+    staged = args.path == "staged_device"
     if not torch.cuda.is_available():
         raise SystemExit("profile_onecall: CUDA is not available")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -111,24 +252,28 @@ def main() -> None:
         dict_path = os.path.join(tmp, "ppocrv5_dict.txt")
         with open(dict_path, "w") as f:
             f.write("".join(f"<{i}>\n" for i in range(18383)))
-        ocr = ONNXPaddleOcr(device="cuda", use_angle_cls=False,
-                            rec_char_dict_path=dict_path)
+        ocr = ONNXPaddleOcr(device="cuda", rec_char_dict_path=dict_path,
+                            **KWARGS[args.path])
         for img in pages[:2]:
-            ocr.ocr(img, cls=False)
+            ocr.ocr(img, cls=staged)
         stages: dict = {}
+        calls: dict = {}
         for img in pages:
-            _stages(ocr, img, stages)
+            if staged:
+                _stages_staged(ocr, img, stages, calls)
+            else:
+                _stages(ocr, img, stages)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for img in pages:
-                ocr.ocr(img, cls=False)
+                ocr.ocr(img, cls=staged)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, "onecall_trace.json"))
+    prof.export_chrome_trace(os.path.join(args.out, f"{args.path}_trace.json"))
     cuda = torch.autograd.DeviceType.CUDA
     kern = [(e.key, e.device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.device_type == cuda]
@@ -136,12 +281,21 @@ def main() -> None:
     busy_ms = sum(k[1] for k in kern)
     n = len(pages)
     report = {
-        "card": smi, "pages": n,
+        "card": smi, "path": args.path, "pages": n,
         "page_ms": wall_ms / n,
         # None: the profiler recorded no device time (not measured)
         "device_busy_ms_per_page": busy_ms / n if busy_ms else None,
         "device_busy_share": busy_ms / wall_ms if busy_ms else None,
         "stage_ms_per_page": {k: v / n for k, v in stages.items()},
+        # fused cls + rec calls by (width bucket, batch size), whole run
+        "cls_rec_calls": calls,
+        "seg_reduce_slot_runs": _slot_run_times() if staged else None,
+        # the hand-written kernels: [name, device ms per launch, launches
+        # per page]
+        "own_kernels": [[k.replace("(anonymous namespace)::", "")
+                         .replace("void ", "").split("(")[0], ms / c, c / n]
+                        for k, ms, c in kern
+                        if any(o in k for o in OWN_KERNELS)],
         "top_kernels_ms_per_page": [
             [k, ms / n, c // n] for k, ms, c in kern[:12]],
     }

@@ -8,9 +8,11 @@ import torch
 
 import jax.numpy as jnp
 from onnxocr_tpu.ops.pallas import ctc_head as jctc
+from onnxocr_tpu.ops.pallas import seg_reduce as jband
 from onnxocr_tpu.ops.pallas import seg_reduce2 as jseg
 
-from onnxocr_tpu_torch.ops.kernels import build, ctc_head, seg_reduce2
+from onnxocr_tpu_torch.ops.kernels import build, ctc_head, seg_reduce, \
+    seg_reduce2
 
 
 @pytest.mark.parametrize("M,D,V,masked", [
@@ -103,6 +105,85 @@ def test_seg_reduce2_ignores_unkept_labels():
     assert (sums.numpy()[1] == 0).all()
 
 
+def _raster_slots(rng, N, K, C, background=0.5):
+    """Raster-local slots as the extraction produces them (the fixture of
+    the Pallas tests): mostly ascending with jitter, a share of no-op cells
+    at slot K; sum values zeroed and min values set to the sentinel there."""
+    base = np.linspace(0, K - 1, N).astype(np.int32)
+    slot = np.clip(base + rng.integers(-3, 4, N), 0, K).astype(np.int32)
+    slot[rng.random(N) < background] = K
+    vals = (rng.normal(size=(N, C)) * 100).astype(np.float32)
+    hit = (slot < K)[:, None]
+    return slot, np.where(hit, vals, 0.0).astype(np.float32), \
+        np.where(hit, vals, 3.4e38).astype(np.float32)
+
+
+@pytest.mark.parametrize("C", [2, 4, 7])
+def test_seg_bands_plain_matches_pallas(C):
+    """N is not a multiple of the Pallas band (8192), half the cells are
+    background. Sums: rtol 1e-5, atol 1e-3 — the Pallas kernel accumulates
+    in float32 in band order, the port in float64, so they differ by the
+    float32 sum order (the JAX tests' own tolerance). Mins: rtol 1e-6,
+    atol 1e-5 — a min is exact, the slack only covers the float32 image."""
+    rng = np.random.default_rng(2 + C)
+    K, N = 256, 3 * jband.BAND + 1000
+    slot, vsum, vmin = _raster_slots(rng, N, K, C)
+    ref_sums = np.asarray(jband.seg_sum_bands(
+        jnp.asarray(slot), jnp.asarray(vsum), K, interpret=True))
+    ref_mins = np.asarray(jband.seg_min_bands(
+        jnp.asarray(slot), jnp.asarray(vmin), K, interpret=True))
+    S = torch.from_numpy(slot)
+    sums = seg_reduce.seg_sum_bands(S, torch.from_numpy(vsum), K)
+    mins = seg_reduce.seg_min_bands(S, torch.from_numpy(vmin), K)
+    assert sums.shape == mins.shape == (K, C)
+    assert sums.dtype == mins.dtype == torch.float32
+    np.testing.assert_allclose(sums.numpy(), ref_sums, rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(mins.numpy(), ref_mins, rtol=1e-6, atol=1e-5)
+
+
+def test_seg_bands_all_background_matches_pallas():
+    K, N = 128, 4000
+    slot = np.full((N,), K, np.int32)
+    zeros = np.zeros((N, 2), np.float32)
+    bigs = np.full((N, 2), 3.4e38, np.float32)
+    ref_sums = np.asarray(jband.seg_sum_bands(
+        jnp.asarray(slot), jnp.asarray(zeros), K, interpret=True))
+    ref_mins = np.asarray(jband.seg_min_bands(
+        jnp.asarray(slot), jnp.asarray(bigs), K, interpret=True))
+    S = torch.from_numpy(slot)
+    sums = seg_reduce.seg_sum_bands(S, torch.from_numpy(zeros), K).numpy()
+    mins = seg_reduce.seg_min_bands(S, torch.from_numpy(bigs), K).numpy()
+    np.testing.assert_array_equal(sums, ref_sums)
+    np.testing.assert_array_equal(mins, ref_mins)
+    assert (sums == 0).all() and (mins >= 3.0e38).all()
+
+
+def test_seg_min_bands_own_sentinel_matches_pallas():
+    """A `big` other than 3.4e38: empty slots, and slots that only saw the
+    3.4e38 pre-mask, come back as the caller's `big`."""
+    rng = np.random.default_rng(9)
+    K, N, big = 128, jband.BAND + 77, 1.0e30
+    slot, _, vmin = _raster_slots(rng, N, K, 4)
+    slot[slot >= K // 2] = K                  # the upper slots stay empty
+    vmin[slot == 5] = 3.4e38                  # a slot that only saw the mask
+    ref = np.asarray(jband.seg_min_bands(
+        jnp.asarray(slot), jnp.asarray(vmin), K, big, interpret=True))
+    got = seg_reduce.seg_min_bands(torch.from_numpy(slot),
+                                   torch.from_numpy(vmin), K, big).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-5)
+    assert (got[K // 2:] == np.float32(big)).all()
+    assert (got[5] == np.float32(big)).all()
+
+
+def test_seg_bands_ignore_slots_outside_range():
+    slot = torch.tensor([0, 1, 3, 7, -1, 1], dtype=torch.int32)
+    vals = torch.tensor([[1.], [2.], [4.], [8.], [16.], [32.]])
+    sums = seg_reduce.seg_sum_bands(slot, vals, 3)
+    mins = seg_reduce.seg_min_bands(slot, vals, 3)
+    assert sums[:, 0].tolist() == [1.0, 34.0, 0.0]
+    assert mins[:2, 0].tolist() == [1.0, 2.0] and mins[2, 0] >= 3e38
+
+
 def test_wrappers_check_inputs_and_count_no_cpu_launch():
     build.LAUNCHES.clear()
     x = torch.zeros((4, 16))
@@ -121,6 +202,23 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
         seg_reduce2.label_proj_extents(lab, torch.zeros(3, 3), ids)
     with pytest.raises(ValueError):
         seg_reduce2.label_moment_sums(lab, torch.zeros(6, 4).t(), ids)
+    slot = torch.zeros(5, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        seg_reduce.seg_sum_bands(slot.long(), torch.zeros(5, 2), 4)
+    with pytest.raises(TypeError):
+        seg_reduce.seg_min_bands(slot, torch.zeros(6, 2), 4)
+    with pytest.raises(ValueError):
+        seg_reduce.seg_sum_bands(slot, torch.zeros(5, 8), 4)
+    with pytest.raises(ValueError):
+        seg_reduce.seg_min_bands(slot, torch.zeros(2, 5).t(), 4)
+    with pytest.raises(ValueError):
+        seg_reduce.seg_sum_bands(slot, torch.zeros(5, 2), 0)
     ctc_head.ctc_head_reduce(x, torch.zeros((16, 8)), torch.zeros(8))
     seg_reduce2.label_moment_sums(lab, torch.zeros(4, 6), ids)
+    seg_reduce.seg_sum_bands(slot, torch.zeros(5, 2), 4)
+    seg_reduce.seg_min_bands(slot, torch.zeros(5, 2), 4)
     assert sum(build.LAUNCHES.values()) == 0
+
+
+def test_all_kernel_sources_are_registered():
+    assert set(build.SOURCES) == {p.stem for p in build.CSRC.glob("*.cu")}

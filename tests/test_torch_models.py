@@ -8,13 +8,16 @@ import torch
 import jax
 import jax.numpy as jnp
 from onnxocr_tpu import config as jcfg
+from onnxocr_tpu.models import cls as jcls
 from onnxocr_tpu.models import common as jcm
 from onnxocr_tpu.models import dbnet as jdbnet
+from onnxocr_tpu.models import mobilenetv3 as jmbv3
 from onnxocr_tpu.models import svtr as jsvtr
 from onnxocr_tpu.utils.params_io import load_tree as jload_tree
 
 from onnxocr_tpu_torch import config as tcfg
-from onnxocr_tpu_torch.models import convert
+from onnxocr_tpu_torch.models import cls, convert
+from onnxocr_tpu_torch.models import mobilenetv3 as mbv3
 from onnxocr_tpu_torch.utils.params_io import load_tree
 
 
@@ -53,6 +56,68 @@ def test_param_trees_round_trip():
         model = build(tree)
         flat = convert.flatten(tree)
         assert len(model.state_dict()) == len(flat)
+
+
+def test_mobilenetv3_small_matches():
+    """The small configuration (scale 0.35, height-only strides, 576-wide
+    last conv) on the reference's seeded tree: final map within 1e-4."""
+    rng = np.random.default_rng(7)
+    tree = jmbv3.init(11, "small", 0.35)
+    x = rng.uniform(-1, 1, size=(2, 48, 192, 3)).astype(np.float32)
+    ref = np.asarray(jax.jit(
+        lambda p, v: jmbv3.apply(p, v, "small", 0.35))(tree, x))
+    model = mbv3.MobileNetV3("small", 0.35)
+    model.load_state_dict(convert.state_dict_from_tree(tree, model))
+    with torch.no_grad():
+        got = model.eval()(_nchw(x))[-1].numpy().transpose(0, 2, 3, 1)
+    assert got.shape == ref.shape == (2, 2, 96, 200)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_cls_init_tree_equals_reference_init():
+    """The port's own seeded tree draws the reference's numpy stream: equal
+    leaf for leaf, dtype included."""
+    for seed in (0, 3):
+        a = convert.flatten(jcls.init(seed))
+        b = convert.flatten(cls.init_tree(seed))
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype == np.float32, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("seed,n", [(0, 5), (4, 16)])
+def test_cls_forward_matches(seed, n):
+    """cls.init(seed) carried across by convert: probabilities within 1e-4
+    (float32 convolutions summed in another order)."""
+    rng = np.random.default_rng(8 + seed)
+    tree = jcls.init(seed)
+    x = rng.uniform(-1, 1, size=(n, 48, 192, 3)).astype(np.float32)
+    ref = np.asarray(jax.jit(jcls.apply)(tree, x))
+    model = convert.build_cls(tree)
+    assert len(model.state_dict()) == len(convert.flatten(tree))
+    with torch.no_grad():
+        got = model(_nchw(x)).numpy()
+    assert got.shape == (n, 2)
+    np.testing.assert_allclose(got.sum(1), 1.0, atol=1e-6)
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_cls_forward_separates_inputs():
+    """The untrained classifier is still a function of its input: scaled
+    weights give probabilities away from 0.5 that agree with the reference,
+    argmax included."""
+    rng = np.random.default_rng(12)
+    tree = jcls.init(0)
+    tree["fc"]["w"] = tree["fc"]["w"] * 40.0
+    x = rng.uniform(-1, 1, size=(8, 48, 192, 3)).astype(np.float32)
+    x[::2] *= 0.2
+    ref = np.asarray(jax.jit(jcls.apply)(tree, x))
+    with torch.no_grad():
+        got = convert.build_cls(tree)(_nchw(x)).numpy()
+    assert np.ptp(ref[:, 0]) > 0.02
+    np.testing.assert_allclose(got, ref, atol=1e-4)
+    np.testing.assert_array_equal(got.argmax(1), ref.argmax(1))
 
 
 # jitted: one XLA compile per shape instead of one per op

@@ -19,6 +19,12 @@ from onnxocr_tpu_torch.utils.png import read_bgr
 HELDOUT = config.ASSETS.parent / "test_images_heldout"
 BASE = dict(use_angle_cls=False, drop_score=0.0, tpu_pipeline="onecall",
             tpu_warp_stage="off", det_limit_side_len=320)
+# no trained classifier is committed: both sides run the seeded untrained one
+CLS = dict(use_angle_cls=True, tpu_allow_untrained=True)
+# its probabilities stay near 0.5, so no crop passes cls_thresh 0.9; with
+# the "180" label first and the threshold at 0.5 the class it prefers
+# turns crops, and the 180° homographies are really selected
+CLS_FLIP = dict(label_list=["180", "0"], cls_thresh=0.5)
 
 
 @pytest.fixture(scope="module")
@@ -41,7 +47,7 @@ def pair(dict_path):
     models = {}
 
     def get(**extra):
-        key = tuple(sorted(extra.items()))
+        key = tuple(sorted((k, str(v)) for k, v in extra.items()))
         if key not in models:
             kw = dict(BASE, rec_char_dict_path=dict_path, **extra)
             models[key] = (ONNXPaddleOcr(device="cpu", **kw), JaxOcr(**kw))
@@ -64,11 +70,22 @@ def _assert_same(got, ref):
     ("synth_08_table", {}),
     ("synth_00_doc", {"tpu_onecall_max_boxes": 4}),      # overflow path
     ("synth_08_table", {"tpu_onecall_rec_width": 160}),  # wide-line path
+    ("synth_00_doc", {"tpu_db_reduce": "pallas"}),       # slot-keyed sums
+    ("synth_08_table", {"tpu_db_reduce": "scatter",
+                        "tpu_det_score_scale": "1x2",
+                        "tpu_det_axis_snap": 0.06}),
+    # the untrained angle classifier (same seeded weights on both sides);
+    # CLS_FLIP makes its verdicts turn crops
+    ("synth_00_doc", dict(CLS, tpu_db_reduce="pallas")),
+    ("synth_08_table", dict(CLS, **CLS_FLIP)),
+    ("synth_00_doc", dict(CLS, **CLS_FLIP, tpu_onecall_max_boxes=4,
+                          tpu_onecall_rec_width=160)),   # fused remainders
 ])
 def test_slice_matches_jax(pair, pages, page, extra):
     port, ref = pair(**extra)
-    got = port.ocr(pages[page], cls=False)[0]
-    want = ref.ocr(pages[page], cls=False)[0]
+    cls = bool(extra.get("use_angle_cls"))
+    got = port.ocr(pages[page], cls=cls)[0]
+    want = ref.ocr(pages[page], cls=cls)[0]
     assert len(want) > 4
     _assert_same(got, want)
     if "tpu_onecall_max_boxes" in extra:
@@ -77,6 +94,12 @@ def test_slice_matches_jax(pair, pages, page, extra):
         packed, _ = port._onecall.run_packed(pages[page])
         k = port._onecall.k_rec
         assert (packed[:k, 11] > 160).any()
+    if "label_list" in extra:
+        # the flipped verdicts changed what is read
+        plain, _ = pair(**{k: v for k, v in extra.items()
+                           if k not in CLS_FLIP})
+        other = plain.ocr(pages[page], cls=True)[0]
+        assert [l[1][0] for l in other] != [l[1][0] for l in got]
 
 
 def test_blank_page(pair):
@@ -131,8 +154,47 @@ def test_default_device_is_cuda_and_never_falls_back(dict_path,
 
 
 def test_unported_settings_raise(dict_path):
-    for extra in ({"use_angle_cls": True}, {"tpu_pipeline": "staged"},
-                  {"tpu_warp_stage": "shear"}):
+    for extra in ({"tpu_pipeline": "staged"},
+                  {"tpu_pipeline": "staged", "tpu_det_postprocess": "host"},
+                  {"tpu_fused_cls_rec": False},
+                  {"tpu_warp_stage": "shear"},
+                  {"tpu_warp_interp": "bicubic"},
+                  {"tpu_onecall_wave": True},
+                  {"tpu_rec_microbatch": True},
+                  {"tpu_pipeline": "staged", "tpu_det_postprocess": "device",
+                   "det_box_type": "poly"}):
         with pytest.raises(NotImplementedError):
             ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
                           **extra)
+
+
+def test_classifier_needs_weights_or_the_opt_in(dict_path, tmp_path,
+                                                monkeypatch):
+    """No trained classifier is committed: use_angle_cls=True fails loudly
+    as the reference does, runs untrained only under the explicit opt-in
+    (kwarg or environment), and refuses a cls.onnx it cannot lift."""
+    kw = dict(device="cpu", rec_char_dict_path=dict_path, use_angle_cls=True)
+    monkeypatch.delenv("ONNXOCR_TPU_ALLOW_UNTRAINED", raising=False)
+    with pytest.raises(FileNotFoundError, match="tpu_allow_untrained"):
+        ONNXPaddleOcr(**kw)
+    with pytest.raises(FileNotFoundError, match="tpu_allow_untrained"):
+        JaxOcr(**{k: v for k, v in kw.items() if k != "device"})
+    with pytest.warns(UserWarning, match="randomly initialized"):
+        port = ONNXPaddleOcr(tpu_allow_untrained=True, **kw)
+    assert port.use_angle_cls and port._fused.idx180 == 1
+    monkeypatch.setenv("ONNXOCR_TPU_ALLOW_UNTRAINED", "1")
+    with pytest.warns(UserWarning, match="randomly initialized"):
+        ONNXPaddleOcr(**kw)
+    onnx = tmp_path / "cls.onnx"
+    onnx.write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="lift_cls"):
+        ONNXPaddleOcr(cls_model_dir=str(onnx), **kw)
+    # a native checkpoint beside cls_model_dir is loaded without the opt-in
+    monkeypatch.delenv("ONNXOCR_TPU_ALLOW_UNTRAINED")
+    from onnxocr_tpu_torch.models import cls as cls_model
+    from onnxocr_tpu_torch.models import convert
+    flat = convert.flatten(cls_model.init_tree(5))
+    np.savez(tmp_path / "native_params.npz", **flat)
+    port = ONNXPaddleOcr(cls_model_dir=str(tmp_path / "absent.onnx"), **kw)
+    w = port.text_classifier.forward.model.fc.weight.numpy()
+    np.testing.assert_array_equal(w, flat["fc/w"].T)

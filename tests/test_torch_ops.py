@@ -214,9 +214,110 @@ def test_device_boxes_matches(case, scale, max_k, score_k):
               min_size=3.0, scale=scale, score_k=score_k)
     rq, rs, rv = jdb.device_boxes(jnp.asarray(prob), rh, rw, reduce="scan",
                                   **kw)
-    gq, gs, gv = db_device.device_boxes(torch.from_numpy(prob), rh, rw, **kw)
+    gq, gs, gv = db_device.device_boxes(torch.from_numpy(prob), rh, rw,
+                                        reduce="pallas2", **kw)
     rv = np.asarray(rv)
     np.testing.assert_array_equal(gv.numpy(), rv)
     assert rv.sum() > 0
     np.testing.assert_allclose(gq.numpy()[rv], np.asarray(rq)[rv], atol=1e-3)
     np.testing.assert_allclose(gs.numpy()[rv], np.asarray(rs)[rv], atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def page_det_map():
+    """The committed v5 detector's map of a committed page at the 320 px
+    limit (the port's DBNet on the CPU), padded into a 320² canvas."""
+    from onnxocr_tpu_torch.models import convert
+    from onnxocr_tpu_torch.utils.params_io import load_tree
+    img = read_bgr(PAGE)
+    padded, h, w = resize_dev.pad_src_bucket(img)
+    rh, rw = det_pre.det_resize_target(h, w, 320)
+    model = convert.build_dbnet(load_tree(
+        config.find_asset("ppocrv5/det/native_params.npz")))
+    with torch.inference_mode():
+        x = resize_dev.resize_normalize_det(torch.from_numpy(padded), h, w,
+                                            rh, rw, 320, 320)
+        prob = model(x.permute(2, 0, 1)[None], valid_hw=(rh, rw))[0]
+    return prob.numpy().copy(), rh, rw
+
+
+@pytest.mark.parametrize("reduce,extra", [
+    ("scatter", {}),
+    ("pallas", {}),
+    ("pallas2", {}),
+    ("scan", {}),
+    ("pallas", {"score_scale": "1x2"}),
+    ("pallas2", {"score_scale": "2x2"}),
+    ("pallas", {"axis_snap": 0.06}),
+    ("pallas2", {"axis_snap": 0.06}),
+    ("scatter", {"score_scale": "1x2", "axis_snap": 0.06, "scale": "1x1"}),
+])
+def test_device_boxes_on_page_matches(page_det_map, reduce, extra):
+    """Every reduction form, the pooled score grid and the axis snap on a
+    real page's det map vs the JAX function with the same arguments (off
+    the TPU it takes its scan lowering for both 'pallas' forms). Quads
+    within 1e-3 px and scores within 1e-4: the sums are taken in another
+    order (float64 here); `valid` equal."""
+    prob, rh, rw = page_det_map
+    kw = dict(max_k=256, thresh=0.3, box_thresh=0.4, unclip_ratio=1.5,
+              min_size=3.0, scale="1x2", score_k=64, reduce=reduce)
+    kw.update(extra)
+    rq, rs, rv = jdb.device_boxes(jnp.asarray(prob), rh, rw, **kw)
+    gq, gs, gv = db_device.device_boxes(torch.from_numpy(prob), rh, rw, **kw)
+    rv = np.asarray(rv)
+    np.testing.assert_array_equal(gv.numpy(), rv)
+    assert rv.sum() >= 8
+    np.testing.assert_allclose(gq.numpy()[rv], np.asarray(rq)[rv], atol=1e-3)
+    np.testing.assert_allclose(gs.numpy()[rv], np.asarray(rs)[rv], atol=1e-4)
+    if extra.get("axis_snap"):
+        # upright text: the snapped quads are axis-aligned rectangles
+        q = gq.numpy()[rv]
+        assert (np.abs(q[:, 0, 1] - q[:, 1, 1]) < 1e-4).mean() > 0.5
+
+
+def test_device_boxes_rejects_unknown_reduce(page_det_map):
+    prob, rh, rw = page_det_map
+    with pytest.raises(ValueError, match="tpu_db_reduce"):
+        db_device.device_boxes(torch.from_numpy(prob), rh, rw,
+                               reduce="sorted")
+
+
+def test_label_slots_rank_components_in_raster_order():
+    """slot = raster rank of the component's representative; background and
+    components past the budget get max_k."""
+    lab = np.zeros((6, 8), np.int32)
+    lab[0, 5:8] = 6           # representative at raster index 5
+    lab[1, 6:8] = 6
+    lab[2, 0:3] = 17          # representative at raster index 16
+    lab[4, 2:6] = 35          # representative at raster index 34
+    for max_k, want in ((8, {6: 0, 17: 1, 35: 2}), (2, {6: 0, 17: 1, 35: 2})):
+        slot, hit = db_device.label_slots(torch.from_numpy(lab), max_k)
+        slot = slot.numpy().reshape(lab.shape)
+        hit = hit.numpy().reshape(lab.shape)
+        for label, rank in want.items():
+            kept = rank < max_k
+            assert (slot[lab == label] == (rank if kept else max_k)).all()
+            assert (hit[lab == label] == kept).all()
+        assert (slot[lab == 0] == max_k).all() and not hit[lab == 0].any()
+
+
+def test_pca_axes_snap():
+    acc = torch.tensor([[100., 0, 0, 1000., 10., 30., 0],    # ~1.7° tilt
+                        [100., 0, 0, 1000., 800., 600., 0],  # ~40° tilt
+                        [100., 0, 0, 10., 1000., -30., 0]])  # near vertical
+    plain = db_device.pca_axes(acc).numpy()
+    snapped = db_device.pca_axes(acc, 0.06).numpy()
+    assert abs(plain[0, 1]) > 1e-3
+    np.testing.assert_array_equal(snapped[0], [1.0, 0.0])
+    np.testing.assert_array_equal(snapped[1], plain[1])
+    assert snapped[2, 0] == 0.0 and abs(snapped[2, 1]) == 1.0
+
+
+def test_unpack_boxes_matches():
+    rng = np.random.default_rng(6)
+    packed = rng.uniform(-5, 330, size=(32, 10)).astype(np.float32)
+    packed[:, 9] = rng.random(32) < 0.6
+    ref = jdb.unpack_boxes(packed, 320, 256, 900, 680)
+    got = db_device.unpack_boxes(packed, 320, 256, 900, 680)
+    assert got.dtype == np.int32 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)

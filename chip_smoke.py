@@ -6,19 +6,26 @@
 2. builds the hand-written kernels from onnxocr_tpu_torch/csrc into
    build/kernels/ (one nvcc per source, started together);
 3. holds each of the five kernels against its plain PyTorch version on the
-   card at the main paths' shapes — the CTC head at 48 crops × 80 steps
-   over the v5 head (192 × 18385), the label-keyed and the slot-keyed
-   reductions on a real page's det map on the 1×2 working grid with
-   K = 1024 — and times kernel, plain version and, where one PyTorch call
-   computes the same function, that call (addmm + max + logsumexp,
-   index_add_, scatter_reduce_ amin);
-4. with TF32 off and the committed v5 checkpoints, drives three paths on
-   committed held-out pages, each with the launch counts set to 0 just
-   before it and read just after, and checks that its kernels launched:
+   card at the shapes every path gives it — the CTC head over the v5 head
+   (192 × 18385) at 48 crops × 80 steps (one-call) and at 16 and 64 crops
+   × 80 steps (the staged path's batch ladder); the label-keyed and the
+   slot-keyed reductions on a real page's det map on the 1×2 working grid
+   with K = 1024, on the one-call path's 960² canvas and, for the
+   slot-keyed pair, on the staged path's own canvas as well — and times
+   kernel, plain version and, where one PyTorch call computes the same
+   function, that call (addmm + max + logsumexp, index_add_,
+   scatter_reduce_ amin);
+4. with TF32 off and the committed v5 checkpoints, drives four paths on
+   committed held-out pages. Each first runs its pages once unmeasured (so
+   every (width, batch) shape has been used), then sets the launch counts
+   to 0, runs the pages again, reads the counts and checks that its
+   kernels launched:
    B  the one-call path (960² det canvas, label-keyed reductions,
       classifier off);
    A  the staged device-det path (per-page det canvas, slot-keyed
       reductions, untrained angle classifier on, fused cls + rec);
+   A2 path A with `tpu_fused_cls_rec=False`: the classifier's and the
+      recognizer's own `run_boxes`, which must give path A's results;
    B' the one-call path with the slot-keyed reductions and the classifier;
    one page of each is compared with the same port on the CPU, and the
    classifier's probabilities on seeded crops are compared card vs CPU;
@@ -70,14 +77,16 @@ def bound(nbytes, flops, peak):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_ctc_head(ocr, seed):
+def check_ctc_head(ocr, seed, crops=None):
+    """Kernel 1 at M = crops × T rows (crops: the one-call K_rec when not
+    given)."""
     import torch
     from onnxocr_tpu_torch.ops.kernels import ctc_head
     head = ocr.text_recognizer.forward.model.head
     w, b = head.w.contiguous(), head.b.contiguous()
     oc = ocr._onecall
     T = oc.rec_w // 8
-    M, D, V = oc.k_rec * T, w.shape[0], w.shape[1]
+    M, D, V = (crops or oc.k_rec) * T, w.shape[0], w.shape[1]
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((M, D), generator=g, device="cuda")
     idx, prob = ctc_head.ctc_head_reduce(x, w, b)
@@ -106,22 +115,32 @@ def check_ctc_head(ocr, seed):
 
 def page_grid(ocr, img):
     """A real page's det map on the working grid, labelled: the inputs the
-    label reductions get on the main path."""
+    label reductions get on `ocr`'s path (the one-call canvas and extraction
+    window, or the staged path's own canvas per page)."""
     import torch
-    from onnxocr_tpu_torch.ops import db_device, resize_dev
+    from onnxocr_tpu_torch.ops import db_device, det_pre, resize_dev
     oc = ocr._onecall
     det = ocr.text_detector
     image, h, w = resize_dev.put_src_bucket(img, ocr.device)
-    (rh, rw), (hb, wb), (eh, ew) = oc.canvas(h, w)
+    if oc is None:
+        rh, rw = det_pre.det_resize_target(h, w, det.limit_side_len)
+        hb, wb = (det_pre.round_up(v, det.bucket) for v in (rh, rw))
+        eh = ew = 0
+        k_det = int(ocr.args.tpu_det_max_boxes)
+        sy, sx = db_device.parse_extract_scale(
+            ocr.args.tpu_det_extract_scale)
+    else:
+        (rh, rw), (hb, wb), (eh, ew) = oc.canvas(h, w)
+        k_det = oc.k_det
+        sy, sx = oc.extract_scale
     with torch.inference_mode():
         x = resize_dev.resize_normalize_det(image, h, w, rh, rw, hb, wb)
         prob = det.model(x.permute(2, 0, 1)[None], valid_hw=(rh, rw))[0]
     prob = prob[:eh or hb, :ew or wb].contiguous()
-    sy, sx = oc.extract_scale
     mask_grid, _, gh, gw = db_device.working_grid(prob, rh, rw, sy, sx)
     lab, ids, _ = db_device.label_components(
-        mask_grid, gh, gw, oc.k_det, det.postprocess_op.thresh)
-    return lab, mask_grid, ids, sy, sx
+        mask_grid.contiguous(), gh, gw, k_det, det.postprocess_op.thresh)
+    return lab, mask_grid.contiguous(), ids, sy, sx
 
 
 def check_seg_reduce2(ocr, img):
@@ -144,7 +163,9 @@ def check_seg_reduce2(ocr, img):
               "grid": list(lab.shape), "K": K,
               "components": int(present.sum()), "labelled_cells": hits,
               "library_ms": None}
-    t1, b1 = bound(8 * n + 4 * K + 28 * K, 12.0 * hits, F64_FLOPS)
+    # bytes this run's data needs: every label, the map's value at the
+    # labelled cells only, the ids in and K rows out
+    t1, b1 = bound(4 * n + 4 * hits + 4 * K + 28 * K, 12.0 * hits, F64_FLOPS)
     t2, b2 = bound(4 * n + 4 * K + 8 * K + 16 * K, 6.0 * hits, F32_FLOPS)
     return [
         dict(common, name="label_moment_sums",
@@ -207,8 +228,11 @@ def check_seg_reduce(ocr, img):
     common = {"route": "cuda", "source": "onnxocr_tpu_torch/csrc/seg_reduce.cu",
               "grid": list(lab.shape), "K": K,
               "components": int(present.sum()), "labelled_cells": hits}
-    t4, b4 = bound(4 * n + 28 * n + 28 * K, 7.0 * hits, F64_FLOPS)
-    t5, b5 = bound(4 * n + 16 * n + 16 * K, 4.0 * hits, F32_FLOPS)
+    # bytes this run's data needs: every slot, the C values of the cells
+    # whose slot is < K only (a no-op cell's values need not be read), and
+    # K rows out; counted by element, not by 32-byte sector
+    t4, b4 = bound(4 * n + 28 * hits + 28 * K, 7.0 * hits, F64_FLOPS)
+    t5, b5 = bound(4 * n + 16 * hits + 16 * K, 4.0 * hits, F32_FLOPS)
     return [
         dict(common, name="seg_sum_bands",
              replaces="onnxocr_tpu/ops/pallas/seg_reduce.py:118",
@@ -238,11 +262,19 @@ def check_classifier(gpu, cpu, seed):
 
 
 def drive(ocr, pages, names, cls, label):
-    """Warm up on one page, set the launch counts to 0, run `names` through
-    ocr() → (results by page name, launch counts of the run)."""
+    """Run `names` through ocr() once unmeasured, so that every (width,
+    batch) shape the pages reach has been used; then set the launch counts
+    to 0 and run them again → (results by page name, launch counts of the
+    second pass)."""
     import torch
     from onnxocr_tpu_torch.ops.kernels import build
-    ocr.ocr(pages[names[0]], cls=cls)                # warm-up page
+    first = []
+    for name in names:
+        t0 = time.perf_counter()
+        ocr.ocr(pages[name], cls=cls)
+        first.append((time.perf_counter() - t0) * 1e3)
+    print(f"path {label} first pass (first use of each shape), ms/page: "
+          + " ".join(f"{t:.1f}" for t in first))
     torch.cuda.synchronize()
     build.LAUNCHES.clear()
     results, times = {}, []
@@ -314,32 +346,57 @@ def main() -> int:
         kw_a = dict(tpu_pipeline="staged", tpu_det_postprocess="device",
                     tpu_db_reduce="pallas", use_angle_cls=True,
                     tpu_allow_untrained=True)
+        # A2: the same with the classifier and the recognizer as two steps
+        kw_a2 = dict(kw_a, tpu_fused_cls_rec=False)
         # B': one-call, slot-keyed reductions, classifier on
         kw_b2 = dict(tpu_db_reduce="pallas", use_angle_cls=True,
                      tpu_allow_untrained=True)
         ocr = model("cuda", **kw_b)
         ocr_a = model("cuda", **kw_a)
+        ocr_a2 = model("cuda", **kw_a2)
         ocr_b2 = model("cuda", **kw_b2)
 
-        kernels = [check_ctc_head(ocr, seed=0)]
-        kernels += check_seg_reduce2(ocr, pages[PAGES[0]])
-        kernels += check_seg_reduce(ocr, pages[PAGES[0]])
+        # each entry: a kernel at the shapes of the path named in "path";
+        # the same kernel at another path's shapes goes under "other_shapes"
+        page = pages[PAGES[0]]
+        kernels = [dict(check_ctc_head(ocr, seed=0), path="B")]
+        kernels += [dict(k, path="B") for k in check_seg_reduce2(ocr, page)]
+        kernels += [dict(k, path="B'") for k in check_seg_reduce(ocr_b2, page)]
+        staged_ctc = [check_ctc_head(ocr, seed=2 + i, crops=c)
+                      for i, c in enumerate(ocr_a.text_recognizer.batch_ladder
+                                            [-2:])]
+        others = {"ctc_head_reduce": staged_ctc}
+        for k in check_seg_reduce(ocr_a, page):
+            others[k["name"]] = [k]
+        for k in kernels:
+            k["other_shapes"] = [
+                dict({key: o[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by")},
+                     path="A", shape=o.get("shape") or o["grid"],
+                     labelled_cells=o.get("labelled_cells"))
+                for o in others.get(k["name"], ())]
+            for o in k["other_shapes"]:
+                print(f"{k['name']} at path A's shape {o['shape']}: max abs "
+                      f"err {o['max_abs_err']:.2e}, {o['ms']:.4f} ms (plain "
+                      f"{o['plain_ms']:.4f}, library {o['library_ms']:.4f}, "
+                      f"bound {o['bound_ms']:.6f} by {o['bound_by']})")
         print("kernels agree with their plain versions on the card")
 
-        runs = {}
+        slot_keyed = ("ctc_head_reduce", "seg_sum_bands", "seg_min_bands")
+        runs, found = {}, {}
         for label, gpu, kw, names, cls, needs in (
                 ("B", ocr, kw_b, PAGES[:4], False,
                  ("ctc_head_reduce", "label_moment_sums",
                   "label_proj_extents")),
-                ("A", ocr_a, kw_a, PAGES, True,
-                 ("ctc_head_reduce", "seg_sum_bands", "seg_min_bands")),
-                ("B'", ocr_b2, kw_b2, PAGES[:3], True,
-                 ("ctc_head_reduce", "seg_sum_bands", "seg_min_bands"))):
+                ("A", ocr_a, kw_a, PAGES, True, slot_keyed),
+                ("A2", ocr_a2, kw_a2, PAGES[:3], True, slot_keyed),
+                ("B'", ocr_b2, kw_b2, PAGES[:3], True, slot_keyed)):
             results, launches = drive(gpu, pages, names, cls, label)
             for name in needs:
                 assert launches.get(name, 0) > 0, \
                     f"path {label}: {name} never launched"
-            runs[label] = launches
+            runs[label], found[label] = launches, results
             cpu = model("cpu", **kw)
             same_result(results[PAGES[0]],
                         cpu.ocr(pages[PAGES[0]], cls=cls)[0])
@@ -349,14 +406,18 @@ def main() -> int:
                 err = check_classifier(gpu, cpu, seed=1)
                 print(f"classifier on the card vs the CPU: max abs err "
                       f"{err:.2e} over 16 seeded crops")
-        # launches: the count of the path that is a kernel's own (B for the
-        # CTC head and the label-keyed pair, A for the slot-keyed pair)
+        for name, res in found["A2"].items():
+            same_result(res, found["A"][name])
+        print(f"path A2 gives path A's results on {len(found['A2'])} pages")
+        # launches: the count of the path whose shapes the entry holds
         for k in kernels:
-            own = "A" if k["name"].startswith("seg_") else "B"
-            k["launches"] = runs[own].get(k["name"], 0)
+            k["launches"] = runs[k["path"]].get(k["name"], 0)
             k["launches_by_path"] = {p: r.get(k["name"], 0)
                                      for p, r in runs.items()}
             assert k["launches"] > 0, f"{k['name']} never launched"
+            for o in k["other_shapes"]:
+                o["launches"] = runs[o["path"]].get(k["name"], 0)
+                assert o["launches"] > 0
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@
 // with (x, y) the cell centre in full map coordinates under (sy, sx).
 //
 // What bounds them on an H100: bytes. A 960x480 grid (the 960^2 canvas on
-// the 1x2 grid) is 460,800 cells: 3.7 MB of label + prob for the sums and
-// 1.8 MB of labels for the extents, a few microseconds at 3.35 TB/s, and a
-// handful of integer operations per cell.
+// the 1x2 grid) is 460,800 cells: 1.8 MB of labels for either kernel, plus
+// the map's value at the labelled cells only for the sums (a few per cent
+// of a text page), under a microsecond at 3.35 TB/s, and a handful of
+// integer operations per cell.
 //
 // Design: the Pallas kernels walk a (128-id tile x 8192-cell band) grid in
 // order and skip tiles whose id range misses the band. Blocks here run in

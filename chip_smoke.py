@@ -6,14 +6,19 @@
 2. builds the hand-written kernels from onnxocr_tpu_torch/csrc into
    build/kernels/ (one nvcc per source, started together);
 3. holds each of the five kernels against its plain PyTorch version on the
-   card at the shapes every path gives it — the CTC head over the v5 head
-   (192 × 18385) at 48 crops × 80 steps (one-call) and at 16 and 64 crops
-   × 80 steps (the staged path's batch ladder); the label-keyed and the
-   slot-keyed reductions on a real page's det map on the 1×2 working grid
-   with K = 1024, on the one-call path's 960² canvas and, for the
-   slot-keyed pair, on the staged path's own canvas as well — and times
-   kernel, plain version and, where one PyTorch call computes the same
-   function, that call (addmm + max + logsumexp, index_add_,
+   card at the shapes every path gives it — the CTC head (three TF32
+   tensor-core passes over split operands) against the float32 plain
+   version over the v5 head (192 × 18385) at 48 crops × 80 steps
+   (one-call) and at 16 and 64 crops × 80 steps (the staged path's batch
+   ladder), and on rows built so that their top two logits differ by 1e-4
+   relative; the label-keyed and the slot-keyed reductions on a real
+   page's det map on the 1×2 working grid with K = 1024, on the one-call
+   path's 960² canvas and, for the slot-keyed pair, on the staged path's
+   own canvas as well, the moment sums also on three made-up label
+   patterns — and times kernel (CUDA events around a loop of calls, and
+   the same calls captured into a CUDA graph and replayed, which leaves
+   the host out), plain version and, where one PyTorch call computes the
+   same function, that call (addmm + max + logsumexp, index_add_,
    scatter_reduce_ amin);
 4. with TF32 off and the committed v5 checkpoints, drives four paths on
    committed held-out pages. Each first runs its pages once unmeasured (so
@@ -49,9 +54,10 @@ import numpy as np
 PAGES = ("synth_00_doc", "synth_03_doc", "synth_07_table", "synth_08_table",
          "synth_12_scan", "synth_16_photo", "synth_20_lowcontrast",
          "synth_22_dense")
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, float32 and
-# float64 (non-tensor-core) FLOP/s
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense TF32
+# tensor-core FLOP/s, float32 and float64 (non-tensor-core) FLOP/s
 HBM_BPS = 3.35e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12
 
@@ -72,28 +78,115 @@ def timed(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_timed(fn, iters=20, replays=5):
+    """Mean ms per call on the card with the host out of the way: `iters`
+    calls captured into one CUDA graph (the wrappers' allocations and
+    memsets are captured with the launches), the graph replayed."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def both_timed(fn):
+    return {"ms": timed(fn), "graph_ms": graph_timed(fn)}
+
+
 def bound(nbytes, flops, peak):
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def float64_head(x, w, b, chunk=512):
+    """The head in float64 on x's device, `chunk` rows at a time → ((M,)
+    int32 argmax, (M,) float64 max-prob, (M, 2) float64 top-2 logits)."""
+    import torch
+    w64, b64 = w.double(), b.double()
+    idx, prob, top2 = [], [], []
+    for r in range(0, x.shape[0], chunk):
+        logits = x[r:r + chunk].double() @ w64 + b64
+        top = torch.topk(logits, 2, dim=1)
+        idx.append(top.indices[:, 0].to(torch.int32))
+        prob.append(1.0 / torch.exp(logits - top.values[:, :1]).sum(1))
+        top2.append(top.values)
+    return torch.cat(idx), torch.cat(prob), torch.cat(top2)
+
+
+def max_rel(got, ref):
+    return float(((got.double() - ref.double()).abs() / ref.double()).max())
+
+
+def near_tie_rows(w, b, rows, seed, gap=1e-4):
+    """(≤ rows, D) float32 inputs on w's device whose two largest logits
+    over (w, b) differ by `gap` relative, the winner being the earlier
+    column in one half of the rows and the later one in the other. Built in
+    float64: x0 along w1 + w2 lifts columns c1 < c2 over the rest, a step
+    along w1 − w2 sets their difference; rows where the float32 rounding of
+    x left the gap outside [gap / 2, 2 gap], or another column on top, are
+    dropped."""
+    import torch
+    dev = w.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w64, b64 = w.double(), b.double()
+    cols = torch.nonzero(b > -1e29)[:, 0]
+    pick = cols[torch.randint(len(cols), (rows, 2), generator=g, device=dev)]
+    pick = pick[pick[:, 0] != pick[:, 1]].sort(dim=1).values
+    w1, w2 = w64[:, pick[:, 0]].t(), w64[:, pick[:, 1]].t()
+    x0 = 40.0 * (w1 + w2) / (w1 + w2).square().sum(1, keepdim=True)
+    l1 = (x0 * w1).sum(1) + b64[pick[:, 0]]
+    l2 = (x0 * w2).sum(1) + b64[pick[:, 1]]
+    sign = torch.where(torch.arange(len(pick), device=dev) % 2 == 0,
+                       1.0, -1.0).double()
+    step = sign * gap * l1.abs() - (l1 - l2)
+    d = w1 - w2
+    x = (x0 + step[:, None] * d / d.square().sum(1, keepdim=True)).float()
+    top = torch.topk(x.double() @ w64 + b64, 2, dim=1)
+    rel = (top.values[:, 0] - top.values[:, 1]) / top.values[:, 0].abs()
+    ours = (top.indices.sort(dim=1).values == pick).all(dim=1)
+    keep = ours & (rel >= gap / 2) & (rel <= 2 * gap)
+    return x[keep].contiguous()
+
+
 def check_ctc_head(ocr, seed, crops=None):
     """Kernel 1 at M = crops × T rows (crops: the one-call K_rec when not
-    given)."""
+    given) against the float32 plain version: argmax equal outside rows
+    whose top-2 logits tie to 1e-5 relative, max-prob within rtol 1e-5.
+    Both are also measured against the head in float64."""
     import torch
     from onnxocr_tpu_torch.ops.kernels import ctc_head
     head = ocr.text_recognizer.forward.model.head
-    w, b = head.w.contiguous(), head.b.contiguous()
+    w, b, w_split = head.w.contiguous(), head.b.contiguous(), head.w_split
+    assert w_split.shape == (2, w.shape[1], w.shape[0])
+    assert w_split.is_contiguous() and w_split.device == w.device
     oc = ocr._onecall
     T = oc.rec_w // 8
     M, D, V = (crops or oc.k_rec) * T, w.shape[0], w.shape[1]
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((M, D), generator=g, device="cuda")
-    idx, prob = ctc_head.ctc_head_reduce(x, w, b)
+    idx, prob = ctc_head.ctc_head_reduce(x, w_split, b)
+    torch.cuda.synchronize()
     pidx, pprob = ctc_head.ctc_head_reduce_plain(x, w, b)
-    top2 = torch.topk(torch.addmm(b, x, w), 2, dim=1).values
+    _, prob64, top2 = float64_head(x, w, b)
     tie = (top2[:, 0] - top2[:, 1]).abs() <= 1e-5 * top2[:, 0].abs()
     bad = int(((idx != pidx) & ~tie).sum())
+    rel = max_rel(prob, pprob)
+    rel64, plain_rel64 = max_rel(prob, prob64), max_rel(pprob, prob64)
+    print(f"ctc_head_reduce M={M}: {bad} argmax mismatches outside "
+          f"{int(tie.sum())} tie rows, max-prob max rel err {rel:.2e} "
+          f"(against float64: kernel {rel64:.2e}, plain {plain_rel64:.2e})")
     assert bad == 0, f"ctc_head_reduce: {bad} argmax mismatches"
     torch.testing.assert_close(prob, pprob, rtol=1e-5, atol=0)
 
@@ -101,16 +194,56 @@ def check_ctc_head(ocr, seed, crops=None):
         logits = torch.addmm(b, x, w)
         return logits.max(dim=1), torch.logsumexp(logits, dim=1)
 
-    t, by = bound(4 * (M * D + D * V + V) + 8 * M, 2.0 * M * D * V,
-                  F32_FLOPS)
-    return {"name": "ctc_head_reduce", "route": "cuda",
-            "source": "onnxocr_tpu_torch/csrc/ctc_head.cu",
-            "replaces": "onnxocr_tpu/ops/pallas/ctc_head.py:67",
-            "shape": [M, D, V], "tie_rows": int(tie.sum()),
-            "max_abs_err": float((prob - pprob).abs().max()),
-            "ms": timed(lambda: ctc_head.ctc_head_reduce(x, w, b)),
-            "plain_ms": timed(lambda: ctc_head.ctc_head_reduce_plain(x, w, b)),
-            "library_ms": timed(library), "bound_ms": t, "bound_by": by}
+    # the kernel's own work: three TF32 passes over the product, against
+    # x, both halves of the split weight and the bias in, two (M,) out
+    flops = 3 * 2.0 * M * D * V
+    t, by = bound(4 * (M * D + 2 * D * V + V) + 8 * M, flops, TF32_FLOPS)
+    return dict(
+        both_timed(lambda: ctc_head.ctc_head_reduce(x, w_split, b)),
+        name="ctc_head_reduce", route="cuda",
+        source="onnxocr_tpu_torch/csrc/ctc_head.cu",
+        replaces="onnxocr_tpu/ops/pallas/ctc_head.py:67",
+        shape=[M, D, V], tie_rows=int(tie.sum()), argmax_mismatches=bad,
+        max_abs_err=float((prob - pprob).abs().max()), max_rel_err=rel,
+        max_rel_err_float64=rel64, plain_max_rel_err_float64=plain_rel64,
+        plain_ms=timed(lambda: ctc_head.ctc_head_reduce_plain(x, w, b)),
+        library_ms=timed(library), bound_ms=t, bound_by=by,
+        bound_peak="tf32 tensor cores, 3 passes",
+        float32_pipe_bound_ms=2.0 * M * D * V / F32_FLOPS * 1e3)
+
+
+def check_ctc_head_near_ties(ocr, seed):
+    """Kernel 1 on rows whose top two logits differ by 1e-4 relative: the
+    argmax must be the float32 plain version's, which must be the float64
+    one's. These rows' logits are several times a page's in size, and so
+    is the float32 plain version's own error: the max-prob is held to the
+    float64 head here (rtol 1e-5), the plain version's distance from it
+    printed beside the kernel's."""
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import ctc_head
+    head = ocr.text_recognizer.forward.model.head
+    w, b = head.w.contiguous(), head.b.contiguous()
+    x = near_tie_rows(w, b, rows=256, seed=seed)
+    assert x.shape[0] >= 64, f"only {x.shape[0]} near-tie rows were built"
+    idx, prob = ctc_head.ctc_head_reduce(x, head.w_split, b)
+    pidx, pprob = ctc_head.ctc_head_reduce_plain(x, w, b)
+    idx64, prob64, _ = float64_head(x, w, b)
+    assert torch.equal(pidx, idx64), "float32 plain version off on near ties"
+    bad = int((idx != pidx).sum())
+    assert bad == 0, f"ctc_head_reduce: {bad} argmax mismatches on near ties"
+    rel64, plain_rel64 = max_rel(prob, prob64), max_rel(pprob, prob64)
+    assert rel64 <= 1e-5, f"ctc_head_reduce: max-prob off by {rel64:.2e}"
+    later = int((idx.long() == torch.topk(x @ w + b, 2, dim=1).indices
+                 .max(1).values).sum())
+    print(f"ctc_head_reduce on {x.shape[0]} rows with top-2 logits 1e-4 "
+          f"apart: argmax equal ({later} won by the later column); max-prob "
+          f"max rel err against float64: kernel {rel64:.2e}, plain "
+          f"{plain_rel64:.2e}")
+    return {"rows": int(x.shape[0]), "argmax_mismatches": bad,
+            "won_by_later_column": later,
+            "max_rel_err": max_rel(prob, pprob),
+            "max_rel_err_float64": rel64,
+            "plain_max_rel_err_float64": plain_rel64}
 
 
 def page_grid(ocr, img):
@@ -143,6 +276,34 @@ def page_grid(ocr, img):
     return lab, mask_grid.contiguous(), ids, sy, sx
 
 
+def moment_sum_label_runs(prob, K, sy, sx):
+    """Kernel 2 on made-up label patterns over the page's grid: what a long
+    run of one label costs. `background`: no cell labelled (the floor of a
+    one-launch design: read the labels, find nothing); `one_label`: every
+    cell in one component (each warp reduces with shuffles, then one shared
+    atomic per channel); `alternating`: neighbouring cells in two components
+    (every warp holds two groups of lanes)."""
+    import torch
+    from onnxocr_tpu_torch.ops import db_device
+    from onnxocr_tpu_torch.ops.kernels import seg_reduce2 as sr
+    i = torch.arange(prob.numel(), device=prob.device, dtype=torch.int32)
+    ids = torch.full((K,), db_device.MAXINT, dtype=torch.int32,
+                     device=prob.device)
+    ids[:2] = torch.tensor([1, 2], dtype=torch.int32)
+    out = {}
+    for name, lab in (("background", torch.zeros_like(i)),
+                      ("one_label", torch.ones_like(i)),
+                      ("alternating", 1 + i % 2)):
+        lab = lab.reshape(prob.shape).contiguous()
+        torch.testing.assert_close(
+            sr.label_moment_sums(lab, prob, ids, sy, sx),
+            sr.label_moment_sums_plain(lab, prob, ids, sy, sx),
+            rtol=1e-5, atol=0)
+        out[name] = both_timed(
+            lambda: sr.label_moment_sums(lab, prob, ids, sy, sx))
+    return out
+
+
 def check_seg_reduce2(ocr, img):
     import torch
     from onnxocr_tpu_torch.ops import db_device
@@ -171,13 +332,16 @@ def check_seg_reduce2(ocr, img):
         dict(common, name="label_moment_sums",
              replaces="onnxocr_tpu/ops/pallas/seg_reduce2.py:74",
              max_abs_err=float((sums - psums).abs().max()),
-             ms=timed(lambda: sr.label_moment_sums(lab, prob, ids, sy, sx)),
+             **both_timed(lambda: sr.label_moment_sums(lab, prob, ids, sy,
+                                                       sx)),
              plain_ms=timed(lambda: sr.label_moment_sums_plain(
-                 lab, prob, ids, sy, sx)), bound_ms=t1, bound_by=b1),
+                 lab, prob, ids, sy, sx)), bound_ms=t1, bound_by=b1,
+             label_runs=moment_sum_label_runs(prob, K, sy, sx)),
         dict(common, name="label_proj_extents",
              replaces="onnxocr_tpu/ops/pallas/seg_reduce2.py:190",
              max_abs_err=float((ext - pext)[present].abs().max()),
-             ms=timed(lambda: sr.label_proj_extents(lab, axes, ids, sy, sx)),
+             **both_timed(lambda: sr.label_proj_extents(lab, axes, ids, sy,
+                                                        sx)),
              plain_ms=timed(lambda: sr.label_proj_extents_plain(
                  lab, axes, ids, sy, sx)), bound_ms=t2, bound_by=b2)]
 
@@ -237,13 +401,13 @@ def check_seg_reduce(ocr, img):
         dict(common, name="seg_sum_bands",
              replaces="onnxocr_tpu/ops/pallas/seg_reduce.py:118",
              max_abs_err=float((sums - psums).abs().max()),
-             ms=timed(lambda: sr.seg_sum_bands(slot, stats, K)),
+             **both_timed(lambda: sr.seg_sum_bands(slot, stats, K)),
              plain_ms=timed(lambda: sr.seg_sum_bands_plain(slot, stats, K)),
              library_ms=timed(lib_sum), bound_ms=t4, bound_by=b4),
         dict(common, name="seg_min_bands",
              replaces="onnxocr_tpu/ops/pallas/seg_reduce.py:127",
              max_abs_err=float((ext - pext).abs().max()),
-             ms=timed(lambda: sr.seg_min_bands(slot, cols, K)),
+             **both_timed(lambda: sr.seg_min_bands(slot, cols, K)),
              plain_ms=timed(lambda: sr.seg_min_bands_plain(slot, cols, K)),
              library_ms=timed(lib_min), bound_ms=t5, bound_by=b5)]
 
@@ -359,7 +523,8 @@ def main() -> int:
         # each entry: a kernel at the shapes of the path named in "path";
         # the same kernel at another path's shapes goes under "other_shapes"
         page = pages[PAGES[0]]
-        kernels = [dict(check_ctc_head(ocr, seed=0), path="B")]
+        kernels = [dict(check_ctc_head(ocr, seed=0), path="B",
+                        near_ties=check_ctc_head_near_ties(ocr, seed=1))]
         kernels += [dict(k, path="B") for k in check_seg_reduce2(ocr, page)]
         kernels += [dict(k, path="B'") for k in check_seg_reduce(ocr_b2, page)]
         staged_ctc = [check_ctc_head(ocr, seed=2 + i, crops=c)
@@ -371,14 +536,15 @@ def main() -> int:
         for k in kernels:
             k["other_shapes"] = [
                 dict({key: o[key] for key in (
-                    "max_abs_err", "ms", "plain_ms", "library_ms",
-                    "bound_ms", "bound_by")},
+                    "max_abs_err", "ms", "graph_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by")},
                      path="A", shape=o.get("shape") or o["grid"],
                      labelled_cells=o.get("labelled_cells"))
                 for o in others.get(k["name"], ())]
             for o in k["other_shapes"]:
                 print(f"{k['name']} at path A's shape {o['shape']}: max abs "
-                      f"err {o['max_abs_err']:.2e}, {o['ms']:.4f} ms (plain "
+                      f"err {o['max_abs_err']:.2e}, {o['ms']:.4f} ms, "
+                      f"{o['graph_ms']:.4f} in a graph (plain "
                       f"{o['plain_ms']:.4f}, library {o['library_ms']:.4f}, "
                       f"bound {o['bound_ms']:.6f} by {o['bound_by']})")
         print("kernels agree with their plain versions on the card")

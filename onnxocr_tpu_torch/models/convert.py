@@ -84,7 +84,8 @@ def build_cls(tree, device="cpu") -> cls.Cls:
 
 def build_svtr(tree, device="cpu") -> svtr.SVTR:
     """SVTR sized from the tree: vocab and dim from the head, depth from the
-    mixer list, channel width from the stem, MLP ratio from fc1."""
+    mixer list, channel width from the stem, MLP ratio from fc1. The head's
+    kernel operand is split here, once, on `device`."""
     dim, vocab = tree["head"]["w"].shape
     mixer = tree["mixer"]
     mlp_ratio = mixer[0]["fc1"]["w"].shape[1] // dim if mixer else 2
@@ -92,4 +93,6 @@ def build_svtr(tree, device="cpu") -> svtr.SVTR:
     model = svtr.SVTR(vocab, dim=dim, depth=len(mixer),
                       width_mult=width_mult, mlp_ratio=mlp_ratio)
     model.load_state_dict(state_dict_from_tree(tree, model))
-    return model.requires_grad_(False).to(device).eval()
+    model = model.requires_grad_(False).to(device).eval()
+    model.head.prepare()
+    return model

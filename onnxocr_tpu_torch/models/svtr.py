@@ -2,9 +2,9 @@
 Counterpart of onnxocr_tpu/models/svtr.py.
 
 Input (N, 3, 48, W) in [-1, 1], W a multiple of 8; `features` returns the
-(N, W/8, D) pre-head sequence, and the CTC head (D, V) is kept in the JAX
-layout for the fused head kernel (ops/kernels/ctc_head.py). Attention heads
-are D // 32, LayerNorm eps 1e-6, GELU the tanh approximation (jax.nn.gelu's
+(N, W/8, D) pre-head sequence. The CTC head keeps w (D, V) in the JAX
+layout and, once `Head.prepare` has run, the operand the fused head kernel
+reads (ops/kernels/ctc_head.split_head). Attention heads are D // 32, LayerNorm eps 1e-6, GELU the tanh approximation (jax.nn.gelu's
 default).
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from . import common as cm
+from ..ops.kernels import ctc_head
 
 # (out_ch, (stride_h, stride_w)) depthwise-separable stages after the stem
 STAGES = ((64, (2, 1)), (64, (1, 1)), (128, (2, 2)), (128, (1, 1)),
@@ -61,12 +62,20 @@ class Mixer(nn.Module):
 
 
 class Head(nn.Module):
-    """CTC head in the JAX layout: w (D, V), b (V,)."""
+    """CTC head in the JAX layout: w (D, V), b (V,). `w_split` (2, V, D) is
+    the fused head kernel's operand, made from w by `prepare` (it is no
+    part of the state dict)."""
 
     def __init__(self, dim: int, vocab: int):
         super().__init__()
         self.w = nn.Parameter(torch.zeros(dim, vocab), requires_grad=False)
         self.b = nn.Parameter(torch.zeros(vocab), requires_grad=False)
+        self.register_buffer("w_split", None, persistent=False)
+
+    def prepare(self) -> None:
+        """Split w for the kernel, on w's device. Call again after w
+        changes or moves."""
+        self.w_split = ctc_head.split_head(self.w)
 
 
 def _mask_w(x, vw):

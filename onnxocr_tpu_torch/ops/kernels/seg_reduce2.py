@@ -109,7 +109,11 @@ def label_moment_sums(lab: torch.Tensor, prob: torch.Tensor,
     if lab.device.type == "cpu":
         return label_moment_sums_plain(lab, prob, ids, sy, sx)
     K = ids.shape[0]
-    acc = torch.empty((K, 7), dtype=torch.float64, device=lab.device)
+    if lab.numel() >= 2 ** 31:
+        raise ValueError("label_moment_sums: the grid must have fewer than "
+                         "2^31 cells")
+    # accumulator + ticket counter, cleared by the kernel's one memset
+    acc = torch.empty(7 * K + 1, dtype=torch.float64, device=lab.device)
     out = torch.empty((K, 7), dtype=torch.float32, device=lab.device)
     lib = build.load("seg_reduce2", _SIGNATURES)
     with torch.cuda.device(lab.device):

@@ -34,7 +34,7 @@ class RecForward:
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         feats = self.model.features(crops.permute(0, 3, 1, 2), valid_t)
         head = self.model.head
-        return ctc_head.ctc_head_reduce_batched(feats, head.w, head.b)
+        return ctc_head.ctc_head_reduce_batched(feats, head.w_split, head.b)
 
 
 class TextRecognizer:

@@ -74,8 +74,8 @@ class _TimedFused:
 
 
 # substrings of the names of the kernels in csrc/
-OWN_KERNELS = ("ctc_head_", "moment_sums_kernel", "proj_extents_kernel",
-               "to_float_kernel", "fill_int_kernel", "ord_to_float_kernel",
+OWN_KERNELS = ("ctc_head_partial", "ctc_head_combine", "moment_sums_kernel",
+               "proj_extents_kernel", "fill_int_kernel", "ord_to_float_kernel",
                "seg_sum_kernel", "seg_min_kernel")
 
 
@@ -222,7 +222,7 @@ def _stages(ocr, img, acc):
         crops.permute(0, 3, 1, 2), (vw + 7) // 8))
     head = rec.model.head
     t("ctc_head", lambda: ctc_head.ctc_head_reduce_batched(
-        feats, head.w, head.b))
+        feats, head.w_split, head.b))
     t("step_total", lambda: oc.step(image, h, w, rh, rw, hb, wb, eh, ew))
     packed = oc.step(image, h, w, rh, rw, hb, wb, eh, ew)
     t("download_decode", lambda: oc.decode_packed(packed.cpu().numpy(),

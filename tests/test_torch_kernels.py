@@ -1,7 +1,9 @@
 """The port's kernel wrappers on the CPU (their plain PyTorch versions) vs
 the JAX Pallas kernels in interpret mode, on inputs made with numpy from a
 seed. The CUDA kernels themselves are held against these plain versions on
-the card by chip_smoke.py."""
+the card by chip_smoke.py. The CTC head's kernel takes its product as three
+TF32 passes over split operands: the split, the plain version of that
+arithmetic and the operand prepared for the kernel are tested here."""
 import numpy as np
 import pytest
 import torch
@@ -11,16 +13,19 @@ from onnxocr_tpu.ops.pallas import ctc_head as jctc
 from onnxocr_tpu.ops.pallas import seg_reduce as jband
 from onnxocr_tpu.ops.pallas import seg_reduce2 as jseg
 
+import chip_smoke
 from onnxocr_tpu_torch.ops.kernels import build, ctc_head, seg_reduce, \
     seg_reduce2
 
 
-@pytest.mark.parametrize("M,D,V,masked", [
+CTC_CASES = [
     (100, 192, 5000, False),
     (10, 64, 2049, False),
     (100, 192, 5000, True),    # -1e30 bias outside a trained support
-])
-def test_ctc_head_plain_matches_pallas(M, D, V, masked):
+]
+
+
+def _ctc_case(M, D, V, masked):
     rng = np.random.default_rng(M + V)
     x = rng.normal(size=(M, D)).astype(np.float32)
     w = (rng.normal(size=(D, V)) * 0.1).astype(np.float32)
@@ -35,25 +40,138 @@ def test_ctc_head_plain_matches_pallas(M, D, V, masked):
         b[~keep] -= 1e30
     ref_idx, ref_prob = jctc.ctc_head_reduce(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True)
-    idx, prob = ctc_head.ctc_head_reduce(torch.from_numpy(x),
-                                         torch.from_numpy(w),
-                                         torch.from_numpy(b))
+    return x, w, b, support, np.asarray(ref_idx), np.asarray(ref_prob)
+
+
+@pytest.mark.parametrize("M,D,V,masked", CTC_CASES)
+def test_ctc_head_plain_matches_pallas(M, D, V, masked):
+    """The float32 plain version, the one the kernel is held against on the
+    card."""
+    x, w, b, support, ref_idx, ref_prob = _ctc_case(M, D, V, masked)
+    idx, prob = ctc_head.ctc_head_reduce_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
     assert idx.dtype == torch.int32 and prob.dtype == torch.float32
-    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
-    np.testing.assert_allclose(prob.numpy(), np.asarray(ref_prob),
-                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(idx.numpy(), ref_idx)
+    np.testing.assert_allclose(prob.numpy(), ref_prob, rtol=1e-5, atol=1e-6)
     if masked:
         assert np.isin(idx.numpy(), support).all()
+
+
+@pytest.mark.parametrize("M,D,V,masked", CTC_CASES)
+def test_ctc_head_3xtf32_plain_matches_pallas(M, D, V, masked):
+    """The kernel's arithmetic (three TF32 passes over split operands, one
+    float32 accumulator) against the float32 Pallas kernel, through the
+    wrapper on CPU tensors: the split drops only the x_lo·W_lo term, 2⁻²²
+    of each product, so the float32 tolerances hold unchanged."""
+    x, w, b, support, ref_idx, ref_prob = _ctc_case(M, D, V, masked)
+    X, B = torch.from_numpy(x), torch.from_numpy(b)
+    w_split = ctc_head.split_head(torch.from_numpy(w))
+    build.LAUNCHES.clear()
+    idx, prob = ctc_head.ctc_head_reduce(X, w_split, B)
+    assert sum(build.LAUNCHES.values()) == 0
+    assert idx.dtype == torch.int32 and prob.dtype == torch.float32
+    np.testing.assert_array_equal(idx.numpy(), ref_idx)
+    np.testing.assert_allclose(prob.numpy(), ref_prob, rtol=1e-5, atol=1e-6)
+    if masked:
+        assert np.isin(idx.numpy(), support).all()
+    # on a CPU tensor the wrapper is the plain version of the kernel
+    pidx, pprob = ctc_head.ctc_head_reduce_3xtf32_plain(X, w_split, B)
+    assert torch.equal(idx, pidx) and torch.equal(prob, pprob)
 
 
 def test_ctc_head_first_index_on_ties():
     x = torch.ones((3, 16))
     w = torch.zeros((16, 40))
     w[:, [7, 19, 33]] = 1.0
-    idx, prob = ctc_head.ctc_head_reduce(x, w, torch.zeros(40))
+    idx, prob = ctc_head.ctc_head_reduce(x, ctc_head.split_head(w),
+                                         torch.zeros(40))
     assert idx.tolist() == [7, 7, 7]
     s = 3 * np.exp(16.0) + 37
     np.testing.assert_allclose(prob.numpy(), np.exp(16.0) / s, rtol=1e-6)
+
+
+def _split_inputs(seed):
+    """Normal values over many binades, denormals, ±0 and the support
+    bias."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=4096) * np.exp2(rng.integers(-100, 100, size=4096))
+    den = rng.integers(1, 1 << 23, size=64).astype(np.uint32)
+    den[::2] |= np.uint32(1 << 31)
+    special = np.array([0.0, -0.0, -1e30, 1e30, 1.0, -1.0, 1 + 2.0 ** -11,
+                        -(1 + 2.0 ** -11), 1 + 2.0 ** -12 + 2.0 ** -23])
+    return np.concatenate([v, special]).astype(np.float32), \
+        den.view(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_tf32(seed):
+    """hi and lo are TF32 values (low 13 mantissa bits clear); hi + lo
+    reproduces the input to 2⁻²¹ relative, plus 2⁻¹³⁶ (2¹³ units of the
+    smallest denormal) where lo itself is denormal; hi is the nearest TF32
+    value, ties away from zero; ±0 keep their sign."""
+    normal, den = _split_inputs(seed)
+    v = np.concatenate([normal, den])
+    hi, lo = (t.numpy() for t in ctc_head.split_tf32(torch.from_numpy(v)))
+    assert hi.dtype == lo.dtype == np.float32
+    assert (hi.view(np.uint32) & 0x1fff == 0).all()
+    assert (lo.view(np.uint32) & 0x1fff == 0).all()
+    v64 = v.astype(np.float64)
+    err = np.abs(hi.astype(np.float64) + lo - v64)
+    assert (err <= 2.0 ** -21 * np.abs(v64) + 2.0 ** -136).all()
+    big = np.abs(normal) >= 2.0 ** -100
+    rel = np.abs(hi[:len(normal)][big].astype(np.float64) - normal[big]) \
+        / np.abs(normal[big])
+    assert rel.max() <= 2.0 ** -11
+    one = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 0.0, -0.0],
+                   np.float32)
+    h1, _ = ctc_head.split_tf32(torch.from_numpy(one))
+    assert h1.tolist()[:2] == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+    assert np.signbit(h1.numpy()).tolist() == [False, True, False, True]
+
+
+def test_split_head_operand():
+    """The prepared operand: (2, V, D) float32, contiguous, each half (V, D)
+    K-major, on the weight's device; hi + lo is w transposed."""
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.normal(size=(64, 300)).astype(np.float32))
+    ws = ctc_head.split_head(w)
+    assert ws.shape == (2, 300, 64) and ws.dtype == torch.float32
+    assert ws.is_contiguous() and ws.device == w.device
+    assert ws[0].is_contiguous() and ws[1].shape == (300, 64)
+    np.testing.assert_allclose((ws[0].double() + ws[1].double()).numpy(),
+                               w.t().double().numpy(), rtol=2.0 ** -21)
+    with pytest.raises(TypeError):
+        ctc_head.split_head(w.double())
+
+
+@pytest.mark.parametrize("M,V,want", [(3840, 18385, 2), (1280, 18385, 6),
+                                      (5120, 18385, 8), (1, 100, 1)])
+def test_ctc_head_split_count(M, V, want):
+    """The vocab split fills the 132 SMs in whole waves of one block each
+    at the shapes the paths use, and never exceeds the vocab tiles."""
+    assert ctc_head.pick_splits(M, V) == want
+
+
+def test_ctc_head_near_tie_rows():
+    """The rows the card check builds to sit 1e-4 (relative) from a tie:
+    their float64 top-2 gap is in [gap / 2, 2 gap], both orders of the
+    winner occur, and the kernel's arithmetic in plain PyTorch picks the
+    float64 winner with a max-prob within 1e-5 of it."""
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy((rng.normal(size=(64, 700)) * 0.1)
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=700).astype(np.float32))
+    b[::3] -= 1e30
+    x = chip_smoke.near_tie_rows(w, b, rows=64, seed=0)
+    assert x.dtype == torch.float32 and x.shape[0] >= 32
+    idx64, prob64, top2 = chip_smoke.float64_head(x, w, b)
+    rel = ((top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()).numpy()
+    assert (rel >= 0.5e-4).all() and (rel <= 2e-4).all()
+    second = torch.topk(x.double() @ w.double() + b.double(), 2, 1).indices[:, 1]
+    assert (idx64 < second).any() and (idx64 > second).any()
+    idx, prob = ctc_head.ctc_head_reduce(x, ctc_head.split_head(w), b)
+    assert torch.equal(idx, idx64)
+    assert chip_smoke.max_rel(prob, prob64) <= 1e-5
 
 
 def _raster_blobs(H, W, K, seed=7):
@@ -188,12 +306,15 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
     build.LAUNCHES.clear()
     x = torch.zeros((4, 16))
     with pytest.raises(TypeError):
-        ctc_head.ctc_head_reduce(x.double(), torch.zeros((16, 8)),
+        ctc_head.ctc_head_reduce(x.double(), torch.zeros((2, 8, 16)),
                                  torch.zeros(8))
     with pytest.raises(ValueError):
-        ctc_head.ctc_head_reduce(x, torch.zeros((8, 16)).t(), torch.zeros(8))
+        ctc_head.ctc_head_reduce(x, torch.zeros((2, 16, 8)).transpose(1, 2),
+                                 torch.zeros(8))
     with pytest.raises(ValueError):
-        ctc_head.ctc_head_reduce(x, torch.zeros((15, 8)), torch.zeros(8))
+        ctc_head.ctc_head_reduce(x, torch.zeros((2, 8, 15)), torch.zeros(8))
+    with pytest.raises(ValueError):   # the unsplit (D, V) weight
+        ctc_head.ctc_head_reduce(x, torch.zeros((16, 8)), torch.zeros(8))
     lab = torch.zeros((4, 6), dtype=torch.int32)
     ids = torch.zeros(3, dtype=torch.int32)
     with pytest.raises(TypeError):
@@ -213,7 +334,7 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
         seg_reduce.seg_min_bands(slot, torch.zeros(2, 5).t(), 4)
     with pytest.raises(ValueError):
         seg_reduce.seg_sum_bands(slot, torch.zeros(5, 2), 0)
-    ctc_head.ctc_head_reduce(x, torch.zeros((16, 8)), torch.zeros(8))
+    ctc_head.ctc_head_reduce(x, torch.zeros((2, 8, 16)), torch.zeros(8))
     seg_reduce2.label_moment_sums(lab, torch.zeros(4, 6), ids)
     seg_reduce.seg_sum_bands(slot, torch.zeros(5, 2), 4)
     seg_reduce.seg_min_bands(slot, torch.zeros(5, 2), 4)

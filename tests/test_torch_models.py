@@ -18,6 +18,7 @@ from onnxocr_tpu.utils.params_io import load_tree as jload_tree
 from onnxocr_tpu_torch import config as tcfg
 from onnxocr_tpu_torch.models import cls, convert
 from onnxocr_tpu_torch.models import mobilenetv3 as mbv3
+from onnxocr_tpu_torch.ops.kernels import ctc_head
 from onnxocr_tpu_torch.utils.params_io import load_tree
 
 
@@ -202,6 +203,33 @@ def test_svtr_valid_t_masks_padding():
         a = model.features(_nchw(x), vt)[:, :20]
         b = model.features(_nchw(y), vt)[:, :20]
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+def test_svtr_head_operand_is_prepared():
+    """build_svtr splits the head's weight once for the fused head kernel:
+    (2, V, D) float32, contiguous, each half (V, D), on the head's device,
+    outside the state dict; the fused head over it gives the plain head's
+    argmax and max-prob."""
+    rng = np.random.default_rng(8)
+    tree = jsvtr.init(7, 300, dim=64, depth=1)
+    model = convert.build_svtr(tree)
+    head = model.head
+    assert head.w_split.shape == (2, 300, 64)
+    assert head.w_split.dtype == torch.float32
+    assert head.w_split.is_contiguous() and head.w_split[1].is_contiguous()
+    assert head.w_split.device == head.w.device
+    assert "head.w_split" not in model.state_dict()
+    assert torch.equal(head.w_split, ctc_head.split_head(head.w))
+    x = rng.uniform(-1, 1, size=(2, 48, 320, 3)).astype(np.float32)
+    with torch.no_grad():
+        feats = model.features(_nchw(x))
+        logits = model(_nchw(x))
+    idx, prob = ctc_head.ctc_head_reduce_batched(feats, head.w_split, head.b)
+    assert idx.shape == prob.shape == (2, 40)
+    assert torch.equal(idx.long(), logits.argmax(-1))
+    np.testing.assert_allclose(
+        prob.numpy(), torch.softmax(logits, -1).max(-1).values.numpy(),
+        rtol=1e-5)
 
 
 @pytest.fixture(scope="module")

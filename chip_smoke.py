@@ -14,8 +14,13 @@
    relative; the label-keyed and the slot-keyed reductions on a real
    page's det map on the 1×2 working grid with K = 1024, on the one-call
    path's 960² canvas and, for the slot-keyed pair, on the staged path's
-   own canvas as well, the moment sums also on three made-up label
-   patterns — and times kernel (CUDA events around a loop of calls, and
+   own canvas as well; all four reductions on the seeded grids of
+   `ops/kernels/patterns.py` (every branch of the kernels: a slot span past
+   the shared window, labels that are not kept, slots outside [0, K), a
+   ragged cell count on misaligned storage, ...) and, at the page's size, on
+   three made-up runs (all background: the floor of a one-launch design;
+   one label or slot everywhere; two alternating cell by cell) — and times
+   kernel (CUDA events around a loop of calls, and
    the same calls captured into a CUDA graph and replayed, which leaves
    the host out), plain version and, where one PyTorch call computes the
    same function, that call (addmm + max + logsumexp, index_add_,
@@ -276,32 +281,172 @@ def page_grid(ocr, img):
     return lab, mask_grid.contiguous(), ids, sy, sx
 
 
-def moment_sum_label_runs(prob, K, sy, sx):
-    """Kernel 2 on made-up label patterns over the page's grid: what a long
-    run of one label costs. `background`: no cell labelled (the floor of a
-    one-launch design: read the labels, find nothing); `one_label`: every
-    cell in one component (each warp reduces with shuffles, then one shared
-    atomic per channel); `alternating`: neighbouring cells in two components
-    (every warp holds two groups of lanes)."""
+def on_device(a, device, misaligned=False):
+    """The numpy array as a contiguous tensor on `device`; `misaligned`: as
+    a view that starts one element into its storage, so its address is no
+    multiple of 16 bytes."""
+    import torch
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if not misaligned:
+        return t.to(device)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def check_patterns(device="cuda"):
+    """Every seeded grid of ops/kernels/patterns.py through the four
+    reduction wrappers and their plain versions on `device` → {kernel:
+    {case: max abs err}}. Sums rtol 1e-5 (float64 accumulation on both
+    sides: one float32 rounding apart at most); extents and mins atol 1e-4
+    (a min is exact in any order; the slack covers a projection rounded
+    another way)."""
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import patterns
+    from onnxocr_tpu_torch.ops.kernels import seg_reduce as band
+    from onnxocr_tpu_torch.ops.kernels import seg_reduce2 as lab2
+    errs = {name: {} for name in ("label_moment_sums", "label_proj_extents",
+                                  "seg_sum_bands", "seg_min_bands")}
+
+    def hold(kernel, case, got, want, **tol):
+        torch.testing.assert_close(got, want, **tol, msg=lambda m: (
+            f"{kernel} on pattern {case}: {m}"))
+        errs[kernel][case] = float((got - want).abs().max())
+
+    for c in patterns.label_cases():
+        lab, prob, ids, axes = (
+            on_device(c[k], device, c["misaligned"] and k in ("lab", "prob"))
+            for k in ("lab", "prob", "ids", "axes"))
+        sy, sx = c["sy"], c["sx"]
+        hold("label_moment_sums", c["name"],
+             lab2.label_moment_sums(lab, prob, ids, sy, sx),
+             lab2.label_moment_sums_plain(lab, prob, ids, sy, sx),
+             rtol=1e-5, atol=0)
+        hold("label_proj_extents", c["name"],
+             lab2.label_proj_extents(lab, axes, ids, sy, sx),
+             lab2.label_proj_extents_plain(lab, axes, ids, sy, sx),
+             rtol=0, atol=1e-4)
+    for c in patterns.slot_cases():
+        slot, vals = (on_device(c[k], device, c["misaligned"])
+                      for k in ("slot", "vals"))
+        K = c["K"]
+        hold("seg_sum_bands", c["name"], band.seg_sum_bands(slot, vals, K),
+             band.seg_sum_bands_plain(slot, vals, K), rtol=1e-5, atol=0)
+        hit = ((slot >= 0) & (slot < K))[:, None]
+        masked = torch.where(hit, vals, band.BIG).contiguous()
+        hold("seg_min_bands", c["name"], band.seg_min_bands(slot, masked, K),
+             band.seg_min_bands_plain(slot, masked, K), rtol=0, atol=1e-4)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return errs
+
+
+def device_ops(fn, name, calls=3):
+    """What `calls` calls of the reduction `fn` put on the card, from
+    torch.profiler → {"calls", "kernels", "memsets", "memcpys"}. Raises
+    unless a call is one kernel launch and no copy; the one memset before it
+    (accumulator and ticket counter) is counted as the profiler records it,
+    which now and then drops one."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"calls": calls, "kernels": 0, "memsets": 0, "memcpys": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = ("memsets" if e.key.startswith("Memset") else
+                "memcpys" if e.key.startswith("Memcpy") else "kernels")
+        out[kind] += e.count
+    assert out["kernels"] == calls and out["memcpys"] == 0 and \
+        out["memsets"] <= calls, f"{name}: {out}"
+    return out
+
+
+def run_grids(shape, K, device):
+    """Made-up grids of `shape` cells → (ids (K,) int32 holding labels 1 and
+    2, {run: lab of `shape`}, {run: slot (n,)}), all int32. `background`:
+    no cell labelled, every slot the no-op K (the floor of a one-launch
+    design: read the labels, find nothing); `one`: every cell in one
+    component (each warp reduces first, then one shared atomic per
+    channel); `alternating`: neighbouring cells in two components (every
+    warp holds two groups of lanes)."""
     import torch
     from onnxocr_tpu_torch.ops import db_device
-    from onnxocr_tpu_torch.ops.kernels import seg_reduce2 as sr
-    i = torch.arange(prob.numel(), device=prob.device, dtype=torch.int32)
+    n = int(np.prod(shape))
+    i = torch.arange(n, device=device, dtype=torch.int32)
     ids = torch.full((K,), db_device.MAXINT, dtype=torch.int32,
-                     device=prob.device)
+                     device=device)
     ids[:2] = torch.tensor([1, 2], dtype=torch.int32)
-    out = {}
-    for name, lab in (("background", torch.zeros_like(i)),
-                      ("one_label", torch.ones_like(i)),
-                      ("alternating", 1 + i % 2)):
-        lab = lab.reshape(prob.shape).contiguous()
+    slots = {"background": torch.full_like(i, K), "one": torch.zeros_like(i),
+             "alternating": i % 2}
+    labs = {name: torch.where(s < K, s + 1, 0).reshape(shape).contiguous()
+            for name, s in slots.items()}
+    return ids, labs, slots
+
+
+def label_runs(prob, K, sy, sx):
+    """Kernels 2 and 3 on the label grids of run_grids over the page's grid
+    → {kernel: {run: times}}. Each is first held against the plain
+    version."""
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import seg_reduce2 as sr
+    dev = prob.device
+    ids, labs, _ = run_grids(prob.shape, K, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    axes = torch.nn.functional.normalize(
+        torch.randn((K, 2), generator=g, device=dev), dim=1).contiguous()
+    out = {"label_moment_sums": {}, "label_proj_extents": {}}
+    for name, lab in labs.items():
         torch.testing.assert_close(
             sr.label_moment_sums(lab, prob, ids, sy, sx),
             sr.label_moment_sums_plain(lab, prob, ids, sy, sx),
             rtol=1e-5, atol=0)
-        out[name] = both_timed(
+        torch.testing.assert_close(
+            sr.label_proj_extents(lab, axes, ids, sy, sx),
+            sr.label_proj_extents_plain(lab, axes, ids, sy, sx),
+            rtol=0, atol=1e-4)
+        out["label_moment_sums"][name] = both_timed(
             lambda: sr.label_moment_sums(lab, prob, ids, sy, sx))
+        out["label_proj_extents"][name] = both_timed(
+            lambda: sr.label_proj_extents(lab, axes, ids, sy, sx))
     return out
+
+
+def slot_runs(n, K, device="cuda"):
+    """Kernels 4 and 5 on the slot runs of run_grids at the page's size →
+    {kernel: {run: times}}. Each is first held against the plain version."""
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import seg_reduce as sr
+    g = torch.Generator(device=device).manual_seed(0)
+    stats = torch.rand((n, 7), generator=g, device=device)
+    cols = torch.rand((n, 4), generator=g, device=device)
+    out = {"seg_sum_bands": {}, "seg_min_bands": {}}
+    for name, slot in run_grids((n,), K, device)[2].items():
+        torch.testing.assert_close(sr.seg_sum_bands(slot, stats, K),
+                                   sr.seg_sum_bands_plain(slot, stats, K),
+                                   rtol=1e-5, atol=0)
+        torch.testing.assert_close(sr.seg_min_bands(slot, cols, K),
+                                   sr.seg_min_bands_plain(slot, cols, K),
+                                   rtol=0, atol=1e-4)
+        out["seg_sum_bands"][name] = both_timed(
+            lambda: sr.seg_sum_bands(slot, stats, K))
+        out["seg_min_bands"][name] = both_timed(
+            lambda: sr.seg_min_bands(slot, cols, K))
+    return out
+
+
+def print_runs(runs):
+    for kernel, by_run in runs.items():
+        print(f"{kernel} runs, ms in a graph (by events): " + ", ".join(
+            f"{r} {t['graph_ms']:.4f} ({t['ms']:.4f})"
+            for r, t in by_run.items()))
 
 
 def check_seg_reduce2(ocr, img):
@@ -328,6 +473,8 @@ def check_seg_reduce2(ocr, img):
     # labelled cells only, the ids in and K rows out
     t1, b1 = bound(4 * n + 4 * hits + 4 * K + 28 * K, 12.0 * hits, F64_FLOPS)
     t2, b2 = bound(4 * n + 4 * K + 8 * K + 16 * K, 6.0 * hits, F32_FLOPS)
+    runs = label_runs(prob, K, sy, sx)
+    print_runs(runs)
     return [
         dict(common, name="label_moment_sums",
              replaces="onnxocr_tpu/ops/pallas/seg_reduce2.py:74",
@@ -336,19 +483,25 @@ def check_seg_reduce2(ocr, img):
                                                        sx)),
              plain_ms=timed(lambda: sr.label_moment_sums_plain(
                  lab, prob, ids, sy, sx)), bound_ms=t1, bound_by=b1,
-             label_runs=moment_sum_label_runs(prob, K, sy, sx)),
+             device_ops=device_ops(lambda: sr.label_moment_sums(
+                 lab, prob, ids, sy, sx), "label_moment_sums"),
+             label_runs=runs["label_moment_sums"]),
         dict(common, name="label_proj_extents",
              replaces="onnxocr_tpu/ops/pallas/seg_reduce2.py:190",
              max_abs_err=float((ext - pext)[present].abs().max()),
              **both_timed(lambda: sr.label_proj_extents(lab, axes, ids, sy,
                                                         sx)),
              plain_ms=timed(lambda: sr.label_proj_extents_plain(
-                 lab, axes, ids, sy, sx)), bound_ms=t2, bound_by=b2)]
+                 lab, axes, ids, sy, sx)), bound_ms=t2, bound_by=b2,
+             device_ops=device_ops(lambda: sr.label_proj_extents(
+                 lab, axes, ids, sy, sx), "label_proj_extents"),
+             label_runs=runs["label_proj_extents"])]
 
 
-def check_seg_reduce(ocr, img):
+def check_seg_reduce(ocr, img, with_runs=False):
     """Kernels 4 and 5 on the slot / stats / projection columns that
-    db_device builds from a real page's labelled grid."""
+    db_device builds from a real page's labelled grid; `with_runs`: also on
+    the made-up slot runs of the same size."""
     import torch
     from onnxocr_tpu_torch.ops import db_device
     from onnxocr_tpu_torch.ops.kernels import seg_reduce as sr
@@ -397,19 +550,31 @@ def check_seg_reduce(ocr, img):
     # K rows out; counted by element, not by 32-byte sector
     t4, b4 = bound(4 * n + 28 * hits + 28 * K, 7.0 * hits, F64_FLOPS)
     t5, b5 = bound(4 * n + 16 * hits + 16 * K, 4.0 * hits, F32_FLOPS)
+    runs = slot_runs(n, K, slot.device) if with_runs else None
+    if runs:
+        print_runs(runs)
+
+    def extra(name, fn):
+        return dict(device_ops=device_ops(fn, name),
+                    slot_runs=runs[name]) if runs else {}
+
     return [
         dict(common, name="seg_sum_bands",
              replaces="onnxocr_tpu/ops/pallas/seg_reduce.py:118",
              max_abs_err=float((sums - psums).abs().max()),
              **both_timed(lambda: sr.seg_sum_bands(slot, stats, K)),
              plain_ms=timed(lambda: sr.seg_sum_bands_plain(slot, stats, K)),
-             library_ms=timed(lib_sum), bound_ms=t4, bound_by=b4),
+             library_ms=timed(lib_sum), bound_ms=t4, bound_by=b4,
+             **extra("seg_sum_bands",
+                     lambda: sr.seg_sum_bands(slot, stats, K))),
         dict(common, name="seg_min_bands",
              replaces="onnxocr_tpu/ops/pallas/seg_reduce.py:127",
              max_abs_err=float((ext - pext).abs().max()),
              **both_timed(lambda: sr.seg_min_bands(slot, cols, K)),
              plain_ms=timed(lambda: sr.seg_min_bands_plain(slot, cols, K)),
-             library_ms=timed(lib_min), bound_ms=t5, bound_by=b5)]
+             library_ms=timed(lib_min), bound_ms=t5, bound_by=b5,
+             **extra("seg_min_bands",
+                     lambda: sr.seg_min_bands(slot, cols, K)))]
 
 
 def check_classifier(gpu, cpu, seed):
@@ -526,7 +691,8 @@ def main() -> int:
         kernels = [dict(check_ctc_head(ocr, seed=0), path="B",
                         near_ties=check_ctc_head_near_ties(ocr, seed=1))]
         kernels += [dict(k, path="B") for k in check_seg_reduce2(ocr, page)]
-        kernels += [dict(k, path="B'") for k in check_seg_reduce(ocr_b2, page)]
+        kernels += [dict(k, path="B'")
+                    for k in check_seg_reduce(ocr_b2, page, with_runs=True)]
         staged_ctc = [check_ctc_head(ocr, seed=2 + i, crops=c)
                       for i, c in enumerate(ocr_a.text_recognizer.batch_ladder
                                             [-2:])]
@@ -547,6 +713,17 @@ def main() -> int:
                       f"{o['graph_ms']:.4f} in a graph (plain "
                       f"{o['plain_ms']:.4f}, library {o['library_ms']:.4f}, "
                       f"bound {o['bound_ms']:.6f} by {o['bound_by']})")
+        for kernel, by_case in check_patterns().items():
+            print(f"{kernel} on {len(by_case)} seeded patterns: max abs err "
+                  f"{max(by_case.values()):.2e}")
+            next(k for k in kernels if k["name"] == kernel)["patterns"] = \
+                by_case
+        for k in kernels:
+            ops = k.get("device_ops")
+            if ops:
+                print(f"{k['name']}: {ops['calls']} calls put "
+                      f"{ops['kernels']} kernels, {ops['memsets']} memsets, "
+                      f"{ops['memcpys']} copies on the card")
         print("kernels agree with their plain versions on the card")
 
         slot_keyed = ("ctc_head_reduce", "seg_sum_bands", "seg_min_bands")

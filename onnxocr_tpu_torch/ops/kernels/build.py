@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` is compiled by nvcc into its own shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds) and loaded
 with ctypes. Libraries are built at first use into `build/kernels/` at the
-repository root, named by a hash of their source so an edited kernel never
-loads a stale build. `build_all()` starts one nvcc per source at once.
+repository root, named by a hash of their source and of the `csrc/*.cuh`
+headers so an edited kernel never loads a stale build. `build_all()` starts
+one nvcc per source at once.
 
 A wrapper counts its launches in `LAUNCHES[name]`, adding one each time it
 launches its kernel and nowhere else.
@@ -47,8 +48,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

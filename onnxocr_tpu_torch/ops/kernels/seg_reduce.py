@@ -84,6 +84,8 @@ def seg_sum_bands(slot: torch.Tensor, vals: torch.Tensor, K: int
     _check("seg_sum_bands", slot, vals, K)
     if slot.device.type == "cpu":
         return seg_sum_bands_plain(slot, vals, K)
+    if slot.shape[0] >= 2 ** 31:
+        raise ValueError("seg_sum_bands: N must be below 2^31")
     C = vals.shape[1]
     scratch = torch.empty((K * C + 1,), dtype=torch.float64,
                           device=slot.device)

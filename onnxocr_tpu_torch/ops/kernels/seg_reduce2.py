@@ -28,7 +28,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "label_moment_sums": [_C, _C, _C, _I, _L, _I, _I, _I, _C, _C, _C],
-    "label_proj_extents": [_C, _C, _C, _I, _L, _I, _I, _I, _C, _C],
+    "label_proj_extents": [_C, _C, _C, _I, _L, _I, _I, _I, _C, _C, _C],
 }
 
 
@@ -98,20 +98,20 @@ def _check(name, lab, ids, other, other_shape):
             raise ValueError(f"{name}: inputs on different devices")
     if lab.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {lab.device}")
+    if lab.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: the grid must have fewer than 2^31 cells")
 
 
 def label_moment_sums(lab: torch.Tensor, prob: torch.Tensor,
                       ids: torch.Tensor, sy: int = 1, sx: int = 1
                       ) -> torch.Tensor:
     """lab (H, Wg) int32, prob (H, Wg) float32, ids (K,) int32 ascending →
-    (K, 7) float32 [n, Σx, Σy, Σx², Σy², Σxy, Σp]."""
+    (K, 7) float32 [n, Σx, Σy, Σx², Σy², Σxy, Σp]. On the card: one memset
+    and one launch."""
     _check("label_moment_sums", lab, ids, prob, tuple(lab.shape))
     if lab.device.type == "cpu":
         return label_moment_sums_plain(lab, prob, ids, sy, sx)
     K = ids.shape[0]
-    if lab.numel() >= 2 ** 31:
-        raise ValueError("label_moment_sums: the grid must have fewer than "
-                         "2^31 cells")
     # accumulator + ticket counter, cleared by the kernel's one memset
     acc = torch.empty(7 * K + 1, dtype=torch.float64, device=lab.device)
     out = torch.empty((K, 7), dtype=torch.float32, device=lab.device)
@@ -131,17 +131,20 @@ def label_proj_extents(lab: torch.Tensor, axes: torch.Tensor,
                        ) -> torch.Tensor:
     """lab (H, Wg) int32, axes (K, 2) float32 per-slot major axis [ux, uy],
     ids (K,) int32 ascending → (K, 4) float32 mins of [pu, pv, −pu, −pv]
-    (3.4e38 for empty slots)."""
+    (3.4e38 for empty slots). On the card: one memset and one launch."""
     K = ids.shape[0]
     _check("label_proj_extents", lab, ids, axes, (K, 2))
     if lab.device.type == "cpu":
         return label_proj_extents_plain(lab, axes, ids, sy, sx)
+    # key accumulator + ticket counter, cleared by the kernel's one memset
+    acc = torch.empty(4 * K + 1, dtype=torch.int32, device=lab.device)
     out = torch.empty((K, 4), dtype=torch.float32, device=lab.device)
     lib = build.load("seg_reduce2", _SIGNATURES)
     with torch.cuda.device(lab.device):
         rc = lib.label_proj_extents(
             build.ptr(lab), build.ptr(axes), build.ptr(ids), K, lab.numel(),
-            lab.shape[1], sy, sx, build.ptr(out), build.stream_of(lab))
+            lab.shape[1], sy, sx, build.ptr(acc), build.ptr(out),
+            build.stream_of(lab))
     build.check(rc, "label_proj_extents")
     build.LAUNCHES["label_proj_extents"] += 1
     return out

@@ -75,55 +75,7 @@ class _TimedFused:
 
 # substrings of the names of the kernels in csrc/
 OWN_KERNELS = ("ctc_head_partial", "ctc_head_combine", "moment_sums_kernel",
-               "proj_extents_kernel", "fill_int_kernel", "ord_to_float_kernel",
-               "seg_sum_kernel", "seg_min_kernel")
-
-
-def _device_ms(fn, iters=10):
-    """Mean device ms per call: everything `fn` puts on the card (kernels
-    and memsets), summed from torch.profiler. Unlike a CUDA-event time over
-    a loop of calls it does not include the gaps the host leaves between
-    launches."""
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.device_time_total for e in prof.key_averages()
-               if e.device_type == cuda) / 1e3 / iters
-
-
-def _slot_run_times(n=960 * 480, K=1024, device="cuda"):
-    """Kernels 4 and 5 on made-up slot patterns of the main path's size:
-    what a long run of one slot costs. `background`: every cell a no-op;
-    `one_run`: every cell in slot 0 (each warp reduces with shuffles, then
-    one shared atomic per channel); `alternating`: neighbouring cells in
-    slots 0 and 1 (no warp is uniform: every lane makes its own shared
-    atomics on two addresses)."""
-    g = torch.Generator(device=device).manual_seed(0)
-    stats = torch.rand((n, 7), generator=g, device=device)
-    cols = torch.rand((n, 4), generator=g, device=device)
-    i = torch.arange(n, device=device, dtype=torch.int32)
-    patterns = {"background": torch.full_like(i, K),
-                "one_run": torch.zeros_like(i), "alternating": i % 2}
-    out = {}
-    for name, slot in patterns.items():
-        torch.testing.assert_close(
-            seg_reduce.seg_sum_bands(slot, stats, K),
-            seg_reduce.seg_sum_bands_plain(slot, stats, K),
-            rtol=1e-5, atol=0)
-        torch.testing.assert_close(
-            seg_reduce.seg_min_bands(slot, cols, K),
-            seg_reduce.seg_min_bands_plain(slot, cols, K), rtol=0, atol=0)
-        out[name] = {
-            "seg_sum_bands_device_ms": _device_ms(
-                lambda: seg_reduce.seg_sum_bands(slot, stats, K)),
-            "seg_min_bands_device_ms": _device_ms(
-                lambda: seg_reduce.seg_min_bands(slot, cols, K))}
-    return out
+               "proj_extents_kernel", "seg_sum_kernel", "seg_min_kernel")
 
 
 @torch.inference_mode()
@@ -198,8 +150,11 @@ def _stages(ocr, img, acc):
     grid, _, gh, gw = db_device.working_grid(prob, rh, rw, sy, sx)
     lab, ids, _ = t("db_label", lambda: db_device.label_components(
         grid, gh, gw, oc.k_det, pp.thresh))
-    t("db_moment_sums", lambda: seg_reduce2.label_moment_sums(
+    sums = t("db_moment_sums", lambda: seg_reduce2.label_moment_sums(
         lab, grid, ids, sy, sx))
+    axes = db_device.pca_axes(sums)
+    t("db_proj_extents", lambda: seg_reduce2.label_proj_extents(
+        lab, axes, ids, sy, sx))
     quads, scores, valid = t("db_device_boxes_total", lambda:
                              db_device.device_boxes(
         prob, rh, rw, max_k=oc.k_det, thresh=pp.thresh,
@@ -291,7 +246,6 @@ def main() -> None:
         "stage_ms_per_page": {k: v / n for k, v in stages.items()},
         # fused cls + rec calls by (width bucket, batch size), whole run
         "cls_rec_calls": calls,
-        "seg_reduce_slot_runs": _slot_run_times() if staged else None,
         # the hand-written kernels: [name, device ms per launch, launches
         # per page]
         "own_kernels": [[k.replace("(anonymous namespace)::", "")

@@ -14,8 +14,8 @@ from onnxocr_tpu.ops.pallas import seg_reduce as jband
 from onnxocr_tpu.ops.pallas import seg_reduce2 as jseg
 
 import chip_smoke
-from onnxocr_tpu_torch.ops.kernels import build, ctc_head, seg_reduce, \
-    seg_reduce2
+from onnxocr_tpu_torch.ops.kernels import build, ctc_head, patterns, \
+    seg_reduce, seg_reduce2
 
 
 CTC_CASES = [
@@ -300,6 +300,131 @@ def test_seg_bands_ignore_slots_outside_range():
     mins = seg_reduce.seg_min_bands(slot, vals, 3)
     assert sums[:, 0].tolist() == [1.0, 34.0, 0.0]
     assert mins[:2, 0].tolist() == [1.0, 2.0] and mins[2, 0] >= 3e38
+
+
+LABEL_CASES = {c["name"]: c for c in patterns.label_cases()}
+SLOT_CASES = {c["name"]: c for c in patterns.slot_cases()}
+
+
+def test_patterns_reach_every_branch():
+    """The seeded grids hold what their names promise."""
+    lab, slot = LABEL_CASES, SLOT_CASES
+    assert set(lab) == {
+        "background", "one_label", "alternating", "span_past_window",
+        "blobs_1x2", "blobs_2x1", "blobs_2x2", "labels_not_in_ids",
+        "ragged_misaligned"}
+    assert set(slot) == {
+        "background", "one_slot", "alternating", "span_past_window",
+        "raster_c1", "raster_c4", "raster_c7", "slots_outside_range",
+        "ragged_misaligned"}
+    for c in lab.values():
+        ids = c["ids"]
+        assert c["lab"].dtype == ids.dtype == np.int32
+        assert (np.diff(ids.astype(np.int64)) >= 0).all()
+        assert c["lab"].max() < 2 ** 24      # exact as float32 on the JAX side
+    assert not lab["background"]["lab"].any()
+    assert (lab["one_label"]["lab"] == 1).all()
+    assert set(lab["alternating"]["lab"].ravel()[:4]) == {1, 2}
+    wide = lab["span_past_window"]
+    run = wide["lab"].ravel()[:1024]         # the first block's cells
+    kept = np.searchsorted(wide["ids"], run[run > 0])
+    assert kept.max() - kept.min() >= patterns.WINDOW
+    c = lab["labels_not_in_ids"]
+    present = np.unique(c["lab"][c["lab"] > 0])
+    absent = present[~np.isin(present, c["ids"])]
+    assert len(absent) > 2 and absent.max() > c["ids"][c["ids"] <
+                                                       patterns.MAXINT].max()
+    assert lab["ragged_misaligned"]["lab"].size % 4 != 0
+    assert {(c["sy"], c["sx"]) for c in lab.values()} == {(1, 2), (2, 1),
+                                                          (2, 2)}
+    K = slot["background"]["K"]
+    assert (slot["background"]["slot"] == K).all()
+    assert not slot["one_slot"]["slot"].any()
+    assert slot["alternating"]["slot"][:4].tolist() == [0, 1, 0, 1]
+    run = slot["span_past_window"]["slot"][:1024]
+    assert run[run < K].max() - run[run < K].min() >= patterns.WINDOW
+    wild = slot["slots_outside_range"]["slot"]
+    assert (wild < 0).any() and (wild > K).any()
+    assert len(slot["ragged_misaligned"]["slot"]) % 4 != 0
+    assert [slot[f"raster_c{C}"]["vals"].shape[1] for C in (1, 4, 7)] == \
+        [1, 4, 7]
+    for cases in (lab, slot):
+        assert [n for n, c in cases.items() if c["misaligned"]] == \
+            ["ragged_misaligned"]
+
+
+@pytest.mark.parametrize("name", sorted(LABEL_CASES))
+def test_label_patterns_plain_matches_pallas(name):
+    """Kernels 2 and 3's wrappers on the CPU (their plain versions) against
+    the Pallas kernels in interpret mode on every seeded label grid. Sums:
+    rtol 1e-5, atol 1e-2 — the Pallas kernel accumulates in float32 in band
+    order, the port in float64. Extents: rtol 1e-5, atol 1e-4 on the kept
+    slots (projections of coordinates up to ~1e3 in float32); empty slots
+    are the 3.4e38 sentinel on both sides."""
+    c = LABEL_CASES[name]
+    lab, prob, ids, axes = c["lab"], c["prob"], c["ids"], c["axes"]
+    sy, sx, W = c["sy"], c["sx"], c["lab"].shape[1]
+    ref_sums = np.asarray(jseg.label_moment_sums(
+        jnp.asarray(lab), jnp.asarray(prob), jnp.asarray(ids), W=W, sy=sy,
+        sx=sx, interpret=True))
+    ref_ext = np.asarray(jseg.label_proj_extents(
+        jnp.asarray(lab), jnp.asarray(axes), jnp.asarray(ids), W=W, sy=sy,
+        sx=sx, interpret=True))
+    L, P = (chip_smoke.on_device(a, "cpu", c["misaligned"])
+            for a in (lab, prob))
+    assert (L.data_ptr() % 16 != 0) == c["misaligned"]
+    I, A = torch.from_numpy(ids), torch.from_numpy(axes)
+    sums = seg_reduce2.label_moment_sums(L, P, I, sy, sx).numpy()
+    ext = seg_reduce2.label_proj_extents(L, A, I, sy, sx).numpy()
+    np.testing.assert_allclose(sums, ref_sums, rtol=1e-5, atol=1e-2)
+    hit = sums[:, 0] > 0
+    assert hit.sum() == np.isin(ids, lab[lab > 0]).sum()
+    np.testing.assert_allclose(ext[hit], ref_ext[hit], rtol=1e-5, atol=1e-4)
+    assert (ext[~hit] >= 3e38).all() and (ref_ext[~hit] >= 3e38).all()
+    assert (sums[~hit] == 0).all()
+
+
+@pytest.mark.parametrize("name", sorted(SLOT_CASES))
+def test_slot_patterns_plain_matches_pallas(name):
+    """Kernels 4 and 5's wrappers on the CPU (their plain versions) against
+    the Pallas kernels in interpret mode on every seeded slot grid. Sums:
+    rtol 1e-5, atol 1e-3 times the largest count of cells in a slot over
+    100 (float32 accumulation in band order against float64; a slot that
+    every cell feeds adds up 1e4 values of size 1e2). Mins: rtol 1e-6,
+    atol 1e-5 (a min is exact)."""
+    c = SLOT_CASES[name]
+    slot, vals, K = c["slot"], c["vals"], c["K"]
+    hit = ((slot >= 0) & (slot < K))[:, None]
+    vmin = np.where(hit, vals, np.float32(3.4e38)).astype(np.float32)
+    ref_sums = np.asarray(jband.seg_sum_bands(
+        jnp.asarray(slot), jnp.asarray(vals), K, interpret=True))
+    ref_mins = np.asarray(jband.seg_min_bands(
+        jnp.asarray(slot), jnp.asarray(vmin), K, interpret=True))
+    S, V, M = (chip_smoke.on_device(a, "cpu", c["misaligned"])
+               for a in (slot, vals, vmin))
+    assert (S.data_ptr() % 16 != 0) == c["misaligned"]
+    sums = seg_reduce.seg_sum_bands(S, V, K).numpy()
+    mins = seg_reduce.seg_min_bands(S, M, K).numpy()
+    assert sums.shape == mins.shape == (K, vals.shape[1])
+    most = max(np.bincount(slot[hit[:, 0]], minlength=1).max(), 100)
+    np.testing.assert_allclose(sums, ref_sums, rtol=1e-5,
+                               atol=1e-3 * most / 100)
+    np.testing.assert_allclose(mins, ref_mins, rtol=1e-6, atol=1e-5)
+    empty = ~np.isin(np.arange(K), slot)
+    assert (sums[empty] == 0).all() and (mins[empty] >= 3e38).all()
+
+
+def test_patterns_card_check_runs_on_the_cpu():
+    """The card check's own loop over the patterns, on CPU tensors (where a
+    wrapper is its plain version): every kernel sees every case."""
+    build.LAUNCHES.clear()
+    errs = chip_smoke.check_patterns("cpu")
+    assert sum(build.LAUNCHES.values()) == 0
+    assert set(errs["label_moment_sums"]) == set(errs["label_proj_extents"]) \
+        == set(LABEL_CASES)
+    assert set(errs["seg_sum_bands"]) == set(errs["seg_min_bands"]) \
+        == set(SLOT_CASES)
+    assert all(e == 0.0 for by in errs.values() for e in by.values())
 
 
 def test_wrappers_check_inputs_and_count_no_cpu_launch():

@@ -1,6 +1,7 @@
 """Import rules of the PyTorch port, checked on the syntax tree: no module
-of onnxocr_tpu_torch, and not chip_smoke.py, imports jax, the onnxocr_tpu
-package, cv2 or PIL (the machine with the GPU has none of them)."""
+of onnxocr_tpu_torch, and neither chip_smoke.py nor ab_torch_kernels.py,
+imports jax, the onnxocr_tpu package, cv2 or PIL (the machine with the GPU
+has none of them)."""
 import ast
 from pathlib import Path
 
@@ -9,7 +10,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "onnxocr_tpu", "cv2", "PIL")
 FILES = sorted((ROOT / "onnxocr_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py", ROOT / "ab_torch_kernels.py"]
 
 
 def _imported(path: Path):

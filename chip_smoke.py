@@ -25,11 +25,15 @@
    the host out), plain version and, where one PyTorch call computes the
    same function, that call (addmm + max + logsumexp, index_add_,
    scatter_reduce_ amin);
-4. with TF32 off and the committed v5 checkpoints, drives four paths on
-   committed held-out pages. Each first runs its pages once unmeasured (so
-   every (width, batch) shape has been used), then sets the launch counts
-   to 0, runs the pages again, reads the counts and checks that its
-   kernels launched:
+4. runs every crop warp form (gather, upright, shear) × interpolation
+   (bilinear, bicubic) on the crop matrices that one page of path B and of
+   path A give their warps, on the card against the same port on the CPU,
+   counts the shear-eligible crops on both and times each form;
+5. with TF32 off and the committed v5 checkpoints, drives four paths on
+   committed held-out pages, all at the default shear-staged warp. Each
+   first runs its pages once unmeasured (so every (width, batch) shape has
+   been used), then sets the launch counts to 0, runs the pages again,
+   reads the counts and checks that its kernels launched:
    B  the one-call path (960² det canvas, label-keyed reductions,
       classifier off);
    A  the staged device-det path (per-page det canvas, slot-keyed
@@ -39,7 +43,8 @@
    B' the one-call path with the slot-keyed reductions and the classifier;
    one page of each is compared with the same port on the CPU, and the
    classifier's probabilities on seeded crops are compared card vs CPU;
-5. prints {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+6. prints {"warp": [...]}, {"kernels": [...]} and, last, {"ok": true,
+   "device": {...}}.
 
 Any failure raises and exits non-zero without the "ok" line. The
 recognition dictionary is not in the repository: a stand-in with 18383
@@ -343,12 +348,10 @@ def check_patterns(device="cuda"):
     return errs
 
 
-def device_ops(fn, name, calls=3):
-    """What `calls` calls of the reduction `fn` put on the card, from
-    torch.profiler → {"calls", "kernels", "memsets", "memcpys"}. Raises
-    unless a call is one kernel launch and no copy; the one memset before it
-    (accumulator and ticket counter) is counted as the profiler records it,
-    which now and then drops one."""
+def device_counts(fn, calls=3):
+    """What `calls` calls of `fn` put on the card, from torch.profiler →
+    {"calls", "kernels", "memsets", "memcpys"} (the profiler now and then
+    drops a memset's record)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -364,6 +367,14 @@ def device_ops(fn, name, calls=3):
         kind = ("memsets" if e.key.startswith("Memset") else
                 "memcpys" if e.key.startswith("Memcpy") else "kernels")
         out[kind] += e.count
+    return out
+
+
+def device_ops(fn, name, calls=3):
+    """device_counts of the reduction `fn`. Raises unless a call is one
+    kernel launch and no copy; the one memset before it (accumulator and
+    ticket counter) is counted as the profiler records it."""
+    out = device_counts(fn, calls)
     assert out["kernels"] == calls and out["memcpys"] == 0 and \
         out["memsets"] <= calls, f"{name}: {out}"
     return out
@@ -590,6 +601,95 @@ def check_classifier(gpu, cpu, seed):
     return float((got - want).abs().max())
 
 
+def warp_calls(ocr, img, cls):
+    """The warp_crops calls one ocr() of `img` makes → [(image, mats,
+    valid_w, out_h, out_w)], each at most once per (out_h, out_w)."""
+    from onnxocr_tpu_torch.ops import warp
+    seen, real = {}, warp.warp_crops
+
+    def spy(image, mats, valid_w, out_h, out_w, *rest, **form):
+        seen.setdefault((out_h, out_w), (image, mats.clone(), valid_w.clone(),
+                                         out_h, out_w))
+        return real(image, mats, valid_w, out_h, out_w, *rest, **form)
+
+    warp.warp_crops = spy
+    try:
+        ocr.ocr(img, cls=cls)
+    finally:
+        warp.warp_crops = real
+    return list(seen.values())
+
+
+def shear_vs_gather_ok(crop, gather, width):
+    """tests/test_warp.py's bound between a shear-form crop and its gather
+    form over the valid width, in levels: mean < 1, p99 < 10, max < 80."""
+    d = (crop[:, :width] - gather[:, :width]).abs().double() * 127.5
+    return (float(d.mean()) < 1.0 and float(d.quantile(0.99)) < 10.0
+            and float(d.max()) < 80.0), float(d.max())
+
+
+def check_warp(label, calls):
+    """Every warp form × interpolation on the crop matrices a path's page
+    gave its warps, on the card against the same port on the CPU (atol 1e-4
+    in normalized units), the shear eligibility counted on both, each form
+    timed. A crop whose eligibility differs between the two is held to
+    tests/test_warp.py's shear-vs-gather bound instead, and reported. →
+    [{path, shape, crops, eligible, flipped, forms: {form: times and what
+    one call puts on the card}}]."""
+    import torch
+    from onnxocr_tpu_torch.ops import warp
+    out = []
+    for image, mats, vw, out_h, out_w in calls:
+        cpu = [t.cpu() for t in (image, mats, vw)]
+        elig = warp._shear_mask(mats, vw, out_h).cpu()
+        elig_cpu = warp._shear_mask(*cpu[1:], out_h)
+        live = cpu[2] > 0
+        flips = torch.nonzero((elig != elig_cpu) & live)[:, 0].tolist()
+        entry = {"path": label, "shape": [int(mats.shape[0]), out_h, out_w],
+                 "crops": int(live.sum()),
+                 "eligible": int((elig & live).sum()),
+                 "eligible_cpu": int((elig_cpu & live).sum()),
+                 "flipped": [], "forms": {}}
+        for staged in (False, True, "shear"):
+            for interp in ("bilinear", "bicubic"):
+                got = warp.warp_crops(image, mats, vw, out_h, out_w, interp,
+                                      staged).cpu()
+                want = warp.warp_crops(*cpu, out_h, out_w, interp, staged)
+                keep = torch.ones(len(got), dtype=torch.bool)
+                if staged == "shear" and interp == "bilinear":
+                    for i in flips:
+                        ok, worst = shear_vs_gather_ok(got[i], want[i],
+                                                       int(cpu[2][i]))
+                        assert ok, (f"warp on path {label}: crop {i} flips "
+                                    f"its shear verdict, {worst:.1f} levels")
+                        entry["flipped"].append({"crop": i, "levels": worst})
+                        keep[i] = False
+                torch.testing.assert_close(
+                    got[keep], want[keep], rtol=0, atol=1e-4,
+                    msg=lambda m: f"warp {staged} {interp} on path {label}: "
+                                  f"{m}")
+        for name, staged, interp in (("off", False, "bilinear"),
+                                     ("upright", "upright", "bilinear"),
+                                     ("shear", "shear", "bilinear"),
+                                     ("bicubic", False, "bicubic")):
+            def call():
+                return warp.warp_crops(image, mats, vw, out_h, out_w, interp,
+                                       staged)
+
+            entry["forms"][name] = dict(ms=timed(call),
+                                        graph_ms=graph_timed(call),
+                                        **device_counts(call, calls=1))
+        print(f"warp on path {label} at {entry['shape']}: "
+              f"{entry['eligible']} of {entry['crops']} crops shear-eligible "
+              f"on the card, {entry['eligible_cpu']} on the CPU, "
+              f"{len(flips)} flipped; ms by events (in a graph), kernels a "
+              f"call: " + ", ".join(
+                  f"{n} {t['ms']:.3f} ({t['graph_ms']:.3f}), {t['kernels']}"
+                  for n, t in entry["forms"].items()))
+        out.append(entry)
+    return out
+
+
 def drive(ocr, pages, names, cls, label):
     """Run `names` through ocr() once unmeasured, so that every (width,
     batch) shape the pages reach has been used; then set the launch counts
@@ -635,6 +735,7 @@ def same_result(got, ref):
 
 def main() -> int:
     import torch
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -718,6 +819,9 @@ def main() -> int:
                   f"{max(by_case.values()):.2e}")
             next(k for k in kernels if k["name"] == kernel)["patterns"] = \
                 by_case
+        warps = check_warp("B", warp_calls(ocr, page, False))
+        warps += check_warp("A", warp_calls(ocr_a, page, True))
+        print("every warp form agrees with the CPU on the card")
         for k in kernels:
             ops = k.get("device_ops")
             if ops:
@@ -762,6 +866,8 @@ def main() -> int:
                 o["launches"] = runs[o["path"]].get(k["name"], 0)
                 assert o["launches"] > 0
 
+    print(f"chip_smoke ran {time.perf_counter() - start:.1f} s")
+    print(json.dumps({"warp": warps}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,11 @@
 
 Own copy of the flag table of onnxocr_tpu/config.py (the reference kwargs
 surface of ONNXPaddleOcr, plus the engine's `tpu_*` knobs that the ported
-paths read). Unknown keys are accepted and stored, as in the reference. Two
-defaults differ from the JAX package because only part of what they select
-is ported so far: `tpu_pipeline='onecall'` (of the staged pipeline only the
-device-det form, `tpu_det_postprocess='device'`, is ported; the JAX
-package's staged default with the host DB postprocess is not) and
-`tpu_warp_stage='off'` (the gather warp; the shear-staged warp is not
-ported).
+paths read). Unknown keys are accepted and stored, as in the reference.
+Every default is the JAX package's but one, `tpu_pipeline='onecall'`: of
+the staged pipeline only the device-det form (`tpu_det_postprocess=
+'device'`) is ported, and the JAX package's staged default runs the host DB
+postprocess, which is not.
 
 Model assets are read by path from the JAX package's committed data files
 (`onnxocr_tpu/assets/`), never by importing that package.
@@ -71,7 +69,13 @@ DEFAULTS = {
     "tpu_rec_width_buckets": (640, 960, 1280),
     "tpu_batch_buckets": (4, 16, 64),
     "tpu_warp_interp": "bilinear",
-    "tpu_warp_stage": "off",
+    # crop warp form ('off' | 'upright' | 'shear', ops/warp.warp_crops) and
+    # the shear form's eligibility bound in px; the JAX package's static
+    # slot budget for its gather leg is accepted and stored, and read by no
+    # ported path (ops/warp.py)
+    "tpu_warp_stage": "shear",
+    "tpu_warp_stage_tol": 0.35,
+    "tpu_warp_slow_k": 16,
     "tpu_pipeline": "onecall",
     "tpu_fused_cls_rec": True,
     "tpu_det_postprocess": "host",

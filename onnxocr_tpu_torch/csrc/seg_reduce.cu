@@ -37,56 +37,122 @@
 // side by side: C a warp inside one line, 2 C where neighbouring cells
 // alternate between two slots. Float64, so the order of the atomics cannot
 // move the float32 result beyond one rounding.
-//   Mins deal cells to threads strided, 2,048 a block, and reduce with
-// shuffles only a warp whose active cells all share one slot; they take
-// atomicMax on the order-reversing key of seg_common.cuh, exact in any
-// order.
+//   Mins take the same path, one body (reduce_run) with the sums: they
+// differ only in what a pass does with its cells (Sum, Min) and in the last
+// block's conversion. A thread takes the max of the order-reversing keys of
+// seg_common.cuh over those of its cells that share a slot; lanes are
+// grouped by slot, each group reduces each channel with one
+// __reduce_max_sync, and C lanes of the group make the C atomicMax calls
+// side by side. A max on the key image is exact in any order, and the key's
+// zero means "empty", so there is no fill launch.
 #include "seg_common.cuh"
+
+#include <type_traits>
 
 namespace {
 
 using namespace seg;
 
-constexpr int PER = 8;                  // mins: cells per thread
-constexpr int MIN_RUN = THREADS * PER;  // mins: cells per block
-constexpr int MAXC = 7;                 // channels
+constexpr int MAXC = 7;  // channels
 
-// Mins: load this thread's PER slots (-1 for a no-op cell) and reduce the
-// block's slot range into (*s_lo, *s_hi); *s_hi stays -1 when no cell is
-// active. Ends with a __syncthreads().
-__device__ __forceinline__ void load_slots(const int* __restrict__ slot,
-                                           long long n, int K, long long base,
-                                           int sl[PER], int* s_lo, int* s_hi) {
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    *s_lo = INT_MAX;
-    *s_hi = -1;
-  }
-  __syncthreads();
-  int lo = INT_MAX, hi = -1;
-#pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const long long i = base + (long long)p * THREADS + tid;
-    int s = -1;
-    if (i < n) {
-      const int v = slot[i];
-      if ((unsigned)v < (unsigned)K) s = v;
-    }
-    sl[p] = s;
-    if (s >= 0) {
-      lo = min(lo, s);
-      hi = max(hi, s);
-    }
-  }
-  block_range(lo, hi, s_lo, s_hi);
+// The C lanes of a group of lanes `grp` that make its C atomics: the member
+// of rank r takes channels r, r + size, ... (bit c of the result: channel c).
+__device__ __forceinline__ unsigned channels_of(unsigned grp, int C) {
+  const int lane = threadIdx.x & 31;
+  const int rank = __popc(grp & ((1u << lane) - 1u));
+  const int size = __popc(grp);
+  unsigned mine = 0u;
+  for (int c = rank; c < C; c += size) mine |= 1u << c;
+  return mine;
 }
 
-template <int C>
-__global__ void __launch_bounds__(THREADS)
-seg_sum_kernel(const int* __restrict__ slot, const float* __restrict__ vals,
-               unsigned n, int K, double* acc, unsigned* counter,
-               float* __restrict__ out) {
-  __shared__ double part[WIN * C];
+// What the two kernels do with a pass's cells; all else is reduce_run. T is
+// the accumulator's type, whose zero means "nothing yet". serve(s, take,
+// ...) takes the thread's cells of slot s (take[e]: cell e; s = -1 and none
+// taken for a thread with nothing left) into the window `part` over slots
+// blo .. blo + WIN - 1 or, past it, into `acc`; whole warps call it.
+struct Sum {
+  using T = double;
+  template <int C>
+  static __device__ __forceinline__ void serve(int s, const bool (&take)[4],
+                                               const float (&row)[4 * C],
+                                               int blo, double* part,
+                                               double* acc) {
+    double val[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) val[c] = 0.0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (take[e]) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) val[c] += (double)row[e * C + c];
+      }
+    }
+    group_add<C>(s, val, blo, part, acc);
+  }
+  static __device__ __forceinline__ void merge(double* dst, double v) {
+    atomicAdd(dst, v);
+  }
+  static __device__ __forceinline__ float result(double v, float) {
+    return (float)v;
+  }
+};
+
+struct Min {
+  using T = unsigned;
+  template <int C>
+  static __device__ __forceinline__ void serve(int s, const bool (&take)[4],
+                                               const float (&row)[4 * C],
+                                               int blo, unsigned* part,
+                                               unsigned* acc) {
+    unsigned key[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) key[c] = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (take[e]) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          key[c] = max(key[c], key_of(row[e * C + c]));
+        }
+      }
+    }
+    // lanes with nothing left form a group of their own (s = -1) that
+    // reduces zeros and adds nothing
+    const unsigned grp = __match_any_sync(FULL, s);
+#pragma unroll
+    for (int c = 0; c < C; ++c) key[c] = __reduce_max_sync(grp, key[c]);
+    if (s >= 0) {
+      const unsigned mine = channels_of(grp, C);
+      unsigned* dst = (s - blo < WIN) ? part + (s - blo) * C
+                                      : acc + (size_t)s * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if ((mine >> c) & 1u) atomicMax(dst + c, key[c]);
+      }
+    }
+  }
+  static __device__ __forceinline__ void merge(unsigned* dst, unsigned v) {
+    atomicMax(dst, v);
+  }
+  static __device__ __forceinline__ float result(unsigned key, float big) {
+    const float v = key ? float_of(key) : BIG;
+    return v >= BIG ? big : v;
+  }
+};
+
+// One block's run of RUN cells, reduced under Op into acc (K * C entries,
+// then the ticket counter); the block that draws the last ticket writes out
+// = Op::result(acc, big).
+template <class Op, int C>
+__device__ __forceinline__ void reduce_run(const int* __restrict__ slot,
+                                           const float* __restrict__ vals,
+                                           unsigned n, int K, float big,
+                                           typename Op::T* acc,
+                                           unsigned* counter,
+                                           float* __restrict__ out) {
+  using T = typename Op::T;
+  __shared__ T part[WIN * C];
   __shared__ int s_lo, s_hi;
   __shared__ bool s_last;
   const int tid = threadIdx.x;
@@ -136,7 +202,7 @@ seg_sum_kernel(const int* __restrict__ slot, const float* __restrict__ vals,
 
   if (bhi >= 0) {  // block-uniform: some cell of this run is active
     const int span = (min(bhi - blo, WIN - 1) + 1) * C;
-    for (int j = tid; j < span; j += THREADS) part[j] = 0.0;
+    for (int j = tid; j < span; j += THREADS) part[j] = T(0);
     __syncthreads();
     bool todo[4];
 #pragma unroll
@@ -147,97 +213,63 @@ seg_sum_kernel(const int* __restrict__ slot, const float* __restrict__ vals,
     for (int pass = 0; pass < 4; ++pass) {
       const int s = first_owed(sl, todo);
       if (__ballot_sync(FULL, s >= 0) == 0) break;  // warp-uniform
-      double val[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) val[c] = 0.0;
+      bool take[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        if (todo[e] && sl[e] == s) {
-          todo[e] = false;
-#pragma unroll
-          for (int c = 0; c < C; ++c) val[c] += (double)row[e * C + c];
-        }
+        take[e] = todo[e] && sl[e] == s;
+        todo[e] = todo[e] && !take[e];
       }
-      group_add<C>(s, val, blo, part, acc);
+      Op::template serve<C>(s, take, row, blo, part, acc);
     }
     __syncthreads();
     for (int j = tid; j < span; j += THREADS) {
-      if (part[j] != 0.0) atomicAdd(acc + (size_t)blo * C + j, part[j]);
+      if (part[j] != T(0)) Op::merge(acc + (size_t)blo * C + j, part[j]);
     }
   }
   if (last_block(counter, &s_last)) {
-    write_out(acc, out, K * C, [](double v) { return (float)v; });
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-seg_min_kernel(const int* __restrict__ slot, const float* __restrict__ vals,
-               long long n, int K, int C, float big, unsigned* acc,
-               unsigned* counter, float* __restrict__ out) {
-  __shared__ unsigned part[WIN * MAXC];
-  __shared__ int s_lo, s_hi;
-  __shared__ bool s_last;
-  const int tid = threadIdx.x;
-  const long long base = (long long)blockIdx.x * MIN_RUN;
-  int sl[PER];
-  load_slots(slot, n, K, base, sl, &s_lo, &s_hi);
-  const int blo = s_lo, bhi = s_hi;
-  if (bhi >= 0) {
-    const int span = (min(bhi - blo, WIN - 1) + 1) * C;
-    for (int j = tid; j < span; j += THREADS) part[j] = 0u;
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int s = sl[p];
-      const unsigned act = __ballot_sync(FULL, s >= 0);
-      if (act == 0) continue;
-      const long long i = base + (long long)p * THREADS + tid;
-      unsigned v[MAXC];
-#pragma unroll
-      for (int c = 0; c < MAXC; ++c) {
-        v[c] = (s >= 0 && c < C) ? key_of(vals[i * C + c]) : 0u;
-      }
-      const int s0 = __shfl_sync(FULL, s, __ffs(act) - 1);
-      const bool same = __all_sync(FULL, s < 0 || s == s0);
-      if (same) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int c = 0; c < MAXC; ++c) {
-            if (c < C) v[c] = max(v[c], __shfl_xor_sync(FULL, v[c], off));
-          }
-        }
-      }
-      if (same ? (tid & 31) == 0 : s >= 0) {
-        const int t = same ? s0 : s;
-        unsigned* dst = (t - blo < WIN) ? part + (t - blo) * C
-                                        : acc + (size_t)t * C;
-#pragma unroll
-        for (int c = 0; c < MAXC; ++c) {
-          if (c < C) atomicMax(dst + c, v[c]);
-        }
-      }
-    }
-    __syncthreads();
-    for (int j = tid; j < span; j += THREADS) {
-      if (part[j] != 0u) atomicMax(acc + (size_t)blo * C + j, part[j]);
-    }
-  }
-  if (last_block(counter, &s_last)) {
-    write_out(acc, out, K * C, [big](unsigned key) {
-      const float v = key ? float_of(key) : BIG;
-      return v >= BIG ? big : v;
-    });
+    write_out(acc, out, K * C, [big](T v) { return Op::result(v, big); });
   }
 }
 
 template <int C>
-cudaError_t launch_sum(const int* slot, const float* vals, unsigned n, int K,
-                       double* scratch, float* out, cudaStream_t stream) {
-  seg_sum_kernel<C><<<blocks_for(n), THREADS, 0, stream>>>(
-      slot, vals, n, K, scratch,
-      reinterpret_cast<unsigned*>(scratch + (size_t)K * C), out);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(THREADS)
+seg_sum_kernel(const int* __restrict__ slot, const float* __restrict__ vals,
+               unsigned n, int K, double* acc, unsigned* counter,
+               float* __restrict__ out) {
+  reduce_run<Sum, C>(slot, vals, n, K, 0.0f, acc, counter, out);
+}
+
+template <int C>
+__global__ void __launch_bounds__(THREADS)
+seg_min_kernel(const int* __restrict__ slot, const float* __restrict__ vals,
+               unsigned n, int K, float big, unsigned* acc, unsigned* counter,
+               float* __restrict__ out) {
+  reduce_run<Min, C>(slot, vals, n, K, big, acc, counter, out);
+}
+
+// Clears the accumulator of T and the ticket after it with one memset, then
+// calls launch(std::integral_constant<int, C>()), which launches the kernel
+// for the call's C. Returns the first CUDA error, 0 for none.
+template <class T, class F>
+int run(long long n, int K, int C, T* scratch, cudaStream_t stream,
+        F launch) {
+  if (K <= 0 || C <= 0 || C > MAXC || n < 0 || n >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t count = (size_t)K * C;
+  const cudaError_t err = cudaMemsetAsync(
+      scratch, 0, sizeof(T) * count + sizeof(unsigned), stream);
+  if (err != cudaSuccess) return (int)err;
+  switch (C) {
+    case 1: launch(std::integral_constant<int, 1>()); break;
+    case 2: launch(std::integral_constant<int, 2>()); break;
+    case 3: launch(std::integral_constant<int, 3>()); break;
+    case 4: launch(std::integral_constant<int, 4>()); break;
+    case 5: launch(std::integral_constant<int, 5>()); break;
+    case 6: launch(std::integral_constant<int, 6>()); break;
+    default: launch(std::integral_constant<int, 7>());
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -249,24 +281,11 @@ cudaError_t launch_sum(const int* slot, const float* vals, unsigned n, int K,
 extern "C" int seg_sum_bands(const int* slot, const float* vals, long long n,
                              int K, int C, double* scratch, float* out,
                              cudaStream_t stream) {
-  if (K <= 0 || C <= 0 || C > MAXC || n < 0 || n >= (1LL << 31)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t count = (size_t)K * C;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(double) * (count + 1),
-                                    stream);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned m = (unsigned)n;
-  switch (C) {
-    case 1: err = launch_sum<1>(slot, vals, m, K, scratch, out, stream); break;
-    case 2: err = launch_sum<2>(slot, vals, m, K, scratch, out, stream); break;
-    case 3: err = launch_sum<3>(slot, vals, m, K, scratch, out, stream); break;
-    case 4: err = launch_sum<4>(slot, vals, m, K, scratch, out, stream); break;
-    case 5: err = launch_sum<5>(slot, vals, m, K, scratch, out, stream); break;
-    case 6: err = launch_sum<6>(slot, vals, m, K, scratch, out, stream); break;
-    default: err = launch_sum<7>(slot, vals, m, K, scratch, out, stream);
-  }
-  return (int)err;
+  unsigned* counter = reinterpret_cast<unsigned*>(scratch + (size_t)K * C);
+  return run(n, K, C, scratch, stream, [&](auto c) {
+    seg_sum_kernel<decltype(c)::value><<<blocks_for(n), THREADS, 0, stream>>>(
+        slot, vals, (unsigned)n, K, scratch, counter, out);
+  });
 }
 
 // As above with scratch of K*C + 1 uint32. Empty slots, and slots whose
@@ -274,12 +293,9 @@ extern "C" int seg_sum_bands(const int* slot, const float* vals, long long n,
 extern "C" int seg_min_bands(const int* slot, const float* vals, long long n,
                              int K, int C, float big, unsigned* scratch,
                              float* out, cudaStream_t stream) {
-  if (K <= 0 || C <= 0 || C > MAXC || n < 0) return (int)cudaErrorInvalidValue;
-  const size_t count = (size_t)K * C;
-  cudaError_t err = cudaMemsetAsync(scratch, 0,
-                                    sizeof(unsigned) * (count + 1), stream);
-  if (err != cudaSuccess) return (int)err;
-  seg_min_kernel<<<blocks_for(n, MIN_RUN), THREADS, 0, stream>>>(
-      slot, vals, n, K, C, big, scratch, scratch + count, out);
-  return (int)cudaGetLastError();
+  unsigned* counter = scratch + (size_t)K * C;
+  return run(n, K, C, scratch, stream, [&](auto c) {
+    seg_min_kernel<decltype(c)::value><<<blocks_for(n), THREADS, 0, stream>>>(
+        slot, vals, (unsigned)n, K, big, scratch, counter, out);
+  });
 }

@@ -107,6 +107,8 @@ def seg_min_bands(slot: torch.Tensor, vals: torch.Tensor, K: int,
     _check("seg_min_bands", slot, vals, K)
     if slot.device.type == "cpu":
         return seg_min_bands_plain(slot, vals, K, big)
+    if slot.shape[0] >= 2 ** 31:
+        raise ValueError("seg_min_bands: N must be below 2^31")
     C = vals.shape[1]
     scratch = torch.empty((K * C + 1,), dtype=torch.int32,
                           device=slot.device)

@@ -41,7 +41,7 @@ class TextClassifier:
         self.idx180 = next((i for i, l in enumerate(self.label_list)
                             if "180" in str(l)), None)
         self.batch_ladder = tuple(args.tpu_batch_buckets)
-        self.interp = args.tpu_warp_interp
+        self.warp_form = warp_ops.form_of(args)
         self.postprocess_op = ctc.ClsPostProcess(label_list=args.label_list)
         self.forward = ClsForward(
             backends.load_cls_params(args.cls_model_dir,
@@ -69,7 +69,7 @@ class TextClassifier:
             crops = warp_ops.warp_crops(
                 image_u8, torch.from_numpy(mats).to(self.device),
                 torch.from_numpy(valid).to(self.device), imgH, imgW,
-                self.interp)
+                **self.warp_form)
             probs = self.forward(crops).cpu().numpy()
             probs_all[start:start + len(idxs)] = probs[:len(idxs)]
         cls_res = self.postprocess_op(probs_all)

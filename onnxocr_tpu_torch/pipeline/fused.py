@@ -17,26 +17,33 @@ from typing import Optional
 
 import torch
 
+from .. import config
 from ..ops import warp as warp_ops
 
 
 class FusedClsRec:
     def __init__(self, cls_forward, rec_forward, cls_shape=(48, 192),
                  cls_thresh: float = 0.9, idx180: Optional[int] = 1,
-                 interp: str = "bilinear"):
+                 warp_form: Optional[dict] = None):
         self.cls_forward = cls_forward
         self.rec_forward = rec_forward
         self.cls_h, self.cls_w = cls_shape
         self.cls_thresh = cls_thresh
         self.idx180 = idx180
-        self.interp = interp
+        # the warp form of every crop of the step (ops/warp.form_of)
+        self.warp_form = warp_form or warp_ops.form_of(config.make_params())
+
+    def warp(self, image_u8, mats, valid_w, out_h: int, out_w: int):
+        """Crops of the step, in the step's warp form."""
+        return warp_ops.warp_crops(image_u8, mats, valid_w, out_h, out_w,
+                                   **self.warp_form)
 
     def select_mats(self, image_u8, cls_mats, cls_valid, rec_mats,
                     rec_mats_rot):
         """The cls half: → (mats (N, 3, 3) with the 180° homography where
         the classifier says so, cls probs (N, 2), rot (N,) bool)."""
-        crops = warp_ops.warp_crops(image_u8, cls_mats, cls_valid,
-                                    self.cls_h, self.cls_w, self.interp)
+        crops = self.warp(image_u8, cls_mats, cls_valid, self.cls_h,
+                          self.cls_w)
         probs = self.cls_forward(crops)
         rot = (torch.argmax(probs, dim=1) == self.idx180) & \
             (probs[:, self.idx180] > self.cls_thresh)
@@ -62,8 +69,7 @@ class FusedClsRec:
             mats = rec_mats
             cls_probs = torch.zeros((n, 2), device=dev)
             rot = torch.zeros((n,), dtype=torch.bool, device=dev)
-        crops = warp_ops.warp_crops(image_u8, mats, rec_valid, out_h, out_w,
-                                    self.interp)
+        crops = self.warp(image_u8, mats, rec_valid, out_h, out_w)
         idx, prob = self.rec_forward(crops, (rec_valid + 7) // 8)
         f32 = torch.float32
         return torch.cat([idx.to(f32), prob.to(f32), cls_probs.to(f32),

@@ -7,9 +7,9 @@ Port of onnxocr_tpu/pipeline/onecall.py (single page):
     canvas → DBNet → device DB extraction in the extraction window →
     rescale / clockwise / clip / side filter → compact valid boxes into a
     K_rec prefix → crop homographies → (with the classifier: warp 48×192
-    cls crops → cls → select the 180°-turned homographies) → gather-warp
-    rec crops at one width → SVTR → fused CTC head → one packed
-    (K_rec + 1 + det rows, 12 + 2T) float32 buffer
+    cls crops → cls → select the 180°-turned homographies) → warp rec
+    crops at one width (shear-staged by default) → SVTR → fused CTC head
+    → one packed (K_rec + 1 + det rows, 12 + 2T) float32 buffer
 
 Packed layout (as in the JAX package): K_rec body rows [quad (8), score,
 valid, valid width, desired width, idx (T), prob (T)]; a tail row whose
@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from ..ops import db_device, det_pre, resize_dev, warp_dev
-from ..ops import warp as warp_ops
 
 
 class OneCallPipeline:
@@ -69,6 +68,22 @@ class OneCallPipeline:
         hb = wb = max(cap, det_pre.round_up(max(rh, rw), det.bucket))
         return (rh, rw), (hb, wb), self._ex_window(rh, rw, hb, wb)
 
+    def source_boxes(self, quads_m, scores, valid, r_h: int, r_w: int,
+                     src_h: int, src_w: int):
+        """Det-map boxes → (quads_s, valid, quads_c, scores_c, valid_c): every
+        candidate in source coordinates (rounded, clipped to [0, src], in
+        the reference's clockwise order, clip and side filter applied) and
+        the K_rec prefix of the valid ones, raster order kept."""
+        qx = torch.clamp(torch.round(quads_m[..., 0] / float(r_w) * src_w),
+                         0.0, float(src_w))
+        qy = torch.clamp(torch.round(quads_m[..., 1] / float(r_h) * src_h),
+                         0.0, float(src_h))
+        quads_s = warp_dev.order_points_clockwise(torch.stack([qx, qy], -1))
+        quads_s, keep = warp_dev.clip_filter_boxes(quads_s, src_h, src_w)
+        valid = valid & keep
+        take = torch.argsort((~valid).to(torch.int32), stable=True)[:self.k_rec]
+        return quads_s, valid, quads_s[take], scores[take], valid[take]
+
     @torch.inference_mode()
     def step(self, image_u8: torch.Tensor, src_h: int, src_w: int,
              r_h: int, r_w: int, out_h: int, out_w: int, ex_h: int = 0,
@@ -88,20 +103,9 @@ class OneCallPipeline:
             score_scale=self.score_scale, reduce=self.db_reduce,
             score_k=self.score_k, axis_snap=self.axis_snap)
 
-        # map → source coords (round, clip to [0, src]), then the
-        # reference's clockwise order + clip + side filter
-        qx = torch.clamp(torch.round(quads_m[..., 0] / float(r_w) * src_w),
-                         0.0, float(src_w))
-        qy = torch.clamp(torch.round(quads_m[..., 1] / float(r_h) * src_h),
-                         0.0, float(src_h))
-        quads_s = warp_dev.order_points_clockwise(torch.stack([qx, qy], -1))
-        quads_s, keep = warp_dev.clip_filter_boxes(quads_s, src_h, src_w)
-        valid = valid & keep
+        quads_s, valid, quads_c, scores_c, valid_c = self.source_boxes(
+            quads_m, scores, valid, r_h, r_w, src_h, src_w)
         n_valid = valid.sum()
-
-        # valid rows into the K_rec prefix, raster order kept
-        take = torch.argsort((~valid).to(torch.int32), stable=True)[:self.k_rec]
-        quads_c, scores_c, valid_c = quads_s[take], scores[take], valid[take]
         rec_m, rec_m_rot, rec_vw, desired = warp_dev.crop_matrices(
             quads_c, valid_c, self.imgH, self.rec_w)
         rec_vw = torch.where(valid_c, rec_vw, 0)
@@ -112,8 +116,8 @@ class OneCallPipeline:
             rec_m, _, _ = fused.select_mats(
                 image_u8, cls_m, torch.where(valid_c, cls_vw, 0), rec_m,
                 rec_m_rot)
-        crops = warp_ops.warp_crops(image_u8, rec_m, rec_vw, self.imgH,
-                                    self.rec_w, self.recognizer.interp)
+        crops = self.fused.warp(image_u8, rec_m, rec_vw, self.imgH,
+                                self.rec_w)
         idx, prob_max = self.recognizer.forward(crops, (rec_vw + 7) // 8)
 
         k_rec = quads_c.shape[0]

@@ -43,7 +43,7 @@ class TextRecognizer:
         self.rec_image_shape = config.parse_shape(args.rec_image_shape)
         self.width_ladder = tuple(args.tpu_rec_width_buckets)
         self.batch_ladder = tuple(args.tpu_batch_buckets)
-        self.interp = args.tpu_warp_interp
+        self.warp_form = warp_ops.form_of(args)
         self.postprocess_op = ctc.CTCLabelDecode(
             character_dict_path=args.rec_char_dict_path,
             use_space_char=args.use_space_char)
@@ -108,7 +108,7 @@ class TextRecognizer:
                 valid_dev = torch.from_numpy(valid).to(self.device)
                 crops = warp_ops.warp_crops(
                     image_u8, torch.from_numpy(mats).to(self.device),
-                    valid_dev, imgH, bucket_w, self.interp)
+                    valid_dev, imgH, bucket_w, **self.warp_form)
                 idx, prob = self.forward(crops, (valid_dev + 7) // 8)
                 out = self._decode(idx[:k].cpu().numpy(),
                                    prob[:k].cpu().numpy(), valid[:k],

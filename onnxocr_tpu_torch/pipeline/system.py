@@ -50,10 +50,6 @@ def _unported(args) -> List[str]:
                    f"tpu_det_postprocess={args.tpu_det_postprocess!r} (the "
                    "staged pipeline runs only with "
                    "tpu_det_postprocess='device')")
-    if args.tpu_warp_stage not in ("off", "", None, False):
-        out.append(f"tpu_warp_stage={args.tpu_warp_stage!r} (staged warp)")
-    if args.tpu_warp_interp != "bilinear":
-        out.append(f"tpu_warp_interp={args.tpu_warp_interp!r}")
     if args.det_box_type != "quad" or args.use_dilation or \
             args.det_db_score_mode != "fast" or \
             args.det_limit_type != "max" or \
@@ -89,16 +85,17 @@ class TextSystem:
             self.text_classifier = TextClassifier(args, self.device)
         self._fused = None
         if args.tpu_fused_cls_rec:
+            warp_form = self.text_recognizer.warp_form
             if self.use_angle_cls:
                 cls = self.text_classifier
                 self._fused = FusedClsRec(
                     cls.forward, self.text_recognizer.forward,
                     cls_shape=config.parse_shape(args.cls_image_shape)[1:],
                     cls_thresh=args.cls_thresh, idx180=cls.idx180,
-                    interp=args.tpu_warp_interp)
+                    warp_form=warp_form)
             else:
                 self._fused = FusedClsRec(None, self.text_recognizer.forward,
-                                          interp=args.tpu_warp_interp)
+                                          warp_form=warp_form)
         self._onecall = None
         if args.tpu_pipeline == "onecall" and self._fused is not None:
             self._onecall = OneCallPipeline(

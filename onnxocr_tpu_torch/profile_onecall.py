@@ -1,18 +1,20 @@
 """Where the time goes in the ported paths on one GPU.
 
     python3 -m onnxocr_tpu_torch.profile_onecall [--pages N] [--out DIR]
-                                                 [--path onecall|staged_device]
+        [--path onecall|onecall_cls|staged_device] [--warp-stage off|shear]
 
 Runs ONNXPaddleOcr(device="cuda") (TF32 off, committed v5 checkpoints, a
 stand-in dictionary) over committed held-out pages — `onecall`: the
 one-call path at the 960² det canvas with the label-keyed reductions,
-classifier off; `staged_device`: the staged device-det path on each page's
-own det canvas with the slot-keyed reductions and the (untrained) angle
-classifier, cls + rec fused per width bucket — and reports, per page on
-average:
+classifier off; `onecall_cls`: the same with the slot-keyed reductions and
+the (untrained) angle classifier; `staged_device`: the staged device-det
+path on each page's own det canvas with the slot-keyed reductions and the
+classifier, cls + rec fused per width bucket — in the crop warp form
+`--warp-stage` (default: the config's), and reports, per page on average:
 
 * stage times: each stage of the path re-run on its own with a device
-  synchronize after it (host clock, so launch overhead counts);
+  synchronize after it (host clock, so launch overhead counts), the cls
+  and rec crop warps among them, and how many crops the shear form takes;
 * end-to-end page time (`ocr()`, host clock) and the device busy share
   over a steady window (sum of CUDA kernel time from torch.profiler over
   the window's wall time), with the kernels that take the most device time.
@@ -40,6 +42,8 @@ from .utils.png import read_bgr
 
 KWARGS = {
     "onecall": dict(use_angle_cls=False),
+    "onecall_cls": dict(tpu_db_reduce="pallas", use_angle_cls=True,
+                        tpu_allow_untrained=True),
     "staged_device": dict(tpu_pipeline="staged", tpu_det_postprocess="device",
                           tpu_db_reduce="pallas", use_angle_cls=True,
                           tpu_allow_untrained=True),
@@ -73,13 +77,33 @@ class _TimedFused:
             use_cls=use_cls))
 
 
+def _timed_warps(fused, t, counts):
+    """Time the fused step's crop warps as `cls_warp` / `rec_warp` (by the
+    crop height and width) and count their live and shear-eligible crops
+    into `counts`; → a function that undoes it."""
+    def warp(image, mats, valid_w, out_h, out_w):
+        kind = "cls" if (out_h, out_w) == (fused.cls_h, fused.cls_w) \
+            else "rec"
+        live = valid_w > 0
+        elig = warp_ops._shear_mask(mats, valid_w, out_h) & live
+        counts[f"{kind}_crops"] = counts.get(f"{kind}_crops", 0) + \
+            int(live.sum())
+        counts[f"{kind}_shear_eligible"] = \
+            counts.get(f"{kind}_shear_eligible", 0) + int(elig.sum())
+        return t(f"{kind}_warp", lambda: type(fused).warp(
+            fused, image, mats, valid_w, out_h, out_w))
+
+    fused.warp = warp
+    return lambda: vars(fused).pop("warp")
+
+
 # substrings of the names of the kernels in csrc/
 OWN_KERNELS = ("ctc_head_partial", "ctc_head_combine", "moment_sums_kernel",
                "proj_extents_kernel", "seg_sum_kernel", "seg_min_kernel")
 
 
 @torch.inference_mode()
-def _stages_staged(ocr, img, acc, calls):
+def _stages_staged(ocr, img, acc, calls, counts):
     """One page through the staged device-det path, stage by stage."""
     det, rec, fused = ocr.text_detector, ocr.text_recognizer, ocr._fused
     args, pp = ocr.args, det.postprocess_op
@@ -125,13 +149,17 @@ def _stages_staged(ocr, img, acc, calls):
         det.filter_tag_det_res(raw, img.shape)))
     if len(boxes):
         quads = np.asarray(boxes, np.float32)
-        t("cls_rec_total", lambda: rec.run_boxes_fused(
-            image, quads, _TimedFused(fused, t, calls),
-            (fused.cls_h, fused.cls_w), use_cls=True))
+        undo = _timed_warps(fused, t, counts)
+        try:
+            t("cls_rec_total", lambda: rec.run_boxes_fused(
+                image, quads, _TimedFused(fused, t, calls),
+                (fused.cls_h, fused.cls_w), use_cls=True))
+        finally:
+            undo()
 
 
 @torch.inference_mode()
-def _stages(ocr, img, acc):
+def _stages(ocr, img, acc, counts):
     """One page through the one-call step's stages, timed one by one."""
     oc = ocr._onecall
     det = ocr.text_detector
@@ -161,27 +189,39 @@ def _stages(ocr, img, acc):
         box_thresh=pp.box_thresh, unclip_ratio=pp.unclip_ratio,
         min_size=float(pp.min_size), scale=oc.extract_scale,
         reduce=oc.db_reduce, score_k=oc.score_k))
-    q = quads[valid][:oc.k_rec]
-    qs = warp_dev.order_points_clockwise(q)
-    vmask = torch.ones(qs.shape[0], dtype=torch.bool, device=qs.device)
-    mats, _, vw, _ = t("crop_matrices", lambda: warp_dev.crop_matrices(
-        qs, vmask, oc.imgH, oc.rec_w))
-    pad = oc.k_rec - qs.shape[0]
-    mats = torch.cat([mats, torch.eye(3, device=mats.device).expand(
-        pad, 3, 3)])
-    vw = torch.cat([vw, vw.new_zeros(pad)])
-    crops = t("rec_warp", lambda: warp_ops.warp_crops(
-        image, mats, vw, oc.imgH, oc.rec_w))
+    fused = oc.fused
+
+    def crop_inputs():  # the step's own source boxes and crop matrices
+        _, _, quads_c, _, valid_c = oc.source_boxes(quads, scores, valid, rh,
+                                                    rw, h, w)
+        rec_m, rot_m, vw, _ = warp_dev.crop_matrices(quads_c, valid_c,
+                                                     oc.imgH, oc.rec_w)
+        cls_m, _, cls_vw, _ = warp_dev.crop_matrices(
+            quads_c, valid_c, fused.cls_h, fused.cls_w)
+        return (rec_m, rot_m, torch.where(valid_c, vw, 0), cls_m,
+                torch.where(valid_c, cls_vw, 0))
+
+    mats, rot, vw, cls_m, cls_vw = t("crop_matrices", crop_inputs)
+    undo = _timed_warps(fused, t, counts)
+    try:
+        if oc.use_cls(True):
+            mats = t("cls_select", lambda: fused.select_mats(
+                image, cls_m, cls_vw, mats, rot)[0])
+        crops = fused.warp(image, mats, vw, oc.imgH, oc.rec_w)
+    finally:
+        undo()
     rec = ocr.text_recognizer.forward
     feats = t("rec_features", lambda: rec.model.features(
         crops.permute(0, 3, 1, 2), (vw + 7) // 8))
     head = rec.model.head
     t("ctc_head", lambda: ctc_head.ctc_head_reduce_batched(
         feats, head.w_split, head.b))
-    t("step_total", lambda: oc.step(image, h, w, rh, rw, hb, wb, eh, ew))
-    packed = oc.step(image, h, w, rh, rw, hb, wb, eh, ew)
+    use_cls = oc.use_cls(True)
+    t("step_total", lambda: oc.step(image, h, w, rh, rw, hb, wb, eh, ew,
+                                    use_cls))
+    packed = oc.step(image, h, w, rh, rw, hb, wb, eh, ew, use_cls)
     t("download_decode", lambda: oc.decode_packed(packed.cpu().numpy(),
-                                                  image))
+                                                  image, use_cls))
 
 
 def main() -> None:
@@ -189,8 +229,11 @@ def main() -> None:
     ap.add_argument("--pages", type=int, default=8)
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--path", default="onecall", choices=sorted(KWARGS))
+    ap.add_argument("--warp-stage", choices=("off", "upright", "shear"),
+                    default=config.DEFAULTS["tpu_warp_stage"])
     args = ap.parse_args()
     staged = args.path == "staged_device"
+    cls = args.path != "onecall"
     if not torch.cuda.is_available():
         raise SystemExit("profile_onecall: CUDA is not available")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -208,25 +251,27 @@ def main() -> None:
         with open(dict_path, "w") as f:
             f.write("".join(f"<{i}>\n" for i in range(18383)))
         ocr = ONNXPaddleOcr(device="cuda", rec_char_dict_path=dict_path,
+                            tpu_warp_stage=args.warp_stage,
                             **KWARGS[args.path])
         # every (width, batch) shape the pages reach is used once before
         # anything is timed
         for img in pages:
-            ocr.ocr(img, cls=staged)
+            ocr.ocr(img, cls=cls)
         stages: dict = {}
         calls: dict = {}
+        counts: dict = {}
         for img in pages:
             if staged:
-                _stages_staged(ocr, img, stages, calls)
+                _stages_staged(ocr, img, stages, calls, counts)
             else:
-                _stages(ocr, img, stages)
+                _stages(ocr, img, stages, counts)
         torch.cuda.synchronize()
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for img in pages:
-                ocr.ocr(img, cls=staged)
+                ocr.ocr(img, cls=cls)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     os.makedirs(args.out, exist_ok=True)
@@ -238,7 +283,8 @@ def main() -> None:
     busy_ms = sum(k[1] for k in kern)
     n = len(pages)
     report = {
-        "card": smi, "path": args.path, "pages": n,
+        "card": smi, "path": args.path, "warp_stage": args.warp_stage,
+        "pages": n,
         "page_ms": wall_ms / n,
         # None: the profiler recorded no device time (not measured)
         "device_busy_ms_per_page": busy_ms / n if busy_ms else None,
@@ -246,6 +292,8 @@ def main() -> None:
         "stage_ms_per_page": {k: v / n for k, v in stages.items()},
         # fused cls + rec calls by (width bucket, batch size), whole run
         "cls_rec_calls": calls,
+        # crops with a valid width, and those the shear form takes, whole run
+        "warp_crops": counts,
         # the hand-written kernels: [name, device ms per launch, launches
         # per page]
         "own_kernels": [[k.replace("(anonymous namespace)::", "")

@@ -25,6 +25,8 @@ CLS = dict(use_angle_cls=True, tpu_allow_untrained=True)
 # the "180" label first and the threshold at 0.5 the class it prefers
 # turns crops, and the 180° homographies are really selected
 CLS_FLIP = dict(label_list=["180", "0"], cls_thresh=0.5)
+# the shear-staged crop warp, both packages' default (BASE pins the gather)
+SHEAR = dict(tpu_warp_stage="shear")
 
 
 @pytest.fixture(scope="module")
@@ -80,6 +82,13 @@ def _assert_same(got, ref):
     ("synth_08_table", dict(CLS, **CLS_FLIP)),
     ("synth_00_doc", dict(CLS, **CLS_FLIP, tpu_onecall_max_boxes=4,
                           tpu_onecall_rec_width=160)),   # fused remainders
+    # the shear-staged warp on both sides, every crop of the slice (on
+    # synth_00_doc in the step and in both remainders)
+    ("synth_08_table", SHEAR),
+    ("synth_00_doc", dict(SHEAR, tpu_onecall_max_boxes=4,
+                          tpu_onecall_rec_width=160)),
+    ("synth_08_table", dict(SHEAR, **CLS, **CLS_FLIP)),
+    ("synth_00_doc", {"tpu_warp_interp": "bicubic"}),
 ])
 def test_slice_matches_jax(pair, pages, page, extra):
     port, ref = pair(**extra)
@@ -100,6 +109,52 @@ def test_slice_matches_jax(pair, pages, page, extra):
                            if k not in CLS_FLIP})
         other = plain.ocr(pages[page], cls=True)[0]
         assert [l[1][0] for l in other] != [l[1][0] for l in got]
+    form = port._fused.warp_form
+    assert (form["staged"], form["interp"]) == (ref._fused.stage,
+                                                ref._fused.interp)
+
+
+# the one default the port does not share: the JAX package's staged pipeline
+# runs the host DB postprocess (tpu_det_postprocess='host'), which is not
+# ported, so the port's default is the one-call pipeline
+DEFAULT_EXCEPTIONS = {"tpu_pipeline"}
+
+
+def test_defaults_match_jax():
+    """Every setting the port reads defaults to the JAX package's value."""
+    from onnxocr_tpu import config as jconfig
+    for key, value in config.DEFAULTS.items():
+        assert key in jconfig.DEFAULTS, key
+        want = jconfig.DEFAULTS[key]
+        if isinstance(value, (tuple, list)):
+            value, want = tuple(value), tuple(want)
+        if key in DEFAULT_EXCEPTIONS:
+            assert (key, value) == ("tpu_pipeline", "onecall") and \
+                want == "staged"
+        else:
+            assert value == want, (key, value, want)
+
+
+@pytest.fixture(scope="module")
+def default_pair(dict_path):
+    """(port on the CPU, JAX reference), each at its own defaults but the
+    pipeline, which is set equal."""
+    return (ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
+                          tpu_pipeline="onecall"),
+            JaxOcr(rec_char_dict_path=dict_path, tpu_pipeline="onecall"))
+
+
+@pytest.mark.parametrize("page", ["synth_00_doc", "synth_08_table"])
+def test_defaults_slice_matches_jax(default_pair, pages, page):
+    """ONNXPaddleOcr at each package's own defaults (the 960 det limit, the
+    shear-staged bilinear warp, drop_score 0.5), only the pipeline set
+    equal: the same texts, boxes and scores."""
+    port, ref = default_pair
+    assert port._fused.warp_form["staged"] == ref._fused.stage == "shear"
+    got = port.ocr(pages[page])[0]
+    want = ref.ocr(pages[page])[0]
+    assert len(want) > 4
+    _assert_same(got, want)
 
 
 def test_blank_page(pair):
@@ -157,8 +212,6 @@ def test_unported_settings_raise(dict_path):
     for extra in ({"tpu_pipeline": "staged"},
                   {"tpu_pipeline": "staged", "tpu_det_postprocess": "host"},
                   {"tpu_fused_cls_rec": False},
-                  {"tpu_warp_stage": "shear"},
-                  {"tpu_warp_interp": "bicubic"},
                   {"tpu_onecall_wave": True},
                   {"tpu_rec_microbatch": True},
                   {"tpu_pipeline": "staged", "tpu_det_postprocess": "device",

@@ -114,6 +114,183 @@ def test_crop_matrices_and_warp_crops_match():
     np.testing.assert_allclose(gc, rc, atol=1e-4)
 
 
+def _rot_box(cx, cy, cw, ch, angle_deg):
+    th = np.deg2rad(angle_deg)
+    ct, st = np.cos(th), np.sin(th)
+    box = np.array([[-cw / 2, -ch / 2], [cw / 2, -ch / 2],
+                    [cw / 2, ch / 2], [-cw / 2, ch / 2]], np.float64)
+    return box @ np.array([[ct, st], [-st, ct]]) + [cx, cy]
+
+
+# the quads of tests/test_warp.py: upright, small tilts, steep, rot90-composed,
+# rounding-deformed (bowed) and integer-parallelogram; the last row of every
+# batch is an identity with a valid width of 0
+_JIT = np.array([[0.5, 0.5], [0, 0], [0, 0], [0, -0.5]])
+WARP_QUADS = {
+    "upright_a": [[10, 12], [210, 12], [210, 60], [10, 60]],
+    "upright_b": [[40, 80], [360, 80], [360, 118], [40, 118]],
+    "tilt_1.2": _rot_box(160, 60, 200, 24, 1.2),
+    "tilt_-2.4": _rot_box(200, 120, 260, 30, -2.4),
+    "tilt_3.0": _rot_box(120, 90, 90, 14, 3.0),
+    "steep_25": _rot_box(160, 100, 180, 30, 25.0),
+    "steep_-30": _rot_box(260, 320, 150, 22, -30.0),
+    "rot90": [[150, 20], [190, 20], [190, 170], [150, 170]],
+    "bowed_a": np.round(_rot_box(160, 60, 200, 24, 1.0)) + _JIT,
+    "bowed_b": np.round(_rot_box(200, 120, 260, 30, -1.7)) + _JIT,
+    "int_parallelogram": np.round(_rot_box(160, 60, 200, 24, 1.0)),
+}
+# which of them the shear form takes (the JAX package's tests/test_warp.py)
+SHEAR_ELIGIBLE = ("upright_a", "upright_b", "tilt_1.2", "tilt_-2.4",
+                  "tilt_3.0", "int_parallelogram")
+
+
+@pytest.fixture(scope="module")
+def warp_image():
+    """The seeded 400 × 600 image of tests/test_warp.py."""
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:400, 0:600]
+    smooth = np.stack([xx % 256, yy % 256, (xx + yy) // 4 % 256], -1)
+    noise = rng.integers(0, 30, smooth.shape)
+    return np.clip(smooth + noise, 0, 255).astype(np.uint8)
+
+
+def _warp_batch(out_h, out_w, names=tuple(WARP_QUADS)):
+    mats, widths = [], []
+    for name in names:
+        m, vw = jwarp.build_crop_matrix(
+            np.asarray(WARP_QUADS[name], np.float32), out_h, out_w)
+        mats.append(m)
+        widths.append(vw)
+    mats.append(np.eye(3, dtype=np.float32))
+    widths.append(0)
+    return np.stack(mats).astype(np.float32), np.array(widths, np.int32)
+
+
+def _both_warps(img, mats, vw, out_h, out_w, interp, staged, slow_k=16):
+    """(the port's crops, the JAX package's at `slow_k`)."""
+    ref = np.asarray(jwarp.warp_crops(
+        jnp.asarray(img), jnp.asarray(mats), jnp.asarray(vw), out_h, out_w,
+        interp, staged, 0.35, slow_k))
+    got = warp.warp_crops(torch.from_numpy(img), torch.from_numpy(mats),
+                          torch.from_numpy(vw), out_h, out_w, interp, staged,
+                          0.35).numpy()
+    return got, ref
+
+
+@pytest.mark.parametrize("interp", ["bilinear", "bicubic"])
+@pytest.mark.parametrize("staged", [False, True, "shear"])
+@pytest.mark.parametrize("shape", [(48, 320), (48, 192)])
+def test_warp_forms_match_jax(warp_image, shape, staged, interp):
+    """Every warp form (gather, upright, shear) × interpolation on the rec
+    and cls crop shapes vs the JAX package: within 1e-4 in normalized units
+    (a 255-level step is 2.0). The float32 homography puts a sample up to
+    ~1e-4 px off the JAX package's; the largest difference measured on these
+    crops is 8.8e-5."""
+    got, ref = _both_warps(warp_image, *_warp_batch(*shape), *shape, interp,
+                           staged)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("shape", [(48, 320), (48, 192)])
+def test_shear_affine_matches_jax(shape):
+    """The LS affine's six coefficients within rtol 1e-6 and the shear
+    eligibility exactly the JAX package's, which is what test_warp.py
+    expects of each quad."""
+    mats, vw = _warp_batch(*shape)
+    ref = jwarp._shear_affine(jnp.asarray(mats), jnp.asarray(vw), shape[0])
+    got = warp._shear_affine(torch.from_numpy(mats), torch.from_numpy(vw),
+                             shape[0])
+    for g, r in zip(got[:6], ref[:6]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6,
+                                   atol=0)
+    np.testing.assert_array_equal(got[6].numpy(), np.asarray(ref[6]))
+    want = [name in SHEAR_ELIGIBLE for name in WARP_QUADS]
+    assert list(got[6].numpy()[:-1]) == want
+
+
+@pytest.mark.parametrize("names,slow_k", [
+    (tuple(WARP_QUADS), 0),        # the JAX package gathers every crop
+    (tuple(WARP_QUADS), 2),        # 5 ineligible > slow_k: every crop
+    (tuple(WARP_QUADS), 4),
+    (tuple(WARP_QUADS), 8),        # the 5 ineligible crops, compacted
+    (tuple(WARP_QUADS), 16),       # slow_k >= K: every crop
+    (SHEAR_ELIGIBLE, 4),           # nothing to gather
+])
+def test_shear_tiers_give_the_same_crops(warp_image, names, slow_k):
+    """The JAX package's three tiers of the shear form (nothing gathered,
+    the ineligible crops compacted into slow_k static slots, every crop
+    gathered) all give the port's one form, which gathers every crop and
+    keeps the shear form's crop where it may: within 1e-4. The port stores
+    tpu_warp_slow_k and warps the same at every value."""
+    mats, vw = _warp_batch(48, 320, names)
+    got, ref = _both_warps(warp_image, mats, vw, 48, 320, "bilinear",
+                           "shear", slow_k)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4)
+    args = config.make_params()
+    form = warp.form_of(args)
+    args.tpu_warp_slow_k = slow_k
+    assert warp.form_of(args) == form
+
+
+@pytest.fixture(scope="module")
+def page_rec_crops(tmp_path_factory):
+    """Path B at the port's defaults on synth_00_doc: the uploaded page and
+    the (K_rec = 48) crop matrices and valid widths its rec warp gets."""
+    from onnxocr_tpu_torch import ONNXPaddleOcr
+    path = tmp_path_factory.mktemp("dict") / "ppocrv5_dict.txt"
+    path.write_text("".join(f"<{i}>\n" for i in range(18383)))
+    ocr = ONNXPaddleOcr(device="cpu", rec_char_dict_path=str(path))
+    seen, real = [], warp.warp_crops
+    warp.warp_crops = lambda *a, **kw: seen.append((a, kw)) or real(*a, **kw)
+    try:
+        ocr.ocr(read_bgr(PAGE), cls=False)
+    finally:
+        warp.warp_crops = real
+    ((image, mats, vw, out_h, out_w), form), = seen
+    assert form["staged"] == "shear" and mats.shape[0] == 48
+    return image.numpy(), mats.numpy(), vw.numpy(), out_h, out_w
+
+
+def test_shear_on_page_quads_matches_jax(page_rec_crops):
+    """Path B's 48 device quads of synth_00_doc (rounded to whole pixels,
+    so some bow): the six coefficients within rtol 1e-6 and the eligibility
+    exactly the JAX package's. The rec crops: XLA's fusion of the JAX
+    package's shear passes rounds otherwise than the same code run op by op
+    (measured: up to 1.16e-4 apart on this page, where the port is 2.4e-7
+    from the op-by-op form); 969 of the 4,423,680 values are more than 1e-4
+    from the jitted JAX crops, none more than 1.2e-4 (0.015 of a level);
+    the test allows 0.05 % of them past 1e-4, none past 1.2e-4."""
+    img, mats, vw, out_h, out_w = page_rec_crops
+    ref = jwarp._shear_affine(jnp.asarray(mats), jnp.asarray(vw), out_h)
+    got = warp._shear_affine(torch.from_numpy(mats), torch.from_numpy(vw),
+                             out_h)
+    live = vw > 0
+    for g, r in zip(got[:6], ref[:6]):
+        np.testing.assert_allclose(g.numpy()[live], np.asarray(r)[live],
+                                   rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(got[6].numpy(), np.asarray(ref[6]))
+    assert got[6].numpy()[live].sum() >= 8
+    gc, rc = _both_warps(img, mats, vw, out_h, out_w, "bilinear", "shear")
+    diff = np.abs(gc - rc)
+    assert diff.max() <= 1.2e-4 and (diff > 1e-4).mean() <= 5e-4
+
+
+def test_stage_mode():
+    def staged(setting):
+        args = config.make_params()
+        args.tpu_warp_stage = setting
+        return warp.form_of(args)["staged"]
+
+    assert [staged(s) for s in ("off", "", None, False)] == [False] * 4
+    assert staged("shear") == "shear"
+    assert staged(True) is True
+    with pytest.raises(ValueError, match="tpu_warp_interp"):
+        warp.warp_crops(torch.zeros((4, 4, 3), dtype=torch.uint8),
+                        torch.eye(3)[None], torch.ones(1, dtype=torch.int32),
+                        4, 4, "nearest")
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("axis", [0, 1])
 def test_segmented_scan_matches(axis, reverse):

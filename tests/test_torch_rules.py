@@ -1,7 +1,7 @@
 """Import rules of the PyTorch port, checked on the syntax tree: no module
-of onnxocr_tpu_torch, and neither chip_smoke.py nor ab_torch_kernels.py,
-imports jax, the onnxocr_tpu package, cv2 or PIL (the machine with the GPU
-has none of them)."""
+of onnxocr_tpu_torch, and none of chip_smoke.py, ab_torch_kernels.py and
+ab_warp.py, imports jax, the onnxocr_tpu package, cv2 or PIL (the machine
+with the GPU has none of them)."""
 import ast
 from pathlib import Path
 
@@ -9,8 +9,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "onnxocr_tpu", "cv2", "PIL")
-FILES = sorted((ROOT / "onnxocr_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py", ROOT / "ab_torch_kernels.py"]
+FILES = sorted((ROOT / "onnxocr_tpu_torch").rglob("*.py")) + [
+    ROOT / name for name in ("chip_smoke.py", "ab_torch_kernels.py",
+                             "ab_warp.py")]
 
 
 def _imported(path: Path):

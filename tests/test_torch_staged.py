@@ -81,6 +81,10 @@ def _assert_same(got, ref):
                         "tpu_rec_width_buckets": (160, 320),
                         "tpu_batch_buckets": (4,)}),    # several chunks
     ("synth_00_doc", dict(FLIP, tpu_fused_cls_rec=False)),  # cls, then rec
+    # the shear-staged warp (both packages' default) on every crop
+    ("synth_00_doc", dict(FLIP, tpu_warp_stage="shear")),
+    ("synth_08_table", dict(FLIP, tpu_fused_cls_rec=False,
+                            tpu_warp_stage="shear")),
 ])
 def test_staged_device_matches_jax(pair, pages, page, extra):
     port, ref = pair(**extra)

@@ -114,7 +114,7 @@ def main() -> int:
         with open(dict_path, "w") as f:
             f.write("".join(f"<{i}>\n" for i in range(18383)))
         ocr = ONNXPaddleOcr(device="cuda", rec_char_dict_path=dict_path,
-                            use_angle_cls=False)
+                            tpu_pipeline="onecall", use_angle_cls=False)
         todo = cases(ocr, page)
     report = {"card": smi, "page": chip_smoke.PAGES[0], "kernels": {}}
     for kernel, by_case in todo.items():

@@ -93,7 +93,8 @@ def main() -> int:
         dict_path = os.path.join(tmp, "ppocrv5_dict.txt")
         with open(dict_path, "w") as f:
             f.write("".join(f"<{i}>\n" for i in range(18383)))
-        paths = (("B", dict(use_angle_cls=False), False),
+        paths = (("B", dict(tpu_pipeline="onecall", use_angle_cls=False),
+                  False),
                  ("A", dict(tpu_pipeline="staged",
                             tpu_det_postprocess="device",
                             tpu_db_reduce="pallas", use_angle_cls=True,

@@ -4,12 +4,13 @@
 
 1. requires CUDA and prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written kernels from onnxocr_tpu_torch/csrc into
-   build/kernels/ (one nvcc per source, started together);
+   build/kernels/ (one nvcc per source, started together) and, at the same
+   time, the host C++ library of the DB postprocess into build/host/;
 3. holds each of the five kernels against its plain PyTorch version on the
    card at the shapes every path gives it — the CTC head (three TF32
    tensor-core passes over split operands) against the float32 plain
    version over the v5 head (192 × 18385) at 48 crops × 80 steps
-   (one-call) and at 16 and 64 crops × 80 steps (the staged path's batch
+   (one-call) and at 16 and 64 crops × 80 steps (the staged paths' batch
    ladder), and on rows built so that their top two logits differ by 1e-4
    relative; the label-keyed and the slot-keyed reductions on a real
    page's det map on the 1×2 working grid with K = 1024, on the one-call
@@ -29,11 +30,22 @@
    (bilinear, bicubic) on the crop matrices that one page of path B and of
    path A give their warps, on the card against the same port on the CPU,
    counts the shear-eligible crops on both and times each form;
-5. with TF32 off and the committed v5 checkpoints, drives four paths on
+5. with TF32 off and the committed v5 checkpoints, drives six paths on
    committed held-out pages, all at the default shear-staged warp. Each
    first runs its pages once unmeasured (so every (width, batch) shape has
    been used), then sets the launch counts to 0, runs the pages again,
-   reads the counts and checks that its kernels launched:
+   reads the counts and checks that its kernels launched (and, on path C,
+   that the four reductions did not):
+   C  `ONNXPaddleOcr()` at its defaults, the JAX package's default
+      pipeline: the staged bitmap wire (DBNet → bitpacked DB bitmap → host
+      contours, min-area quads and unclip in the C++ host library, built
+      with g++ beside the kernels → fused rec pass per width bucket that
+      also scores the candidates on the card); its DB bitmap of one page
+      is held against the CPU's, every differing pixel a tie;
+   C' the map route (`tpu_det_wire='map'`: the uint8 map downloaded, the
+      host DB postprocess scores) with the untrained classifier on, and
+      the bitmap wire's overflow branch on one page (batch ladder (4,):
+      more than 16 candidates download the map and score on the host);
    B  the one-call path (960² det canvas, label-keyed reductions,
       classifier off);
    A  the staged device-det path (per-page det canvas, slot-keyed
@@ -41,8 +53,9 @@
    A2 path A with `tpu_fused_cls_rec=False`: the classifier's and the
       recognizer's own `run_boxes`, which must give path A's results;
    B' the one-call path with the slot-keyed reductions and the classifier;
-   one page of each is compared with the same port on the CPU, and the
-   classifier's probabilities on seeded crops are compared card vs CPU;
+   one page of each (C': each page) is compared with the same port on the
+   CPU, and the classifier's probabilities on seeded crops are compared
+   card vs CPU;
 6. prints {"warp": [...]}, {"kernels": [...]} and, last, {"ok": true,
    "device": {...}}.
 
@@ -726,6 +739,29 @@ def drive(ocr, pages, names, cls, label):
     return results, launches
 
 
+def bitmap_ties(gpu, cpu, img):
+    """Path C's DB bitmap of `img` on the card against the CPU's → (pixels
+    that differ, max abs difference of the two maps over the valid
+    region). A map that differs by float rounding may flip a pixel whose
+    probability lies that close to det_db_thresh; every differing pixel
+    must be such a tie."""
+    from onnxocr_tpu_torch.ops import det_pre, resize_dev
+    out = []
+    for ocr in (gpu, cpu):
+        image, h, w = resize_dev.put_src_bucket(img, ocr.device)
+        bits, prob, (rh, rw) = ocr.text_detector.bitmap_forward(
+            image, h, w, ocr._fixed_canvas())
+        out.append((det_pre.unpack_bitmap(bits.cpu().numpy()[:rh, :rw // 8],
+                                          rw), prob.cpu().numpy()[:rh, :rw]))
+    (bm, prob), (bm_cpu, prob_cpu) = out
+    diff = bm != bm_cpu
+    err = float(np.abs(prob - prob_cpu).max())
+    thresh = cpu.text_detector.postprocess_op.thresh
+    assert (np.abs(prob_cpu[diff] - thresh) <= err).all(), \
+        "path C: a bitmap pixel differs from the CPU's and is no tie"
+    return int(diff.sum()), err
+
+
 def same_result(got, ref):
     assert len(got) == len(ref), (len(got), len(ref))
     assert [l[1][0] for l in got] == [l[1][0] for l in ref]
@@ -746,11 +782,18 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
+    from concurrent.futures import ThreadPoolExecutor
     from onnxocr_tpu_torch import ONNXPaddleOcr, config
+    from onnxocr_tpu_torch.ops import native
     from onnxocr_tpu_torch.ops.kernels import build
     from onnxocr_tpu_torch.utils.png import read_bgr
 
-    print(f"kernels built in {build.build_all():.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        host = pool.submit(native.build)
+        print(f"kernels built in {build.build_all():.1f} s")
+        print(f"host library {host.result().name} built, "
+              f"{time.perf_counter() - t0:.1f} s from the start of the build")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if "Used" in line:
@@ -770,8 +813,16 @@ def main() -> int:
             return ONNXPaddleOcr(device=device, rec_char_dict_path=dict_path,
                                  **kw)
 
+        # C: ONNXPaddleOcr() at its defaults (staged, bitmap wire)
+        kw_c = {}
+        # C': the map route with the classifier; the bitmap wire's overflow
+        # branch (more candidates than 4 × a top batch size of 4)
+        kw_c2 = dict(tpu_det_wire="map", use_angle_cls=True,
+                     tpu_allow_untrained=True)
+        kw_c3 = dict(use_angle_cls=True, tpu_allow_untrained=True,
+                     tpu_batch_buckets=(4,))
         # B: one-call, label-keyed reductions, classifier off
-        kw_b = dict(use_angle_cls=False)
+        kw_b = dict(tpu_pipeline="onecall", use_angle_cls=False)
         # A: staged device-det, slot-keyed reductions, classifier on
         kw_a = dict(tpu_pipeline="staged", tpu_det_postprocess="device",
                     tpu_db_reduce="pallas", use_angle_cls=True,
@@ -779,8 +830,13 @@ def main() -> int:
         # A2: the same with the classifier and the recognizer as two steps
         kw_a2 = dict(kw_a, tpu_fused_cls_rec=False)
         # B': one-call, slot-keyed reductions, classifier on
-        kw_b2 = dict(tpu_db_reduce="pallas", use_angle_cls=True,
-                     tpu_allow_untrained=True)
+        kw_b2 = dict(tpu_pipeline="onecall", tpu_db_reduce="pallas",
+                     use_angle_cls=True, tpu_allow_untrained=True)
+        ocr_c = model("cuda", **kw_c)
+        ocr_c2 = model("cuda", **kw_c2)
+        ocr_c3 = model("cuda", **kw_c3)
+        assert (ocr_c.route, ocr_c2.route, ocr_c3.route) == ("bitmap", "map",
+                                                             "bitmap")
         ocr = model("cuda", **kw_b)
         ocr_a = model("cuda", **kw_a)
         ocr_a2 = model("cuda", **kw_a2)
@@ -794,22 +850,25 @@ def main() -> int:
         kernels += [dict(k, path="B") for k in check_seg_reduce2(ocr, page)]
         kernels += [dict(k, path="B'")
                     for k in check_seg_reduce(ocr_b2, page, with_runs=True)]
-        staged_ctc = [check_ctc_head(ocr, seed=2 + i, crops=c)
-                      for i, c in enumerate(ocr_a.text_recognizer.batch_ladder
+        # the staged paths' shapes (C and A share the batch and width
+        # ladders), counted under the default path C
+        staged_ctc = [dict(check_ctc_head(ocr, seed=2 + i, crops=c), path="C")
+                      for i, c in enumerate(ocr_c.text_recognizer.batch_ladder
                                             [-2:])]
         others = {"ctc_head_reduce": staged_ctc}
         for k in check_seg_reduce(ocr_a, page):
-            others[k["name"]] = [k]
+            others[k["name"]] = [dict(k, path="A")]
         for k in kernels:
             k["other_shapes"] = [
                 dict({key: o[key] for key in (
                     "max_abs_err", "ms", "graph_ms", "plain_ms",
                     "library_ms", "bound_ms", "bound_by")},
-                     path="A", shape=o.get("shape") or o["grid"],
+                     path=o["path"], shape=o.get("shape") or o["grid"],
                      labelled_cells=o.get("labelled_cells"))
                 for o in others.get(k["name"], ())]
             for o in k["other_shapes"]:
-                print(f"{k['name']} at path A's shape {o['shape']}: max abs "
+                print(f"{k['name']} at path {o['path']}'s shape {o['shape']}: "
+                      f"max abs "
                       f"err {o['max_abs_err']:.2e}, {o['ms']:.4f} ms, "
                       f"{o['graph_ms']:.4f} in a graph (plain "
                       f"{o['plain_ms']:.4f}, library {o['library_ms']:.4f}, "
@@ -831,28 +890,52 @@ def main() -> int:
         print("kernels agree with their plain versions on the card")
 
         slot_keyed = ("ctc_head_reduce", "seg_sum_bands", "seg_min_bands")
+        reductions = ("label_moment_sums", "label_proj_extents",
+                      "seg_sum_bands", "seg_min_bands")
+        # the overflow page must not reach the scored passes
+        scored = []
+        real_scored = ocr_c3.text_recognizer.run_candidates_scored
+        ocr_c3.text_recognizer.run_candidates_scored = \
+            lambda *a, **kw: scored.append(1) or real_scored(*a, **kw)
         runs, found = {}, {}
-        for label, gpu, kw, names, cls, needs in (
+        for label, gpu, kw, names, cls, needs, absent, compare in (
+                ("C", ocr_c, kw_c, PAGES, False, ("ctc_head_reduce",),
+                 reductions, PAGES[:1]),
+                ("C'", ocr_c2, kw_c2, PAGES[:3], True, ("ctc_head_reduce",),
+                 reductions, PAGES[:3]),
+                ("C'o", ocr_c3, kw_c3, PAGES[3:4], True,
+                 ("ctc_head_reduce",), reductions, PAGES[3:4]),
                 ("B", ocr, kw_b, PAGES[:4], False,
                  ("ctc_head_reduce", "label_moment_sums",
-                  "label_proj_extents")),
-                ("A", ocr_a, kw_a, PAGES, True, slot_keyed),
-                ("A2", ocr_a2, kw_a2, PAGES[:3], True, slot_keyed),
-                ("B'", ocr_b2, kw_b2, PAGES[:3], True, slot_keyed)):
+                  "label_proj_extents"), (), PAGES[:1]),
+                ("A", ocr_a, kw_a, PAGES, True, slot_keyed, (), PAGES[:1]),
+                ("A2", ocr_a2, kw_a2, PAGES[:3], True, slot_keyed, (),
+                 PAGES[:1]),
+                ("B'", ocr_b2, kw_b2, PAGES[:3], True, slot_keyed, (),
+                 PAGES[:1])):
             results, launches = drive(gpu, pages, names, cls, label)
             for name in needs:
                 assert launches.get(name, 0) > 0, \
                     f"path {label}: {name} never launched"
+            for name in absent:
+                assert launches.get(name, 0) == 0, \
+                    f"path {label}: {name} launched"
             runs[label], found[label] = launches, results
             cpu = model("cpu", **kw)
-            same_result(results[PAGES[0]],
-                        cpu.ocr(pages[PAGES[0]], cls=cls)[0])
-            print(f"path {label} page {PAGES[0]}: GPU and CPU runs agree "
-                  f"({len(results[PAGES[0]])} boxes)")
+            for name in compare:
+                same_result(results[name], cpu.ocr(pages[name], cls=cls)[0])
+                print(f"path {label} page {name}: GPU and CPU runs agree "
+                      f"({len(results[name])} boxes)")
+            if label == "C":
+                n_diff, map_err = bitmap_ties(gpu, cpu, pages[PAGES[0]])
+                print(f"path C page {PAGES[0]}: {n_diff} DB bitmap pixels "
+                      f"differ from the CPU's, all ties (maps within "
+                      f"{map_err:.2e})")
             if label == "A":
                 err = check_classifier(gpu, cpu, seed=1)
                 print(f"classifier on the card vs the CPU: max abs err "
                       f"{err:.2e} over 16 seeded crops")
+        assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
         print(f"path A2 gives path A's results on {len(found['A2'])} pages")

@@ -1,9 +1,11 @@
 """onnxocr_tpu_torch — the PyTorch/CUDA port of onnxocr_tpu.
 
-The one-call PP-OCRv5 path (det → device DB boxes → rec → fused CTC head)
-runs on an NVIDIA GPU through hand-written CUDA kernels (csrc/). It imports
-torch and numpy only — never jax, and nothing of the onnxocr_tpu package,
-whose committed data files (checkpoints, sidecars) it reads by path.
+The PP-OCRv5 pipelines of the JAX package — by default the staged one (det
+→ bitpacked DB bitmap → host DB postprocess in C++ → fused cls + rec with
+the box scores on the device), and the one-call one — run on an NVIDIA GPU
+through hand-written CUDA kernels (csrc/). It imports torch and numpy only
+— never jax, and nothing of the onnxocr_tpu package, whose committed data
+files (checkpoints, sidecars) it reads by path.
 """
 from .pipeline.api import ONNXPaddleOcr
 

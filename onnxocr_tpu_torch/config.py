@@ -3,10 +3,9 @@
 Own copy of the flag table of onnxocr_tpu/config.py (the reference kwargs
 surface of ONNXPaddleOcr, plus the engine's `tpu_*` knobs that the ported
 paths read). Unknown keys are accepted and stored, as in the reference.
-Every default is the JAX package's but one, `tpu_pipeline='onecall'`: of
-the staged pipeline only the device-det form (`tpu_det_postprocess=
-'device'`) is ported, and the JAX package's staged default runs the host DB
-postprocess, which is not.
+Every default is the JAX package's (tests/test_torch_onecall.py
+`test_defaults_match_jax`): `ONNXPaddleOcr()` runs the staged pipeline's
+bitmap wire with the host DB postprocess, as the JAX package does.
 
 Model assets are read by path from the JAX package's committed data files
 (`onnxocr_tpu/assets/`), never by importing that package.
@@ -64,7 +63,7 @@ DEFAULTS = {
     "cls_batch_num": 6,
     "cls_thresh": 0.9,
     "save_crop_res": False,
-    # engine knobs of the one-call and staged device-det paths
+    # engine knobs of the one-call and staged paths
     "tpu_det_bucket": 320,
     "tpu_rec_width_buckets": (640, 960, 1280),
     "tpu_batch_buckets": (4, 16, 64),
@@ -76,9 +75,26 @@ DEFAULTS = {
     "tpu_warp_stage": "shear",
     "tpu_warp_stage_tol": 0.35,
     "tpu_warp_slow_k": 16,
-    "tpu_pipeline": "onecall",
+    # 'staged' (routed by the det flags below, pipeline/system.py) or
+    # 'onecall' (pipeline/onecall.py)
+    "tpu_pipeline": "staged",
     "tpu_fused_cls_rec": True,
+    # the staged det route: 'host' DB postprocess (contours, min-area
+    # rects, unclip from the C++ host library) or 'device' DB extraction
     "tpu_det_postprocess": "host",
+    # the host postprocess's wire: 'bitmap' downloads the bitpacked DB
+    # bitmap and scores the candidates on the device in the fused rec pass;
+    # 'map' downloads the map in tpu_det_map_dtype ('uint8' floors to
+    # 1/255, 'float16', 'float32') and scores on the host
+    "tpu_det_wire": "bitmap",
+    "tpu_det_map_dtype": "uint8",
+    # 'device': the det input is resized on the device from the uploaded
+    # page; 'host' (cv2 resize) is not ported
+    "tpu_det_input": "device",
+    # the bitmap wire's det canvas: 'always' one square canvas of the limit
+    # side; 'auto' and 'never' the page's own (the JAX package fixes it
+    # under 'auto' on the TPU only)
+    "tpu_det_fixed_canvas": "auto",
     "tpu_det_max_boxes": 1024,
     "tpu_det_extract_scale": "1x2",
     "tpu_det_score_scale": "1x1",

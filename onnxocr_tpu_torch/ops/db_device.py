@@ -240,6 +240,16 @@ def quads_vs_csum(csum: torch.Tensor, quads: torch.Tensor) -> torch.Tensor:
     return torch.where(count > 0, total / torch.clamp(count, min=1.0), 0.0)
 
 
+def quad_mask_mean(prob: torch.Tensor, quads: torch.Tensor,
+                   in_valid: torch.Tensor) -> torch.Tensor:
+    """(H, W) map, (K, 4, 2) quads in map coordinates, (H, W) valid mask →
+    (K,) mean of the map inside each quad's even-odd raster mask, the host
+    scorer's convention (the bitmap wire's candidate scores; port of
+    `_quad_mask_mean`)."""
+    masked = torch.where(in_valid, prob, 0.0)
+    return quads_vs_csum(F.pad(torch.cumsum(masked, dim=1), (1, 0)), quads)
+
+
 def device_boxes(prob: torch.Tensor, resize_h: int, resize_w: int,
                  max_k: int = 256, thresh: float = 0.3,
                  box_thresh: float = 0.6, unclip_ratio: float = 1.5,

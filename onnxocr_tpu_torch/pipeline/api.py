@@ -21,16 +21,18 @@ class ONNXPaddleOcr(TextSystem):
     def ocr(self, img, det: bool = True, rec: bool = True, cls: bool = True):
         """det+rec → [[[box_as_lists, (text, score)], ...]]; `cls` runs the
         angle classifier when it was built (use_angle_cls=True). The
-        det-only and rec-only forms need the staged host pipeline, which is
-        not ported."""
+        det-only and rec-only forms wait for the cv2-exact host image
+        operations (the host det resize, host crops, the classifier's and
+        recognizer's resize of crop lists), which are not ported."""
         if cls and not self.use_angle_cls:
             # observable stdout contract of the reference, typo included
             print("Since the angle classifier is not initialized, "
                   "the angle classifier will not be uesd during the forward "
                   "process")
         if not (det and rec):
-            raise NotImplementedError("det-only and rec-only calls need the "
-                                      "staged host pipeline, which is not "
-                                      "ported")
+            raise NotImplementedError(
+                "det-only and rec-only calls need the cv2-exact host image "
+                "operations (host det resize, host crops), which are not "
+                "ported")
         boxes, texts = self(img, cls)
         return [[[np.asarray(b).tolist(), t] for b, t in zip(boxes, texts)]]

@@ -1,40 +1,39 @@
-"""Text detector on the device: the DBNet, the DB postprocess parameters,
-the checkpoint calibration, and the device box extraction of the staged
-path. Counterpart of the parts of onnxocr_tpu/pipeline/detector.py the
-ported paths read; the host DB postprocess (contours, minAreaRect, unclip
-from a downloaded map) is not ported.
+"""Text detector on the device: the DBNet, the host DB postprocess, the
+checkpoint calibration, and the det forwards of the staged routes.
+Counterpart of onnxocr_tpu/pipeline/detector.py and of the det forwards of
+its backends.DetForward:
+
+* the bitmap wire (`bitmap_forward`): DBNet → the DB bitmap bitpacked on
+  the device; the prob map stays there for the deferred box scores;
+* the map route (`infer_prob_map_device` + `boxes_from_prob`): DBNet → the
+  map in the wire dtype `tpu_det_map_dtype` → the host DB postprocess;
+* device box extraction (`infer_boxes_device`, tpu_det_postprocess=
+  'device'): only max_k × 10 floats come back.
+
+The host det input (cv2 resize, `infer_prob_map`) is not ported.
 """
 from __future__ import annotations
 
-from types import SimpleNamespace
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from ..models import convert
-from ..ops import db_device, det_pre, resize_dev
+from ..ops import db_device, det_pre, geometry, resize_dev
+from ..ops.db_post import DBPostProcess
 from . import backends
-
-
-def order_points_clockwise(pts: np.ndarray) -> np.ndarray:
-    """4 points → [top-left, top-right, bottom-right, bottom-left]: the two
-    smallest-x points form the left pair, each pair ordered by y (own copy
-    of the reference's ops/geometry.order_points_clockwise)."""
-    pts = np.asarray(pts)
-    idx = np.argsort(pts[:, 0])
-    left = pts[idx[:2]]
-    right = pts[idx[2:]]
-    left = left[np.argsort(left[:, 1])]
-    right = right[np.argsort(right[:, 1])]
-    return np.asarray([left[0], right[0], right[1], left[1]],
-                      dtype=pts.dtype)
 
 
 class TextDetector:
     def __init__(self, args, device: torch.device):
         self.args = args
         self.limit_side_len = args.det_limit_side_len
+        self.limit_type = args.det_limit_type
+        # fixed-shape resize (DetResizeForTest type 1) when set
+        self.image_shape = getattr(args, "det_image_shape", None)
         self.bucket = int(getattr(args, "tpu_det_bucket", 320))
+        self.map_dtype = getattr(args, "tpu_det_map_dtype", "uint8")
         if backends.pick_arch("det", args.det_model_dir) != "mbv3":
             raise NotImplementedError("the ResNet18-vd server detector is "
                                       "not ported")
@@ -44,10 +43,11 @@ class TextDetector:
         for k, v in backends.checkpoint_calibration(ckpt).items():
             if k.startswith("det_") and k not in user_keys:
                 setattr(args, k, v)
-        # DBPostProcess parameters (reference min_size 3)
-        self.postprocess_op = SimpleNamespace(
+        self.postprocess_op = DBPostProcess(
             thresh=args.det_db_thresh, box_thresh=args.det_db_box_thresh,
-            unclip_ratio=args.det_db_unclip_ratio, min_size=3)
+            max_candidates=1000, unclip_ratio=args.det_db_unclip_ratio,
+            use_dilation=args.use_dilation,
+            score_mode=args.det_db_score_mode, box_type=args.det_box_type)
         self.model = convert.build_dbnet(tree, device)
 
     def clip_det_res(self, points, img_height, img_width):
@@ -62,7 +62,7 @@ class TextDetector:
         img_height, img_width = image_shape[:2]
         out = []
         for box in dt_boxes:
-            box = order_points_clockwise(np.asarray(box))
+            box = geometry.order_points_clockwise(np.asarray(box))
             box = self.clip_det_res(box, img_height, img_width)
             rect_width = int(np.linalg.norm(box[0] - box[1]))
             rect_height = int(np.linalg.norm(box[0] - box[3]))
@@ -70,6 +70,88 @@ class TextDetector:
                 continue
             out.append(box)
         return np.array(out)
+
+    def filter_tag_det_res_only_clip(self, dt_boxes, image_shape):
+        """Poly boxes: clip only. A list, not an array: polygons have as
+        many vertices as their contours need (the JAX package stacks them
+        with np.array, which numpy ≥ 1.24 refuses for ragged polygons)."""
+        img_height, img_width = image_shape[:2]
+        return [self.clip_det_res(box, img_height, img_width)
+                for box in dt_boxes]
+
+    def resize_target(self, src_h: int, src_w: int) -> Tuple[int, int]:
+        if self.image_shape is not None:
+            return tuple(int(v) for v in self.image_shape)
+        return det_pre.det_resize_target(src_h, src_w, self.limit_side_len,
+                                         self.limit_type)
+
+    def forward(self, x: torch.Tensor, rh: int, rw: int) -> torch.Tensor:
+        """(H, W, 3) normalized canvas (valid rh × rw) → (H, W) float32 map;
+        the backbone's SE pools see the valid region only."""
+        return self.model(x.permute(2, 0, 1)[None], valid_hw=(rh, rw))[0]
+
+    def encode_map(self, prob: torch.Tensor) -> torch.Tensor:
+        """The map in the wire dtype. uint8 floors (does not round): rounding
+        can lift sub-threshold pixels over det_db_thresh."""
+        if self.map_dtype == "uint8":
+            return torch.floor(prob * 255.0).to(torch.uint8)
+        if self.map_dtype == "float16":
+            return prob.to(torch.float16)
+        return prob.to(torch.float32)
+
+    @staticmethod
+    def decode_map(arr: np.ndarray) -> np.ndarray:
+        if arr.dtype == np.uint8:
+            return arr.astype(np.float32) / 255.0
+        return arr.astype(np.float32)
+
+    @torch.inference_mode()
+    def bitmap_forward(self, image_u8: torch.Tensor, src_h: int, src_w: int,
+                       fixed_canvas: bool = False):
+        """The bitmap wire's det step: resize → DBNet → bitpacked DB bitmap,
+        all on the device. `fixed_canvas`: one square canvas of the limit
+        side for every page, else the page's own bucket canvas. → (bits
+        (H, W // 8) uint8, prob (H, W) float32, both on the device, (rh,
+        rw))."""
+        rh, rw = self.resize_target(src_h, src_w)
+        if fixed_canvas:
+            cap = det_pre.round_up(int(self.limit_side_len), self.bucket)
+            hb = wb = max(cap, det_pre.round_up(max(rh, rw), self.bucket))
+        else:
+            hb = det_pre.round_up(rh, self.bucket)
+            wb = det_pre.round_up(rw, self.bucket)
+        x = resize_dev.resize_normalize_det(image_u8, src_h, src_w, rh, rw,
+                                            hb, wb)
+        prob = self.forward(x, rh, rw)
+        bits = det_pre.bitpack_map(prob, rh, rw, self.postprocess_op.thresh)
+        return bits, prob, (rh, rw)
+
+    @torch.inference_mode()
+    def infer_prob_map_device(self, image_u8: torch.Tensor, src_h: int,
+                              src_w: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The map route's det step: resize → DBNet → the map in the wire
+        dtype, downloaded. → (prob (rh, rw) float32 numpy, shape_info
+        [src_h, src_w, ratio_h, ratio_w])."""
+        rh, rw = self.resize_target(src_h, src_w)
+        hb = det_pre.round_up(rh, self.bucket)
+        wb = det_pre.round_up(rw, self.bucket)
+        x = resize_dev.resize_normalize_det(image_u8, src_h, src_w, rh, rw,
+                                            hb, wb)
+        wire = self.encode_map(self.forward(x, rh, rw))
+        prob = self.decode_map(wire.cpu().numpy()[:rh, :rw])
+        shape_info = np.array([src_h, src_w, rh / float(src_h),
+                               rw / float(src_w)], dtype=np.float64)
+        return prob, shape_info
+
+    def boxes_from_prob(self, prob: np.ndarray, shape_info: np.ndarray,
+                        ori_shape):
+        """The host DB postprocess of a downloaded map, then the det
+        filter (clip only for poly boxes)."""
+        dt_boxes = self.postprocess_op({"maps": prob[None, None]},
+                                       shape_info[None])[0]["points"]
+        if self.args.det_box_type == "poly":
+            return self.filter_tag_det_res_only_clip(dt_boxes, ori_shape)
+        return self.filter_tag_det_res(dt_boxes, ori_shape)
 
     @torch.inference_mode()
     def boxes_packed(self, image_u8: torch.Tensor, src_h: int, src_w: int,
@@ -83,7 +165,7 @@ class TextDetector:
         max_k = int(args.tpu_det_max_boxes)
         x = resize_dev.resize_normalize_det(image_u8, src_h, src_w, rh, rw,
                                             hb, wb)
-        prob = self.model(x.permute(2, 0, 1)[None], valid_hw=(rh, rw))[0]
+        prob = self.forward(x, rh, rw)
         quads, scores, valid = db_device.device_boxes(
             prob.contiguous(), rh, rw, max_k=max_k, thresh=pp.thresh,
             box_thresh=pp.box_thresh, unclip_ratio=pp.unclip_ratio,
@@ -97,9 +179,10 @@ class TextDetector:
 
     def infer_boxes_device(self, image_u8: torch.Tensor, src_h: int,
                            src_w: int) -> np.ndarray:
-        """The staged path's det step (tpu_det_postprocess='device'): only
-        max_k × 10 floats return to the host. → (N, 4, 2) int32 boxes in
-        source coords, before filter_tag_det_res."""
+        """The device-postprocess route's det step
+        (tpu_det_postprocess='device'): only max_k × 10 floats return to
+        the host. → (N, 4, 2) int32 boxes in source coords, before
+        filter_tag_det_res."""
         rh, rw = det_pre.det_resize_target(src_h, src_w, self.limit_side_len)
         packed = self.boxes_packed(image_u8, src_h, src_w, rh, rw)
         return db_device.unpack_boxes(packed.cpu().numpy(), rw, rh, src_w,

@@ -1,15 +1,17 @@
 """Fused cls→rec device step: one pass per width bucket with one download.
-Counterpart of onnxocr_tpu/pipeline/fused.py (`FusedClsRec.__call__`):
+Counterpart of onnxocr_tpu/pipeline/fused.py (`FusedClsRec.__call__` and
+`call_scored`):
 
     warp 48×192 cls crops from the uploaded page → cls forward → rotation
     verdict on the device → select between the two precomputed homographies
     (upright / turned by 180°) → warp 48×W rec crops → SVTR → fused CTC head
 
-and the only download is one packed (N, 2T + 3) float32 buffer
-[idx (T), prob (T), cls probs (2), rot (1)]. The cross-page and
-score-carrying variants of the reference (`call_multi`, `call_scored`,
-`call_multi_scored`) belong to its batchers and bitmap wire and are not
-ported.
+`__call__` downloads one packed (N, 2T + 3) float32 buffer [idx (T), prob
+(T), cls probs (2), rot (1)]. `call_scored`, the bitmap wire's step, also
+scores the DB candidates' pre-unclip quads against the prob map that stayed
+on the device, and downloads (N, 2T + 1) [idx, prob, score]. The
+cross-page variants of the reference (`call_multi`, `call_multi_scored`)
+belong to its batchers and are not ported.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from .. import config
+from ..ops import db_device
 from ..ops import warp as warp_ops
 
 
@@ -50,18 +53,13 @@ class FusedClsRec:
         return torch.where(rot[:, None, None], rec_mats_rot, rec_mats), \
             probs, rot
 
-    @torch.inference_mode()
-    def __call__(self, image_u8: torch.Tensor, cls_mats, cls_valid,
-                 rec_mats, rec_mats_rot, rec_valid, out_h: int, out_w: int,
-                 use_cls: bool = True) -> torch.Tensor:
-        """image_u8 (H, W, 3) uint8 on the device; matrices (N, 3, 3) and
-        valid widths (N,) as numpy arrays or tensors → packed (N, 2T + 3)
-        float32 tensor on the device."""
-        dev = image_u8.device
-        cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid = (
-            torch.as_tensor(a).to(dev) for a in
-            (cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid))
+    def _cls_rec(self, image_u8, cls_mats, cls_valid, rec_mats,
+                 rec_mats_rot, rec_valid, out_h: int, out_w: int,
+                 use_cls: bool):
+        """→ (idx (N, T), prob (N, T), cls probs (N, 2), rot (N,)) on the
+        device; cls probs and rot are 0 when the classifier is off."""
         n = rec_mats.shape[0]
+        dev = image_u8.device
         if use_cls:
             mats, cls_probs, rot = self.select_mats(
                 image_u8, cls_mats, cls_valid, rec_mats, rec_mats_rot)
@@ -71,6 +69,44 @@ class FusedClsRec:
             rot = torch.zeros((n,), dtype=torch.bool, device=dev)
         crops = self.warp(image_u8, mats, rec_valid, out_h, out_w)
         idx, prob = self.rec_forward(crops, (rec_valid + 7) // 8)
+        return idx, prob, cls_probs, rot
+
+    @torch.inference_mode()
+    def __call__(self, image_u8: torch.Tensor, cls_mats, cls_valid,
+                 rec_mats, rec_mats_rot, rec_valid, out_h: int, out_w: int,
+                 use_cls: bool = True) -> torch.Tensor:
+        """image_u8 (H, W, 3) uint8 on the device; matrices (N, 3, 3) and
+        valid widths (N,) as numpy arrays or tensors → packed (N, 2T + 3)
+        float32 tensor on the device."""
+        dev = image_u8.device
+        idx, prob, cls_probs, rot = self._cls_rec(
+            image_u8, *(torch.as_tensor(a).to(dev) for a in (
+                cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid)),
+            out_h, out_w, use_cls)
         f32 = torch.float32
         return torch.cat([idx.to(f32), prob.to(f32), cls_probs.to(f32),
                           rot.to(f32)[:, None]], -1)
+
+    @torch.inference_mode()
+    def call_scored(self, image_u8: torch.Tensor, prob: torch.Tensor,
+                    r_h: int, r_w: int, pre_quads, cls_mats, cls_valid,
+                    rec_mats, rec_mats_rot, rec_valid, out_h: int, out_w: int,
+                    use_cls: bool = True) -> torch.Tensor:
+        """The bitmap wire's step: `__call__`'s crops and head, and each
+        row's pre-unclip quad (N, 4, 2) in map coordinates scored against
+        the (H, W) prob map on the device (valid r_h × r_w). Padding rows
+        carry zero quads, which score 0. → packed (N, 2T + 1) float32 [idx,
+        prob, score] on the device."""
+        dev = image_u8.device
+        H, W = prob.shape
+        in_valid = (torch.arange(H, device=dev)[:, None] < r_h) & \
+            (torch.arange(W, device=dev)[None, :] < r_w)
+        scores = db_device.quad_mask_mean(
+            prob, torch.as_tensor(pre_quads).to(dev), in_valid)
+        idx, prob_max, _, _ = self._cls_rec(
+            image_u8, *(torch.as_tensor(a).to(dev) for a in (
+                cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid)),
+            out_h, out_w, use_cls)
+        f32 = torch.float32
+        return torch.cat([idx.to(f32), prob_max.to(f32),
+                          scores.to(f32)[:, None]], -1)

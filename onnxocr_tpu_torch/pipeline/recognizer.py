@@ -3,8 +3,10 @@ onnxocr_tpu/pipeline/recognizer.py: the SVTR forward through the fused CTC
 head kernel, and the two per-width-bucket paths over boxes of an uploaded
 page — `run_boxes_fused` (cls + rec in one pass per bucket through
 pipeline/fused.py: the staged device-det path, and the one-call pipeline's
-re-runs for wide lines and boxes past its K_rec budget) and `run_boxes`
-(rec alone, rotation verdicts given by the caller).
+re-runs for wide lines and boxes past its K_rec budget),
+`run_candidates_scored` (the same pass scoring the bitmap wire's DB
+candidates against the prob map on the device) and `run_boxes` (rec alone,
+rotation verdicts given by the caller).
 """
 from __future__ import annotations
 
@@ -117,27 +119,20 @@ class TextRecognizer:
                     results[i] = res
         return results
 
-    def run_boxes_fused(self, image_u8: torch.Tensor, boxes: np.ndarray,
-                        fused, cls_shape, use_cls: bool = True
-                        ) -> List[Tuple[str, float]]:
-        """One fused device pass and one download per (width bucket, chunk):
-        the classifier's verdicts select the 180°-turned homographies on the
-        device (pipeline/fused.py), so nothing returns to the host between
-        cls and rec. Arguments as run_boxes; cls_shape = (cls_h, cls_w)."""
-        n = len(boxes)
-        if n == 0:
-            return []
+    def _fused_chunks(self, boxes: np.ndarray, cls_shape):
+        """The fused passes over `boxes`, one per (width bucket, chunk of at
+        most the top batch size) → (bucket_w, chunk indices, (cls_mats,
+        cls_valid, rec_mats, rot_mats, rec_valid)) with the inputs padded
+        to the chunk's batch bucket: rows past the chunk keep the identity
+        and a valid width of 0."""
         imgH = self.rec_image_shape[1]
         cls_h, cls_w = cls_shape
-        results: List[Tuple[str, float]] = [("", 0.0)] * n
         groups = batching.group_collapsed(self.desired_widths(boxes),
                                           self.width_ladder)
         eye = np.eye(3, dtype=np.float32)
         for bucket_w, indices in groups.items():
             for chunk in batching.chunks_of(indices, self.batch_ladder[-1]):
-                k = len(chunk)
-                bsz = batching.pick_batch_bucket(k, self.batch_ladder)
-                # rows past k keep the identity and a valid width of 0
+                bsz = batching.pick_batch_bucket(len(chunk), self.batch_ladder)
                 rec_mats = np.tile(eye, (bsz, 1, 1))
                 rot_mats = np.tile(eye, (bsz, 1, 1))
                 cls_mats = np.tile(eye, (bsz, 1, 1))
@@ -150,13 +145,55 @@ class TextRecognizer:
                         boxes[i], imgH, bucket_w, rotate180=True)
                     cls_mats[row], cls_valid[row] = \
                         warp_ops.build_crop_matrix(boxes[i], cls_h, cls_w)
-                packed = fused(image_u8, cls_mats, cls_valid, rec_mats,
-                               rot_mats, rec_valid, imgH, bucket_w,
-                               use_cls=use_cls).cpu().numpy()
-                T = (packed.shape[1] - 3) // 2
-                out = self._decode(packed[:k, :T].astype(np.int32),
-                                   packed[:k, T:2 * T], rec_valid[:k],
-                                   bucket_w)
-                for i, res in zip(chunk, out):
-                    results[i] = res
+                yield bucket_w, chunk, (cls_mats, cls_valid, rec_mats,
+                                        rot_mats, rec_valid)
+
+    def run_boxes_fused(self, image_u8: torch.Tensor, boxes: np.ndarray,
+                        fused, cls_shape, use_cls: bool = True
+                        ) -> List[Tuple[str, float]]:
+        """One fused device pass and one download per (width bucket, chunk):
+        the classifier's verdicts select the 180°-turned homographies on the
+        device (pipeline/fused.py), so nothing returns to the host between
+        cls and rec. Arguments as run_boxes; cls_shape = (cls_h, cls_w)."""
+        results: List[Tuple[str, float]] = [("", 0.0)] * len(boxes)
+        imgH = self.rec_image_shape[1]
+        for bucket_w, chunk, mats in self._fused_chunks(boxes, cls_shape):
+            k = len(chunk)
+            packed = fused(image_u8, *mats, imgH, bucket_w,
+                           use_cls=use_cls).cpu().numpy()
+            T = (packed.shape[1] - 3) // 2
+            out = self._decode(packed[:k, :T].astype(np.int32),
+                               packed[:k, T:2 * T], mats[-1][:k], bucket_w)
+            for i, res in zip(chunk, out):
+                results[i] = res
         return results
+
+    def run_candidates_scored(self, image_u8: torch.Tensor,
+                              prob: torch.Tensor, rh: int, rw: int,
+                              boxes: np.ndarray, pre_quads: np.ndarray,
+                              fused, cls_shape, use_cls: bool = True
+                              ) -> Tuple[List[Tuple[str, float]],
+                                         np.ndarray]:
+        """The bitmap wire's rec: run_boxes_fused whose every pass also
+        scores the candidates' pre-unclip quads (N, 4, 2, map coordinates)
+        against the prob map on the device (fused.call_scored), so the map
+        is never downloaded. Padding rows carry zero quads. → (rec results,
+        DB box scores (N,) float32) in candidate order; the caller applies
+        the box_thresh filter."""
+        results: List[Tuple[str, float]] = [("", 0.0)] * len(boxes)
+        scores = np.zeros(len(boxes), np.float32)
+        imgH = self.rec_image_shape[1]
+        for bucket_w, chunk, mats in self._fused_chunks(boxes, cls_shape):
+            k = len(chunk)
+            quads = np.zeros((len(mats[0]), 4, 2), np.float32)
+            quads[:k] = pre_quads[chunk]
+            packed = fused.call_scored(image_u8, prob, rh, rw, quads, *mats,
+                                       imgH, bucket_w,
+                                       use_cls=use_cls).cpu().numpy()
+            T = (packed.shape[1] - 1) // 2
+            out = self._decode(packed[:k, :T].astype(np.int32),
+                               packed[:k, T:2 * T], mats[-1][:k], bucket_w)
+            for row, i in enumerate(chunk):
+                results[i] = out[row]
+                scores[i] = packed[row, 2 * T]
+        return results, scores

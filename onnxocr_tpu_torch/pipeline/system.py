@@ -1,16 +1,31 @@
 """TextSystem: det → sort → (cls) → rec on the device. Counterpart of
-onnxocr_tpu/pipeline/system.py for the two ported paths:
+onnxocr_tpu/pipeline/system.py, routed as the JAX package routes a page
+(`_call_device_crops`), first route that applies:
 
-* one-call (`tpu_pipeline='onecall'`, the port's default): the whole page
-  in one program with one download (pipeline/onecall.py); results pair up
-  in sorted_boxes order afterwards;
-* staged with the device det postprocess (`tpu_pipeline='staged'`,
-  `tpu_det_postprocess='device'`): upload → det + device DB boxes (one
-  small download) → host clockwise / clip / side filter → sorted_boxes →
-  cls + rec per width bucket (`run_boxes_fused`, or the classifier's and
-  recognizer's `run_boxes` when `tpu_fused_cls_rec` is off).
+* one-call (`tpu_pipeline='onecall'` with the fused step, quad boxes, no
+  dilation, fast score, limit_type 'max', no det_image_shape): the whole
+  page in one program with one download (pipeline/onecall.py); results
+  pair up in sorted_boxes order afterwards;
+* the bitmap wire (the default: `tpu_det_wire='bitmap'`,
+  `tpu_det_postprocess='host'`, `tpu_det_input='device'`, the fused step,
+  quad boxes, fast score, limit_type 'max', no det_image_shape): DBNet →
+  the bitpacked DB bitmap downloaded → host contours, min-area quads and
+  unclip → clockwise / clip / side filter → one fused pass per (width
+  bucket, chunk) that scores the candidates against the prob map left on
+  the device and runs cls + rec → box_thresh filter → sorted pairing.
+  Past `batch_ladder[-1] * 4` candidates the map is downloaded and scored
+  on the host instead, and the kept boxes run the fused step;
+* the device det postprocess (`tpu_det_postprocess='device'`, quad boxes,
+  no dilation, limit_type 'max', no det_image_shape): det + device DB
+  boxes (one small download) → host filter → sorted_boxes → cls + rec;
+* the map route (`tpu_det_input='device'`): DBNet → the map in the wire
+  dtype downloaded → the host DB postprocess (quad or poly boxes, fast or
+  slow score, dilation) → sorted_boxes → cls + rec.
 
-drop_score filters the recognition results of both.
+cls + rec is `run_boxes_fused` (one fused pass per width bucket) or, with
+`tpu_fused_cls_rec` off, the classifier's and recognizer's `run_boxes`.
+Poly boxes crop through their min-area quad. drop_score filters the
+recognition results of every route.
 """
 from __future__ import annotations
 
@@ -20,7 +35,8 @@ import numpy as np
 import torch
 
 from .. import config
-from ..ops import resize_dev
+from ..ops import db_post, det_pre, geometry, resize_dev
+from ..utils.image import minarea_quad
 from .classifier import TextClassifier
 from .detector import TextDetector
 from .fused import FusedClsRec
@@ -40,33 +56,51 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def route_of(args) -> str:
+    """The route a page of normal size takes: 'onecall', 'bitmap',
+    'device', 'map' or 'host' (the host det input, not ported)."""
+    fused = bool(args.tpu_fused_cls_rec) and \
+        getattr(args, "tpu_crop_backend", "device") == "device"
+    quad = args.det_box_type == "quad"
+    plain_det = args.det_limit_type == "max" and \
+        getattr(args, "det_image_shape", None) is None
+    fast = args.det_db_score_mode == "fast"
+    if args.tpu_pipeline == "onecall" and fused and quad and \
+            not args.use_dilation and fast and plain_det:
+        return "onecall"
+    if args.tpu_det_wire == "bitmap" and fused and \
+            args.tpu_det_postprocess == "host" and \
+            args.tpu_det_input == "device" and quad and fast and plain_det:
+        return "bitmap"
+    if args.tpu_det_postprocess == "device" and quad and \
+            not args.use_dilation and plain_det:
+        return "device"
+    if args.tpu_det_input == "device":
+        return "map"
+    return "host"
+
+
 def _unported(args) -> List[str]:
-    """Settings whose code path is not ported yet."""
+    """Settings whose code path is not ported yet: those of the host image
+    operations (cv2-exact resize and crops) and the cross-request
+    batchers."""
     out = []
-    # as in the reference, the one-call program needs the fused step
-    onecall = args.tpu_pipeline == "onecall" and args.tpu_fused_cls_rec
-    if not onecall and args.tpu_det_postprocess != "device":
-        out.append(f"tpu_pipeline={args.tpu_pipeline!r} with "
-                   f"tpu_det_postprocess={args.tpu_det_postprocess!r} (the "
-                   "staged pipeline runs only with "
-                   "tpu_det_postprocess='device')")
-    if args.det_box_type != "quad" or args.use_dilation or \
-            args.det_db_score_mode != "fast" or \
-            args.det_limit_type != "max" or \
-            getattr(args, "det_image_shape", None) is not None:
-        out.append("det settings outside the device-det contract (quad "
-                   "boxes, no dilation, fast score, limit_type 'max')")
+    route = route_of(args)
+    if route == "host":
+        out.append(f"tpu_det_input={args.tpu_det_input!r} (the host det "
+                   "resize)")
     if args.save_crop_res:
         out.append("save_crop_res=True (host crops)")
-    if not getattr(args, "tpu_onecall_fixed_canvas", True):
+    if getattr(args, "tpu_crop_backend", "device") != "device":
+        out.append("tpu_crop_backend other than 'device' (host crops)")
+    if route == "onecall" and \
+            not getattr(args, "tpu_onecall_fixed_canvas", True):
         out.append("tpu_onecall_fixed_canvas=False (per-page det canvas in "
                    "the one-call program)")
     for flag in ("tpu_det_microbatch", "tpu_rec_microbatch",
                  "tpu_onecall_wave"):
         if getattr(args, flag, False):
             out.append(f"{flag}=True (cross-request batching)")
-    if getattr(args, "tpu_crop_backend", "device") != "device":
-        out.append("tpu_crop_backend other than 'device' (host crops)")
     return out
 
 
@@ -96,27 +130,109 @@ class TextSystem:
             else:
                 self._fused = FusedClsRec(None, self.text_recognizer.forward,
                                           warp_form=warp_form)
+        # the checkpoint calibration has set the det flags by now
+        self.route = route_of(args)
         self._onecall = None
-        if args.tpu_pipeline == "onecall" and self._fused is not None:
+        if self.route == "onecall":
             self._onecall = OneCallPipeline(
                 self.text_detector, self.text_recognizer, self._fused, args,
                 self.device)
 
-    def _call_staged_device(self, img, cls: bool):
-        """Staged path with the det postprocess on the device."""
+    def _use_cls(self, cls: bool) -> bool:
+        return bool(self.use_angle_cls and cls and
+                    self._fused.idx180 is not None)
+
+    def _fixed_canvas(self) -> bool:
+        """The bitmap wire's det canvas: 'always' fixes it; 'auto' (fixed
+        on the TPU only, in the JAX package) and 'never' take the page's
+        own bucket canvas."""
+        return getattr(self.args, "tpu_det_fixed_canvas", "auto") == "always"
+
+    def _keep_candidates(self, pre_quads, cand, image_shape):
+        """filter_tag_det_res over the bitmap wire's candidates, keeping
+        each survivor's pre-unclip quad → (boxes (N, 4, 2), pre-unclip
+        quads (N, 4, 2)), float32."""
+        det = self.text_detector
+        keep_pre, keep_boxes = [], []
+        for q, b in zip(pre_quads, cand):
+            box = geometry.order_points_clockwise(np.asarray(b, np.float32))
+            box = det.clip_det_res(box, image_shape[0], image_shape[1])
+            w_i = int(np.linalg.norm(box[0] - box[1]))
+            h_i = int(np.linalg.norm(box[0] - box[3]))
+            if w_i <= 3 or h_i <= 3:
+                continue
+            keep_pre.append(q)
+            keep_boxes.append(box)
+        return (np.asarray(keep_boxes, np.float32).reshape(-1, 4, 2),
+                np.asarray(keep_pre, np.float32).reshape(-1, 4, 2))
+
+    def _call_bitmap_wire(self, img, cls: bool):
+        """The default route: two downloads a page, the bitpacked bitmap and
+        the packed rec buffer; the prob map stays on the device."""
         det, rec = self.text_detector, self.text_recognizer
+        pp = det.postprocess_op
         image_dev, src_h, src_w = resize_dev.put_src_bucket(img, self.device)
-        raw = det.infer_boxes_device(image_dev, src_h, src_w)
-        dt_boxes = sorted_boxes(det.filter_tag_det_res(raw, img.shape))
+        bits, prob_dev, (rh, rw) = det.bitmap_forward(
+            image_dev, src_h, src_w, self._fixed_canvas())
+        # the whole canvas comes down and is sliced on the host
+        bitmap = det_pre.unpack_bitmap(bits.cpu().numpy()[:rh, :rw // 8], rw)
+        if pp.use_dilation:
+            bitmap = geometry.dilate2x2(bitmap)
+        pre_quads, cand = pp.candidates_from_bitmap(bitmap, img.shape[1],
+                                                    img.shape[0])
+        boxes, pre = self._keep_candidates(pre_quads, cand, img.shape)
+        if len(boxes) == 0:
+            return [], []
+        use_cls = self._use_cls(cls)
+        cls_shape = (self._fused.cls_h, self._fused.cls_w)
+        if len(boxes) <= rec.batch_ladder[-1] * 4:
+            rec_res, scores = rec.run_candidates_scored(
+                image_dev, prob_dev, rh, rw, boxes, pre, self._fused,
+                cls_shape, use_cls=use_cls)
+            keep = scores >= pp.box_thresh
+            fb = [b for b, k in zip(boxes, keep) if k]
+            fr = [r for r, k in zip(rec_res, keep) if k]
+            order = _sorted_pair_order(fb)
+            return [fb[i] for i in order], [fr[i] for i in order]
+        # more candidates than the scored passes take (a speckled page):
+        # the map comes down, the host scores, the kept boxes run fused
+        prob = np.ascontiguousarray(prob_dev.cpu().numpy()[:rh, :rw])
+        scores = np.asarray([db_post.box_score_fast(prob, q) for q in pre],
+                            np.float32)
+        dt_boxes = sorted_boxes(
+            [b for b, s in zip(boxes, scores) if s >= pp.box_thresh])
+        if not dt_boxes:
+            return dt_boxes, []
+        return dt_boxes, rec.run_boxes_fused(
+            image_dev, np.asarray(dt_boxes, np.float32), self._fused,
+            cls_shape, use_cls=use_cls)
+
+    def _call_staged(self, img, cls: bool):
+        """The device-postprocess and map routes: det boxes on the host →
+        sorted_boxes → cls + rec from the same uploaded page."""
+        det = self.text_detector
+        image_dev, src_h, src_w = resize_dev.put_src_bucket(img, self.device)
+        if self.route == "device":
+            dt_boxes = det.filter_tag_det_res(
+                det.infer_boxes_device(image_dev, src_h, src_w), img.shape)
+        else:
+            prob, shape_info = det.infer_prob_map_device(image_dev, src_h,
+                                                         src_w)
+            dt_boxes = det.boxes_from_prob(prob, shape_info, img.shape)
+        dt_boxes = sorted_boxes(dt_boxes)
         if len(dt_boxes) == 0:
             return dt_boxes, []
-        crop_quads = np.asarray(dt_boxes, dtype=np.float32)
+        if self.args.det_box_type == "quad":
+            crop_quads = np.asarray(dt_boxes, dtype=np.float32)
+        else:
+            crop_quads = np.stack([minarea_quad(np.asarray(b))
+                                   for b in dt_boxes]).astype(np.float32)
+        rec = self.text_recognizer
         if self._fused is not None:
-            use_cls = bool(self.use_angle_cls and cls and
-                           self._fused.idx180 is not None)
             return dt_boxes, rec.run_boxes_fused(
                 image_dev, crop_quads, self._fused,
-                (self._fused.cls_h, self._fused.cls_w), use_cls=use_cls)
+                (self._fused.cls_h, self._fused.cls_w),
+                use_cls=self._use_cls(cls))
         rot180 = None
         if self.use_angle_cls and cls:
             rot180, _ = self.text_classifier.run_boxes(image_dev, crop_quads)
@@ -124,18 +240,20 @@ class TextSystem:
 
     def __call__(self, img, cls: bool = True):
         if img.shape[0] + img.shape[1] < 64:
-            # the reference zero-pads tiny images before resizing; the JAX
-            # package routes them to its host det path
+            # the reference zero-pads tiny images before a host resize; the
+            # JAX package routes them to its host det path
             raise NotImplementedError(
-                "images with h + w < 64 take the staged host det path, "
-                "which is not ported")
+                "images with h + w < 64 take the host det path (cv2 "
+                "resize), which is not ported")
         if self._onecall is not None:
             boxes, rec_res = self._onecall(img, cls)
             order = _sorted_pair_order(boxes)
             dt_boxes = [boxes[i] for i in order]
             rec_res = [rec_res[i] for i in order]
+        elif self.route == "bitmap":
+            dt_boxes, rec_res = self._call_bitmap_wire(img, cls)
         else:
-            dt_boxes, rec_res = self._call_staged_device(img, cls)
+            dt_boxes, rec_res = self._call_staged(img, cls)
         filter_boxes, filter_rec_res = [], []
         for box, rec_result in zip(dt_boxes, rec_res):
             if rec_result[1] >= self.drop_score:

@@ -1,7 +1,8 @@
 """Where the time goes in the ported paths on one GPU.
 
     python3 -m onnxocr_tpu_torch.profile_onecall [--pages N] [--out DIR]
-        [--path onecall|onecall_cls|staged_device] [--warp-stage off|shear]
+        [--path onecall|onecall_cls|staged_device|staged_host]
+        [--warp-stage off|shear]
 
 Runs ONNXPaddleOcr(device="cuda") (TF32 off, committed v5 checkpoints, a
 stand-in dictionary) over committed held-out pages — `onecall`: the
@@ -9,8 +10,11 @@ one-call path at the 960² det canvas with the label-keyed reductions,
 classifier off; `onecall_cls`: the same with the slot-keyed reductions and
 the (untrained) angle classifier; `staged_device`: the staged device-det
 path on each page's own det canvas with the slot-keyed reductions and the
-classifier, cls + rec fused per width bucket — in the crop warp form
-`--warp-stage` (default: the config's), and reports, per page on average:
+classifier, cls + rec fused per width bucket; `staged_host`: the defaults,
+the staged bitmap wire (upload, det forward + bitpack, bitmap download,
+host candidates: contour trace, min-area fit, unclip; scored fused calls,
+decode) — in the crop warp form `--warp-stage` (default: the config's),
+and reports, per page on average:
 
 * stage times: each stage of the path re-run on its own with a device
   synchronize after it (host clock, so launch overhead counts), the cls
@@ -34,19 +38,20 @@ import numpy as np
 import torch
 
 from . import ONNXPaddleOcr, config
-from .ops import db_device, det_pre, resize_dev, warp_dev
+from .ops import db_device, det_pre, native, resize_dev, warp_dev
 from .ops import warp as warp_ops
 from .ops.kernels import build, ctc_head, seg_reduce, seg_reduce2
 from .pipeline.system import sorted_boxes
 from .utils.png import read_bgr
 
 KWARGS = {
-    "onecall": dict(use_angle_cls=False),
-    "onecall_cls": dict(tpu_db_reduce="pallas", use_angle_cls=True,
-                        tpu_allow_untrained=True),
+    "onecall": dict(tpu_pipeline="onecall", use_angle_cls=False),
+    "onecall_cls": dict(tpu_pipeline="onecall", tpu_db_reduce="pallas",
+                        use_angle_cls=True, tpu_allow_untrained=True),
     "staged_device": dict(tpu_pipeline="staged", tpu_det_postprocess="device",
                           tpu_db_reduce="pallas", use_angle_cls=True,
                           tpu_allow_untrained=True),
+    "staged_host": {},
 }
 
 
@@ -158,6 +163,51 @@ def _stages_staged(ocr, img, acc, calls, counts):
             undo()
 
 
+class _TimedScored:
+    """The bitmap wire's scored fused step, each call timed under its
+    (width bucket, batch size) and counted."""
+
+    def __init__(self, fused, t, calls):
+        self.fused, self.t, self.calls = fused, t, calls
+
+    def call_scored(self, image, prob, rh, rw, quads, *rest, use_cls=True):
+        name = f"scored_w{rest[-1]}_b{len(quads)}"
+        self.calls[name] = self.calls.get(name, 0) + 1
+        return self.t(name, lambda: self.fused.call_scored(
+            image, prob, rh, rw, quads, *rest, use_cls=use_cls))
+
+
+@torch.inference_mode()
+def _stages_host(ocr, img, acc, calls):
+    """One page through the staged bitmap wire, stage by stage."""
+    det, rec, fused = ocr.text_detector, ocr.text_recognizer, ocr._fused
+    pp = det.postprocess_op
+    t = _timer(acc)
+    image, h, w = t("upload", lambda: resize_dev.put_src_bucket(
+        img, ocr.device))
+    bits, prob, (rh, rw) = t("det_forward_bitpack", lambda: (
+        det.bitmap_forward(image, h, w, ocr._fixed_canvas())))
+    bitmap = t("bitmap_download", lambda: det_pre.unpack_bitmap(
+        bits.cpu().numpy()[:rh, :rw // 8], rw))
+    t("host_trace", lambda: native.find_contours_filtered(
+        bitmap * 255, float(pp.min_size) ** 2, pp.max_candidates))
+    pre, cand = t("host_candidates", lambda: pp.candidates_from_bitmap(
+        bitmap, img.shape[1], img.shape[0]))
+    boxes, pre = t("host_filter", lambda: ocr._keep_candidates(
+        pre, cand, img.shape))
+    if len(boxes) == 0:
+        return
+    real_decode = rec._decode
+    rec._decode = lambda *a: t("decode", lambda: real_decode(*a))
+    try:
+        t("scored_total", lambda: rec.run_candidates_scored(
+            image, prob, rh, rw, boxes, pre, _TimedScored(fused, t, calls),
+            (fused.cls_h, fused.cls_w), use_cls=False))
+    finally:
+        del rec._decode
+    t("page_total", lambda: ocr.ocr(img, cls=False))
+
+
 @torch.inference_mode()
 def _stages(ocr, img, acc, counts):
     """One page through the one-call step's stages, timed one by one."""
@@ -233,7 +283,7 @@ def main() -> None:
                     default=config.DEFAULTS["tpu_warp_stage"])
     args = ap.parse_args()
     staged = args.path == "staged_device"
-    cls = args.path != "onecall"
+    cls = args.path in ("onecall_cls", "staged_device")
     if not torch.cuda.is_available():
         raise SystemExit("profile_onecall: CUDA is not available")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -263,6 +313,8 @@ def main() -> None:
         for img in pages:
             if staged:
                 _stages_staged(ocr, img, stages, calls, counts)
+            elif args.path == "staged_host":
+                _stages_host(ocr, img, stages, calls)
             else:
                 _stages(ocr, img, stages, counts)
         torch.cuda.synchronize()
@@ -290,7 +342,8 @@ def main() -> None:
         "device_busy_ms_per_page": busy_ms / n if busy_ms else None,
         "device_busy_share": busy_ms / wall_ms if busy_ms else None,
         "stage_ms_per_page": {k: v / n for k, v in stages.items()},
-        # fused cls + rec calls by (width bucket, batch size), whole run
+        # fused cls + rec (or scored) calls by (width bucket, batch size),
+        # whole run
         "cls_rec_calls": calls,
         # crops with a valid width, and those the shear form takes, whole run
         "warp_crops": counts,

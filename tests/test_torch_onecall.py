@@ -114,31 +114,29 @@ def test_slice_matches_jax(pair, pages, page, extra):
                                                 ref._fused.interp)
 
 
-# the one default the port does not share: the JAX package's staged pipeline
-# runs the host DB postprocess (tpu_det_postprocess='host'), which is not
-# ported, so the port's default is the one-call pipeline
-DEFAULT_EXCEPTIONS = {"tpu_pipeline"}
+# settings whose defaults the two packages do not share: none
+DEFAULT_EXCEPTIONS = set()
 
 
 def test_defaults_match_jax():
-    """Every setting the port reads defaults to the JAX package's value."""
+    """Every setting the port reads defaults to the JAX package's value,
+    the pipeline included."""
     from onnxocr_tpu import config as jconfig
+    assert config.DEFAULTS["tpu_pipeline"] == "staged"
     for key, value in config.DEFAULTS.items():
         assert key in jconfig.DEFAULTS, key
         want = jconfig.DEFAULTS[key]
         if isinstance(value, (tuple, list)):
             value, want = tuple(value), tuple(want)
-        if key in DEFAULT_EXCEPTIONS:
-            assert (key, value) == ("tpu_pipeline", "onecall") and \
-                want == "staged"
-        else:
+        if key not in DEFAULT_EXCEPTIONS:
             assert value == want, (key, value, want)
 
 
 @pytest.fixture(scope="module")
 def default_pair(dict_path):
     """(port on the CPU, JAX reference), each at its own defaults but the
-    pipeline, which is set equal."""
+    pipeline, set to one-call on both (the default staged pipeline is held
+    in tests/test_torch_host_det.py)."""
     return (ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
                           tpu_pipeline="onecall"),
             JaxOcr(rec_char_dict_path=dict_path, tpu_pipeline="onecall"))
@@ -147,8 +145,8 @@ def default_pair(dict_path):
 @pytest.mark.parametrize("page", ["synth_00_doc", "synth_08_table"])
 def test_defaults_slice_matches_jax(default_pair, pages, page):
     """ONNXPaddleOcr at each package's own defaults (the 960 det limit, the
-    shear-staged bilinear warp, drop_score 0.5), only the pipeline set
-    equal: the same texts, boxes and scores."""
+    shear-staged bilinear warp, drop_score 0.5) on the one-call pipeline:
+    the same texts, boxes and scores."""
     port, ref = default_pair
     assert port._fused.warp_form["staged"] == ref._fused.stage == "shear"
     got = port.ocr(pages[page])[0]
@@ -209,13 +207,15 @@ def test_default_device_is_cuda_and_never_falls_back(dict_path,
 
 
 def test_unported_settings_raise(dict_path):
-    for extra in ({"tpu_pipeline": "staged"},
-                  {"tpu_pipeline": "staged", "tpu_det_postprocess": "host"},
-                  {"tpu_fused_cls_rec": False},
+    """What waits for the cv2-exact host image operations (the host det
+    resize, host crops) and for the cross-request batchers raises."""
+    for extra in ({"tpu_det_wire": "map", "tpu_det_input": "host"},
+                  {"save_crop_res": True},
+                  {"tpu_crop_backend": "host"},
+                  {"tpu_pipeline": "onecall",
+                   "tpu_onecall_fixed_canvas": False},
                   {"tpu_onecall_wave": True},
-                  {"tpu_rec_microbatch": True},
-                  {"tpu_pipeline": "staged", "tpu_det_postprocess": "device",
-                   "det_box_type": "poly"}):
+                  {"tpu_rec_microbatch": True}):
         with pytest.raises(NotImplementedError):
             ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
                           **extra)

@@ -235,12 +235,14 @@ def test_shear_tiers_give_the_same_crops(warp_image, names, slow_k):
 
 @pytest.fixture(scope="module")
 def page_rec_crops(tmp_path_factory):
-    """Path B at the port's defaults on synth_00_doc: the uploaded page and
-    the (K_rec = 48) crop matrices and valid widths its rec warp gets."""
+    """Path B (one-call) at the port's other defaults on synth_00_doc: the
+    uploaded page and the (K_rec = 48) crop matrices and valid widths its
+    rec warp gets."""
     from onnxocr_tpu_torch import ONNXPaddleOcr
     path = tmp_path_factory.mktemp("dict") / "ppocrv5_dict.txt"
     path.write_text("".join(f"<{i}>\n" for i in range(18383)))
-    ocr = ONNXPaddleOcr(device="cpu", rec_char_dict_path=str(path))
+    ocr = ONNXPaddleOcr(device="cpu", rec_char_dict_path=str(path),
+                        tpu_pipeline="onecall")
     seen, real = [], warp.warp_crops
     warp.warp_crops = lambda *a, **kw: seen.append((a, kw)) or real(*a, **kw)
     try:

@@ -56,8 +56,21 @@
    one page of each (C': each page) is compared with the same port on the
    CPU, and the classifier's probabilities on seeded crops are compared
    card vs CPU;
-6. prints {"warp": [...]}, {"kernels": [...]} and, last, {"ok": true,
-   "device": {...}}.
+6. drives path Q, path C behind both cross-request batchers as the JAX
+   package's serving engine runs it (`ONNXPaddleOcr(tpu_det_microbatch=
+   True, tpu_rec_microbatch=True)` at the defaults): the canonical
+   multi-page shapes warmed (`warm_canonical`), one unmeasured concurrent
+   pass, each page serially, then 8 threads over 3 rounds of the pages
+   with the launch counts set to 0 before and read after, and the same 8
+   threads on path C's model without the batchers. Every concurrent
+   result must equal the serial one, one page the CPU's; a det wave and a
+   rec group of two pages or more must occur, and the CTC head must launch
+   fewer times than without the batchers. Kernel 1 is also held and timed
+   at the 960-wide coalesced group's M = 64 × 120;
+7. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+   batchers, serial ms a page, det wave sizes, rec groups with real and
+   padded rows, CTC-head launches a page), {"kernels": [...]} and, last,
+   {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero without the "ok" line. The
 recognition dictionary is not in the repository: a stand-in with 18383
@@ -183,11 +196,12 @@ def near_tie_rows(w, b, rows, seed, gap=1e-4):
     return x[keep].contiguous()
 
 
-def check_ctc_head(ocr, seed, crops=None):
+def check_ctc_head(ocr, seed, crops=None, rows=None):
     """Kernel 1 at M = crops × T rows (crops: the one-call K_rec when not
-    given) against the float32 plain version: argmax equal outside rows
-    whose top-2 logits tie to 1e-5 relative, max-prob within rtol 1e-5.
-    Both are also measured against the head in float64."""
+    given; `rows`: M itself) against the float32 plain version: argmax
+    equal outside rows whose top-2 logits tie to 1e-5 relative, max-prob
+    within rtol 1e-5. Both are also measured against the head in
+    float64."""
     import torch
     from onnxocr_tpu_torch.ops.kernels import ctc_head
     head = ocr.text_recognizer.forward.model.head
@@ -196,7 +210,7 @@ def check_ctc_head(ocr, seed, crops=None):
     assert w_split.is_contiguous() and w_split.device == w.device
     oc = ocr._onecall
     T = oc.rec_w // 8
-    M, D, V = (crops or oc.k_rec) * T, w.shape[0], w.shape[1]
+    M, D, V = rows or (crops or oc.k_rec) * T, w.shape[0], w.shape[1]
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((M, D), generator=g, device="cuda")
     idx, prob = ctc_head.ctc_head_reduce(x, w_split, b)
@@ -769,6 +783,127 @@ def same_result(got, ref):
         assert np.abs(np.asarray(g[0]) - np.asarray(r[0])).max() <= 2.0
 
 
+def concurrent(ocr, pages, names, threads=8):
+    """ocr() of `names` from `threads` threads at once, as the JAX
+    package's serving engine calls one model → (results in names order,
+    wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        res = list(pool.map(lambda n: ocr.ocr(pages[n], cls=False)[0],
+                            names))
+    return res, time.perf_counter() - t0
+
+
+def phase_q(model, ocr_c, pages, rounds=3):
+    """Path C behind both cross-request batchers (the default pipeline as
+    the JAX package's engine serves it): `ONNXPaddleOcr(tpu_det_microbatch=
+    True, tpu_rec_microbatch=True)` at the defaults, its canonical
+    multi-page shapes warmed for the pages' source bucket, one unmeasured
+    concurrent pass, then each page serially (ms a page, both 8 ms waits
+    included), then 8 threads over `rounds` × the pages, counted, and the
+    same 8 threads on `ocr_c` (no batchers). Each concurrent result must
+    equal the serial one, one page the CPU's; a det wave and a rec group
+    must have held two pages or more, and the CTC head must launch fewer
+    times than without the batchers. → (summary, launches of the counted
+    batched run)."""
+    import torch
+    from onnxocr_tpu_torch.ops import resize_dev
+    from onnxocr_tpu_torch.ops.kernels import build
+    kw_q = dict(tpu_det_microbatch=True, tpu_rec_microbatch=True)
+    ocr_q = model("cuda", **kw_q)
+    try:
+        det_b = ocr_q.text_detector._page_batcher
+        rec_b = ocr_q.text_recognizer._crop_batcher
+        src = {resize_dev.src_bucket_shape(*p.shape[:2])
+               for p in pages.values()}
+        assert len(src) == 1, f"pages of several source buckets: {src}"
+        t0 = time.perf_counter()
+        warmed = rec_b.warm_canonical(
+            ocr_q._fused, src.pop() + (3,), ocr_q.text_recognizer
+            .rec_image_shape[1], use_cls=False, prob_shape=det_b.canvas)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        waves, groups = [], []
+        det_fn = det_b.batcher.fn
+        det_b.batcher.fn = lambda batch: waves.append(
+            (int((batch["rhw"][:, 0] > 0).sum()), len(batch["rhw"]))) \
+            or det_fn(batch)
+        multi = ocr_q._fused.call_multi_scored
+
+        def multi_spy(images, probs, rhw, img_idx, pre_quads, cls_mats,
+                      cls_valid, rec_mats, rot_mats, rec_valid, out_h,
+                      out_w, **kw):
+            real = rec_valid > 0
+            groups.append({"pages": int(images.shape[0]),
+                           "real_pages": int(np.unique(img_idx[real]).size),
+                           "real_rows": int(real.sum()),
+                           "rows": int(len(rec_valid)), "width": int(out_w)})
+            return multi(images, probs, rhw, img_idx, pre_quads, cls_mats,
+                         cls_valid, rec_mats, rot_mats, rec_valid, out_h,
+                         out_w, **kw)
+
+        ocr_q._fused.call_multi_scored = multi_spy
+        concurrent(ocr_q, pages, PAGES)            # unmeasured
+        concurrent(ocr_c, pages, PAGES)
+        for name in PAGES:                          # unmeasured, solo shapes
+            ocr_q.ocr(pages[name], cls=False)
+        serial, serial_ms = {}, []
+        for name in PAGES:
+            t0 = time.perf_counter()
+            serial[name] = ocr_q.ocr(pages[name], cls=False)[0]
+            serial_ms.append((time.perf_counter() - t0) * 1e3)
+        names = list(PAGES) * rounds
+        torch.cuda.synchronize()
+        waves.clear()
+        groups.clear()
+        build.LAUNCHES.clear()
+        got, wall = concurrent(ocr_q, pages, names)
+        launches = dict(build.LAUNCHES)
+        build.LAUNCHES.clear()
+        _, base_wall = concurrent(ocr_c, pages, names)
+        base_launches = dict(build.LAUNCHES)
+        for name, res in zip(names, got):
+            same_result(res, serial[name])
+        cpu = model("cpu", **kw_q)
+        try:
+            same_result(serial[PAGES[0]],
+                        cpu.ocr(pages[PAGES[0]], cls=False)[0])
+        finally:
+            cpu.close()
+        head = launches.get("ctc_head_reduce", 0)
+        base_head = base_launches.get("ctc_head_reduce", 0)
+        summary = {
+            "threads": 8, "pages": len(names),
+            "pages_per_s": len(names) / wall,
+            "pages_per_s_unbatched": len(names) / base_wall,
+            "serial_ms_per_page": float(np.mean(serial_ms)),
+            "serial_ms": serial_ms, "wait_ms": 8.0,
+            "warm_canonical": warmed, "warm_ms": warm_ms,
+            "det_waves": [{"pages": n, "batch": b} for n, b in waves],
+            "rec_groups": groups,
+            "ctc_head_launches_per_page": head / len(names),
+            "ctc_head_launches_per_page_unbatched": base_head / len(names),
+            "launches": launches, "launches_unbatched": base_launches}
+        print(f"path Q: {len(names)} pages from 8 threads in {wall:.3f} s "
+              f"({summary['pages_per_s']:.2f} pages/s; without the batchers "
+              f"{summary['pages_per_s_unbatched']:.2f}); serial "
+              f"{summary['serial_ms_per_page']:.1f} ms a page; det waves "
+              f"(pages/batch) {waves}; rec groups (real pages, real/padded "
+              f"rows, width) " + ", ".join(
+                  f"{g['real_pages']} {g['real_rows']}/{g['rows']} "
+                  f"w{g['width']}" for g in groups)
+              + f"; CTC head {head} launches against {base_head}; "
+              f"concurrent results equal the serial ones, one the CPU's")
+        assert max(n for n, _ in waves) >= 2, "path Q: no det wave of 2 pages"
+        assert max(g["real_pages"] for g in groups) >= 2, \
+            "path Q: no rec group of 2 pages"
+        assert 0 < head < base_head, \
+            f"path Q: CTC head launched {head} times, unbatched {base_head}"
+        return summary, launches
+    finally:
+        ocr_q.close()
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -855,6 +990,9 @@ def main() -> int:
         staged_ctc = [dict(check_ctc_head(ocr, seed=2 + i, crops=c), path="C")
                       for i, c in enumerate(ocr_c.text_recognizer.batch_ladder
                                             [-2:])]
+        # a coalesced rec group at the 960 coalesce width: 64 × 120 rows
+        staged_ctc.append(dict(check_ctc_head(ocr, seed=4, rows=64 * 120),
+                               path="Q"))
         others = {"ctc_head_reduce": staged_ctc}
         for k in check_seg_reduce(ocr_a, page):
             others[k["name"]] = [dict(k, path="A")]
@@ -935,6 +1073,7 @@ def main() -> int:
                 err = check_classifier(gpu, cpu, seed=1)
                 print(f"classifier on the card vs the CPU: max abs err "
                       f"{err:.2e} over 16 seeded crops")
+        batch, runs["Q"] = phase_q(model, ocr_c, pages)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -951,6 +1090,7 @@ def main() -> int:
 
     print(f"chip_smoke ran {time.perf_counter() - start:.1f} s")
     print(json.dumps({"warp": warps}))
+    print(json.dumps({"batch": batch}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,6 +107,16 @@ DEFAULTS = {
     "tpu_onecall_max_boxes": 48,
     "tpu_onecall_det_candidates": 1024,
     "tpu_decode_support": "trained",
+    # cross-request batching (runtime/batcher.py), off for the library: the
+    # det batcher runs concurrent pages' DBNet forwards as one call on the
+    # fixed det canvas; the rec batcher runs concurrent pages' crop chunks
+    # as one multi-page scored pass. Each adds up to tpu_microbatch_wait_ms
+    # to a call. 'device': the batched det canvas is resized on the device
+    # from the uploaded page ('host', the cv2 resize, is not ported)
+    "tpu_det_microbatch": False,
+    "tpu_det_batch_input": "device",
+    "tpu_rec_microbatch": False,
+    "tpu_microbatch_wait_ms": 8.0,
 }
 
 

@@ -77,9 +77,21 @@ class ConvBN(nn.Module):
         return self.act(self.bn(self.conv(x)))
 
 
-def mask_valid_(x, vh: int, vw: int):
+def _valid_mask(x, vh, vw):
+    """(N, 1, H, W) bool mask of each sample's (vh (N,), vw (N,)) valid
+    region of x (N, C, H, W)."""
+    rows = torch.arange(x.shape[2], device=x.device) < vh[:, None]
+    cols = torch.arange(x.shape[3], device=x.device) < vw[:, None]
+    return rows[:, None, :, None] & cols[:, None, None, :]
+
+
+def mask_valid_(x, vh, vw):
     """Zero x (N, C, H, W) beyond the (vh, vw) valid region IN PLACE (the
-    callers pass intermediates they own) and return it."""
+    callers pass intermediates they own) and return it. vh, vw: ints shared
+    by every sample, or (N,) int tensors, one extent per sample (JAX
+    `mask_valid`)."""
+    if isinstance(vh, torch.Tensor):
+        return x.masked_fill_(~_valid_mask(x, vh, vw), 0)
     if vh < x.shape[2]:
         x[:, :, vh:] = 0
     if vw < x.shape[3]:
@@ -89,7 +101,9 @@ def mask_valid_(x, vh: int, vw: int):
 
 class SE(nn.Module):
     """Squeeze-and-excitation with the global pool restricted to the valid
-    region (JAX `se_module` with valid_hw)."""
+    region (JAX `se_module` with valid_hw): ints, or (N,) int tensors of
+    per-sample extents. A sample with no valid pixel (a padding row of a
+    batched wave, extent 0) pools to 0: the area is clamped to 1."""
 
     def __init__(self, c: int, mid: int):
         super().__init__()
@@ -99,6 +113,12 @@ class SE(nn.Module):
     def forward(self, x, valid_hw=None):
         if valid_hw is None:
             s = x.mean(dim=(2, 3), keepdim=True)
+        elif isinstance(valid_hw[0], torch.Tensor):
+            vh, vw = valid_hw
+            m = _valid_mask(x, vh, vw).to(x.dtype)
+            area = torch.clamp(vh * vw, min=1).to(x.dtype)
+            s = (x * m).sum(dim=(2, 3), keepdim=True) / \
+                area[:, None, None, None]
         else:
             vh, vw = valid_hw
             s = x[:, :, :vh, :vw].sum(dim=(2, 3), keepdim=True) / \

@@ -36,8 +36,9 @@ class DBNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 valid_hw: Optional[tuple] = None) -> torch.Tensor:
         """x (N, 3, H, W) ImageNet-normalized → (N, H, W) shrink-prob map.
-        valid_hw = (vh, vw) makes the map over the valid region
-        independent of the canvas padding (JAX dbnet.apply)."""
+        valid_hw = (vh, vw), ints or (N,) int tensors (one extent per
+        sample), makes the map over the valid region independent of the
+        canvas padding (JAX dbnet.apply)."""
         if valid_hw is not None:
             x = cm.mask_valid_(x.clone(), *valid_hw)
         feats = self.backbone(x, _TAPS, valid_hw)

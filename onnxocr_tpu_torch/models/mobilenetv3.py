@@ -83,13 +83,14 @@ class MobileNetV3(nn.Module):
                 valid_hw: Optional[tuple] = None) -> List:
         """x (N, 3, H, W) → the block inputs at `feature_taps` plus the
         post-`last` map. valid_hw = (vh, vw) valid extent at input
-        resolution: every stage is re-zeroed beyond ceil(v / stride) and the
-        SE pools see only that region (JAX mobilenetv3.apply)."""
+        resolution, ints or (N,) int tensors (one extent per sample): every
+        stage is re-zeroed beyond ceil(v / stride) and the SE pools see only
+        that region (JAX mobilenetv3.apply)."""
 
         def strided(sh, sw):
             if valid_hw is None:
                 return None
-            return -(-valid_hw[0] // sh), -(-valid_hw[1] // sw)
+            return (valid_hw[0] + sh - 1) // sh, (valid_hw[1] + sw - 1) // sw
 
         def mask(x, sh, sw):
             if valid_hw is None:

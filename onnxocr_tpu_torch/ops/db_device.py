@@ -23,7 +23,7 @@ and the scorer are plain PyTorch (XLA, not Pallas, in the JAX package).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -201,13 +201,15 @@ def pca_axes(acc: torch.Tensor, axis_snap: float = 0.0) -> torch.Tensor:
     return torch.stack([ux, uy], -1).contiguous()
 
 
-def quads_vs_csum(csum: torch.Tensor, quads: torch.Tensor) -> torch.Tensor:
+def quads_vs_csum(csum: torch.Tensor, quads: torch.Tensor,
+                  page: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(H, W+1) exclusive row prefix sums + (K, 4, 2) quads → (K,) mean
     over each quad's even-odd raster mask (pixel (x, y) inside iff an odd
     number of edge crossings lie strictly right of x), with the host
-    scorer's integer vertex quantization."""
-    H = csum.shape[0]
-    W = csum.shape[1] - 1
+    scorer's integer vertex quantization. A stack of pages' sums (B, H,
+    W+1) takes `page` (K,), the page each quad is scored against."""
+    H = csum.shape[-2]
+    W = csum.shape[-1] - 1
     K = quads.shape[0]
     dev = quads.device
     bx = torch.clamp(torch.floor(quads[..., 0].amin(1)), 0, W - 1)
@@ -232,8 +234,16 @@ def quads_vs_csum(csum: torch.Tensor, quads: torch.Tensor) -> torch.Tensor:
     lo = torch.clamp(torch.ceil(x_lo), 0, W).to(torch.int64)
     hi = torch.clamp(torch.ceil(x_hi), 0, W).to(torch.int64)
     lo = torch.minimum(lo, hi)
-    seg_sum = torch.gather(csum.expand(K, H, W + 1), 2, hi[..., None])[..., 0] \
-        - torch.gather(csum.expand(K, H, W + 1), 2, lo[..., None])[..., 0]
+    if page is None:
+        seg_sum = torch.gather(csum.expand(K, H, W + 1), 2,
+                               hi[..., None])[..., 0] - \
+            torch.gather(csum.expand(K, H, W + 1), 2, lo[..., None])[..., 0]
+    else:
+        # each quad's rows of its own page, read from the flat stack
+        flat = csum.reshape(-1)
+        row = (page.to(torch.int64)[:, None] * H +
+               torch.arange(H, device=dev)[None, :]) * (W + 1)
+        seg_sum = flat[row + hi] - flat[row + lo]
     seg_cnt = (hi - lo).to(torch.float32)
     total = torch.where(has, seg_sum, 0.0).sum(1)
     count = torch.where(has, seg_cnt, 0.0).sum(1)
@@ -248,6 +258,22 @@ def quad_mask_mean(prob: torch.Tensor, quads: torch.Tensor,
     `_quad_mask_mean`)."""
     masked = torch.where(in_valid, prob, 0.0)
     return quads_vs_csum(F.pad(torch.cumsum(masked, dim=1), (1, 0)), quads)
+
+
+def quad_mask_mean_multi(probs: torch.Tensor, rhw: torch.Tensor,
+                         quads: torch.Tensor, img_idx: torch.Tensor
+                         ) -> torch.Tensor:
+    """quad_mask_mean over a stack of pages (the cross-request rec
+    batcher's scores): probs (B, H, W) with valid extents rhw (B, 2), quads
+    (K, 4, 2) each scored against its page img_idx (K,) → (K,). Port of
+    `quad_mask_mean_multi`; each quad reads its own page's prefix sums."""
+    B, H, W = probs.shape
+    dev = probs.device
+    row = torch.arange(H, device=dev)[None, :, None] < rhw[:, 0, None, None]
+    col = torch.arange(W, device=dev)[None, None, :] < rhw[:, 1, None, None]
+    masked = torch.where(row & col, probs, 0.0)
+    return quads_vs_csum(F.pad(torch.cumsum(masked, dim=2), (1, 0)), quads,
+                         img_idx)
 
 
 def device_boxes(prob: torch.Tensor, resize_h: int, resize_w: int,

@@ -40,22 +40,24 @@ def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def bitpack_map(prob: torch.Tensor, vh: int, vw: int, thresh: float
-                ) -> torch.Tensor:
+def bitpack_map(prob: torch.Tensor, vh, vw, thresh: float) -> torch.Tensor:
     """(H, W) float32 prob on the device → (H, W // 8) uint8 of the DB
     bitmap (prob > thresh), zeroed outside the (vh, vw) valid region,
     bitpacked little-endian within a byte (bit i of byte j holds column
     8j + i). W is a multiple of 8: the det canvas is a multiple of its
-    320 bucket."""
-    H, W = prob.shape
+    320 bucket. A wave's maps (B, H, W) take (B,) int tensors vh, vw, one
+    extent per map (the JAX package vmaps the one-map form)."""
+    H, W = prob.shape[-2:]
     dev = prob.device
+    if isinstance(vh, torch.Tensor):
+        vh, vw = vh[..., None, None], vw[..., None, None]
     row = torch.arange(H, device=dev)[:, None] < vh
     col = torch.arange(W, device=dev)[None, :] < vw
     bits = (prob > thresh) & row & col
     weights = torch.tensor([1 << i for i in range(8)], dtype=torch.int32,
                            device=dev)
-    return (bits.reshape(H, W // 8, 8).to(torch.int32) * weights).sum(
-        -1).to(torch.uint8)
+    return (bits.reshape(*prob.shape[:-1], W // 8, 8).to(torch.int32) *
+            weights).sum(-1).to(torch.uint8)
 
 
 def unpack_bitmap(bits_u8: np.ndarray, rw: int) -> np.ndarray:

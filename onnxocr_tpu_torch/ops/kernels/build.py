@@ -7,8 +7,9 @@ repository root, named by a hash of their source and of the `csrc/*.cuh`
 headers so an edited kernel never loads a stale build. `build_all()` starts
 one nvcc per source at once.
 
-A wrapper counts its launches in `LAUNCHES[name]`, adding one each time it
-launches its kernel and nowhere else.
+A wrapper counts its launches in `LAUNCHES[name]` through `count_launch`,
+adding one each time it launches its kernel and nowhere else; threads that
+launch side by side lose no count.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -123,6 +125,11 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _LIBS[name] = lib
     return lib
+
+
+def count_launch(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -158,7 +158,7 @@ def ctc_head_reduce(x: torch.Tensor, w_split: torch.Tensor, b: torch.Tensor
             build.ptr(part_m), build.ptr(part_s), build.ptr(part_a),
             build.ptr(idx), build.ptr(prob), build.stream_of(x))
     build.check(rc, "ctc_head_reduce")
-    build.LAUNCHES["ctc_head_reduce"] += 1
+    build.count_launch("ctc_head_reduce")
     return idx, prob
 
 

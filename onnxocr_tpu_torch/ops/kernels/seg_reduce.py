@@ -96,7 +96,7 @@ def seg_sum_bands(slot: torch.Tensor, vals: torch.Tensor, K: int
                                slot.shape[0], K, C, build.ptr(scratch),
                                build.ptr(out), build.stream_of(slot))
     build.check(rc, "seg_sum_bands")
-    build.LAUNCHES["seg_sum_bands"] += 1
+    build.count_launch("seg_sum_bands")
     return out
 
 
@@ -120,5 +120,5 @@ def seg_min_bands(slot: torch.Tensor, vals: torch.Tensor, K: int,
                                build.ptr(scratch), build.ptr(out),
                                build.stream_of(slot))
     build.check(rc, "seg_min_bands")
-    build.LAUNCHES["seg_min_bands"] += 1
+    build.count_launch("seg_min_bands")
     return out

@@ -122,7 +122,7 @@ def label_moment_sums(lab: torch.Tensor, prob: torch.Tensor,
             lab.shape[1], sy, sx, build.ptr(acc), build.ptr(out),
             build.stream_of(lab))
     build.check(rc, "label_moment_sums")
-    build.LAUNCHES["label_moment_sums"] += 1
+    build.count_launch("label_moment_sums")
     return out
 
 
@@ -146,5 +146,5 @@ def label_proj_extents(lab: torch.Tensor, axes: torch.Tensor,
             lab.shape[1], sy, sx, build.ptr(acc), build.ptr(out),
             build.stream_of(lab))
     build.check(rc, "label_proj_extents")
-    build.LAUNCHES["label_proj_extents"] += 1
+    build.count_launch("label_proj_extents")
     return out

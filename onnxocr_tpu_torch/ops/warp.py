@@ -14,11 +14,13 @@ compute it, selected per call by `staged` (`tpu_warp_stage`):
   shear heights, then x, then a per-row sub-pixel drift), the rest the
   gather.
 
-Bicubic sampling always takes the gather form, as in the JAX package. The
-JAX package wrote the staged passes as dense hat-weighted matrix products
-for the TPU's matrix unit; a hat weight has at most two nonzero taps, so
-here each pass is a two-tap lerp by index, which gives the same sums
-without the (K, out_h, W, 128) weight tensors. A staged form gathers every
+Bicubic sampling always takes the gather form, as in the JAX package, and
+so does `warp_crops_multi`, which takes crops from a stack of pages (the
+cross-request rec batcher's warp). The JAX package wrote the staged passes
+as dense hat-weighted matrix products for the TPU's matrix unit; a hat
+weight has at most two nonzero taps, so here each pass is a two-tap lerp
+by index, which gives the same sums without the (K, out_h, W, 128) weight
+tensors. A staged form gathers every
 crop too and keeps its own crop where it may: no host sync, so a CUDA graph
 can hold the call. (The JAX package compacts the crops left to gather into
 `tpu_warp_slow_k` static slots, which XLA's static shapes call for; here
@@ -119,10 +121,13 @@ def _cubic_weights(t, a: float = -0.75):
     return w0, w1, w2, w3
 
 
-def _gather(image_u8, mats, valid_w, out_h: int, out_w: int, interp: str):
+def _gather(image_u8, mats, valid_w, out_h: int, out_w: int, interp: str,
+            base=None):
     """The gather form: (N, out_h, out_w, 3) float32 samples in [0, 255]
-    before the clip. Dead lanes (columns >= valid_w) read pixel (0, 0)."""
-    H, W = image_u8.shape[:2]
+    before the clip. Dead lanes (columns >= valid_w) read pixel (0, 0).
+    image_u8 is one page (H, W, 3), or a stack of pages (B, H, W, 3) with
+    `base` (N,) int64 the flat offset of each crop's page (page · H · W)."""
+    H, W = image_u8.shape[-3:-1]
     dev = image_u8.device
     flat = image_u8.reshape(-1, 3)
     gy, gx = torch.meshgrid(torch.arange(out_h, dtype=torch.float32,
@@ -151,7 +156,10 @@ def _gather(image_u8, mats, valid_w, out_h: int, out_w: int, interp: str):
         # the uint8 pixel, converted after the gather
         yy = torch.clamp(yy, 0, H - 1)
         xx = torch.clamp(xx, 0, W - 1)
-        return flat[yy * W + xx].to(torch.float32)
+        at = yy * W + xx
+        if base is not None:
+            at = at + base[:, None, None]
+        return flat[at].to(torch.float32)
 
     if interp == "bicubic":
         wx = _cubic_weights(fx)
@@ -402,6 +410,23 @@ def warp_crops(image_u8: torch.Tensor, mats: torch.Tensor,
             fast = _staged_separable(image_u8, mats, out_h, out_w)
         vals = torch.where(fast_ok[:, None, None, None], fast, vals)
     return to_crops(vals, valid_w, out_w)
+
+
+def warp_crops_multi(images_u8: torch.Tensor, img_idx: torch.Tensor,
+                     mats: torch.Tensor, valid_w: torch.Tensor, out_h: int,
+                     out_w: int, interp: str = "bilinear") -> torch.Tensor:
+    """Crops from a stack of pages (the cross-request rec batcher's warp):
+    images_u8 (B, H, W, 3) uint8 pages of one source bucket, img_idx (N,)
+    the page of each crop; mats, valid_w, out_h, out_w and interp as in
+    warp_crops → (N, out_h, out_w, 3) float32 crops in [−1, 1]. Always the
+    gather form, as the JAX package's `warp_crops_multi` (it has no staged
+    form)."""
+    if interp not in ("bilinear", "bicubic"):
+        raise ValueError(f"unknown tpu_warp_interp {interp!r}")
+    H, W = images_u8.shape[1:3]
+    base = img_idx.to(torch.int64) * (H * W)
+    return to_crops(_gather(images_u8, mats, valid_w, out_h, out_w, interp,
+                            base), valid_w, out_w)
 
 
 def to_crops(vals, valid_w, out_w: int):

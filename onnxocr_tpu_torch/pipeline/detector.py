@@ -8,13 +8,17 @@ its backends.DetForward:
 * the map route (`infer_prob_map_device` + `boxes_from_prob`): DBNet → the
   map in the wire dtype `tpu_det_map_dtype` → the host DB postprocess;
 * device box extraction (`infer_boxes_device`, tpu_det_postprocess=
-  'device'): only max_k × 10 floats come back.
+  'device'): only max_k × 10 floats come back;
+* the cross-request det batcher (`tpu_det_microbatch`,
+  `enable_page_batching`): concurrent pages' bitmap-wire forwards as one
+  wave (`pages_bits`, runtime/batcher.DetPageBatcher).
 
-The host det input (cv2 resize, `infer_prob_map`) is not ported.
+The host det input (cv2 resize, `infer_prob_map`) is not ported, nor are
+the det batcher's modes that need it (see `page_batch_mode`).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +27,25 @@ from ..models import convert
 from ..ops import db_device, det_pre, geometry, resize_dev
 from ..ops.db_post import DBPostProcess
 from . import backends
+
+
+def page_batch_mode(args) -> Optional[str]:
+    """The mode the det batcher takes under `args`, as the JAX package
+    picks it (`enable_page_batching`): None (no batcher) without
+    limit_type 'max' sizing; 'boxes' (device DB extraction), 'maps' (map
+    download) or 'bits' (the bitmap wire). Only 'bits' on the bitmap
+    wire's device resize is ported."""
+    if args.det_limit_type != "max" or \
+            getattr(args, "det_image_shape", None) is not None:
+        return None
+    quad = args.det_box_type == "quad"
+    if args.tpu_det_postprocess == "device" and quad and \
+            not args.use_dilation:
+        return "boxes"
+    if args.tpu_det_wire == "bitmap" and quad and \
+            args.det_db_score_mode == "fast":
+        return "bits"
+    return "maps"
 
 
 class TextDetector:
@@ -49,6 +72,29 @@ class TextDetector:
             use_dilation=args.use_dilation,
             score_mode=args.det_db_score_mode, box_type=args.det_box_type)
         self.model = convert.build_dbnet(tree, device)
+        self._page_batcher = None
+        if args.tpu_det_microbatch:
+            self.enable_page_batching(
+                max_wait_ms=float(args.tpu_microbatch_wait_ms))
+
+    def enable_page_batching(self, max_wait_ms: float = 8.0) -> bool:
+        """Cross-request det batching: concurrent pages share one DBNet
+        forward (runtime/batcher.DetPageBatcher). False, and no batcher,
+        without limit_type 'max' sizing, as in the JAX package; the modes
+        other than the bitmap wire's raise (they need the host det
+        resize)."""
+        mode = page_batch_mode(self.args)
+        if mode is None:
+            return False
+        if mode != "bits":
+            raise NotImplementedError(
+                f"the det batcher's {mode} mode needs the host det resize "
+                "(det_pre.prepare_det_input), which is not ported")
+        from ..runtime.batcher import DetPageBatcher
+        self._page_batcher = DetPageBatcher(
+            self.pages_bits, self.limit_side_len, self.limit_type,
+            max_wait_ms=max_wait_ms, bucket=self.bucket)
+        return True
 
     def clip_det_res(self, points, img_height, img_width):
         points = np.array(points)
@@ -125,6 +171,20 @@ class TextDetector:
         prob = self.forward(x, rh, rw)
         bits = det_pre.bitpack_map(prob, rh, rw, self.postprocess_op.thresh)
         return bits, prob, (rh, rw)
+
+    @torch.inference_mode()
+    def pages_bits(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The det batcher's wave (counterpart of `make_pages_bits_fn`):
+        {"pages": (B, H, W, 3) normalized canvases on the device, "rhw":
+        (B, 2) int32 valid extents} → (bits (B, H, W // 8) uint8, probs (B,
+        H, W) float32), both on the device. Each page is masked to its own
+        extent; a padding page (extent 0) gives no bit."""
+        pages = batch["pages"]
+        rhw = torch.as_tensor(batch["rhw"]).to(pages.device)
+        vh, vw = rhw[:, 0], rhw[:, 1]
+        probs = self.model(pages.permute(0, 3, 1, 2), valid_hw=(vh, vw))
+        return det_pre.bitpack_map(probs, vh, vw,
+                                   self.postprocess_op.thresh), probs
 
     @torch.inference_mode()
     def infer_prob_map_device(self, image_u8: torch.Tensor, src_h: int,

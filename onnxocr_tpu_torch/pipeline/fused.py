@@ -10,11 +10,14 @@ Counterpart of onnxocr_tpu/pipeline/fused.py (`FusedClsRec.__call__` and
 (T), cls probs (2), rot (1)]. `call_scored`, the bitmap wire's step, also
 scores the DB candidates' pre-unclip quads against the prob map that stayed
 on the device, and downloads (N, 2T + 1) [idx, prob, score]. The
-cross-page variants of the reference (`call_multi`, `call_multi_scored`)
-belong to its batchers and are not ported.
+cross-request rec batcher's variants take their crops from a stack of pages
+(`warp_crops_multi`, always the gather form, as in the JAX package):
+`call_multi` → (N, 2T) [idx, prob], and `call_multi_scored` → (N, 2T + 1),
+each quad scored against its own page's prob map.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -22,6 +25,11 @@ import torch
 from .. import config
 from ..ops import db_device
 from ..ops import warp as warp_ops
+
+
+def _on(dev, *arrays):
+    """numpy arrays or tensors → tensors on `dev`."""
+    return tuple(torch.as_tensor(a).to(dev) for a in arrays)
 
 
 class FusedClsRec:
@@ -45,31 +53,49 @@ class FusedClsRec:
                     rec_mats_rot):
         """The cls half: → (mats (N, 3, 3) with the 180° homography where
         the classifier says so, cls probs (N, 2), rot (N,) bool)."""
-        crops = self.warp(image_u8, cls_mats, cls_valid, self.cls_h,
-                          self.cls_w)
-        probs = self.cls_forward(crops)
+        return self._select(partial(self.warp, image_u8), cls_mats,
+                            cls_valid, rec_mats, rec_mats_rot)
+
+    def _select(self, warp, cls_mats, cls_valid, rec_mats, rec_mats_rot):
+        """select_mats with the crops of `warp(mats, valid_w, out_h,
+        out_w)`."""
+        probs = self.cls_forward(warp(cls_mats, cls_valid, self.cls_h,
+                                      self.cls_w))
         rot = (torch.argmax(probs, dim=1) == self.idx180) & \
             (probs[:, self.idx180] > self.cls_thresh)
         return torch.where(rot[:, None, None], rec_mats_rot, rec_mats), \
             probs, rot
 
-    def _cls_rec(self, image_u8, cls_mats, cls_valid, rec_mats,
-                 rec_mats_rot, rec_valid, out_h: int, out_w: int,
-                 use_cls: bool):
-        """→ (idx (N, T), prob (N, T), cls probs (N, 2), rot (N,)) on the
-        device; cls probs and rot are 0 when the classifier is off."""
+    def _cls_rec(self, warp, cls_mats, cls_valid, rec_mats, rec_mats_rot,
+                 rec_valid, out_h: int, out_w: int, use_cls: bool):
+        """The crops of `warp(mats, valid_w, out_h, out_w)` → (idx (N, T),
+        prob (N, T), cls probs (N, 2), rot (N,)) on the device; cls probs
+        and rot are 0 when the classifier is off."""
         n = rec_mats.shape[0]
-        dev = image_u8.device
+        dev = rec_mats.device
         if use_cls:
-            mats, cls_probs, rot = self.select_mats(
-                image_u8, cls_mats, cls_valid, rec_mats, rec_mats_rot)
+            mats, cls_probs, rot = self._select(
+                warp, cls_mats, cls_valid, rec_mats, rec_mats_rot)
         else:
             mats = rec_mats
             cls_probs = torch.zeros((n, 2), device=dev)
             rot = torch.zeros((n,), dtype=torch.bool, device=dev)
-        crops = self.warp(image_u8, mats, rec_valid, out_h, out_w)
+        crops = warp(mats, rec_valid, out_h, out_w)
         idx, prob = self.rec_forward(crops, (rec_valid + 7) // 8)
         return idx, prob, cls_probs, rot
+
+    def _multi(self, images_u8, img_idx, mats, out_h: int, out_w: int,
+               use_cls: bool):
+        """The multi-page step's (idx, prob) over the crops of `images_u8`
+        (B, H, W, 3); img_idx and the five matrix / width arrays of `mats`
+        as numpy arrays or tensors."""
+        img_idx, *mats = _on(images_u8.device, img_idx, *mats)
+
+        def warp(m, valid_w, h, w):
+            return warp_ops.warp_crops_multi(images_u8, img_idx, m, valid_w,
+                                             h, w, self.warp_form["interp"])
+
+        return self._cls_rec(warp, *mats, out_h, out_w, use_cls)[:2]
 
     @torch.inference_mode()
     def __call__(self, image_u8: torch.Tensor, cls_mats, cls_valid,
@@ -80,8 +106,8 @@ class FusedClsRec:
         float32 tensor on the device."""
         dev = image_u8.device
         idx, prob, cls_probs, rot = self._cls_rec(
-            image_u8, *(torch.as_tensor(a).to(dev) for a in (
-                cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid)),
+            partial(self.warp, image_u8), *_on(
+                dev, cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid),
             out_h, out_w, use_cls)
         f32 = torch.float32
         return torch.cat([idx.to(f32), prob.to(f32), cls_probs.to(f32),
@@ -101,12 +127,44 @@ class FusedClsRec:
         H, W = prob.shape
         in_valid = (torch.arange(H, device=dev)[:, None] < r_h) & \
             (torch.arange(W, device=dev)[None, :] < r_w)
-        scores = db_device.quad_mask_mean(
-            prob, torch.as_tensor(pre_quads).to(dev), in_valid)
+        scores = db_device.quad_mask_mean(prob, *_on(dev, pre_quads),
+                                          in_valid)
         idx, prob_max, _, _ = self._cls_rec(
-            image_u8, *(torch.as_tensor(a).to(dev) for a in (
-                cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid)),
+            partial(self.warp, image_u8), *_on(
+                dev, cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid),
             out_h, out_w, use_cls)
         f32 = torch.float32
         return torch.cat([idx.to(f32), prob_max.to(f32),
                           scores.to(f32)[:, None]], -1)
+
+    @torch.inference_mode()
+    def call_multi(self, images_u8: torch.Tensor, img_idx, cls_mats,
+                   cls_valid, rec_mats, rec_mats_rot, rec_valid, out_h: int,
+                   out_w: int, use_cls: bool = True) -> torch.Tensor:
+        """The rec batcher's step over a stack of pages: images_u8 (B, H, W,
+        3) uint8 on the device, img_idx (N,) the page of each row, the rest
+        as `__call__` → packed (N, 2T) float32 [idx, prob] on the device."""
+        idx, prob = self._multi(images_u8, img_idx, (
+            cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid),
+            out_h, out_w, use_cls)
+        return torch.cat([idx.to(torch.float32), prob.to(torch.float32)], -1)
+
+    @torch.inference_mode()
+    def call_multi_scored(self, images_u8: torch.Tensor, probs: torch.Tensor,
+                          rhw, img_idx, pre_quads, cls_mats, cls_valid,
+                          rec_mats, rec_mats_rot, rec_valid, out_h: int,
+                          out_w: int, use_cls: bool = True) -> torch.Tensor:
+        """call_multi whose every row also scores its pre-unclip quad
+        against its own page's prob map: probs (B, Hm, Wm) on the device,
+        rhw (B, 2) the maps' valid extents, pre_quads (N, 4, 2) in map
+        coordinates → packed (N, 2T + 1) float32 [idx, prob, score] on the
+        device."""
+        dev = images_u8.device
+        scores = db_device.quad_mask_mean_multi(
+            probs, *_on(dev, rhw, pre_quads, img_idx))
+        idx, prob = self._multi(images_u8, img_idx, (
+            cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid),
+            out_h, out_w, use_cls)
+        f32 = torch.float32
+        return torch.cat([idx.to(f32), prob.to(f32), scores.to(f32)[:, None]],
+                         -1)

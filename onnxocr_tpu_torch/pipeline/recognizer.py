@@ -6,7 +6,9 @@ pipeline/fused.py: the staged device-det path, and the one-call pipeline's
 re-runs for wide lines and boxes past its K_rec budget),
 `run_candidates_scored` (the same pass scoring the bitmap wire's DB
 candidates against the prob map on the device) and `run_boxes` (rec alone,
-rotation verdicts given by the caller).
+rotation verdicts given by the caller). With `tpu_rec_microbatch` the
+fused paths hand each chunk, unpadded, to the cross-request crop batcher
+(runtime/batcher.RecCropBatcher), which pads it with other pages' chunks.
 """
 from __future__ import annotations
 
@@ -58,6 +60,18 @@ class TextRecognizer:
             if sup is not None:
                 tree = backends.apply_support_bias(tree, sup)
         self.forward = RecForward(tree, device)
+        self._crop_batcher = None
+        if args.tpu_rec_microbatch:
+            self.enable_crop_batching(
+                max_wait_ms=float(args.tpu_microbatch_wait_ms))
+
+    def enable_crop_batching(self, max_wait_ms: float = 4.0) -> None:
+        """Cross-request cls + rec batching: concurrent pages' crop chunks
+        run as one fused pass over a stack of their pages
+        (runtime/batcher.RecCropBatcher, ops/warp.warp_crops_multi)."""
+        from ..runtime.batcher import RecCropBatcher
+        self._crop_batcher = RecCropBatcher(
+            max_wait_ms=max_wait_ms, batch_ladder=self.batch_ladder)
 
     def desired_widths(self, boxes: np.ndarray) -> List[int]:
         imgH = self.rec_image_shape[1]
@@ -122,9 +136,7 @@ class TextRecognizer:
     def _fused_chunks(self, boxes: np.ndarray, cls_shape):
         """The fused passes over `boxes`, one per (width bucket, chunk of at
         most the top batch size) → (bucket_w, chunk indices, (cls_mats,
-        cls_valid, rec_mats, rot_mats, rec_valid)) with the inputs padded
-        to the chunk's batch bucket: rows past the chunk keep the identity
-        and a valid width of 0."""
+        cls_valid, rec_mats, rot_mats, rec_valid)), k = len(chunk) rows."""
         imgH = self.rec_image_shape[1]
         cls_h, cls_w = cls_shape
         groups = batching.group_collapsed(self.desired_widths(boxes),
@@ -132,12 +144,12 @@ class TextRecognizer:
         eye = np.eye(3, dtype=np.float32)
         for bucket_w, indices in groups.items():
             for chunk in batching.chunks_of(indices, self.batch_ladder[-1]):
-                bsz = batching.pick_batch_bucket(len(chunk), self.batch_ladder)
-                rec_mats = np.tile(eye, (bsz, 1, 1))
-                rot_mats = np.tile(eye, (bsz, 1, 1))
-                cls_mats = np.tile(eye, (bsz, 1, 1))
-                rec_valid = np.zeros(bsz, np.int32)
-                cls_valid = np.zeros(bsz, np.int32)
+                k = len(chunk)
+                rec_mats = np.tile(eye, (k, 1, 1))
+                rot_mats = np.tile(eye, (k, 1, 1))
+                cls_mats = np.tile(eye, (k, 1, 1))
+                rec_valid = np.zeros(k, np.int32)
+                cls_valid = np.zeros(k, np.int32)
                 for row, i in enumerate(chunk):
                     rec_mats[row], rec_valid[row] = \
                         warp_ops.build_crop_matrix(boxes[i], imgH, bucket_w)
@@ -148,22 +160,54 @@ class TextRecognizer:
                 yield bucket_w, chunk, (cls_mats, cls_valid, rec_mats,
                                         rot_mats, rec_valid)
 
+    def _padded(self, mats, quads=None):
+        """A chunk's arrays (and quads) padded to its batch bucket: rows
+        past the chunk keep the identity and a valid width (quad) of 0."""
+        k = len(mats[0])
+        bsz = batching.pick_batch_bucket(k, self.batch_ladder)
+        eye = np.eye(3, dtype=np.float32)
+
+        def pad(a, fill):
+            if bsz == k:
+                return a
+            rows = np.tile(fill, (bsz - k,) + (1,) * fill.ndim)
+            return np.concatenate([a, rows.astype(a.dtype)])
+
+        zero = np.zeros((), np.int32)
+        out = tuple(pad(a, eye if a.ndim == 3 else zero) for a in mats)
+        if quads is None:
+            return out
+        return out, pad(quads, np.zeros((4, 2), np.float32))
+
+    @staticmethod
+    def _promote(bucket_w: int) -> bool:
+        """A chunk the crop batcher may run at any wider width: the
+        width-masked SVTR makes that exact below the collapse cap."""
+        return bucket_w <= batching.COLLAPSE_CAP
+
     def run_boxes_fused(self, image_u8: torch.Tensor, boxes: np.ndarray,
                         fused, cls_shape, use_cls: bool = True
                         ) -> List[Tuple[str, float]]:
         """One fused device pass and one download per (width bucket, chunk):
         the classifier's verdicts select the 180°-turned homographies on the
         device (pipeline/fused.py), so nothing returns to the host between
-        cls and rec. Arguments as run_boxes; cls_shape = (cls_h, cls_w)."""
+        cls and rec. Arguments as run_boxes; cls_shape = (cls_h, cls_w).
+        With the crop batcher, each chunk joins other pages' chunks."""
         results: List[Tuple[str, float]] = [("", 0.0)] * len(boxes)
         imgH = self.rec_image_shape[1]
         for bucket_w, chunk, mats in self._fused_chunks(boxes, cls_shape):
             k = len(chunk)
-            packed = fused(image_u8, *mats, imgH, bucket_w,
-                           use_cls=use_cls).cpu().numpy()
-            T = (packed.shape[1] - 3) // 2
-            out = self._decode(packed[:k, :T].astype(np.int32),
-                               packed[:k, T:2 * T], mats[-1][:k], bucket_w)
+            if self._crop_batcher is not None:
+                idx, prob, run_w = self._crop_batcher.submit(
+                    fused, image_u8, *mats, imgH, bucket_w, use_cls,
+                    promote=self._promote(bucket_w))
+            else:
+                packed = fused(image_u8, *self._padded(mats), imgH, bucket_w,
+                               use_cls=use_cls).cpu().numpy()
+                T = (packed.shape[1] - 3) // 2
+                idx, prob, run_w = packed[:k, :T], packed[:k, T:2 * T], \
+                    bucket_w
+            out = self._decode(idx.astype(np.int32), prob, mats[-1], run_w)
             for i, res in zip(chunk, out):
                 results[i] = res
         return results
@@ -176,24 +220,33 @@ class TextRecognizer:
                                          np.ndarray]:
         """The bitmap wire's rec: run_boxes_fused whose every pass also
         scores the candidates' pre-unclip quads (N, 4, 2, map coordinates)
-        against the prob map on the device (fused.call_scored), so the map
-        is never downloaded. Padding rows carry zero quads. → (rec results,
-        DB box scores (N,) float32) in candidate order; the caller applies
-        the box_thresh filter."""
+        against the prob map on the device (fused.call_scored, or the crop
+        batcher's call_multi_scored, each quad against its own page's
+        map), so the map is never downloaded. Padding rows carry zero
+        quads. → (rec results, DB box scores (N,) float32) in candidate
+        order; the caller applies the box_thresh filter."""
         results: List[Tuple[str, float]] = [("", 0.0)] * len(boxes)
         scores = np.zeros(len(boxes), np.float32)
         imgH = self.rec_image_shape[1]
         for bucket_w, chunk, mats in self._fused_chunks(boxes, cls_shape):
             k = len(chunk)
-            quads = np.zeros((len(mats[0]), 4, 2), np.float32)
-            quads[:k] = pre_quads[chunk]
-            packed = fused.call_scored(image_u8, prob, rh, rw, quads, *mats,
-                                       imgH, bucket_w,
-                                       use_cls=use_cls).cpu().numpy()
-            T = (packed.shape[1] - 1) // 2
-            out = self._decode(packed[:k, :T].astype(np.int32),
-                               packed[:k, T:2 * T], mats[-1][:k], bucket_w)
+            quads = pre_quads[chunk]
+            if self._crop_batcher is not None:
+                idx, prob_max, sc, run_w = self._crop_batcher.submit(
+                    fused, image_u8, *mats, imgH, bucket_w, use_cls,
+                    promote=self._promote(bucket_w), prob_dev=prob,
+                    pre_quads=quads, rhw=np.array([rh, rw], np.int32))
+            else:
+                padded, quads = self._padded(mats, quads)
+                packed = fused.call_scored(image_u8, prob, rh, rw, quads,
+                                           *padded, imgH, bucket_w,
+                                           use_cls=use_cls).cpu().numpy()
+                T = (packed.shape[1] - 1) // 2
+                idx, prob_max, sc, run_w = packed[:k, :T], \
+                    packed[:k, T:2 * T], packed[:k, 2 * T], bucket_w
+            out = self._decode(idx.astype(np.int32), prob_max, mats[-1],
+                               run_w)
             for row, i in enumerate(chunk):
                 results[i] = out[row]
-                scores[i] = packed[row, 2 * T]
+                scores[i] = sc[row]
         return results, scores

@@ -26,6 +26,12 @@ cls + rec is `run_boxes_fused` (one fused pass per width bucket) or, with
 `tpu_fused_cls_rec` off, the classifier's and recognizer's `run_boxes`.
 Poly boxes crop through their min-area quad. drop_score filters the
 recognition results of every route.
+
+Concurrent calls from several threads (as the JAX package's serving
+engine makes them) may share device calls: with `tpu_det_microbatch` the
+bitmap wire's det forwards run as one wave, with `tpu_rec_microbatch` the
+fused passes of every route but one-call's own program run as multi-page
+passes (runtime/batcher.py). `close()` stops their threads.
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from .. import config
 from ..ops import db_post, det_pre, geometry, resize_dev
 from ..utils.image import minarea_quad
 from .classifier import TextClassifier
-from .detector import TextDetector
+from .detector import TextDetector, page_batch_mode
 from .fused import FusedClsRec
 from .onecall import OneCallPipeline
 from .recognizer import TextRecognizer
@@ -82,8 +88,8 @@ def route_of(args) -> str:
 
 def _unported(args) -> List[str]:
     """Settings whose code path is not ported yet: those of the host image
-    operations (cv2-exact resize and crops) and the cross-request
-    batchers."""
+    operations (cv2-exact resize and crops), among them the det batcher's
+    modes off the bitmap wire, and the one-call wave coalescer."""
     out = []
     route = route_of(args)
     if route == "host":
@@ -97,10 +103,19 @@ def _unported(args) -> List[str]:
             not getattr(args, "tpu_onecall_fixed_canvas", True):
         out.append("tpu_onecall_fixed_canvas=False (per-page det canvas in "
                    "the one-call program)")
-    for flag in ("tpu_det_microbatch", "tpu_rec_microbatch",
-                 "tpu_onecall_wave"):
-        if getattr(args, flag, False):
-            out.append(f"{flag}=True (cross-request batching)")
+    mode = page_batch_mode(args) if args.tpu_det_microbatch else None
+    # the one-call route never reaches the det batcher
+    if mode is not None and route not in ("bitmap", "onecall"):
+        out.append(f"tpu_det_microbatch=True off the bitmap wire (the det "
+                   f"batcher's {mode} mode: the host det resize, "
+                   "det_pre.prepare_det_input)")
+    elif mode is not None and route == "bitmap" and \
+            args.tpu_det_batch_input != "device":
+        out.append(f"tpu_det_batch_input={args.tpu_det_batch_input!r} with "
+                   "tpu_det_microbatch=True (the host det resize, "
+                   "det_pre.prepare_det_input)")
+    if getattr(args, "tpu_onecall_wave", False):
+        out.append("tpu_onecall_wave=True (the one-call wave coalescer)")
     return out
 
 
@@ -138,6 +153,13 @@ class TextSystem:
                 self.text_detector, self.text_recognizer, self._fused, args,
                 self.device)
 
+    def close(self):
+        """Stop the cross-request batchers' threads, if any."""
+        for b in (self.text_detector._page_batcher,
+                  self.text_recognizer._crop_batcher):
+            if b is not None:
+                b.close()
+
     def _use_cls(self, cls: bool) -> bool:
         return bool(self.use_angle_cls and cls and
                     self._fused.idx180 is not None)
@@ -172,10 +194,18 @@ class TextSystem:
         det, rec = self.text_detector, self.text_recognizer
         pp = det.postprocess_op
         image_dev, src_h, src_w = resize_dev.put_src_bucket(img, self.device)
-        bits, prob_dev, (rh, rw) = det.bitmap_forward(
-            image_dev, src_h, src_w, self._fixed_canvas())
-        # the whole canvas comes down and is sliced on the host
-        bitmap = det_pre.unpack_bitmap(bits.cpu().numpy()[:rh, :rw // 8], rw)
+        batcher = det._page_batcher
+        if batcher is not None:
+            # the det batcher: concurrent pages' forwards as one wave on the
+            # fixed canvas, the wave's bitmaps downloaded as one copy
+            bitmap, prob_dev, (rh, rw), _ = batcher.submit_bits_dev(
+                image_dev, src_h, src_w)
+        else:
+            bits, prob_dev, (rh, rw) = det.bitmap_forward(
+                image_dev, src_h, src_w, self._fixed_canvas())
+            # the whole canvas comes down and is sliced on the host
+            bitmap = det_pre.unpack_bitmap(bits.cpu().numpy()[:rh, :rw // 8],
+                                           rw)
         if pp.use_dilation:
             bitmap = geometry.dilate2x2(bitmap)
         pre_quads, cand = pp.candidates_from_bitmap(bitmap, img.shape[1],

@@ -208,14 +208,15 @@ def test_default_device_is_cuda_and_never_falls_back(dict_path,
 
 def test_unported_settings_raise(dict_path):
     """What waits for the cv2-exact host image operations (the host det
-    resize, host crops) and for the cross-request batchers raises."""
+    resize, host crops, among them the det batcher's maps wire) and for
+    the one-call wave coalescer raises."""
     for extra in ({"tpu_det_wire": "map", "tpu_det_input": "host"},
                   {"save_crop_res": True},
                   {"tpu_crop_backend": "host"},
                   {"tpu_pipeline": "onecall",
                    "tpu_onecall_fixed_canvas": False},
                   {"tpu_onecall_wave": True},
-                  {"tpu_rec_microbatch": True}):
+                  {"tpu_det_microbatch": True, "tpu_det_wire": "map"}):
         with pytest.raises(NotImplementedError):
             ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
                           **extra)

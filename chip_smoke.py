@@ -67,10 +67,29 @@
    rec group of two pages or more must occur, and the CTC head must launch
    fewer times than without the batchers. Kernel 1 is also held and timed
    at the 960-wide coalesced group's M = 64 × 120;
-7. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+7. drives path W, the one-call path with the wave coalescer
+   (`tpu_pipeline='onecall', tpu_onecall_wave=True`): tiers 2 and 4
+   warmed with `warm_sync`, waves of 2 and of 4 pages forced with `_hold`
+   that must equal the single-page program's results at the gather warp
+   (`tpu_warp_stage='off'`, the wave's own form), one 4-page wave step
+   that must launch the CTC head once and kernels 2–3 once a page, its
+   first two pages' buffers decoded as the CPU port's; W′, a held wave of
+   2 with the slot-keyed reductions (kernels 4–5); then 8 threads over 3
+   rounds of the pages, counted, against path B's single pages on the
+   same threads; no tier's warm may fail. Kernel 1 is also held and timed
+   at a 4-page wave's M = 4 × 48 × 80 = 15360;
+8. drives path H, the host image operations (numpy twins of cv2's
+   resize, perspective warp and rotate): `tpu_det_input='host'`,
+   `tpu_crop_backend='host'` with the classifier, the det-only, rec-only
+   and cls-only forms of `ocr()`, a tiny page (h + w < 64) at the
+   defaults and through path Q's batchers, the det batcher's maps wire
+   and boxes mode, each on one page against the same port on the CPU;
+9. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
-   padded rows, CTC-head launches a page), {"kernels": [...]} and, last,
-   {"ok": true, "device": {...}}.
+   padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
+   (path W's pages/s against path B's, serial ms a page, wave sizes, warm
+   ms, launches; the host twins' ms a page), {"kernels": [...]} and, last, {"ok": true, "device":
+   {...}}; the run's seconds on a line before them.
 
 Any failure raises and exits non-zero without the "ok" line. The
 recognition dictionary is not in the repository: a stand-in with 18383
@@ -904,6 +923,287 @@ def phase_q(model, ocr_c, pages, rounds=3):
         ocr_q.close()
 
 
+def _run_held(ocr, pages, names):
+    """ocr() of `names`, one thread each, while the wave dispatcher is held;
+    released once all are queued, so they run as one wave → results in
+    names order."""
+    from concurrent.futures import ThreadPoolExecutor
+    wave = ocr._onecall._wave
+    wave._hold = True
+    with ThreadPoolExecutor(len(names)) as pool:
+        futures = [pool.submit(lambda n=n: ocr.ocr(pages[n], cls=False)[0])
+                   for n in names]
+        deadline = time.time() + 60
+        while len(wave._queue) < len(names) and time.time() < deadline:
+            time.sleep(0.005)
+        assert len(wave._queue) == len(names), "pages did not queue"
+        with wave._cv:
+            wave._hold = False
+            wave._cv.notify_all()
+        return [f.result(timeout=300) for f in futures]
+
+
+def _close_results(got, ref, label):
+    """same_result, and scores within 2e-3 → max box difference."""
+    same_result(got, ref)
+    worst = 0.0
+    for g, r in zip(got, ref):
+        worst = max(worst, float(np.abs(np.asarray(g[0], np.float64) -
+                                        np.asarray(r[0], np.float64)).max()))
+        assert abs(g[1][1] - r[1][1]) < 2e-3, f"{label}: score off"
+    return worst
+
+
+def phase_w(model, pages, rounds=3):
+    """Path W, the one-call path with the wave coalescer
+    (`tpu_onecall_wave=True`, defaults otherwise): tiers 2 and 4 warmed
+    with warm_sync; waves of 2 and of 4 pages forced with `_hold` equal to
+    the single-page program's results at tpu_warp_stage='off' (the wave
+    warps with the gather); one wave's step (`step_wave`) launching the
+    CTC head once and kernels 2–3 once a page, its buffers equal to the
+    CPU port's; W′, the same with tpu_db_reduce='pallas' (kernels 4–5);
+    then 8 threads over `rounds` × the pages, counted, against path B's
+    single pages on the same threads. No warm may fail. → (summary, {"W":
+    launches of the counted run, "W'": launches of W′'s wave})."""
+    import torch
+    from onnxocr_tpu_torch.ops import resize_dev
+    from onnxocr_tpu_torch.ops.kernels import build
+    kw_w = dict(tpu_pipeline="onecall", tpu_onecall_wave=True)
+    ocr_w = model("cuda", **kw_w)
+    ocr_w2 = model("cuda", **kw_w, tpu_db_reduce="pallas")
+    ocr_off = model("cuda", tpu_pipeline="onecall", tpu_warp_stage="off")
+    ocr_b = model("cuda", tpu_pipeline="onecall")
+    try:
+        oc, wave = ocr_w._onecall, ocr_w._onecall._wave
+        h, w = pages[PAGES[0]].shape[:2]
+        src = resize_dev.src_bucket_shape(h, w) + (3,)
+        (rh, rw), (hb, wb), (eh, ew) = oc.canvas(h, w)
+        warm_ms = {}
+        for ocr_x in (ocr_w, ocr_w2):
+            for B in (2, 4):
+                t0 = time.perf_counter()
+                ocr_x._onecall._wave.warm_sync(False, src, hb, wb, B, eh, ew)
+                warm_ms[f"{'W' if ocr_x is ocr_w else 'Wp'}{B}"] = \
+                    (time.perf_counter() - t0) * 1e3
+        key = (False, src, hb, wb, eh, ew)
+        assert {(key, 2), (key, 4)} <= wave._ready, "a tier did not warm"
+        single = {n: ocr_off.ocr(pages[n], cls=False)[0] for n in PAGES}
+        shear = {n: ocr_w.ocr(pages[n], cls=False)[0] for n in PAGES}
+        held_box = 0.0
+        for names in (PAGES[:2], PAGES[2:6]):
+            before = dict(wave.stats["waves"])
+            got = _run_held(ocr_w, pages, names)
+            assert wave.stats["waves"].get(len(names), 0) == \
+                before.get(len(names), 0) + 1, "the held pages ran apart"
+            for n, res in zip(names, got):
+                held_box = max(held_box, _close_results(
+                    res, single[n], f"path W wave of {len(names)}"))
+        print(f"path W: held waves of 2 and 4 pages equal the single-page "
+              f"program's at the gather warp (boxes within {held_box:.2e})")
+
+        # one wave's step: launches, and its buffers against the CPU's
+        ups = [resize_dev.put_src_bucket(pages[n], "cuda")
+               for n in PAGES[:4]]
+        images = torch.stack([u[0] for u in ups])
+        sizes = [[u[1] for u in ups], [u[2] for u in ups],
+                 [rh] * 4, [rw] * 4]
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        out = oc.step_wave(images, *sizes, hb, wb, eh, ew).cpu().numpy()
+        step_launches = dict(build.LAUNCHES)
+        assert step_launches == {"ctc_head_reduce": 1,
+                                 "label_moment_sums": 4,
+                                 "label_proj_extents": 4}, step_launches
+        cpu = model("cpu", **kw_w)
+        try:
+            coc = cpu._onecall
+            cout = coc.step_wave(images[:2].cpu(), *(s[:2] for s in sizes),
+                                 hb, wb, eh, ew).numpy()
+            for b in range(2):
+                k = oc.k_rec
+                assert out[b, k, 0] == cout[b, k, 0], "n_valid differs"
+                got = oc.decode_packed(out[b], images[b])
+                want = coc.decode_packed(cout[b], images[b].cpu())
+                same_result([[q, r] for q, r in zip(*got)],
+                            [[q, r] for q, r in zip(*want)])
+        finally:
+            cpu.close()
+        print(f"path W: one 4-page wave step launched {step_launches}; the "
+              f"first two pages' buffers decode as the CPU's")
+
+        # W′: the slot-keyed reductions in a held wave of 2
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        got = _run_held(ocr_w2, pages, PAGES[:2])
+        w2_launches = dict(build.LAUNCHES)
+        for n, res in zip(PAGES[:2], got):
+            _close_results(res, single[n], "path W'")
+        for name in ("ctc_head_reduce", "seg_sum_bands", "seg_min_bands"):
+            assert w2_launches.get(name, 0) > 0, f"path W': {name}"
+        assert w2_launches["seg_sum_bands"] == 2, w2_launches
+        print(f"path W': a held wave of 2 launched {w2_launches}")
+
+        # 8 threads: W against path B's single pages
+        names = list(PAGES) * rounds
+        concurrent(ocr_b, pages, PAGES)            # unmeasured
+        concurrent(ocr_w, pages, PAGES)
+        serial_ms = []
+        for n in PAGES:
+            t0 = time.perf_counter()
+            ocr_w.ocr(pages[n], cls=False)
+            serial_ms.append((time.perf_counter() - t0) * 1e3)
+        before = dict(wave.stats["waves"])
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        got, wall = concurrent(ocr_w, pages, names)
+        launches = dict(build.LAUNCHES)
+        waves = {b: n - before.get(b, 0)
+                 for b, n in wave.stats["waves"].items()
+                 if n - before.get(b, 0)}
+        build.LAUNCHES.clear()
+        _, base_wall = concurrent(ocr_b, pages, names)
+        base_launches = dict(build.LAUNCHES)
+        for n, res in zip(names, got):
+            try:
+                same_result(res, shear[n])
+            except AssertionError:
+                same_result(res, single[n])
+        for name in ("ctc_head_reduce", "label_moment_sums",
+                     "label_proj_extents"):
+            assert launches.get(name, 0) > 0, f"path W: {name} never launched"
+        assert not wave.stats["warm_errors"] and \
+            not ocr_w2._onecall._wave.stats["warm_errors"], \
+            wave.stats["warm_errors"]
+        summary = {
+            "threads": 8, "pages": len(names),
+            "pages_per_s": len(names) / wall,
+            "pages_per_s_path_b": len(names) / base_wall,
+            "serial_ms_per_page": float(np.mean(serial_ms)),
+            "serial_ms": serial_ms, "wave_sizes": waves,
+            "warm_ms": warm_ms, "held_wave_max_box_diff": held_box,
+            "wave_step_launches": step_launches,
+            "launches": launches, "launches_path_b": base_launches,
+            "launches_w_prime": w2_launches,
+            "warm_errors": wave.stats["warm_errors"]}
+        print(f"path W: {len(names)} pages from 8 threads in {wall:.3f} s "
+              f"({summary['pages_per_s']:.2f} pages/s; path B single pages "
+              f"{summary['pages_per_s_path_b']:.2f}); serial "
+              f"{summary['serial_ms_per_page']:.1f} ms a page; waves by "
+              f"size {waves}; launches {launches} against {base_launches}")
+        return summary, {"W": launches, "W'": w2_launches}
+    finally:
+        for m in (ocr_w, ocr_w2, ocr_off, ocr_b):
+            m.close()
+
+
+def phase_h(model, pages):
+    """Path H, the host image operations (cv2's pixels from numpy twins):
+    each case one page on the card against the same port on the CPU —
+    tpu_det_input='host'; tpu_crop_backend='host' with the classifier; the
+    det-only form; the rec-only and cls-only forms on host crops; a tiny
+    page (h + w < 64) at the defaults and through path Q's batchers; the
+    det batcher's maps wire and boxes mode. → (launches over the phase,
+    host_times)."""
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.utils.image import get_rotate_crop_image
+    cls_kw = dict(use_angle_cls=True, tpu_allow_untrained=True)
+    page = pages[PAGES[3]]
+    tiny = np.ascontiguousarray(pages[PAGES[0]][37:65, 225:259])
+    cases = (
+        ("det_input_host", dict(tpu_det_input="host"), "full", page),
+        ("crop_backend_host", dict(cls_kw, tpu_crop_backend="host"),
+         "full_cls", page),
+        ("det_only", {}, "det", page),
+        ("rec_only", {}, "rec", page),
+        ("cls_only", cls_kw, "cls", page),
+        ("tiny_defaults", {}, "full", tiny),
+        ("tiny_path_q", dict(tpu_det_microbatch=True,
+                             tpu_rec_microbatch=True), "full", tiny),
+        ("batcher_maps_wire", dict(tpu_det_microbatch=True,
+                                   tpu_det_wire="map"), "full", page),
+        ("batcher_boxes_mode", dict(tpu_det_microbatch=True,
+                                    tpu_det_postprocess="device"), "full",
+         page))
+    crops = None
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    for label, kw, form, img in cases:
+        outs = []
+        for device in ("cuda", "cpu"):
+            ocr = model(device, **kw)
+            try:
+                if form in ("rec", "cls") and crops is None:
+                    boxes = ocr.ocr(img, rec=False, cls=False)[0][:12]
+                    crops = [get_rotate_crop_image(
+                        img, np.asarray(b, np.float32)) for b in boxes]
+                if form.startswith("full"):
+                    outs.append(ocr.ocr(img, cls=form == "full_cls")[0])
+                elif form == "det":
+                    outs.append(ocr.ocr(img, rec=False, cls=False)[0])
+                elif form == "rec":
+                    outs.append(ocr.ocr(crops, det=False, cls=False)[0])
+                else:
+                    outs.append(ocr.ocr(crops, det=False, rec=False)[0])
+            finally:
+                ocr.close()
+        got, want = outs
+        assert len(got) == len(want) > 0, (label, len(got), len(want))
+        if form.startswith("full"):
+            same_result(got, want)
+        elif form == "det":
+            assert np.abs(np.asarray(got, np.float64) -
+                          np.asarray(want, np.float64)).max() <= 2.0
+        else:
+            assert [t for t, _ in got] == [t for t, _ in want], label
+            assert max(abs(a[1] - b[1]) for a, b in zip(got, want)) < 2e-3
+        print(f"path H {label}: the card's {len(got)} results agree with "
+              f"the CPU's")
+    launches = dict(build.LAUNCHES)
+    for name in ("ctc_head_reduce", "label_moment_sums",
+                 "label_proj_extents"):
+        assert launches.get(name, 0) > 0, f"path H: {name} never launched"
+    print(f"path H: launches {launches}")
+    return launches, host_times(model, pages)
+
+
+def host_times(model, pages):
+    """Host ms of the numpy twins on the held-out pages (this machine's
+    CPU, no device work): the det input (resize to the det target into
+    the canvas), the host crops of each page's det boxes and the
+    recognizer's resize of those crops."""
+    from onnxocr_tpu_torch.ops import det_pre
+    from onnxocr_tpu_torch.utils.image import get_rotate_crop_image
+    ocr = model("cuda")
+    rec = ocr.text_recognizer
+    t_det, t_crop, t_resize, n_crops = [], [], [], 0
+    for name in PAGES:
+        img = pages[name]
+        boxes = ocr.text_detector(img)
+        t0 = time.perf_counter()
+        det_pre.prepare_det_input(img, ocr.text_detector.limit_side_len)
+        t1 = time.perf_counter()
+        crops = [get_rotate_crop_image(img, np.asarray(b, np.float32))
+                 for b in boxes]
+        t2 = time.perf_counter()
+        for c in crops:
+            rec.resize_norm_img(c, 640)
+        t3 = time.perf_counter()
+        t_det.append((t1 - t0) * 1e3)
+        t_crop.append((t2 - t1) * 1e3)
+        t_resize.append((t3 - t2) * 1e3)
+        n_crops += len(crops)
+    out = {"pages": len(PAGES), "crops": n_crops,
+           "det_input_ms_per_page": float(np.mean(t_det)),
+           "host_crops_ms_per_page": float(np.mean(t_crop)),
+           "rec_resize_ms_per_page": float(np.mean(t_resize))}
+    print(f"host twins, ms a page over {len(PAGES)} pages: det input "
+          f"{out['det_input_ms_per_page']:.1f}, host crops "
+          f"{out['host_crops_ms_per_page']:.1f} ({n_crops} crops), rec "
+          f"resize {out['rec_resize_ms_per_page']:.1f}")
+    return out
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -993,6 +1293,9 @@ def main() -> int:
         # a coalesced rec group at the 960 coalesce width: 64 × 120 rows
         staged_ctc.append(dict(check_ctc_head(ocr, seed=4, rows=64 * 120),
                                path="Q"))
+        # a 4-page wave of path W: 4 × K_rec 48 crops × 80 steps
+        staged_ctc.append(dict(check_ctc_head(ocr, seed=5, rows=4 * 48 * 80),
+                               path="W"))
         others = {"ctc_head_reduce": staged_ctc}
         for k in check_seg_reduce(ocr_a, page):
             others[k["name"]] = [dict(k, path="A")]
@@ -1074,6 +1377,9 @@ def main() -> int:
                 print(f"classifier on the card vs the CPU: max abs err "
                       f"{err:.2e} over 16 seeded crops")
         batch, runs["Q"] = phase_q(model, ocr_c, pages)
+        wave_summary, wave_runs = phase_w(model, pages)
+        runs.update(wave_runs)
+        runs["H"], host = phase_h(model, pages)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -1091,6 +1397,7 @@ def main() -> int:
     print(f"chip_smoke ran {time.perf_counter() - start:.1f} s")
     print(json.dumps({"warp": warps}))
     print(json.dumps({"batch": batch}))
+    print(json.dumps({"wave": wave_summary, "host": host}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

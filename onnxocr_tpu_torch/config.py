@@ -89,7 +89,8 @@ DEFAULTS = {
     "tpu_det_wire": "bitmap",
     "tpu_det_map_dtype": "uint8",
     # 'device': the det input is resized on the device from the uploaded
-    # page; 'host' (cv2 resize) is not ported
+    # page; 'host': resized on the host with cv2's pixels
+    # (det_pre.prepare_det_input) and uploaded
     "tpu_det_input": "device",
     # the bitmap wire's det canvas: 'always' one square canvas of the limit
     # side; 'auto' and 'never' the page's own (the JAX package fixes it
@@ -106,15 +107,28 @@ DEFAULTS = {
     "tpu_onecall_rec_width": 640,
     "tpu_onecall_max_boxes": 48,
     "tpu_onecall_det_candidates": 1024,
+    # one square det canvas (round_up(limit, det bucket)²) for every page
+    # of the one-call program, else the page's own bucket canvas
+    "tpu_onecall_fixed_canvas": True,
+    # the one-call wave coalescer (pipeline/onecall._WaveCoalescer):
+    # concurrent calls' pages run as one multi-page step at the largest
+    # warmed page count of the tiers; off for the library (it adds a
+    # dispatcher thread), as in the JAX package
+    "tpu_onecall_wave": False,
+    "tpu_onecall_wave_tiers": "2,4",
     "tpu_decode_support": "trained",
     # cross-request batching (runtime/batcher.py), off for the library: the
     # det batcher runs concurrent pages' DBNet forwards as one call on the
     # fixed det canvas; the rec batcher runs concurrent pages' crop chunks
     # as one multi-page scored pass. Each adds up to tpu_microbatch_wait_ms
     # to a call. 'device': the batched det canvas is resized on the device
-    # from the uploaded page ('host', the cv2 resize, is not ported)
+    # from the uploaded page; 'host': on the host with cv2's pixels
     "tpu_det_microbatch": False,
     "tpu_det_batch_input": "device",
+    # 'device': crops are warped on the device from the uploaded page;
+    # 'host': the reference's host crops (cv2's pixels, utils/cv_ops.py)
+    # through the classifier's and recognizer's crop-list paths
+    "tpu_crop_backend": "device",
     "tpu_rec_microbatch": False,
     "tpu_microbatch_wait_ms": 8.0,
 }

@@ -61,10 +61,7 @@ def resize_normalize_det(image_u8: torch.Tensor, src_h: int, src_w: int,
     wx = torch.clamp(1.0 - torch.abs(ix[None, :] - src_x[:, None]), min=0.0)
     tmp = (wy @ image_u8.reshape(Hs, Ws * 3).to(f32)).reshape(out_h, Ws, 3)
     vals = torch.einsum("hwc,xw->hxc", tmp, wx)
-    vals = torch.round(torch.clamp(vals, 0.0, 255.0))
-    mean = torch.as_tensor(det_pre.IMAGENET_MEAN, device=dev)
-    std = torch.as_tensor(det_pre.IMAGENET_STD, device=dev)
-    norm = (vals / 255.0 - mean) / std
+    norm = det_pre.normalize_det(torch.round(torch.clamp(vals, 0.0, 255.0)))
     norm[resize_h:] = 0.0
     norm[:, resize_w:] = 0.0
     return norm

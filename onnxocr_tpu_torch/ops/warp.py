@@ -25,7 +25,9 @@ crop too and keeps its own crop where it may: no host sync, so a CUDA graph
 can hold the call. (The JAX package compacts the crops left to gather into
 `tpu_warp_slow_k` static slots, which XLA's static shapes call for; here
 that setting is accepted and stored, and `ab_warp.py` times an exact-size
-compaction against this form.)
+compaction against this form.) `warp_crops_host` is the host form
+(tpu_crop_backend='host'): cv2's bicubic warp of each crop, from the numpy
+twin of utils/cv_ops.py.
 """
 from __future__ import annotations
 
@@ -33,6 +35,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+from ..utils import cv_ops
 
 
 def perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
@@ -437,3 +441,19 @@ def to_crops(vals, valid_w, out_w: int):
     live = torch.arange(out_w, device=vals.device)[None, None, :] < \
         valid_w[:, None, None]
     return torch.where(live[..., None], norm, 0.0)
+
+
+def warp_crops_host(image: np.ndarray, mats: np.ndarray, valid_w: np.ndarray,
+                    out_h: int, out_w: int) -> np.ndarray:
+    """The host form of warp_crops: cv2's bicubic perspective warp with the
+    edge replicated (utils/cv_ops.warp_perspective_cubic) → (N, out_h,
+    out_w, 3) float32 crops in [−1, 1], zero at columns >= valid_w."""
+    out = np.zeros((len(mats), out_h, out_w, 3), dtype=np.float32)
+    for i in range(len(mats)):
+        # the twin takes the source → dest matrix, as cv2 does
+        M = np.linalg.inv(mats[i].astype(np.float64))
+        crop = cv_ops.warp_perspective_cubic(image, M, (out_w, out_h))
+        norm = (crop.astype(np.float32) / 255.0 - 0.5) / 0.5
+        norm[:, int(valid_w[i]):] = 0.0
+        out[i] = norm
+    return out

@@ -1,6 +1,7 @@
-"""Public API: ONNXPaddleOcr with the reference kwargs and result nesting
-(onnxocr_tpu/pipeline/api.py), plus `device` — "cuda" by default; "cpu"
-only when the caller passes it."""
+"""Public API: ONNXPaddleOcr with the reference kwargs, the det/rec/cls forms
+of `ocr()` and their result nesting (onnxocr_tpu/pipeline/api.py), plus
+`device` — "cuda" by default; "cpu" only when the caller passes it. The
+reference's `sav2Img` (a drawing written as a JPEG) is not ported."""
 from __future__ import annotations
 
 import numpy as np
@@ -19,20 +20,33 @@ class ONNXPaddleOcr(TextSystem):
         super().__init__(params, device)
 
     def ocr(self, img, det: bool = True, rec: bool = True, cls: bool = True):
-        """det+rec → [[[box_as_lists, (text, score)], ...]]; `cls` runs the
-        angle classifier when it was built (use_angle_cls=True). The
-        det-only and rec-only forms wait for the cv2-exact host image
-        operations (the host det resize, host crops, the classifier's and
-        recognizer's resize of crop lists), which are not ported."""
+        """The reference's forms, in its nesting:
+
+        det+rec      → [[[box_as_lists, (text, score)], ...]]
+        det only     → [[box_as_lists, ...]]   (unfiltered by drop_score)
+        cls+rec/rec  → [[(text, score), ...]]  over a crop (list)
+        cls only     → [[[label, score], ...]]
+
+        `cls` runs the angle classifier when it was built
+        (use_angle_cls=True). Without it, rec=False on a crop list gives
+        [] (the reference's empty classifier result)."""
         if cls and not self.use_angle_cls:
             # observable stdout contract of the reference, typo included
             print("Since the angle classifier is not initialized, "
                   "the angle classifier will not be uesd during the forward "
                   "process")
-        if not (det and rec):
-            raise NotImplementedError(
-                "det-only and rec-only calls need the cv2-exact host image "
-                "operations (host det resize, host crops), which are not "
-                "ported")
-        boxes, texts = self(img, cls)
-        return [[[np.asarray(b).tolist(), t] for b, t in zip(boxes, texts)]]
+        if det:
+            if not rec:
+                return [[np.asarray(b).tolist()
+                         for b in self.text_detector(img)]]
+            boxes, texts = self(img, cls)
+            return [[[np.asarray(b).tolist(), t]
+                     for b, t in zip(boxes, texts)]]
+        crops = img if isinstance(img, list) else [img]
+        if self.use_angle_cls and cls:
+            crops, verdicts = self.text_classifier(crops)
+            if not rec:
+                return [verdicts]
+        if not rec:
+            return []
+        return [self.text_recognizer(crops)]

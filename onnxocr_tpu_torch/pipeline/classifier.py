@@ -1,13 +1,15 @@
 """Text angle classifier (0° / 180°) on the device. Counterpart of
-onnxocr_tpu/pipeline/classifier.py: the forward over (N, 48, 192, 3) crops
-and `run_boxes`, which classifies crops warped straight from the uploaded
-page and returns only the rotation verdicts — the 180° turn itself is folded
-into the recognizer's warp homography. The reference's host `__call__`
-(cv2 resize and rotate of materialized crops) is not ported.
+onnxocr_tpu/pipeline/classifier.py: the forward over (N, 48, 192, 3) crops;
+`run_boxes`, which classifies crops warped straight from the uploaded page
+and returns only the rotation verdicts — the 180° turn itself is folded
+into the recognizer's warp homography; and the reference's `__call__` on a
+list of host crops (resized with cv2's pixels, utils/cv_ops.py), which
+turns the crops it finds upside down.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import math
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +18,7 @@ from .. import config
 from ..models import convert
 from ..ops import ctc
 from ..ops import warp as warp_ops
+from ..utils import cv_ops
 from . import backends, batching
 
 
@@ -46,6 +49,60 @@ class TextClassifier:
         self.forward = ClsForward(
             backends.load_cls_params(args.cls_model_dir,
                                      args.tpu_allow_untrained), device)
+
+    def _forward_batches(self, crops: np.ndarray) -> np.ndarray:
+        """(N, H, W, 3) float32 host crops → (N, 2) probs, in chunks of the
+        top batch size, each padded with zero crops up the ladder."""
+        n = len(crops)
+        out = np.zeros((n, 2), np.float32)
+        max_batch = self.batch_ladder[-1]
+        for start in range(0, n, max_batch):
+            chunk = crops[start:start + max_batch]
+            k = len(chunk)
+            bsz = batching.pick_batch_bucket(k, self.batch_ladder)
+            if bsz > k:
+                chunk = np.concatenate([chunk, np.zeros(
+                    (bsz - k,) + chunk.shape[1:], chunk.dtype)])
+            probs = self.forward(torch.from_numpy(chunk).to(self.device))
+            out[start:start + k] = probs[:k].cpu().numpy()
+        return out
+
+    def resize_norm_img(self, img: np.ndarray) -> np.ndarray:
+        """The reference cls resize (predict_cls.py:22-42): the crop at
+        height 48 and its aspect's width (at most 192), normalized to
+        [−1, 1], zero-padded to 48 × 192."""
+        imgC, imgH, imgW = self.cls_image_shape
+        h, w = img.shape[:2]
+        ratio = w / float(h)
+        if math.ceil(imgH * ratio) > imgW:
+            resized_w = imgW
+        else:
+            resized_w = int(math.ceil(imgH * ratio))
+        resized = cv_ops.resize_linear(img, (resized_w, imgH)).astype(
+            np.float32)
+        if imgC == 1 and resized.ndim == 2:
+            resized = resized[..., None]
+        resized = resized / 255.0
+        resized = (resized - 0.5) / 0.5
+        out = np.zeros((imgH, imgW, imgC), dtype=np.float32)
+        out[:, :resized_w] = resized
+        return out
+
+    def __call__(self, img_list: Sequence[np.ndarray]
+                 ) -> Tuple[List[np.ndarray], List[List]]:
+        """The reference's host path: → (the crops, those the classifier
+        reads as turned by 180° rotated back, [[label, score]])."""
+        img_list = list(img_list)
+        if not img_list:
+            return img_list, []
+        crops = np.stack([self.resize_norm_img(im) for im in img_list])
+        cls_res = self.postprocess_op(self._forward_batches(crops))
+        out_res: List[List] = []
+        for i, (label, score) in enumerate(cls_res):
+            out_res.append([label, score])
+            if "180" in label and score > self.cls_thresh:
+                img_list[i] = cv_ops.rotate_180(img_list[i])
+        return img_list, out_res
 
     def run_boxes(self, image_u8: torch.Tensor, boxes: np.ndarray
                   ) -> Tuple[np.ndarray, List[List]]:

@@ -9,12 +9,15 @@ its backends.DetForward:
   map in the wire dtype `tpu_det_map_dtype` → the host DB postprocess;
 * device box extraction (`infer_boxes_device`, tpu_det_postprocess=
   'device'): only max_k × 10 floats come back;
+* the host det input (`infer_prob_map`, and `__call__`, the reference's
+  det-only contract): the page resized on the host with cv2's pixels into
+  its bucket canvas (det_pre.prepare_det_input, which also zero-pads a tiny
+  page as the reference does) → DBNet → the map in the wire dtype;
 * the cross-request det batcher (`tpu_det_microbatch`,
-  `enable_page_batching`): concurrent pages' bitmap-wire forwards as one
-  wave (`pages_bits`, runtime/batcher.DetPageBatcher).
-
-The host det input (cv2 resize, `infer_prob_map`) is not ported, nor are
-the det batcher's modes that need it (see `page_batch_mode`).
+  `enable_page_batching`): concurrent pages' forwards as one wave on the
+  fixed det canvas (runtime/batcher.DetPageBatcher), in the mode
+  `page_batch_mode` picks: the bitmap wire (`pages_bits`), the maps wire
+  (`pages_maps`) or device box extraction (`pages_boxes`).
 """
 from __future__ import annotations
 
@@ -33,8 +36,7 @@ def page_batch_mode(args) -> Optional[str]:
     """The mode the det batcher takes under `args`, as the JAX package
     picks it (`enable_page_batching`): None (no batcher) without
     limit_type 'max' sizing; 'boxes' (device DB extraction), 'maps' (map
-    download) or 'bits' (the bitmap wire). Only 'bits' on the bitmap
-    wire's device resize is ported."""
+    download) or 'bits' (the bitmap wire)."""
     if args.det_limit_type != "max" or \
             getattr(args, "det_image_shape", None) is not None:
         return None
@@ -55,6 +57,7 @@ class TextDetector:
         self.limit_type = args.det_limit_type
         # fixed-shape resize (DetResizeForTest type 1) when set
         self.image_shape = getattr(args, "det_image_shape", None)
+        self.keep_ratio = getattr(args, "det_keep_ratio", False)
         self.bucket = int(getattr(args, "tpu_det_bucket", 320))
         self.map_dtype = getattr(args, "tpu_det_map_dtype", "uint8")
         if backends.pick_arch("det", args.det_model_dir) != "mbv3":
@@ -71,6 +74,7 @@ class TextDetector:
             max_candidates=1000, unclip_ratio=args.det_db_unclip_ratio,
             use_dilation=args.use_dilation,
             score_mode=args.det_db_score_mode, box_type=args.det_box_type)
+        self.device = device
         self.model = convert.build_dbnet(tree, device)
         self._page_batcher = None
         if args.tpu_det_microbatch:
@@ -79,20 +83,17 @@ class TextDetector:
 
     def enable_page_batching(self, max_wait_ms: float = 8.0) -> bool:
         """Cross-request det batching: concurrent pages share one DBNet
-        forward (runtime/batcher.DetPageBatcher). False, and no batcher,
-        without limit_type 'max' sizing, as in the JAX package; the modes
-        other than the bitmap wire's raise (they need the host det
-        resize)."""
+        forward (runtime/batcher.DetPageBatcher) in the mode of
+        `page_batch_mode`. False, and no batcher, without limit_type 'max'
+        sizing, as in the JAX package."""
         mode = page_batch_mode(self.args)
         if mode is None:
             return False
-        if mode != "bits":
-            raise NotImplementedError(
-                f"the det batcher's {mode} mode needs the host det resize "
-                "(det_pre.prepare_det_input), which is not ported")
         from ..runtime.batcher import DetPageBatcher
+        fn = {"bits": self.pages_bits, "maps": self.pages_maps,
+              "boxes": self.pages_boxes}[mode]
         self._page_batcher = DetPageBatcher(
-            self.pages_bits, self.limit_side_len, self.limit_type,
+            fn, mode, self.limit_side_len, self.limit_type,
             max_wait_ms=max_wait_ms, bucket=self.bucket)
         return True
 
@@ -172,19 +173,92 @@ class TextDetector:
         bits = det_pre.bitpack_map(prob, rh, rw, self.postprocess_op.thresh)
         return bits, prob, (rh, rw)
 
+    def _pages_forward(self, batch) -> torch.Tensor:
+        """A wave's DBNet forward: {"pages": (B, H, W, 3) uint8 canvases or
+        float32 normalized ones on the device, "rhw": (B, 2) valid
+        extents} → (B, H, W) float32 maps, each page masked to its own
+        extent. Host canvases are uploaded here, once a wave."""
+        pages = torch.as_tensor(batch["pages"]).to(self.device)
+        if pages.dtype == torch.uint8:
+            pages = det_pre.normalize_det(pages)
+        rhw = torch.as_tensor(batch["rhw"]).to(pages.device)
+        return self.model(pages.permute(0, 3, 1, 2),
+                          valid_hw=(rhw[:, 0], rhw[:, 1]))
+
     @torch.inference_mode()
     def pages_bits(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The det batcher's wave (counterpart of `make_pages_bits_fn`):
-        {"pages": (B, H, W, 3) normalized canvases on the device, "rhw":
-        (B, 2) int32 valid extents} → (bits (B, H, W // 8) uint8, probs (B,
-        H, W) float32), both on the device. Each page is masked to its own
-        extent; a padding page (extent 0) gives no bit."""
-        pages = batch["pages"]
-        rhw = torch.as_tensor(batch["rhw"]).to(pages.device)
-        vh, vw = rhw[:, 0], rhw[:, 1]
-        probs = self.model(pages.permute(0, 3, 1, 2), valid_hw=(vh, vw))
-        return det_pre.bitpack_map(probs, vh, vw,
+        """The det batcher's bitmap wave (counterpart of
+        `make_pages_bits_fn`): batch as `_pages_forward` → (bits (B, H,
+        W // 8) uint8, probs (B, H, W) float32), both on the device. A
+        padding page (extent 0) gives no bit."""
+        probs = self._pages_forward(batch)
+        rhw = torch.as_tensor(batch["rhw"]).to(probs.device)
+        return det_pre.bitpack_map(probs, rhw[:, 0], rhw[:, 1],
                                    self.postprocess_op.thresh), probs
+
+    @torch.inference_mode()
+    def pages_maps(self, batch) -> torch.Tensor:
+        """The det batcher's maps wave (`call_pages_u8`): host-resized
+        uint8 canvases → (B, H, W) maps in the wire dtype."""
+        return self.encode_map(self._pages_forward(batch))
+
+    @torch.inference_mode()
+    def pages_boxes(self, batch) -> torch.Tensor:
+        """The det batcher's boxes wave (`make_pages_boxes_fn`): host-resized
+        uint8 canvases → (B, max_k, 10) float32 [quad in map coords (8),
+        score, valid], the device DB extraction run on each page's map in
+        turn (padding pages, extent 0, stay zero)."""
+        args, pp = self.args, self.postprocess_op
+        max_k = int(args.tpu_det_max_boxes)
+        probs = self._pages_forward(batch)
+        rhw = np.asarray(batch["rhw"])
+        out = probs.new_zeros((len(rhw), max_k, 10))
+        for i, (rh, rw) in enumerate(rhw.tolist()):
+            if rh and rw:
+                quads, scores, valid = db_device.device_boxes(
+                    probs[i], rh, rw, max_k=max_k, thresh=pp.thresh,
+                    box_thresh=pp.box_thresh, unclip_ratio=pp.unclip_ratio,
+                    min_size=float(pp.min_size),
+                    scale=args.tpu_det_extract_scale,
+                    score_scale=args.tpu_det_score_scale,
+                    reduce=str(args.tpu_db_reduce),
+                    score_k=int(args.tpu_det_score_k))
+                out[i] = torch.cat([quads.reshape(max_k, 8), scores[:, None],
+                                    valid[:, None].to(torch.float32)], -1)
+        return out
+
+    @torch.inference_mode()
+    def infer_prob_map(self, img: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """The host det input: the page resized on the host into its bucket
+        canvas, uploaded, DBNet → the map in the wire dtype, downloaded →
+        (prob (rh, rw) float32 numpy, shape_info)."""
+        padded, shape_info, (rh, rw) = det_pre.prepare_det_input(
+            img, self.limit_side_len, self.limit_type, self.bucket,
+            image_shape=self.image_shape, keep_ratio=self.keep_ratio)
+        x = det_pre.normalize_det(torch.from_numpy(padded).to(self.device))
+        wire = self.encode_map(self.forward(x, rh, rw))
+        return self.decode_map(wire.cpu().numpy()[:rh, :rw]), shape_info
+
+    def __call__(self, img: np.ndarray):
+        """The reference's det contract on a BGR page: → the boxes in
+        source coordinates after the det filter. Through the det batcher
+        when there is one (the boxes mode's device extraction, or the
+        wave's map: in the bits mode its float32 prob map, downloaded for
+        the host scores), else the host det input."""
+        batcher = self._page_batcher
+        if batcher is not None and batcher.mode == "boxes":
+            return self.filter_tag_det_res(batcher.submit_boxes(img),
+                                           img.shape)
+        if batcher is not None and batcher.mode == "bits":
+            _, prob_dev, (rh, rw), shape_info = batcher.submit_bits(img)
+            prob = self.decode_map(prob_dev.cpu().numpy()[:rh, :rw])
+        elif batcher is not None:
+            prob, shape_info = batcher.submit(img)
+            prob = self.decode_map(prob)
+        else:
+            prob, shape_info = self.infer_prob_map(img)
+        return self.boxes_from_prob(prob, shape_info, img.shape)
 
     @torch.inference_mode()
     def infer_prob_map_device(self, image_u8: torch.Tensor, src_h: int,

@@ -17,11 +17,20 @@ first entry is n_valid; then all K_det filtered quads + valid flags,
 flattened into rows of the same width. Wide lines (desired width > the rec
 width) and boxes past K_rec re-run through the recognizer's fused
 per-bucket path against the same uploaded page.
+
+With `tpu_onecall_wave`, concurrent calls (the serving engine's threads)
+hand their uploaded pages to `_WaveCoalescer`, whose thread runs whatever
+is queued as one multi-page step (`step_wave`: one DBNet forward, the DB
+extraction per page, one gather warp and one SVTR + CTC-head pass over
+every page's crops) with one download a wave, at the largest page count of
+`tpu_onecall_wave_tiers` that has been warmed; a lone call runs the
+single-page step at once and never waits.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+import threading
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +57,14 @@ class OneCallPipeline:
         self.score_k = int(args.tpu_det_score_k)
         self.axis_snap = float(args.tpu_det_axis_snap)
         self.ex_bucket = int(args.tpu_det_extract_window)
+        self.fixed_canvas = bool(args.tpu_onecall_fixed_canvas)
+        self._wave = None
+        if args.tpu_onecall_wave:
+            tiers = sorted({int(t) for t in
+                            str(args.tpu_onecall_wave_tiers).split(",")
+                            if t.strip() and int(t) > 1})
+            if tiers:
+                self._wave = _WaveCoalescer(self, tiers)
 
     def _ex_window(self, rh: int, rw: int, hb: int, wb: int
                    ) -> Tuple[int, int]:
@@ -62,10 +79,14 @@ class OneCallPipeline:
         """→ (rh, rw) resize target, (hb, wb) det canvas, (eh, ew) window."""
         det = self.detector
         rh, rw = det_pre.det_resize_target(src_h, src_w, det.limit_side_len)
-        # one fixed square canvas for every page: the valid_hw masking makes
-        # the det map over the valid region independent of the padding
-        cap = det_pre.round_up(int(det.limit_side_len), det.bucket)
-        hb = wb = max(cap, det_pre.round_up(max(rh, rw), det.bucket))
+        if self.fixed_canvas:
+            # one square canvas for every page: the valid_hw masking makes
+            # the det map over the valid region independent of the padding
+            cap = det_pre.round_up(int(det.limit_side_len), det.bucket)
+            hb = wb = max(cap, det_pre.round_up(max(rh, rw), det.bucket))
+        else:
+            hb = det_pre.round_up(rh, det.bucket)
+            wb = det_pre.round_up(rw, det.bucket)
         return (rh, rw), (hb, wb), self._ex_window(rh, rw, hb, wb)
 
     def source_boxes(self, quads_m, scores, valid, r_h: int, r_w: int,
@@ -84,17 +105,14 @@ class OneCallPipeline:
         take = torch.argsort((~valid).to(torch.int32), stable=True)[:self.k_rec]
         return quads_s, valid, quads_s[take], scores[take], valid[take]
 
-    @torch.inference_mode()
-    def step(self, image_u8: torch.Tensor, src_h: int, src_w: int,
-             r_h: int, r_w: int, out_h: int, out_w: int, ex_h: int = 0,
-             ex_w: int = 0, use_cls: bool = False) -> torch.Tensor:
-        """The single-page program: → packed float32 buffer on the device."""
+    def page_boxes(self, prob: torch.Tensor, r_h: int, r_w: int,
+                   src_h: int, src_w: int, ex_h: int = 0, ex_w: int = 0):
+        """One page's det map (H, W) → source_boxes' five tensors, the DB
+        extraction run in the extraction window (ex_h, ex_w) when it is
+        smaller than the map."""
         pp = self.detector.postprocess_op
-        x = resize_dev.resize_normalize_det(image_u8, src_h, src_w, r_h, r_w,
-                                            out_h, out_w)
-        prob = self.detector.model(x.permute(2, 0, 1)[None],
-                                   valid_hw=(r_h, r_w))[0]
-        if ex_h and ex_w and (ex_h < out_h or ex_w < out_w):
+        H, W = prob.shape
+        if ex_h and ex_w and (ex_h < H or ex_w < W):
             prob = prob[:ex_h, :ex_w]
         quads_m, scores, valid = db_device.device_boxes(
             prob.contiguous(), r_h, r_w, max_k=self.k_det, thresh=pp.thresh,
@@ -102,24 +120,29 @@ class OneCallPipeline:
             min_size=float(pp.min_size), scale=self.extract_scale,
             score_scale=self.score_scale, reduce=self.db_reduce,
             score_k=self.score_k, axis_snap=self.axis_snap)
+        return self.source_boxes(quads_m, scores, valid, r_h, r_w, src_h,
+                                 src_w)
 
-        quads_s, valid, quads_c, scores_c, valid_c = self.source_boxes(
-            quads_m, scores, valid, r_h, r_w, src_h, src_w)
-        n_valid = valid.sum()
+    def _crop_mats(self, quads_c, valid_c, use_cls: bool):
+        """→ (cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid,
+        desired) of the compacted boxes; the cls pair is the rec pair when
+        the classifier is off (nothing reads it then)."""
         rec_m, rec_m_rot, rec_vw, desired = warp_dev.crop_matrices(
             quads_c, valid_c, self.imgH, self.rec_w)
         rec_vw = torch.where(valid_c, rec_vw, 0)
+        cls_m, cls_vw = rec_m, rec_vw
         if use_cls:
             fused = self.fused
             cls_m, _, cls_vw, _ = warp_dev.crop_matrices(
                 quads_c, valid_c, fused.cls_h, fused.cls_w)
-            rec_m, _, _ = fused.select_mats(
-                image_u8, cls_m, torch.where(valid_c, cls_vw, 0), rec_m,
-                rec_m_rot)
-        crops = self.fused.warp(image_u8, rec_m, rec_vw, self.imgH,
-                                self.rec_w)
-        idx, prob_max = self.recognizer.forward(crops, (rec_vw + 7) // 8)
+            cls_vw = torch.where(valid_c, cls_vw, 0)
+        return cls_m, cls_vw, rec_m, rec_m_rot, rec_vw, desired
 
+    @staticmethod
+    def _pack(boxes, rec_vw, desired, idx, prob_max) -> torch.Tensor:
+        """One page's packed buffer from its source_boxes tensors and its
+        K_rec rows of the rec pass."""
+        quads_s, valid, quads_c, scores_c, valid_c = boxes
         k_rec = quads_c.shape[0]
         T = idx.shape[1]
         wbuf = 12 + 2 * T
@@ -129,7 +152,7 @@ class OneCallPipeline:
                           desired[:, None].to(f32), idx.to(f32),
                           prob_max.to(f32)], -1)
         tail = torch.zeros((1, wbuf), dtype=f32, device=body.device)
-        tail[0, 0] = n_valid.to(f32)
+        tail[0, 0] = valid.sum().to(f32)
         det_flat = torch.cat([quads_s.reshape(-1, 8),
                               valid[:, None].to(f32)], -1).reshape(-1)
         n_det_rows = -(-det_flat.shape[0] // wbuf)
@@ -137,19 +160,96 @@ class OneCallPipeline:
             n_det_rows * wbuf - det_flat.shape[0])]).reshape(n_det_rows, wbuf)
         return torch.cat([body, tail, det_block], 0)
 
+    @torch.inference_mode()
+    def step(self, image_u8: torch.Tensor, src_h: int, src_w: int,
+             r_h: int, r_w: int, out_h: int, out_w: int, ex_h: int = 0,
+             ex_w: int = 0, use_cls: bool = False) -> torch.Tensor:
+        """The single-page program: → packed float32 buffer on the device."""
+        x = resize_dev.resize_normalize_det(image_u8, src_h, src_w, r_h, r_w,
+                                            out_h, out_w)
+        prob = self.detector.model(x.permute(2, 0, 1)[None],
+                                   valid_hw=(r_h, r_w))[0]
+        boxes = self.page_boxes(prob, r_h, r_w, src_h, src_w, ex_h, ex_w)
+        cls_m, cls_vw, rec_m, rec_m_rot, rec_vw, desired = self._crop_mats(
+            boxes[2], boxes[4], use_cls)
+        if use_cls:
+            rec_m, _, _ = self.fused.select_mats(image_u8, cls_m, cls_vw,
+                                                 rec_m, rec_m_rot)
+        crops = self.fused.warp(image_u8, rec_m, rec_vw, self.imgH,
+                                self.rec_w)
+        idx, prob_max = self.recognizer.forward(crops, (rec_vw + 7) // 8)
+        return self._pack(boxes, rec_vw, desired, idx, prob_max)
+
+    @torch.inference_mode()
+    def step_wave(self, images_u8: torch.Tensor, src_h: Sequence[int],
+                  src_w: Sequence[int], r_h: Sequence[int],
+                  r_w: Sequence[int], out_h: int, out_w: int, ex_h: int = 0,
+                  ex_w: int = 0, use_cls: bool = False) -> torch.Tensor:
+        """The multi-page program (the JAX package's vmapped `_make_step(
+        use_cls, wave=True)`): images_u8 (B, Hs, Ws, 3) pages of one source
+        bucket, the per-page sizes as B ints → (B, rows, 12 + 2T) float32
+        on the device, each page's block decoding as `step`'s buffer.
+
+        One DBNet forward over the B canvases (each masked to its own
+        extent), the DB extraction per page, then one gather warp of the
+        cls crops, one cls forward, one gather warp of the rec crops and one
+        SVTR + CTC-head pass over every page's K_rec crops. The wave warps
+        in the gather form, whatever the configured form, as the JAX
+        package's wave does."""
+        B = images_u8.shape[0]
+        dev = images_u8.device
+        x = torch.stack([resize_dev.resize_normalize_det(
+            images_u8[b], src_h[b], src_w[b], r_h[b], r_w[b], out_h, out_w)
+            for b in range(B)])
+        vh = torch.as_tensor(list(r_h), device=dev)
+        vw = torch.as_tensor(list(r_w), device=dev)
+        probs = self.detector.model(x.permute(0, 3, 1, 2), valid_hw=(vh, vw))
+        pages = [self.page_boxes(probs[b], r_h[b], r_w[b], src_h[b],
+                                 src_w[b], ex_h, ex_w) for b in range(B)]
+        k = pages[0][2].shape[0]
+        quads_c = torch.cat([p[2] for p in pages])
+        valid_c = torch.cat([p[4] for p in pages])
+        *mats, desired = self._crop_mats(quads_c, valid_c, use_cls)
+        img_idx = torch.arange(B, device=dev).repeat_interleave(k)
+        packed = self.fused.call_multi(images_u8, img_idx, *mats, self.imgH,
+                                       self.rec_w, use_cls)
+        T = packed.shape[1] // 2
+        idx, prob_max = packed[:, :T], packed[:, T:]
+        rec_vw = mats[-1]
+        rows = [slice(b * k, (b + 1) * k) for b in range(B)]
+        return torch.stack([self._pack(p, rec_vw[r], desired[r], idx[r],
+                                       prob_max[r])
+                            for p, r in zip(pages, rows)])
+
     def use_cls(self, cls: bool) -> bool:
         """Whether a call with `cls` runs the classifier."""
         return bool(cls and self.fused.cls_forward is not None and
                     self.fused.idx180 is not None)
 
     def run_packed(self, img: np.ndarray, use_cls: bool = False):
-        """Upload a BGR page and run the program → (packed numpy buffer,
-        uploaded page on the device)."""
+        """Upload a BGR page and run the program (through the wave
+        coalescer when it is on) → (packed numpy buffer, uploaded page on
+        the device)."""
         image_dev, src_h, src_w = resize_dev.put_src_bucket(img, self.device)
         (rh, rw), (hb, wb), (eh, ew) = self.canvas(src_h, src_w)
-        packed = self.step(image_dev, src_h, src_w, rh, rw, hb, wb, eh, ew,
-                           use_cls)
-        return packed.cpu().numpy(), image_dev
+        if self._wave is not None:
+            packed = self._wave.run(use_cls, image_dev, src_h, src_w, rh, rw,
+                                    hb, wb, eh, ew)
+        else:
+            packed = self._run_single(use_cls, image_dev, src_h, src_w, rh,
+                                      rw, hb, wb, eh, ew)
+        return packed, image_dev
+
+    def _run_single(self, use_cls: bool, image_dev: torch.Tensor,
+                    src_h: int, src_w: int, rh: int, rw: int, hb: int,
+                    wb: int, eh: int = 0, ew: int = 0) -> np.ndarray:
+        return self.step(image_dev, src_h, src_w, rh, rw, hb, wb, eh, ew,
+                         use_cls).cpu().numpy()
+
+    def close(self):
+        """Stop the wave coalescer's thread, if any."""
+        if self._wave is not None:
+            self._wave.close()
 
     def __call__(self, img: np.ndarray, cls: bool = False
                  ) -> Tuple[np.ndarray, List[Tuple[str, float]]]:
@@ -200,3 +300,158 @@ class OneCallPipeline:
             rest = self._rerun(image_dev, boxes_all[self.k_rec:], use_cls)
             return boxes_all, rec_res + rest
         return boxes, rec_res
+
+
+class _WaveReq:
+    __slots__ = ("key", "image_dev", "src_h", "src_w", "rh", "rw",
+                 "event", "packed", "error")
+
+    def __init__(self, key, image_dev, src_h, src_w, rh, rw):
+        self.key = key
+        self.image_dev = image_dev
+        self.src_h = src_h
+        self.src_w = src_w
+        self.rh = rh
+        self.rw = rw
+        self.event = threading.Event()
+        self.packed = None
+        self.error = None
+
+
+class _WaveCoalescer:
+    """Coalesces concurrent one-call pages into multi-page waves.
+
+    Each caller queues its uploaded page and waits; one dispatcher thread
+    takes the pages queued at that moment that share the oldest page's key
+    (use_cls, source bucket, det canvas, extraction window) and runs them as
+    one `step_wave` with one download, at the largest tier that is at most
+    the group's size and has been warmed. Anything else runs batch 1
+    through the single-page `step` (in the configured warp form), so a lone
+    page never waits for company.
+
+    A tier becomes usable after a warm pass on zero pages at its batch size
+    (the card's first runs of a shape pick convolution algorithms and grow
+    the allocator's pools): started in the background the first time a key
+    shows a backlog for it, or by `warm_sync`. A warm that fails leaves the
+    tier cold and the requests on batch 1; its error is kept in
+    stats["warm_errors"]. An error in a wave reaches every caller of it."""
+
+    def __init__(self, pipe: OneCallPipeline, tiers: List[int]):
+        self.pipe = pipe
+        self.tiers = sorted(tiers, reverse=True)
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._queue: List[_WaveReq] = []
+        self._ready = set()      # (key, B) warmed
+        self._warming = set()
+        self._closed = False
+        self._hold = False       # test hook: dispatch nothing while set
+        self.stats = {"waves": {}, "pages": 0, "warm_errors": []}
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="onecall-wave")
+        self._thread.start()
+
+    @staticmethod
+    def _key(use_cls, src_shape, hb, wb, eh, ew):
+        return (bool(use_cls), tuple(src_shape), int(hb), int(wb), int(eh),
+                int(ew))
+
+    def run(self, use_cls, image_dev, src_h, src_w, rh, rw, hb, wb,
+            eh=0, ew=0) -> np.ndarray:
+        """Queue one uploaded page and wait for its packed buffer."""
+        req = _WaveReq(self._key(use_cls, image_dev.shape, hb, wb, eh, ew),
+                       image_dev, int(src_h), int(src_w), int(rh), int(rw))
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("wave coalescer closed")
+            self._queue.append(req)
+            self._cv.notify()
+        req.event.wait()
+        if req.error is not None:
+            raise req.error
+        return req.packed
+
+    def close(self, timeout: float = 5.0):
+        """Stop the dispatcher once the queue is empty."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=timeout)
+
+    def _loop(self):
+        with torch.inference_mode():
+            while True:
+                with self._cv:
+                    while (not self._queue or self._hold) and \
+                            not self._closed:
+                        self._cv.wait(0.1)
+                    if self._closed and not self._queue:
+                        return
+                    key = self._queue[0].key
+                    group = [r for r in self._queue if r.key == key]
+                    want = next((t for t in self.tiers if t <= len(group)),
+                                1)
+                    B = next((t for t in self.tiers if t <= len(group) and
+                              (key, t) in self._ready), 1)
+                    if want > B and (key, want) not in self._warming:
+                        self._warming.add((key, want))
+                        threading.Thread(target=self._warm, daemon=True,
+                                         args=(key, want)).start()
+                    batch = group[:B]
+                    for r in batch:
+                        self._queue.remove(r)
+                try:
+                    self._dispatch(key, batch)
+                except Exception as e:  # every caller of the wave gets it
+                    for r in batch:
+                        r.error = e
+                        r.event.set()
+
+    def _dispatch(self, key, batch: List[_WaveReq]):
+        use_cls, _, hb, wb, eh, ew = key
+        pipe = self.pipe
+        n = len(batch)
+        self.stats["pages"] += n
+        self.stats["waves"][n] = self.stats["waves"].get(n, 0) + 1
+        if n == 1:
+            r = batch[0]
+            r.packed = pipe._run_single(use_cls, r.image_dev, r.src_h,
+                                        r.src_w, r.rh, r.rw, hb, wb, eh, ew)
+            r.event.set()
+            return
+        out = pipe.step_wave(
+            torch.stack([r.image_dev for r in batch]),
+            [r.src_h for r in batch], [r.src_w for r in batch],
+            [r.rh for r in batch], [r.rw for r in batch], hb, wb, eh, ew,
+            use_cls).cpu().numpy()
+        for i, r in enumerate(batch):
+            r.packed = out[i]
+            r.event.set()
+
+    def _warm(self, key, B: int):
+        """Run the (key, B) wave once on zero pages on the device; the tier
+        is usable after it."""
+        try:
+            with torch.inference_mode():
+                use_cls, src_shape, hb, wb, eh, ew = key
+                images = torch.zeros((B,) + tuple(src_shape),
+                                     dtype=torch.uint8,
+                                     device=self.pipe.device)
+                ones = [32] * B
+                self.pipe.step_wave(images, ones, ones, ones, ones, hb, wb,
+                                    eh, ew, use_cls).cpu()
+            with self._cv:
+                self._ready.add((key, B))
+        except Exception as e:  # the tier stays cold; requests run batch 1
+            with self._cv:
+                self.stats["warm_errors"].append(
+                    f"{(key, B)}: {type(e).__name__}: {e}")
+        finally:
+            with self._cv:
+                self._warming.discard((key, B))
+
+    def warm_sync(self, use_cls: bool, src_shape, hb: int, wb: int, B: int,
+                  eh: int = 0, ew: int = 0):
+        """Warm one tier now, on the calling thread (engine warm-up,
+        tests)."""
+        self._warm(self._key(use_cls, src_shape, hb, wb, eh, ew), B)

@@ -6,14 +6,17 @@ pipeline/fused.py: the staged device-det path, and the one-call pipeline's
 re-runs for wide lines and boxes past its K_rec budget),
 `run_candidates_scored` (the same pass scoring the bitmap wire's DB
 candidates against the prob map on the device) and `run_boxes` (rec alone,
-rotation verdicts given by the caller). With `tpu_rec_microbatch` the
-fused paths hand each chunk, unpadded, to the cross-request crop batcher
-(runtime/batcher.RecCropBatcher), which pads it with other pages' chunks.
+rotation verdicts given by the caller) — and the reference's `__call__` on
+a list of host crops, resized with cv2's pixels (utils/cv_ops.py), which
+the crop-list form of `ocr()` and the host crops take. With
+`tpu_rec_microbatch` the fused paths hand each chunk, unpadded, to the
+cross-request crop batcher (runtime/batcher.RecCropBatcher), which pads it
+with other pages' chunks.
 """
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +26,7 @@ from ..models import convert
 from ..ops import ctc
 from ..ops import warp as warp_ops
 from ..ops.kernels import ctc_head
+from ..utils import cv_ops
 from . import backends, batching
 
 
@@ -95,6 +99,84 @@ class TextRecognizer:
         return self.postprocess_op.decode_indices(
             idx, prob, is_remove_duplicate=True, valid_t=valid_t)
 
+    def _group(self, desired_ws: List[int]):
+        """Width-bucket routing; the width-masked SVTR lets every crop up to
+        the collapse cap share one bucket."""
+        return batching.group_collapsed(desired_ws, self.width_ladder)
+
+    def _decode_chunk(self, crops, valid_ws: np.ndarray, n_real: int
+                      ) -> List[Tuple[str, float]]:
+        """One forward over a padded chunk of crops (numpy or a tensor,
+        (bsz, 48, W, 3)) → the first n_real rows decoded."""
+        valid = torch.as_tensor(np.asarray(valid_ws, np.int32)).to(
+            self.device)
+        crops = torch.as_tensor(crops).to(self.device)
+        idx, prob = self.forward(crops, (valid + 7) // 8)
+        return self._decode(idx[:n_real].cpu().numpy(),
+                            prob[:n_real].cpu().numpy(),
+                            valid_ws[:n_real], crops.shape[2])
+
+    def _run_batches(self, make_crops, desired_ws: List[int]
+                     ) -> List[Tuple[str, float]]:
+        """make_crops(indices, bucket_w, bsz) → ((bsz, 48, bucket_w, 3)
+        crops, (bsz,) valid widths), rows past the indices padding. One
+        forward per (width bucket, chunk of at most the top batch size),
+        padded up the batch ladder; results in input order."""
+        results: List[Tuple[str, float]] = [("", 0.0)] * len(desired_ws)
+        for bucket_w, indices in self._group(desired_ws).items():
+            for chunk in batching.chunks_of(indices, self.batch_ladder[-1]):
+                bsz = batching.pick_batch_bucket(len(chunk),
+                                                 self.batch_ladder)
+                crops, valid = make_crops(chunk, bucket_w, bsz)
+                out = self._decode_chunk(crops, np.asarray(valid, np.int32),
+                                         len(chunk))
+                for i, res in zip(chunk, out):
+                    results[i] = res
+        return results
+
+    def resize_norm_img(self, img: np.ndarray, bucket_w: int
+                        ) -> Tuple[np.ndarray, int]:
+        """The reference rec resize (predict_rec.py:54-80) against a bucket
+        width: the crop at height 48 and its aspect's width (at most the
+        bucket's), normalized to [−1, 1], zero-padded → (crop, its width)."""
+        imgC, imgH, _ = self.rec_image_shape
+        h, w = img.shape[:2]
+        ratio = w / float(h)
+        if math.ceil(imgH * ratio) > bucket_w:
+            resized_w = bucket_w
+        else:
+            resized_w = int(math.ceil(imgH * ratio))
+        resized = cv_ops.resize_linear(img, (resized_w, imgH)).astype(
+            np.float32)
+        resized = resized / 255.0
+        resized = (resized - 0.5) / 0.5
+        out = np.zeros((imgH, bucket_w, imgC), dtype=np.float32)
+        out[:, :resized_w] = resized if resized.ndim == 3 \
+            else resized[..., None]
+        return out, resized_w
+
+    def __call__(self, img_list: Sequence[np.ndarray]
+                 ) -> List[Tuple[str, float]]:
+        """The reference's host path: a list of crops (uint8, BGR or gray)
+        → [(text, score)] in list order. The width floor is the configured
+        rec width (320), as in the reference."""
+        if len(img_list) == 0:
+            return []
+        imgH = self.rec_image_shape[1]
+        min_w = int(self.rec_image_shape[2])
+        desired = [max(min_w, math.ceil(imgH * im.shape[1] / im.shape[0]))
+                   for im in img_list]
+
+        def make_crops(indices, bucket_w, bsz):
+            crops = np.zeros((bsz, imgH, bucket_w, 3), np.float32)
+            valid = []
+            for row, i in enumerate(indices):
+                crops[row], vw = self.resize_norm_img(img_list[i], bucket_w)
+                valid.append(vw)
+            return crops, valid + [bucket_w] * (bsz - len(indices))
+
+        return self._run_batches(make_crops, desired)
+
     def run_boxes(self, image_u8: torch.Tensor, boxes: np.ndarray,
                   rot180: Optional[np.ndarray] = None
                   ) -> List[Tuple[str, float]]:
@@ -108,30 +190,21 @@ class TextRecognizer:
         if rot180 is None:
             rot180 = np.zeros(n, dtype=bool)
         imgH = self.rec_image_shape[1]
-        results: List[Tuple[str, float]] = [("", 0.0)] * n
-        groups = batching.group_collapsed(self.desired_widths(boxes),
-                                          self.width_ladder)
         eye = np.eye(3, dtype=np.float32)
-        for bucket_w, indices in groups.items():
-            for chunk in batching.chunks_of(indices, self.batch_ladder[-1]):
-                k = len(chunk)
-                bsz = batching.pick_batch_bucket(k, self.batch_ladder)
-                mats = np.tile(eye, (bsz, 1, 1))
-                valid = np.zeros(bsz, np.int32)
-                for row, i in enumerate(chunk):
-                    mats[row], valid[row] = warp_ops.build_crop_matrix(
-                        boxes[i], imgH, bucket_w, rotate180=bool(rot180[i]))
-                valid_dev = torch.from_numpy(valid).to(self.device)
-                crops = warp_ops.warp_crops(
-                    image_u8, torch.from_numpy(mats).to(self.device),
-                    valid_dev, imgH, bucket_w, **self.warp_form)
-                idx, prob = self.forward(crops, (valid_dev + 7) // 8)
-                out = self._decode(idx[:k].cpu().numpy(),
-                                   prob[:k].cpu().numpy(), valid[:k],
-                                   bucket_w)
-                for i, res in zip(chunk, out):
-                    results[i] = res
-        return results
+
+        def make_crops(indices, bucket_w, bsz):
+            mats = np.tile(eye, (bsz, 1, 1))
+            valid = np.zeros(bsz, np.int32)
+            for row, i in enumerate(indices):
+                mats[row], valid[row] = warp_ops.build_crop_matrix(
+                    boxes[i], imgH, bucket_w, rotate180=bool(rot180[i]))
+            crops = warp_ops.warp_crops(
+                image_u8, torch.from_numpy(mats).to(self.device),
+                torch.from_numpy(valid).to(self.device), imgH, bucket_w,
+                **self.warp_form)
+            return crops, valid
+
+        return self._run_batches(make_crops, self.desired_widths(boxes))
 
     def _fused_chunks(self, boxes: np.ndarray, cls_shape):
         """The fused passes over `boxes`, one per (width bucket, chunk of at
@@ -139,8 +212,7 @@ class TextRecognizer:
         cls_valid, rec_mats, rot_mats, rec_valid)), k = len(chunk) rows."""
         imgH = self.rec_image_shape[1]
         cls_h, cls_w = cls_shape
-        groups = batching.group_collapsed(self.desired_widths(boxes),
-                                          self.width_ladder)
+        groups = self._group(self.desired_widths(boxes))
         eye = np.eye(3, dtype=np.float32)
         for bucket_w, indices in groups.items():
             for chunk in batching.chunks_of(indices, self.batch_ladder[-1]):

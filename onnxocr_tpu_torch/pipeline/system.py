@@ -4,8 +4,9 @@ onnxocr_tpu/pipeline/system.py, routed as the JAX package routes a page
 
 * one-call (`tpu_pipeline='onecall'` with the fused step, quad boxes, no
   dilation, fast score, limit_type 'max', no det_image_shape): the whole
-  page in one program with one download (pipeline/onecall.py); results
-  pair up in sorted_boxes order afterwards;
+  page in one program with one download (pipeline/onecall.py; with
+  `tpu_onecall_wave` concurrent pages share one multi-page program);
+  results pair up in sorted_boxes order afterwards;
 * the bitmap wire (the default: `tpu_det_wire='bitmap'`,
   `tpu_det_postprocess='host'`, `tpu_det_input='device'`, the fused step,
   quad boxes, fast score, limit_type 'max', no det_image_shape): DBNet →
@@ -20,18 +21,27 @@ onnxocr_tpu/pipeline/system.py, routed as the JAX package routes a page
   boxes (one small download) → host filter → sorted_boxes → cls + rec;
 * the map route (`tpu_det_input='device'`): DBNet → the map in the wire
   dtype downloaded → the host DB postprocess (quad or poly boxes, fast or
-  slow score, dilation) → sorted_boxes → cls + rec.
+  slow score, dilation) → sorted_boxes → cls + rec;
+* the host det input (`tpu_det_input='host'`, and every tiny page, h + w
+  < 64, on any route): the page resized on the host with cv2's pixels
+  (det_pre.prepare_det_input, which zero-pads a tiny page as the
+  reference does) → DBNet → the map route's host postprocess.
 
 cls + rec is `run_boxes_fused` (one fused pass per width bucket) or, with
 `tpu_fused_cls_rec` off, the classifier's and recognizer's `run_boxes`.
-Poly boxes crop through their min-area quad. drop_score filters the
-recognition results of every route.
+Poly boxes crop through their min-area quad. With
+`tpu_crop_backend='host'` the reference's own flow runs instead: det boxes,
+crops cut on the host, the classifier and recognizer on the crop list
+(`_call_host_crops`). drop_score filters the recognition results of every
+route.
 
 Concurrent calls from several threads (as the JAX package's serving
 engine makes them) may share device calls: with `tpu_det_microbatch` the
-bitmap wire's det forwards run as one wave, with `tpu_rec_microbatch` the
-fused passes of every route but one-call's own program run as multi-page
-passes (runtime/batcher.py). `close()` stops their threads.
+det forwards run as one wave (the bitmap wire's, the map route's or the
+device postprocess's, runtime/batcher.DetPageBatcher), with
+`tpu_rec_microbatch` the fused passes of every route but one-call's own
+program run as multi-page passes. `close()` stops their threads and the
+wave coalescer's.
 """
 from __future__ import annotations
 
@@ -42,9 +52,10 @@ import torch
 
 from .. import config
 from ..ops import db_post, det_pre, geometry, resize_dev
-from ..utils.image import minarea_quad
+from ..utils.image import get_minarea_rect_crop, get_rotate_crop_image, \
+    minarea_quad
 from .classifier import TextClassifier
-from .detector import TextDetector, page_batch_mode
+from .detector import TextDetector
 from .fused import FusedClsRec
 from .onecall import OneCallPipeline
 from .recognizer import TextRecognizer
@@ -63,10 +74,11 @@ def resolve_device(device) -> torch.device:
 
 
 def route_of(args) -> str:
-    """The route a page of normal size takes: 'onecall', 'bitmap',
-    'device', 'map' or 'host' (the host det input, not ported)."""
-    fused = bool(args.tpu_fused_cls_rec) and \
-        getattr(args, "tpu_crop_backend", "device") == "device"
+    """The route a page of normal size takes: 'host_crops', 'onecall',
+    'bitmap', 'device', 'map' or 'host' (the host det input)."""
+    if getattr(args, "tpu_crop_backend", "device") != "device":
+        return "host_crops"
+    fused = bool(args.tpu_fused_cls_rec)
     quad = args.det_box_type == "quad"
     plain_det = args.det_limit_type == "max" and \
         getattr(args, "det_image_shape", None) is None
@@ -87,36 +99,11 @@ def route_of(args) -> str:
 
 
 def _unported(args) -> List[str]:
-    """Settings whose code path is not ported yet: those of the host image
-    operations (cv2-exact resize and crops), among them the det batcher's
-    modes off the bitmap wire, and the one-call wave coalescer."""
-    out = []
-    route = route_of(args)
-    if route == "host":
-        out.append(f"tpu_det_input={args.tpu_det_input!r} (the host det "
-                   "resize)")
+    """Settings whose code path is not ported yet: the crop files of
+    save_crop_res (a JPEG encoder without cv2)."""
     if args.save_crop_res:
-        out.append("save_crop_res=True (host crops)")
-    if getattr(args, "tpu_crop_backend", "device") != "device":
-        out.append("tpu_crop_backend other than 'device' (host crops)")
-    if route == "onecall" and \
-            not getattr(args, "tpu_onecall_fixed_canvas", True):
-        out.append("tpu_onecall_fixed_canvas=False (per-page det canvas in "
-                   "the one-call program)")
-    mode = page_batch_mode(args) if args.tpu_det_microbatch else None
-    # the one-call route never reaches the det batcher
-    if mode is not None and route not in ("bitmap", "onecall"):
-        out.append(f"tpu_det_microbatch=True off the bitmap wire (the det "
-                   f"batcher's {mode} mode: the host det resize, "
-                   "det_pre.prepare_det_input)")
-    elif mode is not None and route == "bitmap" and \
-            args.tpu_det_batch_input != "device":
-        out.append(f"tpu_det_batch_input={args.tpu_det_batch_input!r} with "
-                   "tpu_det_microbatch=True (the host det resize, "
-                   "det_pre.prepare_det_input)")
-    if getattr(args, "tpu_onecall_wave", False):
-        out.append("tpu_onecall_wave=True (the one-call wave coalescer)")
-    return out
+        return ["save_crop_res=True (writes the host crops as JPEG files)"]
+    return []
 
 
 class TextSystem:
@@ -129,11 +116,13 @@ class TextSystem:
         self.use_angle_cls = args.use_angle_cls
         self.drop_score = args.drop_score
         self.text_detector = TextDetector(args, self.device)
+        # the checkpoint calibration has set the det flags by now
+        self.route = route_of(args)
         self.text_recognizer = TextRecognizer(args, self.device)
         if self.use_angle_cls:
             self.text_classifier = TextClassifier(args, self.device)
         self._fused = None
-        if args.tpu_fused_cls_rec:
+        if args.tpu_fused_cls_rec and self.route != "host_crops":
             warp_form = self.text_recognizer.warp_form
             if self.use_angle_cls:
                 cls = self.text_classifier
@@ -145,8 +134,6 @@ class TextSystem:
             else:
                 self._fused = FusedClsRec(None, self.text_recognizer.forward,
                                           warp_form=warp_form)
-        # the checkpoint calibration has set the det flags by now
-        self.route = route_of(args)
         self._onecall = None
         if self.route == "onecall":
             self._onecall = OneCallPipeline(
@@ -154,9 +141,10 @@ class TextSystem:
                 self.device)
 
     def close(self):
-        """Stop the cross-request batchers' threads, if any."""
+        """Stop the cross-request batchers' and the wave coalescer's
+        threads, if any."""
         for b in (self.text_detector._page_batcher,
-                  self.text_recognizer._crop_batcher):
+                  self.text_recognizer._crop_batcher, self._onecall):
             if b is not None:
                 b.close()
 
@@ -197,9 +185,14 @@ class TextSystem:
         batcher = det._page_batcher
         if batcher is not None:
             # the det batcher: concurrent pages' forwards as one wave on the
-            # fixed canvas, the wave's bitmaps downloaded as one copy
-            bitmap, prob_dev, (rh, rw), _ = batcher.submit_bits_dev(
-                image_dev, src_h, src_w)
+            # fixed canvas, the wave's bitmaps downloaded as one copy; each
+            # canvas resized on the device from the uploaded page, or on
+            # the host (tpu_det_batch_input='host')
+            if self.args.tpu_det_batch_input == "device":
+                bitmap, prob_dev, (rh, rw), _ = batcher.submit_bits_dev(
+                    image_dev, src_h, src_w)
+            else:
+                bitmap, prob_dev, (rh, rw), _ = batcher.submit_bits(img)
         else:
             bits, prob_dev, (rh, rw) = det.bitmap_forward(
                 image_dev, src_h, src_w, self._fixed_canvas())
@@ -237,21 +230,44 @@ class TextSystem:
             image_dev, np.asarray(dt_boxes, np.float32), self._fused,
             cls_shape, use_cls=use_cls)
 
-    def _call_staged(self, img, cls: bool):
-        """The device-postprocess and map routes: det boxes on the host →
-        sorted_boxes → cls + rec from the same uploaded page."""
+    def _det_boxes(self, img, tiny: bool):
+        """The det step of the staged routes, in the JAX package's order
+        (`_call_device_crops`) → (boxes, the page on the device or None).
+        A tiny page (h + w < 64) takes the host det input, which zero-pads
+        it as the reference does, unless the det batcher extracts boxes on
+        the device."""
         det = self.text_detector
-        image_dev, src_h, src_w = resize_dev.put_src_bucket(img, self.device)
-        if self.route == "device":
-            dt_boxes = det.filter_tag_det_res(
-                det.infer_boxes_device(image_dev, src_h, src_w), img.shape)
-        else:
+        batcher = det._page_batcher
+        if batcher is not None and batcher.mode == "boxes":
+            return det(img), None
+        if self.route == "device" and not tiny:
+            image_dev, src_h, src_w = resize_dev.put_src_bucket(img,
+                                                                self.device)
+            return det.filter_tag_det_res(
+                det.infer_boxes_device(image_dev, src_h, src_w),
+                img.shape), image_dev
+        if batcher is None and not tiny and self.route == "map":
+            image_dev, src_h, src_w = resize_dev.put_src_bucket(img,
+                                                                self.device)
             prob, shape_info = det.infer_prob_map_device(image_dev, src_h,
                                                          src_w)
-            dt_boxes = det.boxes_from_prob(prob, shape_info, img.shape)
+            return det.boxes_from_prob(prob, shape_info, img.shape), \
+                image_dev
+        # the det batcher's waves (maps, or bits for the host scores) and
+        # the host det input
+        return det(img), None
+
+    def _call_staged(self, img, cls: bool, tiny: bool = False):
+        """The routes past the one-call program and the bitmap wire: det
+        boxes → sorted_boxes → cls + rec from the page on the device (the
+        page as it is, uploaded after a host det step)."""
+        dt_boxes, image_dev = self._det_boxes(img, tiny)
         dt_boxes = sorted_boxes(dt_boxes)
         if len(dt_boxes) == 0:
             return dt_boxes, []
+        if image_dev is None:
+            image_dev = torch.from_numpy(np.ascontiguousarray(img)).to(
+                self.device)
         if self.args.det_box_type == "quad":
             crop_quads = np.asarray(dt_boxes, dtype=np.float32)
         else:
@@ -268,22 +284,31 @@ class TextSystem:
             rot180, _ = self.text_classifier.run_boxes(image_dev, crop_quads)
         return dt_boxes, rec.run_boxes(image_dev, crop_quads, rot180)
 
+    def _call_host_crops(self, img, cls: bool):
+        """tpu_crop_backend='host': the reference's own flow — det boxes,
+        crops cut on the host (cv2's pixels), the classifier turning the
+        crops it reads upside down, the recognizer on the crop list."""
+        dt_boxes = sorted_boxes(self.text_detector(img))
+        crop = get_rotate_crop_image if self.args.det_box_type == "quad" \
+            else get_minarea_rect_crop
+        crops = [crop(img, np.array(box, copy=True)) for box in dt_boxes]
+        if self.use_angle_cls and cls:
+            crops, _ = self.text_classifier(crops)
+        return dt_boxes, self.text_recognizer(crops)
+
     def __call__(self, img, cls: bool = True):
-        if img.shape[0] + img.shape[1] < 64:
-            # the reference zero-pads tiny images before a host resize; the
-            # JAX package routes them to its host det path
-            raise NotImplementedError(
-                "images with h + w < 64 take the host det path (cv2 "
-                "resize), which is not ported")
-        if self._onecall is not None:
+        tiny = img.shape[0] + img.shape[1] < 64
+        if self.route == "host_crops":
+            dt_boxes, rec_res = self._call_host_crops(img, cls)
+        elif self._onecall is not None and not tiny:
             boxes, rec_res = self._onecall(img, cls)
             order = _sorted_pair_order(boxes)
             dt_boxes = [boxes[i] for i in order]
             rec_res = [rec_res[i] for i in order]
-        elif self.route == "bitmap":
+        elif self.route == "bitmap" and not tiny:
             dt_boxes, rec_res = self._call_bitmap_wire(img, cls)
         else:
-            dt_boxes, rec_res = self._call_staged(img, cls)
+            dt_boxes, rec_res = self._call_staged(img, cls, tiny)
         filter_boxes, filter_rec_res = [], []
         for box, rec_result in zip(dt_boxes, rec_res):
             if rec_result[1] >= self.drop_score:

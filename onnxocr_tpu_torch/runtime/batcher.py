@@ -8,7 +8,8 @@ call for all of them and hands each caller its rows back:
 
 * `DetPageBatcher`: the pages' DBNet forwards as one wave of up to 8
   pages on the fixed det canvas (the bitmap wire: the wave's bitpacked
-  bitmaps come down as one copy, the prob maps stay on the device);
+  bitmaps come down as one copy, the prob maps stay on the device; the
+  maps wire; the boxes mode's device DB extraction);
 * `RecCropBatcher`: the pages' crop chunks as one multi-page fused pass
   (pipeline/fused.py `call_multi_scored` / `call_multi`).
 
@@ -27,7 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops import det_pre, resize_dev
+from ..ops import db_device, det_pre, resize_dev
 
 
 class _Work:
@@ -205,44 +206,94 @@ def _bits_to_host(out):
 
 
 class DetPageBatcher:
-    """Cross-request det batching on the bitmap wire. Each page is resized
-    on the device (from the page the crop warps read) into ONE fixed det
-    canvas, round_up(limit_side_len, bucket)², so that every page joins the
-    same group: the masked DBNet (per-page extents) makes the canvas
-    padding invisible. Concurrent pages run `pages_bits` as one wave of up
-    to 8; its bitmaps download as one copy and each page gets a view of its
-    prob map on the device. The JAX package's other modes (the maps wire,
-    the boxes mode and the host resize) need the host det resize, which is
-    not ported.
+    """Cross-request det batching. Each page goes into ONE fixed det canvas,
+    round_up(limit_side_len, bucket)², so that every page joins the same
+    group: the masked DBNet (per-page extents) makes the canvas padding
+    invisible. Concurrent pages run `fn` as one wave of up to 8, in one of
+    the JAX package's three modes:
 
-    pages_bits({"pages": (B, H, W, 3) float32 canvases on the device,
-    "rhw": (B, 2) int32 valid extents}) → (bits (B, H, W // 8) uint8,
-    probs (B, H, W) float32) on the device (TextDetector.pages_bits)."""
+    * 'bits' (the bitmap wire): fn = TextDetector.pages_bits; the wave's
+      bitmaps download as one copy and each page gets a view of its prob
+      map on the device. A page comes resized on the device from the page
+      the crop warps read (`submit_bits_dev`) or, with
+      tpu_det_batch_input='host' and for det-only calls and tiny pages,
+      resized on the host (`submit_bits`);
+    * 'maps': fn = TextDetector.pages_maps; host-resized pages, the maps
+      in the wire dtype downloaded (`submit`);
+    * 'boxes': fn = TextDetector.pages_boxes; host-resized pages, the
+      device DB extraction per page, only the packed boxes downloaded
+      (`submit_boxes`).
 
-    def __init__(self, pages_bits: Callable, limit_side_len: float = 960,
+    The host resize is det_pre.prepare_det_input (cv2's pixels, the tiny
+    page quirk kept)."""
+
+    def __init__(self, fn: Callable, mode: str, limit_side_len: float = 960,
                  limit_type: str = "max", max_wait_ms: float = 8.0,
                  batch_ladder: Sequence[int] = (1, 2, 4, 8),
                  bucket: int = 320):
         if limit_type != "max":
             raise ValueError("the det batcher needs limit_type 'max'")
+        if mode not in ("bits", "maps", "boxes"):
+            raise ValueError(f"unknown det batcher mode {mode!r}")
+        self.mode = mode
         self.limit_side_len = limit_side_len
         self.limit_type = limit_type
+        self.bucket = bucket
         cap = det_pre.round_up(int(limit_side_len), bucket)
         self.canvas = (cap, cap)
-        self.batcher = MicroBatcher(pages_bits, max_batch=batch_ladder[-1],
-                                    max_wait_ms=max_wait_ms,
-                                    batch_ladder=batch_ladder,
-                                    to_host=_bits_to_host)
+        self.batcher = MicroBatcher(
+            fn, max_batch=batch_ladder[-1], max_wait_ms=max_wait_ms,
+            batch_ladder=batch_ladder,
+            to_host=_bits_to_host if mode == "bits" else None)
 
     def close(self):
         self.batcher.close()
 
+    def _prepare(self, img: np.ndarray):
+        """The host det input on the fixed canvas → (canvas uint8,
+        shape_info, (rh, rw))."""
+        return det_pre.prepare_det_input(
+            img, self.limit_side_len, self.limit_type, bucket=self.bucket,
+            canvas=self.canvas)
+
+    def _submit_host(self, img: np.ndarray, mode: str):
+        """One host-resized page through the wave → (the wave's rows of
+        it, shape_info, (rh, rw))."""
+        if self.mode != mode:
+            raise RuntimeError(f"the det batcher runs the {self.mode} mode, "
+                               f"not {mode}")
+        padded, shape_info, (rh, rw) = self._prepare(img)
+        out = self.batcher.submit({"pages": padded[None],
+                                   "rhw": np.array([[rh, rw]], np.int32)})
+        return out, shape_info, (rh, rw)
+
+    def submit(self, img: np.ndarray):
+        """The maps mode: BGR page → (its map (rh, rw) in the wire dtype,
+        shape_info)."""
+        out, shape_info, (rh, rw) = self._submit_host(img, "maps")
+        return out[0][:rh, :rw], shape_info
+
+    def submit_bits(self, img: np.ndarray):
+        """The bits mode from the host resize: BGR page → (bitmap (rh, rw)
+        uint8 0/1, its prob map (H, W) on the device, (rh, rw),
+        shape_info)."""
+        (bits_rows, prob_rows), shape_info, (rh, rw) = self._submit_host(
+            img, "bits")
+        bitmap = det_pre.unpack_bitmap(bits_rows[0][:rh, :(rw + 7) // 8], rw)
+        return bitmap, prob_rows[0], (rh, rw), shape_info
+
+    def submit_boxes(self, img: np.ndarray) -> np.ndarray:
+        """The boxes mode: BGR page → (N, 4, 2) int32 quads in source
+        coordinates, before the det filter."""
+        out, _, (rh, rw) = self._submit_host(img, "boxes")
+        src_h, src_w = img.shape[:2]
+        return db_device.unpack_boxes(out[0], rw, rh, src_w, src_h)
+
     def submit_bits_dev(self, image_dev: torch.Tensor, src_h: int,
                         src_w: int):
-        """image_dev: (Hs, Ws, 3) uint8 page on the device, padded to its
-        source bucket (valid src_h × src_w) → (bitmap (rh, rw) uint8 0/1,
-        the page's prob map (H, W) on the device, (rh, rw), shape_info
-        [src_h, src_w, ratio_h, ratio_w])."""
+        """The bits mode from the device resize: image_dev (Hs, Ws, 3) uint8
+        page on the device, padded to its source bucket (valid src_h ×
+        src_w) → as submit_bits (shape_info float32, as the JAX package's)."""
         rh, rw = det_pre.det_resize_target(src_h, src_w, self.limit_side_len,
                                            self.limit_type)
         cap_h, cap_w = self.canvas

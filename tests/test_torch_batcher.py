@@ -15,6 +15,7 @@ import math
 import os
 import sys
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -578,18 +579,28 @@ def test_batched_model_is_cuda_unless_asked(dict_path, monkeypatch):
                 model.text_recognizer._crop_batcher)
 
 
-@pytest.mark.parametrize("extra,missing", [
-    (dict(tpu_det_microbatch=True, tpu_det_batch_input="host"),
-     "tpu_det_batch_input='host'"),
-    (dict(tpu_det_microbatch=True, tpu_det_wire="map"), "maps mode"),
-    (dict(tpu_det_microbatch=True, tpu_det_postprocess="device"),
-     "boxes mode"),
-    (dict(tpu_onecall_wave=True), "wave coalescer"),
+@pytest.mark.parametrize("extra,mode", [
+    (dict(tpu_det_microbatch=True, tpu_det_batch_input="host"), "bits"),
+    (dict(tpu_det_microbatch=True, tpu_det_wire="map"), "maps"),
+    (dict(tpu_det_microbatch=True, tpu_det_postprocess="device"), "boxes"),
+    (dict(tpu_pipeline="onecall", tpu_onecall_wave=True), None),
 ], ids=["batch_input_host", "maps_wire", "boxes_mode", "onecall_wave"])
-def test_modes_needing_the_host_resize_raise(dict_path, extra, missing):
+def test_modes_needing_the_host_resize_raise(dict_path, extra, mode):
     """The batcher modes that need the host det resize, and the one-call
-    wave coalescer, are refused by name before any thread starts."""
+    wave coalescer, which this test once found refused, build now (the
+    name is kept): the det batcher in its mode or the coalescer, and
+    close() stops every thread they started."""
     before = threading.active_count()
-    with pytest.raises(NotImplementedError, match=missing):
-        ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path, **extra)
+    model = ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
+                          **extra)
+    batcher = model.text_detector._page_batcher
+    if mode is None:
+        assert batcher is None and model._onecall._wave is not None
+    else:
+        assert batcher.mode == mode
+    assert threading.active_count() > before
+    model.close()
+    deadline = time.time() + 10
+    while threading.active_count() > before and time.time() < deadline:
+        time.sleep(0.01)
     assert threading.active_count() == before

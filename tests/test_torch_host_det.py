@@ -526,7 +526,8 @@ def test_blank_page_host_det(pair):
 
 def test_routes_follow_the_jax_conditions(dict_path):
     """One-call only under the JAX package's conditions, else the staged
-    routes in its order; only the host det input is refused."""
+    routes in its order; host crops before all of them; the host det input
+    builds."""
     def route(**kw):
         return system.route_of(SimpleNamespace(**dict(config.DEFAULTS, **kw)))
 
@@ -540,6 +541,8 @@ def test_routes_follow_the_jax_conditions(dict_path):
                  det_image_shape=(320, 320)) == "map"
     assert route(tpu_fused_cls_rec=False) == "map"
     assert route(tpu_det_wire="map", tpu_det_input="host") == "host"
-    with pytest.raises(NotImplementedError, match="tpu_det_input"):
-        ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
-                      tpu_det_wire="map", tpu_det_input="host")
+    assert route(tpu_crop_backend="host", tpu_pipeline="onecall") == \
+        "host_crops"
+    assert ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
+                         tpu_det_wire="map",
+                         tpu_det_input="host").route == "host"

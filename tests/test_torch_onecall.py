@@ -186,10 +186,18 @@ def test_packed_buffer_matches_jax(pair, pages):
                                           jrow[12:12 + vt])
 
 
-def test_tiny_image_is_not_ported(pair):
-    port, _ = pair()
-    with pytest.raises(NotImplementedError):
-        port.ocr(np.full((20, 30, 3), 255, np.uint8), cls=False)
+def test_tiny_image_is_not_ported(pair, pages):
+    """A page with h + w < 64 skips the one-call program, as in the JAX
+    package, and takes the host det input (the name is from before that
+    input was ported): the same results as the JAX package's, a blank tiny
+    page none."""
+    port, ref = pair()
+    assert port.ocr(np.full((20, 30, 3), 255, np.uint8), cls=False) == [[]]
+    tiny = np.ascontiguousarray(pages["synth_00_doc"][37:65, 225:259])
+    got = port.ocr(tiny, cls=False)[0]
+    want = ref.ocr(tiny, cls=False)[0]
+    assert len(want) >= 1
+    _assert_same(got, want)
 
 
 def test_default_device_is_cuda_and_never_falls_back(dict_path,
@@ -207,19 +215,21 @@ def test_default_device_is_cuda_and_never_falls_back(dict_path,
 
 
 def test_unported_settings_raise(dict_path):
-    """What waits for the cv2-exact host image operations (the host det
-    resize, host crops, among them the det batcher's maps wire) and for
-    the one-call wave coalescer raises."""
+    """Only save_crop_res (the crop files, a JPEG encoder without cv2)
+    waits; the settings that waited for the host image operations and the
+    wave coalescer build."""
+    with pytest.raises(NotImplementedError, match="save_crop_res"):
+        ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
+                      save_crop_res=True)
     for extra in ({"tpu_det_wire": "map", "tpu_det_input": "host"},
-                  {"save_crop_res": True},
                   {"tpu_crop_backend": "host"},
                   {"tpu_pipeline": "onecall",
                    "tpu_onecall_fixed_canvas": False},
-                  {"tpu_onecall_wave": True},
+                  {"tpu_pipeline": "onecall", "tpu_onecall_wave": True},
                   {"tpu_det_microbatch": True, "tpu_det_wire": "map"}):
-        with pytest.raises(NotImplementedError):
-            ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
-                          **extra)
+        model = ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
+                              **extra)
+        model.close()
 
 
 def test_classifier_needs_weights_or_the_opt_in(dict_path, tmp_path,

@@ -84,18 +84,32 @@
    and cls-only forms of `ocr()`, a tiny page (h + w < 64) at the
    defaults and through path Q's batchers, the det batcher's maps wire
    and boxes mode, each on one page against the same port on the CPU;
-9. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+9. drives path F, the two other families of the JAX package's registry
+   with their committed checkpoints on two held-out pages (`phase_f`):
+   the ch_ppocr_server_v2.0 pair (ResNet18-vd DBNet, CRNN with two
+   BiLSTMs, whose logits are reduced without the head kernel) on C, A, B
+   and, behind both batchers from 4 threads, Q (per-page det canvases,
+   CRNN chunks alone), and PP-OCRv4 on C and B; each checks its launches
+   (kernel 1 on v4 and never on the CRNN, kernels 2–3 on B, 4–5 on A, no
+   reduction on C) and holds one page against the CPU; it also times the
+   BiLSTMs' share of a server C page, the ResNet DBNet at 960², the CRNN
+   at widths 320 / 640 / 1280 (batch 16) and the CRNN's peak memory at
+   64 × 1280;
+10. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
-   ms, launches; the host twins' ms a page), {"kernels": [...]} and, last, {"ok": true, "device":
-   {...}}; the run's seconds on a line before them.
+   ms, launches; the host twins' ms a page), {"families": {...}} (path F's
+   ms a page, launches, the BiLSTM share and the models' times),
+   {"kernels": [...]} and, last, {"ok": true, "device": {...}}; the run's
+   seconds on a line before them.
 
 Any failure raises and exits non-zero without the "ok" line. The
-recognition dictionary is not in the repository: a stand-in with 18383
-unique placeholder entries (blank + 18383 + space = the head's 18385
-classes) is written to a temporary directory, so texts are placeholder
-strings, identical between runs that decode the same indices.
+recognition dictionaries are not in the repository: stand-ins with 18383
+(v5, v4) and 6623 (server) unique placeholder entries (blank + entries +
+space = the heads' 18385 and 6625 classes) are written to a temporary
+directory, so texts are placeholder strings, identical between runs that
+decode the same indices.
 """
 import json
 import os
@@ -736,11 +750,11 @@ def check_warp(label, calls):
     return out
 
 
-def drive(ocr, pages, names, cls, label):
+def drive(ocr, pages, names, cls, label, times=None):
     """Run `names` through ocr() once unmeasured, so that every (width,
     batch) shape the pages reach has been used; then set the launch counts
     to 0 and run them again → (results by page name, launch counts of the
-    second pass)."""
+    second pass); the second pass's ms a page are appended to `times`."""
     import torch
     from onnxocr_tpu_torch.ops.kernels import build
     first = []
@@ -752,12 +766,12 @@ def drive(ocr, pages, names, cls, label):
           + " ".join(f"{t:.1f}" for t in first))
     torch.cuda.synchronize()
     build.LAUNCHES.clear()
-    results, times = {}, []
+    results, ms_list = {}, []
     for name in names:
         t0 = time.perf_counter()
         res = ocr.ocr(pages[name], cls=cls)[0]
         ms = (time.perf_counter() - t0) * 1e3
-        times.append(ms)
+        ms_list.append(ms)
         results[name] = res
         boxes = np.asarray([l[0] for l in res], np.float64)
         scores = np.asarray([l[1][1] for l in res], np.float64)
@@ -765,8 +779,10 @@ def drive(ocr, pages, names, cls, label):
         print(f"path {label} page {name}: {ms:.1f} ms, {len(res)} boxes, "
               f"{sum(bool(l[1][0]) for l in res)} lines")
     launches = dict(build.LAUNCHES)
-    print(f"path {label}: {len(names)} pages in {sum(times):.1f} ms "
-          f"(mean {np.mean(times):.1f}, median {np.median(times):.1f} "
+    if times is not None:
+        times.extend(ms_list)
+    print(f"path {label}: {len(names)} pages in {sum(ms_list):.1f} ms "
+          f"(mean {np.mean(ms_list):.1f}, median {np.median(ms_list):.1f} "
           f"ms/page); launches {launches}")
     assert sum(len(r) for r in results.values()) > 0
     return results, launches
@@ -1204,6 +1220,222 @@ def host_times(model, pages):
     return out
 
 
+# the two other families of the JAX package's model registry run on two
+# held-out pages that the CPU tests do not use
+FAMILY_PAGES = PAGES[1:3]
+
+
+def family_kwargs(tmp, v5_dict):
+    """→ {family: ONNXPaddleOcr kwargs}: the ch_ppocr_server_v2.0 pair
+    (ResNet18-vd DBNet, CRNN) with a stand-in of its dictionary (6623
+    unique entries named ppocr_keys_v1.txt: blank + 6623 + space = the
+    head's 6625), and PP-OCRv4 with the v5 stand-in, as the JAX package's
+    registry pairs them."""
+    from onnxocr_tpu_torch import config
+    server_dict = os.path.join(tmp, "ppocr_keys_v1.txt")
+    with open(server_dict, "w") as f:
+        f.write("".join(f"<{i}>\n" for i in range(6623)))
+    a = config.ASSETS
+    return {
+        "server": dict(
+            det_model_dir=str(a / "ch_ppocr_server_v2.0/det/det.onnx"),
+            rec_model_dir=str(a / "ch_ppocr_server_v2.0/rec/rec.onnx"),
+            rec_char_dict_path=server_dict),
+        "v4": dict(det_model_dir=str(a / "ppocrv4/det/det.onnx"),
+                   rec_model_dir=str(a / "ppocrv4/rec/rec.onnx"),
+                   rec_char_dict_path=v5_dict)}
+
+
+def bilstm_share(ocr, pages, names):
+    """One more pass of `names` with the CRNN's BiLSTM calls timed as
+    `profile_onecall` times them (a synchronize before and after each,
+    host clock) → (BiLSTM ms a page, page ms a page)."""
+    from onnxocr_tpu_torch.profile_onecall import timed_bilstm
+    acc = {}
+    undo = timed_bilstm(ocr, acc)
+    try:
+        t0 = time.perf_counter()
+        for name in names:
+            ocr.ocr(pages[name], cls=False)
+        page_ms = (time.perf_counter() - t0) * 1e3 / len(names)
+    finally:
+        undo()
+    return acc["rec_bilstm"] / len(names), page_ms
+
+
+def family_forwards(ocr):
+    """The server pair's models alone on seeded inputs (CUDA events, TF32
+    off): the ResNet DBNet at 960², the CRNN at widths 320 / 640 / 1280
+    with batch 16 (whole forward with the reduce, and its conv stack, two
+    BiLSTMs and head + reduce apart), and the CRNN forward's peak memory
+    above its input at 64 × 1280 (T = 320), beside its logits' size."""
+    import torch
+    from onnxocr_tpu_torch.ops import ctc
+    det = ocr.text_detector.model
+    rec = ocr.text_recognizer.forward
+    m = rec.model
+    vocab = m.head.out_features
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    with torch.inference_mode():
+        x = torch.randn(1, 3, 960, 960, device="cuda", generator=g)
+        out["resnet_dbnet_960_ms"] = timed(lambda: det(x), iters=10)
+        for w in (320, 640, 1280):
+            crops = torch.rand(16, 48, w, 3, device="cuda",
+                               generator=g) * 2 - 1
+            xx = crops.permute(0, 3, 1, 2)
+            feats = m.features(xx)
+            hid = m.lstm2(m.lstm1(feats)[0])[0]
+            out[f"crnn_16x{w}"] = {
+                "ms": timed(lambda: rec(crops), iters=10),
+                "conv_ms": timed(lambda: m.features(xx), iters=10),
+                "bilstm_ms": timed(lambda: m.lstm2(m.lstm1(feats)[0]),
+                                   iters=10),
+                "head_reduce_ms": timed(
+                    lambda: ctc.ctc_reduce_logits(m.head(hid)), iters=10)}
+        crops = torch.rand(64, 48, 1280, 3, device="cuda",
+                           generator=g) * 2 - 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        idx, prob = rec(crops)
+        torch.cuda.synchronize()
+        assert idx.shape == (64, 320) and torch.isfinite(prob).all()
+        out["crnn_64x1280_peak_mib"] = \
+            (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        out["crnn_64x1280_logits_mib"] = 64 * 320 * vocab * 4 / 2 ** 20
+    print("family forwards (CUDA events, TF32 off): ResNet DBNet 960² "
+          f"{out['resnet_dbnet_960_ms']:.3f} ms; CRNN batch 16 " + ", ".join(
+              f"{k[7:]} {v['ms']:.3f} ms (conv {v['conv_ms']:.3f}, BiLSTMs "
+              f"{v['bilstm_ms']:.3f}, head + reduce "
+              f"{v['head_reduce_ms']:.3f})"
+              for k, v in out.items() if k.startswith("crnn_16x"))
+          + f"; CRNN 64 × 1280 peak {out['crnn_64x1280_peak_mib']:.1f} MiB "
+          f"above its input, logits {out['crnn_64x1280_logits_mib']:.1f} MiB")
+    return out
+
+
+def phase_f(kwargs, pages):
+    """The other two families (TF32 off, full width, FAMILY_PAGES): the
+    server pair on C (the bitmap wire: the ResNet on each page's own
+    canvas, CRNN crops in their own width buckets, logits reduced without
+    the head kernel), A (staged device-det, slot-keyed reductions) and B
+    (one-call, label-keyed reductions), PP-OCRv4 on C and B, each driven
+    as `drive` does with its launches checked (kernel 1 on v4 and never
+    on the CRNN; kernels 2–3 on B; 4–5 on A; no reduction on C) and one
+    page held against the CPU; then the server pair behind both batchers
+    (Q: per-page det canvases resized on the host, CRNN chunks alone) from
+    4 threads, each result equal to the serial one, one the CPU's; the
+    BiLSTMs' share of a server C page and the models' own times
+    (`family_forwards`). → (summary, launches by path)."""
+    import torch
+    from onnxocr_tpu_torch import ONNXPaddleOcr
+    from onnxocr_tpu_torch.ops.kernels import build
+    head = ("ctc_head_reduce",)
+    label_keyed = ("label_moment_sums", "label_proj_extents")
+    slot_keyed = ("seg_sum_bands", "seg_min_bands")
+    kw_a = dict(tpu_pipeline="staged", tpu_det_postprocess="device",
+                tpu_db_reduce="pallas")
+    kw_b = dict(tpu_pipeline="onecall")
+    cases = (
+        ("F-server-C", "server", {}, "bitmap", (),
+         head + label_keyed + slot_keyed),
+        ("F-server-A", "server", kw_a, "device", slot_keyed,
+         head + label_keyed),
+        ("F-server-B", "server", kw_b, "onecall", label_keyed,
+         head + slot_keyed),
+        ("F-v4-C", "v4", {}, "bitmap", head, label_keyed + slot_keyed),
+        ("F-v4-B", "v4", kw_b, "onecall", head + label_keyed, slot_keyed))
+    runs, summary = {}, {}
+    for label, family, kw, route, needs, absent in cases:
+        gpu = ONNXPaddleOcr(device="cuda", **kwargs[family], **kw)
+        try:
+            assert gpu.route == route, (label, gpu.route)
+            arch = (gpu.text_detector.arch, gpu.text_recognizer.forward.arch)
+            assert arch == (("resnet18", "crnn") if family == "server"
+                            else ("mbv3", "svtr")), (label, arch)
+            times = []
+            results, launches = drive(gpu, pages, FAMILY_PAGES, False,
+                                      label, times)
+            for name in needs:
+                assert launches.get(name, 0) > 0, \
+                    f"path {label}: {name} never launched"
+            for name in absent:
+                assert launches.get(name, 0) == 0, \
+                    f"path {label}: {name} launched"
+            cpu = ONNXPaddleOcr(device="cpu", **kwargs[family], **kw)
+            page = FAMILY_PAGES[0]
+            same_result(results[page], cpu.ocr(pages[page], cls=False)[0])
+            print(f"path {label} page {page}: GPU and CPU runs agree "
+                  f"({len(results[page])} boxes)")
+            runs[label] = launches
+            summary[label] = {"ms_per_page": float(np.mean(times)),
+                              "ms": times, "launches": launches}
+            if label == "F-server-C":
+                lstm_ms, page_ms = bilstm_share(gpu, pages, FAMILY_PAGES)
+                summary["bilstm_in_server_c"] = {
+                    "bilstm_ms_per_page": lstm_ms,
+                    "page_ms_synchronized": page_ms,
+                    "share": lstm_ms / page_ms}
+                print(f"path {label}: the two BiLSTMs take {lstm_ms:.2f} of "
+                      f"{page_ms:.2f} ms a page ({lstm_ms / page_ms:.3f}, "
+                      f"synchronized)")
+                summary["forwards"] = family_forwards(gpu)
+        finally:
+            gpu.close()
+    kw_q = dict(kwargs["server"], tpu_det_microbatch=True,
+                tpu_rec_microbatch=True)
+    ocr_q = ONNXPaddleOcr(device="cuda", **kw_q)
+    try:
+        det_b = ocr_q.text_detector._page_batcher
+        rec_b = ocr_q.text_recognizer._crop_batcher
+        assert det_b.canvas is None, "path F-server-Q: a fixed det canvas"
+        waves, groups = [], []
+        det_fn = det_b.batcher.fn
+        det_b.batcher.fn = lambda batch: waves.append(
+            (int((batch["rhw"][:, 0] > 0).sum()), len(batch["rhw"]),
+             tuple(batch["pages"].shape[1:3]))) or det_fn(batch)
+        run_group = rec_b._run_group
+        rec_b._run_group = lambda works: groups.append(len(works)) or \
+            run_group(works)
+        names = list(FAMILY_PAGES) * 4
+        concurrent(ocr_q, pages, names, threads=4)     # unmeasured
+        serial = {n: ocr_q.ocr(pages[n], cls=False)[0] for n in FAMILY_PAGES}
+        torch.cuda.synchronize()
+        waves.clear()
+        groups.clear()
+        build.LAUNCHES.clear()
+        got, wall = concurrent(ocr_q, pages, names, threads=4)
+        launches = dict(build.LAUNCHES)
+        for name, res in zip(names, got):
+            same_result(res, serial[name])
+        assert groups and max(groups) == 1, \
+            f"path F-server-Q: CRNN chunks grouped {groups}"
+        for name in head + label_keyed + slot_keyed:
+            assert launches.get(name, 0) == 0, \
+                f"path F-server-Q: {name} launched"
+        cpu = ONNXPaddleOcr(device="cpu", **kw_q)
+        try:
+            page = FAMILY_PAGES[0]
+            same_result(serial[page], cpu.ocr(pages[page], cls=False)[0])
+        finally:
+            cpu.close()
+        runs["F-server-Q"] = launches
+        summary["F-server-Q"] = {
+            "threads": 4, "pages": len(names),
+            "pages_per_s": len(names) / wall,
+            "det_waves": [{"pages": n, "batch": b, "canvas": list(c)}
+                          for n, b, c in waves],
+            "rec_group_chunks": groups, "launches": launches}
+        print(f"path F-server-Q: {len(names)} pages from 4 threads in "
+              f"{wall:.3f} s ({len(names) / wall:.2f} pages/s); det waves "
+              f"(pages/batch canvas) {waves}; {len(groups)} rec runs of one "
+              f"chunk each; results equal the serial ones, one the CPU's")
+    finally:
+        ocr_q.close()
+    return summary, runs
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -1380,6 +1612,8 @@ def main() -> int:
         wave_summary, wave_runs = phase_w(model, pages)
         runs.update(wave_runs)
         runs["H"], host = phase_h(model, pages)
+        families, family_runs = phase_f(family_kwargs(tmp, dict_path), pages)
+        runs.update(family_runs)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -1398,6 +1632,7 @@ def main() -> int:
     print(json.dumps({"warp": warps}))
     print(json.dumps({"batch": batch}))
     print(json.dumps({"wave": wave_summary, "host": host}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,10 @@ model is looked up by its module path (`mixer.3.qkv.weight` ↔
   (I, O, 2, 2) (JAX's conv_transpose does not flip the kernel, torch's
   transposed conv does);
 * Linear weight: (in, out) → (out, in);
+* LSTM (the CRNN's): the JAX (2, 4H, ·) stacks `wi`, `wh`, `b` split by
+  direction into weight_ih_l0[_reverse], weight_hh_l0[_reverse] and
+  bias_ih_l0[_reverse] as they are (same gate order i, f, g, o);
+  bias_hh is zero (`build_crnn`);
 * everything else (batch-norm and LayerNorm leaves, the CTC head's (D, V)
   w and (V,) b) as it is.
 
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from . import cls, dbnet, svtr
+from . import cls, crnn, dbnet, svtr
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -69,8 +73,9 @@ def state_dict_from_tree(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def build_dbnet(tree, device="cpu") -> dbnet.DBNet:
-    model = dbnet.DBNet()
+def build_dbnet(tree, device="cpu", arch: str = "mbv3") -> dbnet.DBNet:
+    """The DBNet on the `arch` backbone: 'mbv3' or 'resnet18'."""
+    model = dbnet.DBNet(backbone_arch=arch)
     model.load_state_dict(state_dict_from_tree(tree, model))
     return model.requires_grad_(False).to(device).eval()
 
@@ -96,3 +101,28 @@ def build_svtr(tree, device="cpu") -> svtr.SVTR:
     model = model.requires_grad_(False).to(device).eval()
     model.head.prepare()
     return model
+
+
+def _lstm_leaves(p: dict) -> Dict[str, np.ndarray]:
+    """One JAX BiLSTM tree {wi, wh, b: (2, 4H, ·)} → nn.LSTM's leaves by
+    name (direction 0 forward, 1 reverse); bias_hh is zero."""
+    p = dict(p)
+    wi, wh, b = p.pop("wi"), p.pop("wh"), p.pop("b")
+    if p:
+        raise ValueError(f"unused LSTM leaves: {sorted(p)}")
+    out = {}
+    for d, sfx in enumerate(("", "_reverse")):
+        out[f"weight_ih_l0{sfx}"] = np.asarray(wi[d])
+        out[f"weight_hh_l0{sfx}"] = np.asarray(wh[d])
+        out[f"bias_ih_l0{sfx}"] = np.asarray(b[d])
+        out[f"bias_hh_l0{sfx}"] = np.zeros_like(np.asarray(b[d]))
+    return out
+
+
+def build_crnn(tree, device="cpu") -> crnn.CRNN:
+    """The CRNN, its vocabulary from the head."""
+    tree = dict(tree, lstm1=_lstm_leaves(tree["lstm1"]),
+                lstm2=_lstm_leaves(tree["lstm2"]))
+    model = crnn.CRNN(vocab=tree["head"]["w"].shape[1])
+    model.load_state_dict(state_dict_from_tree(tree, model))
+    return model.requires_grad_(False).to(device).eval()

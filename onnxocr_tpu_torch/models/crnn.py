@@ -1,0 +1,58 @@
+"""CRNN recognizer (NCHW) of the ch_ppocr_server_v2.0 family: strided conv
+stages → mean over the remaining height → two bidirectional LSTMs (hidden
+256) → linear to the vocabulary. Counterpart of onnxocr_tpu/models/crnn.py.
+
+Input (N, 3, 48, W) in [−1, 1]; T = W/4 time steps. The LSTMs are
+`torch.nn.LSTM(bidirectional=True)` run on the padded, unpacked sequence:
+the JAX package's reverse direction flips the whole padded sequence, and
+its gate order (i, f, g, o) is torch's. Its one bias per direction is
+`bias_ih`; `bias_hh` is zero (models/convert.build_crnn). Nothing masks
+width: a crop's logits depend on its bucket's padding, as in the JAX
+package.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from . import common as cm
+
+# (channels, (stride_h, stride_w)): H 48 → 24 → 12 → 6 → 2, W → W/4
+STAGES = (
+    (64, (2, 2)),
+    (128, (2, 2)),
+    (256, (2, 1)),
+    (256, (3, 1)),
+)
+HIDDEN = 256
+
+
+class CRNN(nn.Module):
+    def __init__(self, vocab: int):
+        super().__init__()
+        self.stem = cm.ConvBN(3, 3, 32, act="relu")
+        stages = []
+        cin = 32
+        for cout, s in STAGES:
+            stages.append(cm.ConvBN(3, cin, cout, s, act="relu"))
+            cin = cout
+        self.stages = nn.ModuleList(stages)
+        self.lstm1 = nn.LSTM(cin, HIDDEN, batch_first=True,
+                             bidirectional=True)
+        self.lstm2 = nn.LSTM(2 * HIDDEN, HIDDEN, batch_first=True,
+                             bidirectional=True)
+        self.head = nn.Linear(2 * HIDDEN, vocab)
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """x (N, 3, 48, W) → (N, W/4, 256): the conv stack, its remaining
+        height averaged."""
+        x = self.stem(x)
+        for st in self.stages:
+            x = st(x)
+        return x.mean(dim=2).transpose(1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, 3, 48, W) → (N, W/4, V) logits."""
+        x, _ = self.lstm1(self.features(x))
+        x, _ = self.lstm2(x)
+        return self.head(x)

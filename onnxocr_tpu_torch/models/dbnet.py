@@ -1,6 +1,6 @@
-"""DBNet text detector (NCHW): MobileNetV3-large backbone + DB FPN +
-binarization head. Counterpart of onnxocr_tpu/models/dbnet.py (mbv3
-backbone only; the ResNet18-vd server backbone is not ported).
+"""DBNet text detector (NCHW): a MobileNetV3-large (the PP-OCR mobile
+families) or ResNet18-vd (ch_ppocr_server_v2.0) backbone + DB FPN +
+binarization head. Counterpart of onnxocr_tpu/models/dbnet.py.
 """
 from __future__ import annotations
 
@@ -11,18 +11,27 @@ import torch.nn as nn
 
 from . import common as cm
 from . import mobilenetv3 as mbv3
+from . import resnet
 
 # backbone taps at 1/4, 1/8, 1/16; the post-`last` map is 1/32
 _TAPS = (3, 6, 12)
 
 
 class DBNet(nn.Module):
-    def __init__(self, scale: float = 0.5, inner: int = 96, out: int = 24):
+    def __init__(self, scale: float = 0.5, inner: int = 96, out: int = 24,
+                 backbone_arch: str = "mbv3"):
         super().__init__()
-        self.backbone = mbv3.MobileNetV3("large", scale)
-        cfg = self.backbone.cfg
-        in_chs = [cfg[i - 1][2] for i in _TAPS] + \
-            [self.backbone.last.conv.out_channels]
+        self.arch = backbone_arch
+        if backbone_arch == "resnet18":
+            self.backbone = resnet.ResNet18vd()
+            in_chs = list(resnet.STAGE_CH)
+        elif backbone_arch == "mbv3":
+            self.backbone = mbv3.MobileNetV3("large", scale)
+            cfg = self.backbone.cfg
+            in_chs = [cfg[i - 1][2] for i in _TAPS] + \
+                [self.backbone.last.conv.out_channels]
+        else:
+            raise ValueError(f"unknown det backbone {backbone_arch!r}")
         self.lateral = nn.ModuleList(
             [cm.conv(1, c, inner) for c in in_chs])
         self.smooth = nn.ModuleList(
@@ -38,10 +47,16 @@ class DBNet(nn.Module):
         """x (N, 3, H, W) ImageNet-normalized → (N, H, W) shrink-prob map.
         valid_hw = (vh, vw), ints or (N,) int tensors (one extent per
         sample), makes the map over the valid region independent of the
-        canvas padding (JAX dbnet.apply)."""
-        if valid_hw is not None:
-            x = cm.mask_valid_(x.clone(), *valid_hw)
-        feats = self.backbone(x, _TAPS, valid_hw)
+        canvas padding (JAX dbnet.apply). The ResNet backbone ignores
+        valid_hw, as the JAX package's does: its map depends on the
+        canvas."""
+        if self.arch == "resnet18":
+            valid_hw = None
+            feats = self.backbone(x)
+        else:
+            if valid_hw is not None:
+                x = cm.mask_valid_(x.clone(), *valid_hw)
+            feats = self.backbone(x, _TAPS, valid_hw)
         lat = [conv(f) for f, conv in zip(feats, self.lateral)]
         for i in range(len(lat) - 1, 0, -1):
             up = lat[i]

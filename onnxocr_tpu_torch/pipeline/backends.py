@@ -1,6 +1,7 @@
 """Native checkpoint loading and its load-time adjustments. Port of the
 parts of onnxocr_tpu/pipeline/backends.py the ported paths read:
-the committed `native_params.npz` beside a stage's model path, the det
+the architecture of a stage, the committed `native_params.npz` beside a
+stage's model path (or the family fallback), the det
 `calibration.json` sidecar, the CTC-head decode-support mask read from
 the committed `<dict>.trained_support.json` sidecar, and the angle
 classifier's weight resolution.
@@ -29,19 +30,42 @@ def pick_arch(kind: str, model_path: str, algorithm: str = "") -> str:
     return "resnet18" if "server" in (model_path or "") else "mbv3"
 
 
-def load_native_params(kind: str, model_path: str) -> Tuple[dict, str]:
-    """→ (parameter tree, npz path) from <dir of model_path>/native_params.npz.
-    The ONNX graph executor is not ported, so an existing .onnx model file
-    cannot be run."""
+def load_native_params(kind: str, model_path: str, arch: str,
+                       allow_untrained: bool = False
+                       ) -> Tuple[dict, str, str]:
+    """→ (parameter tree, npz path actually loaded, architecture) from
+    <dir of model_path>/native_params.npz, resolved as the JAX package
+    resolves a native det / rec stage: a missing mbv3 / svtr checkpoint
+    falls back to the ppocrv5 family's of the same stage, and a missing
+    server (resnet18) det checkpoint to the ppocrv5 mbv3 detector, each
+    with a warning; the calibration sidecar follows the path loaded. The
+    ONNX graph executor is not ported, so an existing .onnx model file
+    cannot be run, and the seeded untrained init (`tpu_allow_untrained`)
+    is not ported for det and rec."""
     if model_path and os.path.exists(model_path) and \
             model_path.endswith(".onnx"):
         raise NotImplementedError(
             f"{kind}: running an .onnx model ({model_path}) needs the graph "
             "executor, which is not ported; only native checkpoints run")
     path = os.path.join(os.path.dirname(model_path), "native_params.npz")
-    if not os.path.exists(path):
-        raise FileNotFoundError(f"{kind}: no native checkpoint at {path}")
-    return load_tree(path), path
+    if os.path.exists(path):
+        return load_tree(path), path, arch
+    fb = config.find_asset(f"ppocrv5/{kind}/native_params.npz")
+    if arch in ("mbv3", "svtr") and os.path.exists(fb) and \
+            os.path.abspath(fb) != os.path.abspath(path):
+        warnings.warn(f"{kind}: no checkpoint at {path}; using the "
+                      f"ppocrv5 family checkpoint {fb}")
+        return load_tree(fb), fb, arch
+    if kind == "det" and arch == "resnet18" and os.path.exists(fb):
+        warnings.warn("det: no server (resnet18) checkpoint; falling back "
+                      "to the trained mbv3 detector")
+        return load_tree(fb), fb, "mbv3"
+    if allow_untrained or \
+            os.environ.get("ONNXOCR_TPU_ALLOW_UNTRAINED", "") in ("1", "true"):
+        raise NotImplementedError(
+            f"{kind}: the untrained {arch} init (tpu_allow_untrained) is "
+            "not ported; only native checkpoints run")
+    raise FileNotFoundError(f"{kind}: no native checkpoint at {path}")
 
 
 def load_cls_params(model_path: str, allow_untrained: bool = False) -> dict:

@@ -47,3 +47,14 @@ def group_collapsed(desired_ws: Sequence[int], ladder: Sequence[int]
         groups.setdefault(pick_width_bucket(desired_ws[i], ladder),
                           []).append(i)
     return groups
+
+
+def group_by_bucket(desired_ws: Sequence[int], ladder: Sequence[int]
+                    ) -> Dict[int, List[int]]:
+    """Per-bucket routing for a recognizer that does not mask width (the
+    CRNN): each crop runs in its own width bucket. → {bucket_w: [indices
+    in input order]}."""
+    groups: Dict[int, List[int]] = {}
+    for i, w in enumerate(desired_ws):
+        groups.setdefault(pick_width_bucket(w, ladder), []).append(i)
+    return groups

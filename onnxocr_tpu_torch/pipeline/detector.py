@@ -1,5 +1,7 @@
-"""Text detector on the device: the DBNet, the host DB postprocess, the
-checkpoint calibration, and the det forwards of the staged routes.
+"""Text detector on the device: the DBNet (MobileNetV3 backbone, or
+ResNet18-vd for the ch_ppocr_server_v2.0 family), the host DB
+postprocess, the checkpoint calibration, and the det forwards of the
+staged routes.
 Counterpart of onnxocr_tpu/pipeline/detector.py and of the det forwards of
 its backends.DetForward:
 
@@ -15,7 +17,8 @@ its backends.DetForward:
   page as the reference does) → DBNet → the map in the wire dtype;
 * the cross-request det batcher (`tpu_det_microbatch`,
   `enable_page_batching`): concurrent pages' forwards as one wave on the
-  fixed det canvas (runtime/batcher.DetPageBatcher), in the mode
+  fixed det canvas, or per canvas shape for the ResNet
+  (runtime/batcher.DetPageBatcher), in the mode
   `page_batch_mode` picks: the bitmap wire (`pages_bits`), the maps wire
   (`pages_maps`) or device box extraction (`pages_boxes`).
 """
@@ -60,10 +63,10 @@ class TextDetector:
         self.keep_ratio = getattr(args, "det_keep_ratio", False)
         self.bucket = int(getattr(args, "tpu_det_bucket", 320))
         self.map_dtype = getattr(args, "tpu_det_map_dtype", "uint8")
-        if backends.pick_arch("det", args.det_model_dir) != "mbv3":
-            raise NotImplementedError("the ResNet18-vd server detector is "
-                                      "not ported")
-        tree, ckpt = backends.load_native_params("det", args.det_model_dir)
+        tree, ckpt, self.arch = backends.load_native_params(
+            "det", args.det_model_dir,
+            backends.pick_arch("det", args.det_model_dir),
+            allow_untrained=args.tpu_allow_untrained)
         # checkpoint calibration applies only to flags the caller did not set
         user_keys = getattr(args, "_user_keys", set()) or set()
         for k, v in backends.checkpoint_calibration(ckpt).items():
@@ -75,17 +78,25 @@ class TextDetector:
             use_dilation=args.use_dilation,
             score_mode=args.det_db_score_mode, box_type=args.det_box_type)
         self.device = device
-        self.model = convert.build_dbnet(tree, device)
+        self.model = convert.build_dbnet(tree, device, self.arch)
         self._page_batcher = None
         if args.tpu_det_microbatch:
             self.enable_page_batching(
                 max_wait_ms=float(args.tpu_microbatch_wait_ms))
 
+    @property
+    def masks_canvas(self) -> bool:
+        """True when the DBNet's map over the valid region does not depend
+        on the canvas padding (the masked mbv3; not the ResNet), so that
+        pages may share a fixed canvas."""
+        return self.arch == "mbv3"
+
     def enable_page_batching(self, max_wait_ms: float = 8.0) -> bool:
         """Cross-request det batching: concurrent pages share one DBNet
         forward (runtime/batcher.DetPageBatcher) in the mode of
-        `page_batch_mode`. False, and no batcher, without limit_type 'max'
-        sizing, as in the JAX package."""
+        `page_batch_mode`, on the fixed det canvas for the masked mbv3 and
+        on each page's own bucket canvas for the ResNet. False, and no
+        batcher, without limit_type 'max' sizing, as in the JAX package."""
         mode = page_batch_mode(self.args)
         if mode is None:
             return False
@@ -94,7 +105,8 @@ class TextDetector:
               "boxes": self.pages_boxes}[mode]
         self._page_batcher = DetPageBatcher(
             fn, mode, self.limit_side_len, self.limit_type,
-            max_wait_ms=max_wait_ms, bucket=self.bucket)
+            max_wait_ms=max_wait_ms, bucket=self.bucket,
+            fixed_canvas=self.masks_canvas)
         return True
 
     def clip_det_res(self, points, img_height, img_width):

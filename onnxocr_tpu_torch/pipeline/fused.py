@@ -5,6 +5,7 @@ Counterpart of onnxocr_tpu/pipeline/fused.py (`FusedClsRec.__call__` and
     warp 48×192 cls crops from the uploaded page → cls forward → rotation
     verdict on the device → select between the two precomputed homographies
     (upright / turned by 180°) → warp 48×W rec crops → SVTR → fused CTC head
+    (or CRNN → logits → reduce)
 
 `__call__` downloads one packed (N, 2T + 3) float32 buffer [idx (T), prob
 (T), cls probs (2), rot (1)]. `call_scored`, the bitmap wire's step, also
@@ -81,7 +82,8 @@ class FusedClsRec:
             cls_probs = torch.zeros((n, 2), device=dev)
             rot = torch.zeros((n,), dtype=torch.bool, device=dev)
         crops = warp(mats, rec_valid, out_h, out_w)
-        idx, prob = self.rec_forward(crops, (rec_valid + 7) // 8)
+        idx, prob = self.rec_forward(crops,
+                                     self.rec_forward.valid_t(rec_valid))
         return idx, prob, cls_probs, rot
 
     def _multi(self, images_u8, img_idx, mats, out_h: int, out_w: int,

@@ -9,7 +9,8 @@ Port of onnxocr_tpu/pipeline/onecall.py (single page):
     K_rec prefix → crop homographies → (with the classifier: warp 48×192
     cls crops → cls → select the 180°-turned homographies) → warp rec
     crops at one width (shear-staged by default) → SVTR → fused CTC head
-    → one packed (K_rec + 1 + det rows, 12 + 2T) float32 buffer
+    (the CRNN: logits → reduce, T = W/4) → one packed (K_rec + 1 + det
+    rows, 12 + 2T) float32 buffer
 
 Packed layout (as in the JAX package): K_rec body rows [quad (8), score,
 valid, valid width, desired width, idx (T), prob (T)]; a tail row whose
@@ -21,8 +22,8 @@ per-bucket path against the same uploaded page.
 With `tpu_onecall_wave`, concurrent calls (the serving engine's threads)
 hand their uploaded pages to `_WaveCoalescer`, whose thread runs whatever
 is queued as one multi-page step (`step_wave`: one DBNet forward, the DB
-extraction per page, one gather warp and one SVTR + CTC-head pass over
-every page's crops) with one download a wave, at the largest page count of
+extraction per page, one gather warp and one recognizer pass over every
+page's crops) with one download a wave, at the largest page count of
 `tpu_onecall_wave_tiers` that has been warmed; a lone call runs the
 single-page step at once and never waits.
 """
@@ -177,7 +178,8 @@ class OneCallPipeline:
                                                  rec_m, rec_m_rot)
         crops = self.fused.warp(image_u8, rec_m, rec_vw, self.imgH,
                                 self.rec_w)
-        idx, prob_max = self.recognizer.forward(crops, (rec_vw + 7) // 8)
+        rec = self.recognizer.forward
+        idx, prob_max = rec(crops, rec.valid_t(rec_vw))
         return self._pack(boxes, rec_vw, desired, idx, prob_max)
 
     @torch.inference_mode()
@@ -190,10 +192,10 @@ class OneCallPipeline:
         bucket, the per-page sizes as B ints → (B, rows, 12 + 2T) float32
         on the device, each page's block decoding as `step`'s buffer.
 
-        One DBNet forward over the B canvases (each masked to its own
-        extent), the DB extraction per page, then one gather warp of the
-        cls crops, one cls forward, one gather warp of the rec crops and one
-        SVTR + CTC-head pass over every page's K_rec crops. The wave warps
+        One DBNet forward over the B canvases (the mbv3's masked to each
+        page's extent), the DB extraction per page, then one gather warp of
+        the cls crops, one cls forward, one gather warp of the rec crops and
+        one recognizer pass over every page's K_rec crops. The wave warps
         in the gather form, whatever the configured form, as the JAX
         package's wave does."""
         B = images_u8.shape[0]

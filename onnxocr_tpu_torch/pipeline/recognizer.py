@@ -1,6 +1,6 @@
 """CTC text recognizer on the device. Counterpart of
 onnxocr_tpu/pipeline/recognizer.py: the SVTR forward through the fused CTC
-head kernel, and the two per-width-bucket paths over boxes of an uploaded
+head kernel or the CRNN's (`RecForward`), and the two per-width-bucket paths over boxes of an uploaded
 page — `run_boxes_fused` (cls + rec in one pass per bucket through
 pipeline/fused.py: the staged device-det path, and the one-call pipeline's
 re-runs for wide lines and boxes past its K_rec budget),
@@ -31,16 +31,39 @@ from . import backends, batching
 
 
 class RecForward:
-    """(N, 48, W, 3) float32 crops in [−1, 1] + (N,) valid token counts →
-    ((N, T) int32 argmax, (N, T) float32 max-prob) via the fused head."""
+    """(N, 48, W, 3) float32 crops in [−1, 1] → ((N, T) int32 argmax, (N, T)
+    float32 max-prob), by architecture as the JAX package's RecForward:
 
-    def __init__(self, tree, device: torch.device):
-        self.model = convert.build_svtr(tree, device)
+    * 'svtr' (the PP-OCR mobile families): T = W/8, the width masked to
+      each row's valid token count, the fused CTC head kernel;
+    * 'crnn' (ch_ppocr_server_v2.0): T = W/4, no width mask, the (N, T, V)
+      logits materialised and reduced by `ctc.ctc_reduce_logits` (the JAX
+      package runs no Pallas head there)."""
+
+    def __init__(self, tree, device: torch.device, arch: str = "svtr"):
+        self.arch = arch
+        self.model = convert.build_crnn(tree, device) if arch == "crnn" \
+            else convert.build_svtr(tree, device)
+
+    @property
+    def masks_width(self) -> bool:
+        """True when valid-region outputs do not depend on the bucket's
+        padding (the width-masked SVTR)."""
+        return self.arch == "svtr"
+
+    def valid_t(self, valid_w: torch.Tensor) -> Optional[torch.Tensor]:
+        """The token counts to mask with, from (N,) valid pixel widths;
+        None for a forward that does not mask width."""
+        return (valid_w + 7) // 8 if self.masks_width else None
 
     @torch.inference_mode()
-    def __call__(self, crops: torch.Tensor, valid_t: torch.Tensor
+    def __call__(self, crops: torch.Tensor,
+                 valid_t: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        feats = self.model.features(crops.permute(0, 3, 1, 2), valid_t)
+        x = crops.permute(0, 3, 1, 2)
+        if self.arch == "crnn":
+            return ctc.ctc_reduce_logits(self.model(x))
+        feats = self.model.features(x, valid_t)
         head = self.model.head
         return ctc_head.ctc_head_reduce_batched(feats, head.w_split, head.b)
 
@@ -55,15 +78,16 @@ class TextRecognizer:
         self.postprocess_op = ctc.CTCLabelDecode(
             character_dict_path=args.rec_char_dict_path,
             use_space_char=args.use_space_char)
-        if backends.pick_arch("rec", args.rec_model_dir,
-                              args.rec_algorithm) != "svtr":
-            raise NotImplementedError("the CRNN recognizer is not ported")
-        tree, _ = backends.load_native_params("rec", args.rec_model_dir)
+        tree, _, arch = backends.load_native_params(
+            "rec", args.rec_model_dir,
+            backends.pick_arch("rec", args.rec_model_dir,
+                               args.rec_algorithm),
+            allow_untrained=args.tpu_allow_untrained)
         if getattr(args, "tpu_decode_support", "trained") == "trained":
             sup = backends.trained_support(args.rec_char_dict_path)
             if sup is not None:
                 tree = backends.apply_support_bias(tree, sup)
-        self.forward = RecForward(tree, device)
+        self.forward = RecForward(tree, device, arch)
         self._crop_batcher = None
         if args.tpu_rec_microbatch:
             self.enable_crop_batching(
@@ -101,8 +125,11 @@ class TextRecognizer:
 
     def _group(self, desired_ws: List[int]):
         """Width-bucket routing; the width-masked SVTR lets every crop up to
-        the collapse cap share one bucket."""
-        return batching.group_collapsed(desired_ws, self.width_ladder)
+        the collapse cap share one bucket, the CRNN runs each crop in its
+        own bucket."""
+        if self.forward.masks_width:
+            return batching.group_collapsed(desired_ws, self.width_ladder)
+        return batching.group_by_bucket(desired_ws, self.width_ladder)
 
     def _decode_chunk(self, crops, valid_ws: np.ndarray, n_real: int
                       ) -> List[Tuple[str, float]]:
@@ -111,7 +138,7 @@ class TextRecognizer:
         valid = torch.as_tensor(np.asarray(valid_ws, np.int32)).to(
             self.device)
         crops = torch.as_tensor(crops).to(self.device)
-        idx, prob = self.forward(crops, (valid + 7) // 8)
+        idx, prob = self.forward(crops, self.forward.valid_t(valid))
         return self._decode(idx[:n_real].cpu().numpy(),
                             prob[:n_real].cpu().numpy(),
                             valid_ws[:n_real], crops.shape[2])
@@ -251,11 +278,12 @@ class TextRecognizer:
             return out
         return out, pad(quads, np.zeros((4, 2), np.float32))
 
-    @staticmethod
-    def _promote(bucket_w: int) -> bool:
+    def _promote(self, bucket_w: int) -> bool:
         """A chunk the crop batcher may run at any wider width: the
-        width-masked SVTR makes that exact below the collapse cap."""
-        return bucket_w <= batching.COLLAPSE_CAP
+        width-masked SVTR makes that exact below the collapse cap. A CRNN
+        chunk runs alone at its own bucket."""
+        return self.forward.masks_width and \
+            bucket_w <= batching.COLLAPSE_CAP
 
     def run_boxes_fused(self, image_u8: torch.Tensor, boxes: np.ndarray,
                         fused, cls_shape, use_cls: bool = True

@@ -153,10 +153,11 @@ class TextSystem:
                     self._fused.idx180 is not None)
 
     def _fixed_canvas(self) -> bool:
-        """The bitmap wire's det canvas: 'always' fixes it; 'auto' (fixed
-        on the TPU only, in the JAX package) and 'never' take the page's
-        own bucket canvas."""
-        return getattr(self.args, "tpu_det_fixed_canvas", "auto") == "always"
+        """The bitmap wire's det canvas: 'always' fixes it for the masked
+        mbv3 DBNet; 'auto' (fixed on the TPU only, in the JAX package),
+        'never' and the ResNet DBNet take the page's own bucket canvas."""
+        return self.text_detector.masks_canvas and \
+            getattr(self.args, "tpu_det_fixed_canvas", "auto") == "always"
 
     def _keep_candidates(self, pre_quads, cand, image_shape):
         """filter_tag_det_res over the bitmap wire's candidates, keeping
@@ -184,11 +185,12 @@ class TextSystem:
         image_dev, src_h, src_w = resize_dev.put_src_bucket(img, self.device)
         batcher = det._page_batcher
         if batcher is not None:
-            # the det batcher: concurrent pages' forwards as one wave on the
-            # fixed canvas, the wave's bitmaps downloaded as one copy; each
-            # canvas resized on the device from the uploaded page, or on
-            # the host (tpu_det_batch_input='host')
-            if self.args.tpu_det_batch_input == "device":
+            # the det batcher: concurrent pages' forwards as one wave, the
+            # wave's bitmaps downloaded as one copy; each fixed canvas
+            # resized on the device from the uploaded page, or on the host
+            # (tpu_det_batch_input='host', and the ResNet's own canvases)
+            if batcher.canvas is not None and \
+                    self.args.tpu_det_batch_input == "device":
                 bitmap, prob_dev, (rh, rw), _ = batcher.submit_bits_dev(
                     image_dev, src_h, src_w)
             else:

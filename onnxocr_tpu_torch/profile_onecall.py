@@ -2,10 +2,12 @@
 
     python3 -m onnxocr_tpu_torch.profile_onecall [--pages N] [--out DIR]
         [--path onecall|onecall_cls|staged_device|staged_host]
-        [--warp-stage off|shear]
+        [--warp-stage off|shear] [--family v5|v4|server]
 
-Runs ONNXPaddleOcr(device="cuda") (TF32 off, committed v5 checkpoints, a
-stand-in dictionary) over committed held-out pages — `onecall`: the
+Runs ONNXPaddleOcr(device="cuda") (TF32 off, the committed checkpoints of
+`--family`: PP-OCRv5 by default, PP-OCRv4, or the ch_ppocr_server_v2.0
+ResNet18-vd DBNet + CRNN; a stand-in dictionary) over committed held-out
+pages — `onecall`: the
 one-call path at the 960² det canvas with the label-keyed reductions,
 classifier off; `onecall_cls`: the same with the slot-keyed reductions and
 the (untrained) angle classifier; `staged_device`: the staged device-det
@@ -19,6 +21,8 @@ and reports, per page on average:
 * stage times: each stage of the path re-run on its own with a device
   synchronize after it (host clock, so launch overhead counts), the cls
   and rec crop warps among them, and how many crops the shear form takes;
+  for the CRNN also `rec_bilstm`, its two BiLSTM calls (on the staged
+  paths: those within the fused or scored passes, already part of them);
 * end-to-end page time (`ocr()`, host clock) and the device busy share
   over a steady window (sum of CUDA kernel time from torch.profiler over
   the window's wall time), with the kernels that take the most device time.
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 
 from . import ONNXPaddleOcr, config
-from .ops import db_device, det_pre, native, resize_dev, warp_dev
+from .ops import ctc, db_device, det_pre, native, resize_dev, warp_dev
 from .ops import warp as warp_ops
 from .ops.kernels import build, ctc_head, seg_reduce, seg_reduce2
 from .pipeline.system import sorted_boxes
@@ -53,6 +57,17 @@ KWARGS = {
                           tpu_allow_untrained=True),
     "staged_host": {},
 }
+# family → (model kwargs, dictionary stand-in: file name, entries)
+FAMILIES = {
+    "v5": ({}, "ppocrv5_dict.txt", 18383),
+    "v4": (dict(det_model_dir=config.find_asset("ppocrv4/det/det.onnx"),
+                rec_model_dir=config.find_asset("ppocrv4/rec/rec.onnx")),
+           "ppocrv5_dict.txt", 18383),
+    "server": (dict(
+        det_model_dir=config.find_asset("ch_ppocr_server_v2.0/det/det.onnx"),
+        rec_model_dir=config.find_asset("ch_ppocr_server_v2.0/rec/rec.onnx")),
+        "ppocr_keys_v1.txt", 6623),
+}
 
 
 def _timer(acc):
@@ -64,6 +79,25 @@ def _timer(acc):
         acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
         return out
     return t
+
+
+def timed_bilstm(ocr, acc):
+    """Time the CRNN's BiLSTM calls under `rec_bilstm` (nothing for SVTR)
+    → undo."""
+    rec = ocr.text_recognizer.forward
+    if rec.arch != "crnn":
+        return lambda: None
+    t = _timer(acc)
+    lstms = (rec.model.lstm1, rec.model.lstm2)
+    for lstm in lstms:
+        real = lstm.forward
+        lstm.forward = lambda *a, real=real, **kw: t(
+            "rec_bilstm", lambda: real(*a, **kw))
+
+    def undo():
+        for lstm in lstms:
+            del lstm.forward
+    return undo
 
 
 class _TimedFused:
@@ -155,12 +189,14 @@ def _stages_staged(ocr, img, acc, calls, counts):
     if len(boxes):
         quads = np.asarray(boxes, np.float32)
         undo = _timed_warps(fused, t, counts)
+        undo_lstm = timed_bilstm(ocr, acc)
         try:
             t("cls_rec_total", lambda: rec.run_boxes_fused(
                 image, quads, _TimedFused(fused, t, calls),
                 (fused.cls_h, fused.cls_w), use_cls=True))
         finally:
             undo()
+            undo_lstm()
 
 
 class _TimedScored:
@@ -199,12 +235,14 @@ def _stages_host(ocr, img, acc, calls):
         return
     real_decode = rec._decode
     rec._decode = lambda *a: t("decode", lambda: real_decode(*a))
+    undo_lstm = timed_bilstm(ocr, acc)
     try:
         t("scored_total", lambda: rec.run_candidates_scored(
             image, prob, rh, rw, boxes, pre, _TimedScored(fused, t, calls),
             (fused.cls_h, fused.cls_w), use_cls=False))
     finally:
         del rec._decode
+        undo_lstm()
     t("page_total", lambda: ocr.ocr(img, cls=False))
 
 
@@ -261,11 +299,19 @@ def _stages(ocr, img, acc, counts):
     finally:
         undo()
     rec = ocr.text_recognizer.forward
-    feats = t("rec_features", lambda: rec.model.features(
-        crops.permute(0, 3, 1, 2), (vw + 7) // 8))
-    head = rec.model.head
-    t("ctc_head", lambda: ctc_head.ctc_head_reduce_batched(
-        feats, head.w_split, head.b))
+    x = crops.permute(0, 3, 1, 2)
+    if rec.arch == "crnn":
+        feats = t("rec_features", lambda: rec.model.features(x))
+        hid = t("rec_bilstm", lambda: rec.model.lstm2(
+            rec.model.lstm1(feats)[0])[0])
+        t("rec_head_reduce", lambda: ctc.ctc_reduce_logits(
+            rec.model.head(hid)))
+    else:
+        feats = t("rec_features", lambda: rec.model.features(
+            x, rec.valid_t(vw)))
+        head = rec.model.head
+        t("ctc_head", lambda: ctc_head.ctc_head_reduce_batched(
+            feats, head.w_split, head.b))
     use_cls = oc.use_cls(True)
     t("step_total", lambda: oc.step(image, h, w, rh, rw, hb, wb, eh, ew,
                                     use_cls))
@@ -281,6 +327,7 @@ def main() -> None:
     ap.add_argument("--path", default="onecall", choices=sorted(KWARGS))
     ap.add_argument("--warp-stage", choices=("off", "upright", "shear"),
                     default=config.DEFAULTS["tpu_warp_stage"])
+    ap.add_argument("--family", default="v5", choices=sorted(FAMILIES))
     args = ap.parse_args()
     staged = args.path == "staged_device"
     cls = args.path in ("onecall_cls", "staged_device")
@@ -297,12 +344,13 @@ def main() -> None:
     names = sorted(p.stem for p in heldout.glob("*.png"))[:args.pages]
     pages = [read_bgr(str(heldout / f"{n}.png")) for n in names]
     with tempfile.TemporaryDirectory() as tmp:
-        dict_path = os.path.join(tmp, "ppocrv5_dict.txt")
+        family_kw, dict_name, entries = FAMILIES[args.family]
+        dict_path = os.path.join(tmp, dict_name)
         with open(dict_path, "w") as f:
-            f.write("".join(f"<{i}>\n" for i in range(18383)))
+            f.write("".join(f"<{i}>\n" for i in range(entries)))
         ocr = ONNXPaddleOcr(device="cuda", rec_char_dict_path=dict_path,
                             tpu_warp_stage=args.warp_stage,
-                            **KWARGS[args.path])
+                            **family_kw, **KWARGS[args.path])
         # every (width, batch) shape the pages reach is used once before
         # anything is timed
         for img in pages:
@@ -335,7 +383,8 @@ def main() -> None:
     busy_ms = sum(k[1] for k in kern)
     n = len(pages)
     report = {
-        "card": smi, "path": args.path, "warp_stage": args.warp_stage,
+        "card": smi, "path": args.path, "family": args.family,
+        "warp_stage": args.warp_stage,
         "pages": n,
         "page_ms": wall_ms / n,
         # None: the profiler recorded no device time (not measured)

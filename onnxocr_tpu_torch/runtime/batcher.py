@@ -7,7 +7,8 @@ batcher thread, which waits up to `max_wait_ms` for more, runs one device
 call for all of them and hands each caller its rows back:
 
 * `DetPageBatcher`: the pages' DBNet forwards as one wave of up to 8
-  pages on the fixed det canvas (the bitmap wire: the wave's bitpacked
+  pages on the fixed det canvas, or of the pages that share a canvas
+  shape for the ResNet DBNet (the bitmap wire: the wave's bitpacked
   bitmaps come down as one copy, the prob maps stay on the device; the
   maps wire; the boxes mode's device DB extraction);
 * `RecCropBatcher`: the pages' crop chunks as one multi-page fused pass
@@ -206,16 +207,19 @@ def _bits_to_host(out):
 
 
 class DetPageBatcher:
-    """Cross-request det batching. Each page goes into ONE fixed det canvas,
+    """Cross-request det batching. With `fixed_canvas` (the masked mbv3
+    DBNet) each page goes into ONE fixed det canvas,
     round_up(limit_side_len, bucket)², so that every page joins the same
-    group: the masked DBNet (per-page extents) makes the canvas padding
-    invisible. Concurrent pages run `fn` as one wave of up to 8, in one of
-    the JAX package's three modes:
+    group: the per-page extents make the canvas padding invisible.
+    Without it (the ResNet, whose map depends on the padding) each page
+    takes its own bucket canvas, as the unbatched host det input does, and
+    pages group by canvas shape. Concurrent pages run `fn` as one wave of
+    up to 8, in one of the JAX package's three modes:
 
     * 'bits' (the bitmap wire): fn = TextDetector.pages_bits; the wave's
       bitmaps download as one copy and each page gets a view of its prob
       map on the device. A page comes resized on the device from the page
-      the crop warps read (`submit_bits_dev`) or, with
+      the crop warps read (`submit_bits_dev`, fixed canvas only) or, with
       tpu_det_batch_input='host' and for det-only calls and tiny pages,
       resized on the host (`submit_bits`);
     * 'maps': fn = TextDetector.pages_maps; host-resized pages, the maps
@@ -230,7 +234,7 @@ class DetPageBatcher:
     def __init__(self, fn: Callable, mode: str, limit_side_len: float = 960,
                  limit_type: str = "max", max_wait_ms: float = 8.0,
                  batch_ladder: Sequence[int] = (1, 2, 4, 8),
-                 bucket: int = 320):
+                 bucket: int = 320, fixed_canvas: bool = True):
         if limit_type != "max":
             raise ValueError("the det batcher needs limit_type 'max'")
         if mode not in ("bits", "maps", "boxes"):
@@ -239,8 +243,10 @@ class DetPageBatcher:
         self.limit_side_len = limit_side_len
         self.limit_type = limit_type
         self.bucket = bucket
-        cap = det_pre.round_up(int(limit_side_len), bucket)
-        self.canvas = (cap, cap)
+        self.canvas = None
+        if fixed_canvas:
+            cap = det_pre.round_up(int(limit_side_len), bucket)
+            self.canvas = (cap, cap)
         self.batcher = MicroBatcher(
             fn, max_batch=batch_ladder[-1], max_wait_ms=max_wait_ms,
             batch_ladder=batch_ladder,
@@ -250,8 +256,8 @@ class DetPageBatcher:
         self.batcher.close()
 
     def _prepare(self, img: np.ndarray):
-        """The host det input on the fixed canvas → (canvas uint8,
-        shape_info, (rh, rw))."""
+        """The host det input on the fixed canvas, or the page's own
+        bucket canvas → (canvas uint8, shape_info, (rh, rw))."""
         return det_pre.prepare_det_input(
             img, self.limit_side_len, self.limit_type, bucket=self.bucket,
             canvas=self.canvas)
@@ -293,7 +299,9 @@ class DetPageBatcher:
                         src_w: int):
         """The bits mode from the device resize: image_dev (Hs, Ws, 3) uint8
         page on the device, padded to its source bucket (valid src_h ×
-        src_w) → as submit_bits (shape_info float32, as the JAX package's)."""
+        src_w) → as submit_bits (shape_info float32, as the JAX package's).
+        Fixed canvas only, as in the JAX package."""
+        assert self.mode == "bits" and self.canvas is not None
         rh, rw = det_pre.det_resize_target(src_h, src_w, self.limit_side_len,
                                            self.limit_type)
         cap_h, cap_w = self.canvas

@@ -95,13 +95,32 @@
    BiLSTMs' share of a server C page, the ResNet DBNet at 960², the CRNN
    at widths 320 / 640 / 1280 (batch 16) and the CRNN's peak memory at
    64 × 1280;
-10. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+10. drives path S, the port's HTTP service (`phase_s`): the app of
+   `python -m onnxocr_tpu_torch.service` served in this process on a
+   socket at 127.0.0.1, on the card, with the stand-in dictionary under
+   an ONNXOCR_TPU_ASSETS root and the untrained classifier, in three
+   engine modes — the default (the staged bitmap wire behind both
+   batchers), PIPELINE_MODE=onecall, and onecall with WAVE_BATCH=1 (its
+   tiers warmed through WARMUP_SRC_BUCKETS). Each waits for readyz 200
+   (failing on the engine's warmup_error), sends a document and a table
+   page, each four times, as v1 base64 PNG, v1 base64 JPEG and v2
+   multipart from 8 clients (24 requests a round; one unmeasured
+   round, then two counted rounds between launch-count reads), holds each
+   response against the CPU port's ocr() of that page at the engine's
+   kwargs, requires the CTC head (and under onecall kernels 2–3) to have
+   launched during the served requests, times a serial pass of 40
+   requests (p50, p95), and answers
+   one return_image and one multi-file text / zip request; the codec's
+   decode ms a page and the preview's encode ms are timed too;
+11. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
    ms, launches; the host twins' ms a page), {"families": {...}} (path F's
    ms a page, launches, the BiLSTM share and the models' times),
-   {"kernels": [...]} and, last, {"ok": true, "device": {...}}; the run's
+   {"serve": {...}} (path S's requests/s, serial p50 / p95 ms, seconds to
+   readiness and CTC-head launches a request by mode, decode and preview
+   ms), {"kernels": [...]} and, last, {"ok": true, "device": {...}}; the run's
    seconds on a line before them.
 
 Any failure raises and exits non-zero without the "ok" line. The
@@ -111,6 +130,7 @@ space = the heads' 18385 and 6625 classes) are written to a temporary
 directory, so texts are placeholder strings, identical between runs that
 decode the same indices.
 """
+import io
 import json
 import os
 import subprocess
@@ -1220,6 +1240,338 @@ def host_times(model, pages):
     return out
 
 
+# ------------------------------------------------------------ phase S
+# a document page and a table page, each sent four times a round in each
+# of three forms (24 requests a round; two rounds are counted), then 20
+# times each serially (40 requests, enough for a p95); the CPU references
+# they need (a PNG and a JPEG each, per pipeline) bound the phase's time
+SERVE_PAGES = (PAGES[0], PAGES[3])
+SERVE_COUNTED_ROUNDS = 2
+SERVE_SERIAL = 20
+SERVE_MODES = (
+    ("staged", {}),
+    ("onecall", {"PIPELINE_MODE": "onecall"}),
+    ("onecall_waves", {"PIPELINE_MODE": "onecall", "WAVE_BATCH": "1"}))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _multipart(files, fields=None):
+    """→ (body, content type) of a multipart/form-data upload."""
+    import uuid
+    boundary = uuid.uuid4().hex
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"'
+             f'\r\n\r\n{v}\r\n'.encode() for k, v in (fields or {}).items()]
+    for field, name, blob, ctype in files:
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; '
+                     f'name="{field}"; filename="{name}"\r\nContent-Type: '
+                     f'{ctype}\r\n\r\n'.encode() + blob + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), f"multipart/form-data; boundary={boundary}"
+
+
+class _Client:
+    """One keep-alive HTTP/1.1 connection to the server on 127.0.0.1."""
+
+    def __init__(self, port):
+        import http.client
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=300)
+
+    def request(self, method, path, body=b"", ctype=None):
+        headers = {"content-type": ctype} if ctype else {}
+        self.conn.request(method, path, body=body, headers=headers)
+        resp = self.conn.getresponse()
+        return resp.status, resp.getheader("content-type"), resp.read()
+
+    def close(self):
+        self.conn.close()
+
+
+def _request_of(kind, name, blobs):
+    """The request of `kind` ('v1_png', 'v1_jpeg', 'v2_png') for a page →
+    (method, path, body, content type)."""
+    import base64
+    if kind.startswith("v1"):
+        fmt = kind[3:]
+        return ("POST", "/ocr", json.dumps({"image": base64.b64encode(
+            blobs[fmt][name]).decode()}).encode(), "application/json")
+    body, ctype = _multipart([("file", f"{name}.png", blobs["png"][name],
+                               "image/png")])
+    return "POST", "/api/v2/ocr", body, ctype
+
+
+def _as_lines(results):
+    """HTTP results → ocr() lines [[box, (text, score)], ...]."""
+    return [[r["bounding_box"], (r["text"], r["confidence"])]
+            for r in results]
+
+
+def _serve_mode(label, env, pages, blobs, cpu_ref, threads=8):
+    """One engine mode behind the port's HTTP server on 127.0.0.1 (in
+    this process, on the card): readiness, every page as v1 PNG, v1 JPEG
+    and v2 multipart from `threads` clients (one unmeasured round, then
+    SERVE_COUNTED_ROUNDS counted rounds between LAUNCHES reads), a serial
+    pass of SERVE_SERIAL requests a page, one
+    return_image and one multi-file text/zip request. → (summary,
+    launches of the counted rounds)."""
+    import asyncio
+    import threading
+    import zipfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.service import engine as engine_mod
+    from onnxocr_tpu_torch.service.http import serve
+    from onnxocr_tpu_torch.service.routes import build_app
+    from onnxocr_tpu_torch.utils import imcodec
+
+    saved = {k: os.environ.get(k) for k in
+             ("PIPELINE_MODE", "WAVE_BATCH", "WARMUP_SRC_BUCKETS")}
+    for k in saved:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    if "WAVE_BATCH" in env:
+        h, w = pages[PAGES[0]].shape[:2]
+        os.environ["WARMUP_SRC_BUCKETS"] = f"{h}x{w}"
+    engine_mod.reset_engine_manager()
+    em = engine_mod.get_engine_manager()
+    port = _free_port()
+    loop = asyncio.new_event_loop()
+    task = {}
+
+    def run_server():
+        asyncio.set_event_loop(loop)
+        task["t"] = loop.create_task(serve(build_app(), "127.0.0.1", port))
+        try:
+            loop.run_until_complete(task["t"])
+        except asyncio.CancelledError:
+            pass
+
+    t0 = time.perf_counter()
+    server = threading.Thread(target=run_server, daemon=True)
+    server.start()
+    try:
+        ready_s = None
+        while time.perf_counter() - t0 < 300:
+            try:
+                c = _Client(port)
+                status, _, _ = c.request("GET", "/api/v2/readyz")
+                c.close()
+                if status == 200:
+                    ready_s = time.perf_counter() - t0
+                    break
+            except OSError:
+                pass
+            if em.warmup_error is not None:
+                raise RuntimeError(f"path S {label}: warm-up failed: "
+                                   f"{em.warmup_error!r}")
+            time.sleep(0.05)
+        assert ready_s is not None, f"path S {label}: never ready"
+        assert em.warmup_error is None
+        model = em.get_model()
+        kinds = ("v1_png", "v1_jpeg", "v2_png")
+        round_ = [(k, n) for n in SERVE_PAGES for k in kinds] * 4
+        reqs = round_ * SERVE_COUNTED_ROUNDS
+
+        def call(client_req):
+            k, n = client_req
+            c = _Client(port)
+            try:
+                t = time.perf_counter()
+                status, ctype, body = c.request(*_request_of(k, n, blobs))
+                ms = (time.perf_counter() - t) * 1e3
+            finally:
+                c.close()
+            assert status == 200 and ctype == "application/json", \
+                (label, k, n, status, body[:200])
+            return json.loads(body)["results"], ms
+
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(call, round_))                 # unmeasured
+            torch.cuda.synchronize()
+            build.LAUNCHES.clear()
+            t1 = time.perf_counter()
+            got = list(pool.map(call, reqs))
+            wall = time.perf_counter() - t1
+            launches = dict(build.LAUNCHES)
+        serial_ms = [call(("v1_png", n))[1]
+                     for n in SERVE_PAGES * SERVE_SERIAL]
+        kwargs = em._get_model_kwargs(em.default_model)
+
+        def held(lines, fmt, n):
+            """lines against the CPU port's ocr() of page n at the same
+            kwargs → max box difference; a wave's pages warp with the
+            gather (tpu_warp_stage='off'), a lone page with the shear."""
+            try:
+                return _close_results(lines, cpu_ref(kwargs, fmt, n),
+                                      f"path S {label}")
+            except AssertionError:
+                if "WAVE_BATCH" not in env:
+                    raise
+                return _close_results(lines, cpu_ref(
+                    dict(kwargs, tpu_warp_stage="off"), fmt, n),
+                    f"path S {label}")
+
+        worst = max(held(_as_lines(res), "jpeg" if "jpeg" in k else "png", n)
+                    for (k, n), (res, _) in zip(reqs, got))
+        needs = ["ctc_head_reduce"]
+        if label != "staged":
+            needs += ["label_moment_sums", "label_proj_extents"]
+        for name in needs:
+            assert launches.get(name, 0) > 0, \
+                f"path S {label}: {name} never launched in served requests"
+        # one return_image request and one multi-file text / zip request
+        c = _Client(port)
+        try:
+            body, ctype = _multipart([("file", "p.png",
+                                       blobs["png"][PAGES[0]], "image/png")],
+                                     {"return_image": "true"})
+            status, _, out = c.request("POST", "/api/v2/ocr", body, ctype)
+            import base64
+            preview = imcodec.imdecode(base64.b64decode(
+                json.loads(out)["preview_image"]))
+            assert status == 200 and preview.shape == pages[PAGES[0]].shape
+            body, ctype = _multipart(
+                [("files", f"{n}.png", blobs["png"][n], "image/png")
+                 for n in SERVE_PAGES], {"output_format": "text"})
+            status, _, out = c.request("POST", "/api/v2/ocr", body, ctype)
+            data = json.loads(out)
+            assert status == 200 and data["zip_url"], data
+            status, ctype, blob = c.request("GET", data["zip_url"])
+            assert status == 200 and ctype == "application/zip"
+            with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+                texts = {n: zf.read(f"{n}.txt").decode()
+                         for n in SERVE_PAGES}
+            for item, n in zip(data["items"], SERVE_PAGES):
+                assert texts[n] == item["text"]
+                lines = texts[n].split("\n")
+                held([[ref[0], (t, ref[1][1])] for t, ref in zip(
+                    lines, cpu_ref(kwargs, "png", n))], "png", n)
+        finally:
+            c.close()
+        head = launches.get("ctc_head_reduce", 0)
+        summary = {
+            "mode": label, "env": env, "threads": threads,
+            "requests": len(reqs), "requests_s": wall,
+            "requests_per_s": len(reqs) / wall,
+            "serial_requests": len(serial_ms), "serial_ms": serial_ms,
+            "serial_p50_ms": float(np.percentile(serial_ms, 50)),
+            "serial_p95_ms": float(np.percentile(serial_ms, 95)),
+            "ready_s": ready_s, "launches": launches,
+            "ctc_head_launches_per_request": head / len(reqs),
+            "max_box_diff_vs_cpu": worst,
+            "route": model.route}
+        print(f"path S {label}: ready in {ready_s:.1f} s; {len(reqs)} "
+              f"requests from {threads} clients in {wall:.3f} s "
+              f"({summary['requests_per_s']:.2f} requests/s); "
+              f"{len(serial_ms)} serial: p50 "
+              f"{summary['serial_p50_ms']:.1f} ms, p95 "
+              f"{summary['serial_p95_ms']:.1f} ms; launches {launches} "
+              f"({summary['ctc_head_launches_per_request']:.2f} CTC heads a "
+              f"request); every response agrees with the CPU port (boxes "
+              f"within {worst:.2e}); preview and zip answered")
+        return summary, launches
+    finally:
+        loop.call_soon_threadsafe(lambda: task["t"].cancel())
+        server.join(timeout=30)
+        assert not server.is_alive(), f"path S {label}: server still runs"
+        em.close()
+        engine_mod.reset_engine_manager()
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def phase_s(pages, tmp):
+    """Path S: the port's HTTP service (python -m onnxocr_tpu_torch.
+    service's app and server) on the card in three engine modes — the
+    default (staged bitmap wire behind both batchers), PIPELINE_MODE=
+    onecall, and onecall with WAVE_BATCH=1 (tiers warmed through
+    WARMUP_SRC_BUCKETS) — with the stand-in dictionary under an
+    ONNXOCR_TPU_ASSETS root and the untrained classifier; also the codec's
+    decode ms a page (PNG, JPEG) and the preview's encode ms. → (summary,
+    {"S-<mode>": launches})."""
+    from onnxocr_tpu_torch import ONNXPaddleOcr, config
+    from onnxocr_tpu_torch.service import routes
+    from onnxocr_tpu_torch.service.settings import settings
+    from onnxocr_tpu_torch.utils import imcodec
+    heldout = config.ASSETS.parent / "test_images_heldout"
+    root = os.path.join(tmp, "serve_assets")
+    os.makedirs(os.path.join(root, "ppocrv5"), exist_ok=True)
+    with open(os.path.join(root, "ppocrv5", "ppocrv5_dict.txt"), "w") as f:
+        f.write("".join(f"<{i}>\n" for i in range(18383)))
+    saved = {k: os.environ.get(k) for k in
+             ("ONNXOCR_TPU_ASSETS", "ONNXOCR_TPU_ALLOW_UNTRAINED")}
+    os.environ["ONNXOCR_TPU_ASSETS"] = root
+    os.environ["ONNXOCR_TPU_ALLOW_UNTRAINED"] = "1"
+    settings.RESULTS_DIR = os.path.join(tmp, "serve_results")
+    settings.DEVICE = "cuda"
+    blobs = {"png": {}, "jpeg": {}}
+    decode = {"png": [], "jpeg": []}
+    for n in SERVE_PAGES:
+        with open(os.path.join(heldout, f"{n}.png"), "rb") as f:
+            blobs["png"][n] = f.read()
+        blobs["jpeg"][n] = imcodec.imencode_jpeg(pages[n], 95)
+    for fmt in ("png", "jpeg"):
+        for n in SERVE_PAGES:
+            t = time.perf_counter()
+            img = imcodec.imdecode(blobs[fmt][n])
+            decode[fmt].append((time.perf_counter() - t) * 1e3)
+            if fmt == "png":
+                assert np.array_equal(img, pages[n])
+    cpu_models, refs = {}, {}
+
+    def cpu_ref(kwargs, fmt, name):
+        # the CPU runs pages one at a time: a lone page runs the wave
+        # coalescer's single-page step, so the waves flag is left out
+        kwargs = {k: v for k, v in kwargs.items() if k != "tpu_onecall_wave"}
+        key = json.dumps(kwargs, sort_keys=True)
+        if (key, fmt, name) not in refs:
+            if key not in cpu_models:
+                cpu_models[key] = ONNXPaddleOcr(device="cpu", **kwargs)
+            img = imcodec.imdecode(blobs[fmt][name])
+            refs[key, fmt, name] = cpu_models[key].ocr(img)[0]
+        return refs[key, fmt, name]
+
+    t_phase = time.perf_counter()
+    try:
+        modes, runs = {}, {}
+        for label, env in SERVE_MODES:
+            modes[label], runs[f"S-{label}"] = _serve_mode(
+                label, env, pages, blobs, cpu_ref)
+        page = pages[PAGES[0]]
+        res = next(v for k, v in refs.items() if k[1:] == ("png", PAGES[0]))
+        enc = []
+        for _ in range(5):
+            t = time.perf_counter()
+            routes._render_preview(page, [res])
+            enc.append((time.perf_counter() - t) * 1e3)
+    finally:
+        for m in cpu_models.values():
+            m.close()
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    summary = {"modes": modes, "seconds": time.perf_counter() - t_phase,
+               "decode_ms_per_page": {k: float(np.mean(v))
+                                      for k, v in decode.items()},
+               "page_shape": list(pages[PAGES[0]].shape),
+               "preview_encode_ms": float(np.median(enc))}
+    print(f"path S ran {summary['seconds']:.1f} s; codec: decode ms a page "
+          f"PNG {summary['decode_ms_per_page']['png']:.2f}, JPEG "
+          f"{summary['decode_ms_per_page']['jpeg']:.2f}; preview (draw + "
+          f"JPEG q85) {summary['preview_encode_ms']:.2f} ms")
+    return summary, runs
+
+
 # the two other families of the JAX package's model registry run on two
 # held-out pages that the CPU tests do not use
 FAMILY_PAGES = PAGES[1:3]
@@ -1453,14 +1805,17 @@ def main() -> int:
     from onnxocr_tpu_torch import ONNXPaddleOcr, config
     from onnxocr_tpu_torch.ops import native
     from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.utils import imcodec
     from onnxocr_tpu_torch.utils.png import read_bgr
 
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         t0 = time.perf_counter()
         host = pool.submit(native.build)
+        codec = pool.submit(native.build, imcodec.SOURCE, "libocrimcodec")
         print(f"kernels built in {build.build_all():.1f} s")
-        print(f"host library {host.result().name} built, "
-              f"{time.perf_counter() - t0:.1f} s from the start of the build")
+        print(f"host libraries {host.result().name}, {codec.result().name} "
+              f"built, {time.perf_counter() - t0:.1f} s from the start of "
+              f"the build")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if "Used" in line:
@@ -1614,6 +1969,8 @@ def main() -> int:
         runs["H"], host = phase_h(model, pages)
         families, family_runs = phase_f(family_kwargs(tmp, dict_path), pages)
         runs.update(family_runs)
+        served, serve_runs = phase_s(pages, tmp)
+        runs.update(serve_runs)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -1633,6 +1990,7 @@ def main() -> int:
     print(json.dumps({"batch": batch}))
     print(json.dumps({"wave": wave_summary, "host": host}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"serve": served}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,7 +62,11 @@ DEFAULTS = {
     "label_list": ["0", "180"],
     "cls_batch_num": 6,
     "cls_thresh": 0.9,
+    # save_crop_res writes each host crop as mg_crop_<n>.jpg under
+    # crop_res_save_dir (by default this package's output directory, as
+    # the JAX package's is its own)
     "save_crop_res": False,
+    "crop_res_save_dir": str(_REPO / "onnxocr_tpu_torch" / "output"),
     # engine knobs of the one-call and staged paths
     "tpu_det_bucket": 320,
     "tpu_rec_width_buckets": (640, 960, 1280),

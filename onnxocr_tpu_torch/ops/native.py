@@ -54,27 +54,28 @@ _SIGNATURES = {
 }
 
 
-def target() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() +
+def target(source: Path = SOURCE, stem: str = "libocrhost") -> Path:
+    digest = hashlib.sha1(source.read_bytes() +
                           " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"libocrhost-{digest}.so"
+    return BUILD_DIR / f"{stem}-{digest}.so"
 
 
-def build() -> Path:
-    """Build the library unless it is built already; → its path."""
-    out = target()
+def build(source: Path = SOURCE, stem: str = "libocrhost") -> Path:
+    """Build a host library (this module's by default; utils/imcodec.py
+    builds its codec here too) unless it is built already; → its path."""
+    out = target(source, stem)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     try:
         proc = subprocess.run(
-            ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE), "-lm"],
+            ["g++", *CXX_FLAGS, "-o", str(tmp), str(source), "-lm"],
             capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"building {SOURCE.name} with g++ failed: {e}")
+        raise RuntimeError(f"building {source.name} with g++ failed: {e}")
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE.name} (rc "
+        raise RuntimeError(f"g++ failed for {source.name} (rc "
                            f"{proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out

@@ -27,6 +27,12 @@ onnxocr_tpu/pipeline/system.py, routed as the JAX package routes a page
   (det_pre.prepare_det_input, which zero-pads a tiny page as the
   reference does) → DBNet → the map route's host postprocess.
 
+With `save_crop_res` every page takes the host crops (as in the JAX
+package: the crops it writes are the host's), and each call writes its
+crops, after the classifier's turns, as `mg_crop_<n>.jpg` JPEGs at quality
+95 (cv2.imwrite's bytes, utils/imcodec.py) under `crop_res_save_dir`, n
+counting across calls and threads.
+
 cls + rec is `run_boxes_fused` (one fused pass per width bucket) or, with
 `tpu_fused_cls_rec` off, the classifier's and recognizer's `run_boxes`.
 Poly boxes crop through their min-area quad. With
@@ -45,6 +51,8 @@ wave coalescer's.
 """
 from __future__ import annotations
 
+import os
+import threading
 from typing import List
 
 import numpy as np
@@ -52,6 +60,7 @@ import torch
 
 from .. import config
 from ..ops import db_post, det_pre, geometry, resize_dev
+from ..utils import imcodec
 from ..utils.image import get_minarea_rect_crop, get_rotate_crop_image, \
     minarea_quad
 from .classifier import TextClassifier
@@ -76,7 +85,8 @@ def resolve_device(device) -> torch.device:
 def route_of(args) -> str:
     """The route a page of normal size takes: 'host_crops', 'onecall',
     'bitmap', 'device', 'map' or 'host' (the host det input)."""
-    if getattr(args, "tpu_crop_backend", "device") != "device":
+    if getattr(args, "tpu_crop_backend", "device") != "device" or \
+            args.save_crop_res:
         return "host_crops"
     fused = bool(args.tpu_fused_cls_rec)
     quad = args.det_box_type == "quad"
@@ -98,23 +108,14 @@ def route_of(args) -> str:
     return "host"
 
 
-def _unported(args) -> List[str]:
-    """Settings whose code path is not ported yet: the crop files of
-    save_crop_res (a JPEG encoder without cv2)."""
-    if args.save_crop_res:
-        return ["save_crop_res=True (writes the host crops as JPEG files)"]
-    return []
-
-
 class TextSystem:
     def __init__(self, args, device="cuda"):
-        missing = _unported(args)
-        if missing:
-            raise NotImplementedError("not ported yet: " + "; ".join(missing))
         self.args = args
         self.device = resolve_device(device)
         self.use_angle_cls = args.use_angle_cls
         self.drop_score = args.drop_score
+        self.crop_image_res_index = 0
+        self._crop_res_lock = threading.Lock()
         self.text_detector = TextDetector(args, self.device)
         # the checkpoint calibration has set the det flags by now
         self.route = route_of(args)
@@ -142,11 +143,28 @@ class TextSystem:
 
     def close(self):
         """Stop the cross-request batchers' and the wave coalescer's
-        threads, if any."""
+        threads, if any, and those of forwards wrapped in a
+        runtime.batcher.BatchedForward."""
+        forwards = [self.text_recognizer.forward]
+        if self.use_angle_cls:
+            forwards.append(self.text_classifier.forward)
         for b in (self.text_detector._page_batcher,
-                  self.text_recognizer._crop_batcher, self._onecall):
-            if b is not None:
+                  self.text_recognizer._crop_batcher, self._onecall,
+                  *forwards):
+            if b is not None and hasattr(b, "close"):
                 b.close()
+
+    def draw_crop_rec_res(self, output_dir, img_crop_list, rec_res):
+        """Write the crops as mg_crop_<n>.jpg, n counting on from the last
+        call's crops under a lock (the reference's counter is unlocked)."""
+        os.makedirs(output_dir, exist_ok=True)
+        with self._crop_res_lock:
+            base = self.crop_image_res_index
+            self.crop_image_res_index += len(img_crop_list)
+        for bno, crop in enumerate(img_crop_list):
+            with open(os.path.join(output_dir, f"mg_crop_{bno + base}.jpg"),
+                      "wb") as f:
+                f.write(imcodec.imencode_jpeg(crop, 95))
 
     def _use_cls(self, cls: bool) -> bool:
         return bool(self.use_angle_cls and cls and
@@ -296,7 +314,11 @@ class TextSystem:
         crops = [crop(img, np.array(box, copy=True)) for box in dt_boxes]
         if self.use_angle_cls and cls:
             crops, _ = self.text_classifier(crops)
-        return dt_boxes, self.text_recognizer(crops)
+        rec_res = self.text_recognizer(crops)
+        if self.args.save_crop_res:
+            self.draw_crop_rec_res(self.args.crop_res_save_dir, crops,
+                                   rec_res)
+        return dt_boxes, rec_res
 
     def __call__(self, img, cls: bool = True):
         tiny = img.shape[0] + img.shape[1] < 64

@@ -1,6 +1,5 @@
 """Cross-request batching in front of one card. Counterpart of
-onnxocr_tpu/runtime/batcher.py (the batchers of the default pipeline; its
-`BatchedForward`, the engine's opt-in MICRO_BATCH, is not ported).
+onnxocr_tpu/runtime/batcher.py.
 
 Concurrent `ocr()` calls from several threads hand their device work to a
 batcher thread, which waits up to `max_wait_ms` for more, runs one device
@@ -12,7 +11,9 @@ call for all of them and hands each caller its rows back:
   bitmaps come down as one copy, the prob maps stay on the device; the
   maps wire; the boxes mode's device DB extraction);
 * `RecCropBatcher`: the pages' crop chunks as one multi-page fused pass
-  (pipeline/fused.py `call_multi_scored` / `call_multi`).
+  (pipeline/fused.py `call_multi_scored` / `call_multi`);
+* `BatchedForward`: a cls or rec forward behind a `MicroBatcher` (the
+  serving engine's opt-in MICRO_BATCH), concurrent calls' rows as one.
 
 Both keep the JAX package's grouping, ladders and padding, so the rows and
 the decode stride are the reference's. A failure in a batch is raised in
@@ -59,7 +60,9 @@ def _wait(work: _Work):
 
 def _tree_map(fn, tree, *rest):
     """fn over the leaves of nested dicts / tuples / lists, zipped with the
-    leaves of `rest`, which share tree's structure."""
+    leaves of `rest`, which share tree's structure; None is no leaf."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
@@ -70,6 +73,8 @@ def _tree_map(fn, tree, *rest):
 
 def _flatten(tree):
     """→ (leaves, a hashable description of the structure)."""
+    if tree is None:
+        return [], "none"
     if isinstance(tree, dict):
         parts = [_flatten(v) for v in tree.values()]
         return [x for p in parts for x in p[0]], \
@@ -565,3 +570,29 @@ class RecCropBatcher:
 def _stack_pages(images: Sequence[torch.Tensor]) -> torch.Tensor:
     """(H, W, 3) pages on the device → (B, H, W, 3), copied on the device."""
     return torch.stack(list(images))
+
+
+class BatchedForward:
+    """A forward (the recognizer's `RecForward` or the classifier's
+    `ClsForward`) behind a MicroBatcher: concurrent calls' positional
+    arguments (the crops and, for the rec forward, the per-row token
+    counts, or None) are stacked along the row axis and run as one call;
+    each caller gets its rows of the outputs, left on the device as the
+    forward returns them. Other attributes are the forward's."""
+
+    def __init__(self, forward, max_batch: int = 64,
+                 max_wait_ms: float = 4.0):
+        self.forward = forward
+        self.batcher = MicroBatcher(lambda args: forward(*args),
+                                    max_batch=max_batch,
+                                    max_wait_ms=max_wait_ms,
+                                    to_host=lambda out: out)
+
+    def __getattr__(self, name):
+        return getattr(self.forward, name)
+
+    def __call__(self, *args):
+        return self.batcher.submit(tuple(args))
+
+    def close(self):
+        self.batcher.close()

@@ -18,6 +18,11 @@ cv2's pixels (the machine with the GPU has no cv2).
   float32 steps this twin does not follow; the double one it takes rounds
   to another float32 on a few pixels in 10^5, which then differ by one.
 * `rotate_180`: `cv2.rotate(img, cv2.ROTATE_180)`.
+* `polylines2`: `cv2.polylines(img, [pts], True, color, 2)` (LINE_8) as
+  cv2 5.0 draws it: each side clipped in whole pixels to the image grown
+  by 2, a quadrilateral one pixel either side of it in 16.16 fixed point
+  (outlined by cv2's fixed-point line, clipped in fixed point, and filled
+  by its convex scanline fill), and a radius-1 disc at its end.
 """
 from __future__ import annotations
 
@@ -194,3 +199,182 @@ def warp_perspective_cubic(img: np.ndarray, M: np.ndarray,
 def rotate_180(img: np.ndarray) -> np.ndarray:
     """cv2.rotate(img, cv2.ROTATE_180)."""
     return np.ascontiguousarray(np.asarray(img)[::-1, ::-1])
+
+
+# ------------------------------------------------------- polylines
+_XY_SHIFT = 16
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """cv2's clipLine on a w x h (fixed-point) frame → the clipped ends, or
+    None when the line misses the frame."""
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return None if (c1 | c2) else (x1, y1, x2, y2)
+
+
+def _put(img, xs, ys, color):
+    keep = (xs >= 0) & (xs < img.shape[1]) & (ys >= 0) & (ys < img.shape[0])
+    img[ys[keep], xs[keep]] = color
+
+
+def _line_fixed(img, p1, p2, color):
+    """cv2's Line2: an 8-connected line between two 16.16 fixed-point
+    points."""
+    h, w = img.shape[:2]
+    clipped = _clip_line(w << _XY_SHIFT, h << _XY_SHIFT, *p1, *p2)
+    if clipped is None:
+        return
+    x1, y1, x2, y2 = clipped
+    dx, dy = x2 - x1, y2 - y1
+    ax, ay = abs(dx), abs(dy)
+    if ax > ay:
+        if dx < 0:                     # swap the ends
+            x1, y1, x2, y2 = x2, y2, x1, y1
+            dy = -dy
+        step = _div_trunc(dy << _XY_SHIFT, ax | 1)
+        count = (x2 - x1) >> _XY_SHIFT
+    else:
+        if dy < 0:
+            x1, y1, x2, y2 = x2, y2, x1, y1
+            dx = -dx
+        step = _div_trunc(dx << _XY_SHIFT, ay | 1)
+        count = (y2 - y1) >> _XY_SHIFT
+    x1 += _XY_ONE >> 1
+    y1 += _XY_ONE >> 1
+    _put(img, np.array([(x2 + (_XY_ONE >> 1)) >> _XY_SHIFT]),
+         np.array([(y2 + (_XY_ONE >> 1)) >> _XY_SHIFT]), color)
+    k = np.arange(count + 1, dtype=np.int64) if count >= 0 else \
+        np.zeros(0, np.int64)
+    if ax > ay:
+        _put(img, (x1 >> _XY_SHIFT) + k, (y1 + k * step) >> _XY_SHIFT, color)
+    else:
+        _put(img, (x1 + k * step) >> _XY_SHIFT, (y1 >> _XY_SHIFT) + k, color)
+
+
+def _div_trunc(a: int, b: int) -> int:
+    """C's integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _fill_convex(img, pts, color):
+    """cv2's FillConvexPoly (LINE_8) of 16.16 fixed-point vertices."""
+    h, w = img.shape[:2]
+    n = len(pts)
+    delta = _XY_ONE >> 1
+    p0 = pts[-1]
+    for p in pts:
+        _line_fixed(img, p0, p, color)
+        p0 = p
+    xs = [p[0] for p in pts]
+    ys = [p[1] for p in pts]
+    imin = int(np.argmin(ys))
+    xmin, xmax = (min(xs) + delta) >> 16, (max(xs) + delta) >> 16
+    ymin, ymax = (min(ys) + delta) >> 16, (max(ys) + delta) >> 16
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return
+    ymax = min(ymax, h - 1)
+    edge = [{"idx": imin, "di": 1, "x": -_XY_ONE, "dx": 0, "ye": ymin},
+            {"idx": imin, "di": n - 1, "x": -_XY_ONE, "dx": 0, "ye": ymin}]
+    edges = n
+    y = ymin
+    while True:
+        for e in edge:
+            if y >= e["ye"]:
+                idx0 = e["idx"]
+                idx = (idx0 + e["di"]) % n
+                while True:
+                    edges -= 1
+                    if edges < 0:
+                        break
+                    ty = (pts[idx][1] + delta) >> 16
+                    if ty > y:
+                        xs_, xe = pts[idx0][0], pts[idx][0]
+                        e["ye"] = ty
+                        e["dx"] = _div_trunc((xe - xs_) * 2 + (ty - y),
+                                             2 * (ty - y))
+                        e["x"] = xs_
+                        e["idx"] = idx
+                        break
+                    idx0 = idx
+                    idx = (idx + e["di"]) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = (1, 0) if edge[0]["x"] > edge[1]["x"] else (0, 1)
+            x1 = (edge[left]["x"] + delta) >> 16
+            x2 = (edge[right]["x"] + delta) >> 16
+            if x2 >= 0 and x1 < w:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = color
+        edge[0]["x"] += edge[0]["dx"]
+        edge[1]["x"] += edge[1]["dx"]
+        y += 1
+        if y > ymax:
+            break
+
+
+def _disc1(img, cx: int, cy: int, color):
+    """cv2's filled Circle of radius 1: the centre row of 3, one above and
+    one below."""
+    _put(img, np.array([cx - 1, cx, cx + 1, cx, cx]),
+         np.array([cy, cy, cy, cy - 1, cy + 1]), color)
+
+
+def polylines2(img: np.ndarray, pts, color) -> np.ndarray:
+    """cv2.polylines(img, [pts], True, color, 2) in place (LINE_8,
+    thickness 2, integer vertices): each side a filled quadrilateral one
+    pixel either side of it, with a radius-1 disc at each vertex →
+    img."""
+    pts = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
+    color = np.asarray(color, img.dtype)
+    p0 = pts[-1]
+    h, w = img.shape[:2]
+    for p in pts:
+        # cv2 clips each side to the image grown by the thickness, in
+        # whole pixels, before it draws the side
+        seg = _clip_line(w + 4, h + 4, p0[0] + 2, p0[1] + 2, p[0] + 2,
+                         p[1] + 2)
+        if seg is None:
+            p0 = p
+            continue
+        seg = [v - 2 for v in seg]
+        x0, y0, x1, y1 = (v << 16 for v in seg)
+        dx, dy = (x0 - x1) / _XY_ONE, (y1 - y0) / _XY_ONE
+        r = dx * dx + dy * dy
+        if abs(r) > np.finfo(np.float64).eps:
+            r = _XY_ONE / np.sqrt(r)
+            ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))
+            _fill_convex(img, [(x0 + ox, y0 + oy), (x0 - ox, y0 - oy),
+                               (x1 - ox, y1 - oy), (x1 + ox, y1 + oy)],
+                         color)
+        _disc1(img, seg[2], seg[3], color)
+        p0 = p
+    return img

@@ -114,15 +114,23 @@ def test_slice_matches_jax(pair, pages, page, extra):
                                                 ref._fused.interp)
 
 
-# settings whose defaults the two packages do not share: none
-DEFAULT_EXCEPTIONS = set()
+# settings whose defaults the two packages do not share: the crop writer's
+# directory, each package's own output directory
+DEFAULT_EXCEPTIONS = {"crop_res_save_dir"}
 
 
 def test_defaults_match_jax():
     """Every setting the port reads defaults to the JAX package's value,
-    the pipeline included."""
+    the pipeline included; the crop writer writes into the port's own
+    package, as the JAX one writes into its own."""
+    from pathlib import Path
     from onnxocr_tpu import config as jconfig
     assert config.DEFAULTS["tpu_pipeline"] == "staged"
+    port_dir = Path(config.DEFAULTS["crop_res_save_dir"])
+    jax_dir = Path(jconfig.DEFAULTS["crop_res_save_dir"])
+    assert (port_dir.parent.name, port_dir.name) == ("onnxocr_tpu_torch",
+                                                     jax_dir.name)
+    assert port_dir.parent.parent == jax_dir.parent.parent
     for key, value in config.DEFAULTS.items():
         assert key in jconfig.DEFAULTS, key
         want = jconfig.DEFAULTS[key]
@@ -215,12 +223,16 @@ def test_default_device_is_cuda_and_never_falls_back(dict_path,
 
 
 def test_unported_settings_raise(dict_path):
-    """Only save_crop_res (the crop files, a JPEG encoder without cv2)
-    waits; the settings that waited for the host image operations and the
-    wave coalescer build."""
-    with pytest.raises(NotImplementedError, match="save_crop_res"):
-        ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
-                      save_crop_res=True)
+    """Only the text panel of sav2Img (a TrueType rasteriser) waits;
+    save_crop_res builds and takes the host crops, and the settings that
+    waited for the host image operations and the wave coalescer build."""
+    from onnxocr_tpu_torch.utils.draw import draw_ocr
+    with pytest.raises(NotImplementedError, match="sav2Img"):
+        draw_ocr(np.zeros((8, 8, 3), np.uint8), [], txts=[])
+    model = ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
+                          save_crop_res=True)
+    assert model.route == "host_crops"
+    model.close()
     for extra in ({"tpu_det_wire": "map", "tpu_det_input": "host"},
                   {"tpu_crop_backend": "host"},
                   {"tpu_pipeline": "onecall",

@@ -1788,6 +1788,387 @@ def phase_f(kwargs, pages):
     return summary, runs
 
 
+# ------------------------------------------------------------ graph export
+class _GraphBuilder:
+    """Nodes and initializers of one ONNX graph, encoded by the repo's test
+    encoder (tests/onnx_builder.py); every value gets a fresh name."""
+
+    def __init__(self):
+        sys.path.insert(0, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tests"))
+        import onnx_builder
+        self.ob = onnx_builder
+        self.nodes, self.inits, self.n = [], {}, 0
+
+    def _name(self, prefix):
+        self.n += 1
+        return f"{prefix}_{self.n}"
+
+    def const(self, arr, prefix="w"):
+        name = self._name(prefix)
+        self.inits[name] = np.array(arr)  # C order, 0-d kept 0-d
+        return name
+
+    def op(self, op_type, inputs, attrs=None, n_out=1):
+        outs = [self._name(op_type.lower()) for _ in range(n_out)]
+        self.nodes.append(self.ob.node_bytes(op_type, inputs, outs, attrs))
+        return outs[0] if n_out == 1 else outs
+
+    def model(self, inputs, outputs):
+        return self.ob.build_model(self.nodes, inputs, outputs, self.inits,
+                                   opset=11)
+
+
+def _f32(v):
+    return np.asarray(v, np.float32).reshape(())
+
+
+def _ex_conv(g, x, p, stride=(1, 1), groups=1):
+    """Conv from a tree leaf {w: HWIO, b?}: OIHW kernel, pads k // 2."""
+    w = np.asarray(p["w"], np.float32)
+    k = w.shape[0]
+    ins = [x, g.const(w.transpose(3, 2, 0, 1))]
+    if "b" in p:
+        ins.append(g.const(np.asarray(p["b"], np.float32)))
+    return g.op("Conv", ins, {"kernel_shape": [k, k], "pads": [k // 2] * 4,
+                              "strides": list(stride), "group": groups})
+
+
+def _ex_act(g, x, act):
+    if act == "relu":
+        return g.op("Relu", [x])
+    if act == "hswish":
+        return g.op("HardSwish", [x])
+    return x
+
+
+def _ex_bn(g, x, bn):
+    return g.op("BatchNormalization", [x] + [
+        g.const(np.asarray(bn[k], np.float32))
+        for k in ("scale", "bias", "mean", "var")])
+
+
+def _ex_convbn(g, x, p, stride=(1, 1), groups=1, act="none"):
+    """Conv followed by an unfolded BatchNormalization, as PaddleOCR's
+    exports write it (the executor folds the pair at load)."""
+    return _ex_act(g, _ex_bn(g, _ex_conv(g, x, p["conv"], stride, groups),
+                             p["bn"]), act)
+
+
+def _ex_se(g, x, p):
+    s = g.op("GlobalAveragePool", [x])
+    s = g.op("Relu", [_ex_conv(g, s, p["reduce"])])
+    s = g.op("HardSigmoid", [_ex_conv(g, s, p["expand"])],
+             {"alpha": 0.2, "beta": 0.5})
+    return g.op("Mul", [x, s])
+
+
+def _ex_mbv3(g, x, p, cfg_name, scale, taps=()):
+    """The MobileNetV3 backbone → the block inputs at `taps` + the last map."""
+    from onnxocr_tpu_torch.models import mobilenetv3 as mbv3
+    table, _ = mbv3.CONFIGS[cfg_name]
+    cin = p["stem"]["conv"]["w"].shape[-1]
+    x = _ex_convbn(g, x, p["stem"], (2, 2), act="hswish")
+    feats = []
+    for i, ((k, exp, cout, se, act, s), blk) in enumerate(
+            zip(mbv3.scaled_cfg(table, scale), p["blocks"])):
+        if i in taps:
+            feats.append(x)
+        y = _ex_convbn(g, x, blk["expand"], act=act)
+        y = _ex_convbn(g, y, blk["dw"], s, groups=exp, act=act)
+        if se:
+            y = _ex_se(g, y, blk["se"])
+        y = _ex_convbn(g, y, blk["project"])
+        if tuple(s) == (1, 1) and cin == cout:
+            y = g.op("Add", [y, x])
+        x, cin = y, cout
+    feats.append(_ex_convbn(g, x, p["last"], act="hswish"))
+    return feats
+
+
+def _ex_upsample(g, x, factor):
+    """Nearest Resize by `factor` (paddle2onnx's FPN form)."""
+    return g.op("Resize", [x, g.const(np.zeros(0, np.float32), "roi"),
+                           g.const(np.array([1, 1, factor, factor],
+                                            np.float32), "scales")],
+                {"mode": "nearest",
+                 "coordinate_transformation_mode": "asymmetric",
+                 "nearest_mode": "floor"})
+
+
+def _ex_conv_t(g, x, p):
+    """The DB head's 2x transposed conv: the tree's (2, 2, I, O) kernel,
+    flipped on both spatial axes, as ONNX's (I, O, 2, 2)."""
+    w = np.asarray(p["w"], np.float32)[::-1, ::-1].transpose(2, 3, 0, 1)
+    return g.op("ConvTranspose", [x, g.const(w),
+                                  g.const(np.asarray(p["b"], np.float32))],
+                {"kernel_shape": [2, 2], "strides": [2, 2]})
+
+
+def _ex_layer_norm(g, x, p, eps=1e-6):
+    """LayerNorm over the last axis as paddle2onnx's opset-11 graphs write
+    it: ReduceMean, Sub, Pow, ReduceMean, Add, Sqrt, Div, Mul, Add."""
+    mean = g.op("ReduceMean", [x], {"axes": [-1], "keepdims": 1})
+    d = g.op("Sub", [x, mean])
+    var = g.op("ReduceMean", [g.op("Pow", [d, g.const(_f32(2.0), "c")])],
+               {"axes": [-1], "keepdims": 1})
+    std = g.op("Sqrt", [g.op("Add", [var, g.const(_f32(eps), "c")])])
+    y = g.op("Mul", [g.op("Div", [d, std]),
+                     g.const(np.asarray(p["scale"], np.float32))])
+    return g.op("Add", [y, g.const(np.asarray(p["bias"], np.float32))])
+
+
+def _ex_linear(g, x, p):
+    y = g.op("MatMul", [x, g.const(np.asarray(p["w"], np.float32))])
+    return g.op("Add", [y, g.const(np.asarray(p["b"], np.float32))])
+
+
+def _ex_gelu_tanh(g, x):
+    """0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x³))), jax.nn.gelu's
+    default form."""
+    c = lambda v: g.const(_f32(v), "c")  # noqa: E731
+    inner = g.op("Add", [x, g.op("Mul", [g.op("Pow", [x, c(3.0)]),
+                                         c(0.044715)])])
+    t = g.op("Tanh", [g.op("Mul", [inner, c(np.sqrt(2.0 / np.pi))])])
+    cdf = g.op("Mul", [g.op("Add", [t, c(1.0)]), c(0.5)])
+    return g.op("Mul", [x, cdf])
+
+
+def _ex_attention(g, x, p, dim):
+    heads = max(1, dim // 32)
+    qkv = _ex_linear(g, x, p["qkv"])
+    qkv = g.op("Reshape", [qkv, g.const(np.array(
+        [0, -1, 3, heads, dim // heads], np.int64), "shape")])
+    qkv = g.op("Transpose", [qkv], {"perm": [2, 0, 3, 1, 4]})
+    q, k, v = (g.op("Gather", [qkv, g.const(np.array(i, np.int64), "i")],
+                    {"axis": 0}) for i in range(3))
+    scores = g.op("MatMul", [q, g.op("Transpose", [k],
+                                     {"perm": [0, 1, 3, 2]})])
+    scores = g.op("Div", [scores, g.const(_f32(np.sqrt(dim // heads)),
+                                          "c")])
+    out = g.op("MatMul", [g.op("Softmax", [scores], {"axis": -1}), v])
+    out = g.op("Transpose", [out], {"perm": [0, 2, 1, 3]})
+    # (N, T, D) from the tensor's own shape: Shape → Gather → Concat
+    shape = g.op("Shape", [x])
+    nt = g.op("Gather", [shape, g.const(np.array([0, 1], np.int64), "i")],
+              {"axis": 0})
+    tgt = g.op("Concat", [nt, g.const(np.array([dim], np.int64), "d")],
+               {"axis": 0})
+    return _ex_linear(g, g.op("Reshape", [out, tgt]), p["proj"])
+
+
+def export_graph(kind: str, tree) -> bytes:
+    """A native tree ('det': the MobileNetV3-large DBNet; 'rec': the SVTR;
+    'cls': the MobileNetV3-small-0.35 classifier) as an ONNX graph in
+    PaddleOCR's export layout: NCHW, OIHW kernels, each Conv followed by an
+    unfolded BatchNormalization, HardSwish / HardSigmoid and SE through
+    GlobalAveragePool, nearest Resize in the FPN and ConvTranspose + Sigmoid
+    in the DB head; the SVTR pools its height with an AveragePool, writes
+    LayerNorm out op by op, GELU in its tanh form, and ends in Softmax. The
+    graph computes what the native model computes on the same tree (for
+    the DBNet on a canvas without padding)."""
+    g = _GraphBuilder()
+    if kind == "det":
+        from onnxocr_tpu_torch.models import dbnet
+        feats = _ex_mbv3(g, "x", tree["backbone"], "large", 0.5,
+                         dbnet._TAPS)
+        lat = [_ex_conv(g, f, p) for f, p in zip(feats, tree["lateral"])]
+        for i in range(len(lat) - 1, 0, -1):
+            lat[i - 1] = g.op("Add", [lat[i - 1], _ex_upsample(g, lat[i], 2)])
+        outs = [_ex_conv(g, f, p) for f, p in zip(lat, tree["smooth"])]
+        ups = [o if i == 0 else _ex_upsample(g, o, 2 ** i)
+               for i, o in enumerate(outs)]
+        h = tree["head"]
+        y = _ex_convbn(g, g.op("Concat", ups, {"axis": 1}), h["conv"],
+                       act="relu")
+        y = g.op("Relu", [_ex_bn(g, _ex_conv_t(g, y, h["up1"]), h["bn1"])])
+        out = g.op("Sigmoid", [_ex_conv_t(g, y, h["up2"])])
+    elif kind == "rec":
+        from onnxocr_tpu_torch.models import svtr
+        x = _ex_convbn(g, "x", tree["stem"], (2, 2), act="hswish")
+        height = 48 // 2
+        for (_, s), st in zip(svtr.STAGES, tree["stages"]):
+            cin = st["dw"]["conv"]["w"].shape[-1]
+            x = _ex_convbn(g, x, st["dw"], s, groups=cin, act="hswish")
+            x = _ex_convbn(g, x, st["pw"], act="hswish")
+            height //= s[0]
+        x = _ex_convbn(g, x, tree["neck"], act="hswish")
+        x = g.op("AveragePool", [x], {"kernel_shape": [height, 2],
+                                      "strides": [height, 2]})
+        x = g.op("Squeeze", [x], {"axes": [2]})
+        x = g.op("Transpose", [x], {"perm": [0, 2, 1]})
+        dim = tree["head"]["w"].shape[0]
+        for blk in tree["mixer"]:
+            x = g.op("Add", [x, _ex_attention(
+                g, _ex_layer_norm(g, x, blk["ln1"]), blk, dim)])
+            y = _ex_gelu_tanh(g, _ex_linear(
+                g, _ex_layer_norm(g, x, blk["ln2"]), blk["fc1"]))
+            x = g.op("Add", [x, _ex_linear(g, y, blk["fc2"])])
+        out = g.op("Softmax", [_ex_linear(g, x, tree["head"])], {"axis": 2})
+    elif kind == "cls":
+        f = _ex_mbv3(g, "x", tree["backbone"], "small", 0.35)[-1]
+        f = g.op("MaxPool", [f], {"kernel_shape": [2, 2], "strides": [2, 2]})
+        f = g.op("Flatten", [g.op("GlobalAveragePool", [f])], {"axis": 1})
+        out = g.op("Softmax", [_ex_linear(g, f, tree["fc"])], {"axis": 1})
+    else:
+        raise ValueError(f"unknown graph kind {kind!r}")
+    return g.model(["x"], [out])
+
+
+GRAPH_PAGES = (PAGES[0], PAGES[2])
+
+
+def _host_and_device_ms(fn, iters=10):
+    """(host ms a call: the time `fn` takes to return, its ops enqueued;
+    device ms a call by CUDA events) after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    end.record()
+    torch.cuda.synchronize()
+    return float(np.mean(host)), start.elapsed_time(end) / iters
+
+
+def phase_g(model, pages, tmp):
+    """Path G, the graph backend on the card (`tpu_backend='auto'` over a
+    user's det.onnx / rec.onnx / cls.onnx): the committed v5 det and rec
+    checkpoints and the seeded classifier exported as full-width ONNX
+    graphs (`export_graph`) into a model tree; the executor against the
+    native models on the same weights (det at a 960² canvas without
+    padding, rec probabilities at 16 × 640, max abs err ≤ 1e-4), the det
+    graph forward making no device→host copy; the lifted classifier equal
+    to its source tree; and four pipeline forms on two held-out pages,
+    each against the same port on the CPU, with their kernels counted:
+    C (graph det + graph rec + the lifted classifier, staged bitmap wire),
+    C′ (graph det + native rec: kernel 1), B (one-call: kernels 2–3) and A
+    (staged device-det, `pallas`: kernels 4–5) → (summary, launches by
+    form)."""
+    import torch
+    from onnxocr_tpu_torch import config
+    from onnxocr_tpu_torch.models import cls as cls_model
+    from onnxocr_tpu_torch.models import convert, lift
+    from onnxocr_tpu_torch.onnx import ir
+    from onnxocr_tpu_torch.onnx.executor import GraphExecutor
+    from onnxocr_tpu_torch.ops import resize_dev
+    from onnxocr_tpu_torch.pipeline.detector import GraphDBNet
+    from onnxocr_tpu_torch.utils.params_io import load_tree
+
+    t_start = time.perf_counter()
+    trees = {k: load_tree(config.find_asset(f"ppocrv5/{k}/native_params.npz"))
+             for k in ("det", "rec")}
+    trees["cls"] = cls_model.init_tree(0)
+    paths, nodes, folded, raw_nodes = {}, {}, {}, {}
+    for kind, tree in trees.items():
+        blob = export_graph(kind, tree)
+        d = os.path.join(tmp, "graph", kind)
+        os.makedirs(d, exist_ok=True)
+        paths[kind] = os.path.join(d, f"{kind}.onnx")
+        with open(paths[kind], "wb") as f:
+            f.write(blob)
+        ex = GraphExecutor(ir.parse_model(blob), device="cpu")
+        nodes[kind], folded[kind] = len(ex.nodes), ex.folded_bn
+        raw_nodes[kind] = len(ir.parse_model(blob).graph.nodes)
+        print(f"path G: {kind} graph {len(blob) / 2**20:.1f} MiB, "
+              f"{raw_nodes[kind]} nodes, {folded[kind]} BNs folded → "
+              f"{nodes[kind]} nodes run")
+    lifted = convert.flatten(lift.lift_cls(ir.load_model(paths["cls"])))
+    src = convert.flatten(trees["cls"])
+    assert set(lifted) == set(src) and all(
+        lifted[k].dtype == src[k].dtype and np.array_equal(lifted[k], src[k])
+        for k in src), "path G: lift_cls is not the exported tree"
+    print(f"path G: lift_cls of the exported classifier equals "
+          f"init_tree(0) on all {len(src)} leaves")
+
+    # the executor against the native models on the same weights
+    dev = torch.device("cuda")
+    det_graph = GraphDBNet(paths["det"], dev)
+    det_native = convert.build_dbnet(trees["det"], dev)
+    image, h, w = resize_dev.put_src_bucket(pages[GRAPH_PAGES[0]], dev)
+    x = resize_dev.resize_normalize_det(image, h, w, 960, 960, 960, 960)
+    x = x.permute(2, 0, 1)[None].contiguous()
+    with torch.inference_mode():
+        det_err = float((det_graph(x) - det_native(x)).abs().max())
+        rec_ex = GraphExecutor(paths["rec"], name="rec", device=dev)
+        rec_native = convert.build_svtr(trees["rec"], dev)
+        crops = torch.from_numpy(np.random.default_rng(7).uniform(
+            -1, 1, (16, 3, 48, 640)).astype(np.float32)).to(dev)
+        rec_err = float((rec_ex({"x": crops})[0] - torch.softmax(
+            rec_native(crops), -1)).abs().max())
+    print(f"path G: det graph vs native DBNet at 960², max abs err "
+          f"{det_err:.2e}; rec graph vs softmax(native SVTR) at 16 × 640, "
+          f"{rec_err:.2e}")
+    assert det_err <= 1e-4 and rec_err <= 1e-4, "path G: graph ≠ native"
+    with torch.inference_mode():
+        det_copies = device_counts(lambda: det_graph(x))
+    print(f"path G: a det graph forward puts {det_copies}")
+    assert det_copies["memcpys"] == 0, \
+        "path G: the det graph forward copies to or from the host"
+    with torch.inference_mode():
+        fwd = {}
+        for name, fn in (
+                ("det_graph", lambda: det_graph(x)),
+                ("det_native", lambda: det_native(x)),
+                ("rec_graph", lambda: rec_ex({"x": crops})),
+                ("rec_native", lambda: torch.softmax(rec_native(crops), -1))):
+            fwd[name + "_host_ms"], fwd[name + "_ms"] = \
+                _host_and_device_ms(fn)
+    print("path G forwards: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(fwd.items())))
+
+    # the pipeline forms, each against the same port on the CPU
+    v5_rec = config.find_asset("ppocrv5/rec/rec.onnx")
+    base = dict(det_model_dir=paths["det"], rec_model_dir=paths["rec"],
+                cls_model_dir=paths["cls"])
+    kernels = ("ctc_head_reduce", "label_moment_sums", "label_proj_extents",
+               "seg_sum_bands", "seg_min_bands")
+    forms = (
+        ("G-C", dict(base, use_angle_cls=True), True, ()),
+        ("G-C'", dict(base, rec_model_dir=v5_rec), False,
+         ("ctc_head_reduce",)),
+        ("G-B", dict(base, tpu_pipeline="onecall"), False,
+         ("label_moment_sums", "label_proj_extents")),
+        ("G-A", dict(base, use_angle_cls=True, tpu_det_postprocess="device",
+                     tpu_db_reduce="pallas"), True,
+         ("seg_sum_bands", "seg_min_bands")))
+    runs, page_ms, box_err = {}, {}, {}
+    for label, kw, cls, needs in forms:
+        gpu = model("cuda", **kw)
+        assert gpu.text_detector.backend == "graph"
+        assert gpu.text_recognizer.forward.backend == (
+            "native" if label == "G-C'" else "graph")
+        if cls:
+            assert gpu.text_classifier.forward.backend == "native"
+        times = []
+        results, launches = drive(gpu, pages, GRAPH_PAGES, cls, label, times)
+        for name in kernels:
+            assert (launches.get(name, 0) > 0) == (name in needs), \
+                f"path {label}: {name} launched {launches.get(name, 0)}"
+        cpu = model("cpu", **kw)
+        box_err[label] = max(_close_results(
+            results[name], cpu.ocr(pages[name], cls=cls)[0], label)
+            for name in GRAPH_PAGES)
+        print(f"path {label}: GPU and CPU agree on {len(GRAPH_PAGES)} pages "
+              f"(boxes within {box_err[label]:.1f} px)")
+        runs[label], page_ms[label] = launches, float(np.mean(times))
+        gpu.close()
+    summary = {"nodes": nodes, "raw_nodes": raw_nodes, "folded_bn": folded,
+               "det_max_abs_err": det_err, "rec_max_abs_err": rec_err,
+               "det_forward_device_ops": det_copies, "forward_ms": fwd,
+               "page_ms": page_ms, "box_err_px": box_err,
+               "launches": runs,
+               "seconds": time.perf_counter() - t_start}
+    print(f"phase G {summary['seconds']:.1f} s")
+    return summary, runs
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -1971,6 +2352,8 @@ def main() -> int:
         runs.update(family_runs)
         served, serve_runs = phase_s(pages, tmp)
         runs.update(serve_runs)
+        graph, graph_runs = phase_g(model, pages, tmp)
+        runs.update(graph_runs)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -1991,6 +2374,7 @@ def main() -> int:
     print(json.dumps({"wave": wave_summary, "host": host}))
     print(json.dumps({"families": families}))
     print(json.dumps({"serve": served}))
+    print(json.dumps({"graph": graph}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 """Config registry for the PyTorch port.
 
 Own copy of the flag table of onnxocr_tpu/config.py (the reference kwargs
-surface of ONNXPaddleOcr, plus the engine's `tpu_*` knobs that the ported
-paths read). Unknown keys are accepted and stored, as in the reference.
+surface of ONNXPaddleOcr, plus the engine's `tpu_*` knobs). Every flag of
+the JAX package's table is in `DEFAULTS`, or in `INERT_FLAGS` (read by no
+path of either package), and `check_flags` refuses the values the port
+does not run (`REFUSED_VALUES`) instead of dropping them. Unknown keys are
+accepted and stored, as in the reference.
 Every default is the JAX package's (tests/test_torch_onecall.py
 `test_defaults_match_jax`): `ONNXPaddleOcr()` runs the staged pipeline's
 bitmap wire with the host DB postprocess, as the JAX package does.
@@ -33,8 +36,8 @@ def find_asset(rel_path: str) -> str:
     return os.path.join(str(ASSETS), rel_path)
 
 
-# flag → default for every flag the ported path reads (reference names and
-# defaults); other reference flags are accepted and ignored
+# flag → default for every flag a ported path reads (reference names and
+# defaults)
 DEFAULTS = {
     # text detector
     "det_model_dir": find_asset("ppocrv5/det/det.onnx"),
@@ -107,6 +110,21 @@ DEFAULTS = {
     "tpu_det_axis_snap": 0.0,
     "tpu_db_reduce": "pallas2",
     "tpu_allow_untrained": False,
+    # each stage's backend (pipeline/backends.resolve_backend): 'auto' runs
+    # a det / rec .onnx that exists as a graph (onnx/executor.py) and lifts
+    # a cls.onnx into the native classifier, else the native checkpoint;
+    # 'native' never runs a graph; 'graph' always does
+    "tpu_backend": "auto",
+    # compute dtype of the native models, and the det forward's override
+    # ('' follows tpu_dtype): only 'float32' runs; 'bfloat16' is refused
+    # (REFUSED_VALUES)
+    "tpu_dtype": "float32",
+    "tpu_det_dtype": "",
+    # the source page's upload wire in the JAX package ('flat': content
+    # only, edge-padded on the device; 'padded'; 'auto'); a layout choice
+    # only (LAYOUT_ONLY): the port uploads the edge-padded canvas whatever
+    # its value
+    "tpu_src_upload": "auto",
     "tpu_det_extract_window": 320,
     "tpu_onecall_rec_width": 640,
     "tpu_onecall_max_boxes": 48,
@@ -136,6 +154,53 @@ DEFAULTS = {
     "tpu_rec_microbatch": False,
     "tpu_microbatch_wait_ms": 8.0,
 }
+
+
+# The reference's kwargs surface that no path of either package reads (the
+# EAST / SAST / PSE / FCE / SR / e2e / multi-process groups, the Paddle
+# inference engine's settings and output dirs): accepted and stored when
+# passed, as by the JAX package, and read by nothing.
+INERT_FLAGS = frozenset((
+    "use_gpu", "use_xpu", "use_npu", "ir_optim", "use_tensorrt",
+    "min_subgraph_size", "precision", "gpu_mem", "gpu_id", "image_dir",
+    "page_num", "det_algorithm", "max_batch_size",
+    "det_east_score_thresh", "det_east_cover_thresh", "det_east_nms_thresh",
+    "det_sast_score_thresh", "det_sast_nms_thresh", "det_pse_thresh",
+    "det_pse_box_thresh", "det_pse_min_area", "det_pse_scale", "scales",
+    "alpha", "beta", "fourier_degree", "rec_image_inverse", "rec_batch_num",
+    "max_text_length", "vis_font_path", "e2e_algorithm", "e2e_model_dir",
+    "e2e_limit_side_len", "e2e_limit_type", "e2e_pgnet_score_thresh",
+    "e2e_char_dict_path", "e2e_pgnet_valid_set", "e2e_pgnet_mode",
+    "enable_mkldnn", "cpu_threads", "use_pdserving", "warmup",
+    "sr_model_dir", "sr_image_shape", "sr_batch_num", "draw_img_save_dir",
+    "use_mp", "total_process_num", "process_id", "benchmark",
+    "save_log_path", "show_log", "use_onnx"))
+
+# flags whose every value gives the same results, with the reason
+LAYOUT_ONLY = {
+    "tpu_src_upload": "the JAX package's flat upload rebuilds the "
+                      "edge-padded canvas on the device, bit-identical to "
+                      "the host pad (resize_dev.put_src_bucket), which the "
+                      "port uploads for every value",
+}
+
+# flag → {refused value: reason}: values the JAX package runs and the port
+# does not yet; check_flags raises NotImplementedError naming the flag
+REFUSED_VALUES = {
+    "tpu_dtype": {"bfloat16": "the native models compute in float32 only; "
+                              "bfloat16 is not ported"},
+    "tpu_det_dtype": {"bfloat16": "the DBNet computes in float32 only; "
+                                  "bfloat16 is not ported"},
+}
+
+
+def check_flags(params) -> None:
+    """Raise NotImplementedError for a flag set to a value the port does
+    not run (REFUSED_VALUES), rather than running something else."""
+    for key, refused in REFUSED_VALUES.items():
+        value = getattr(params, key, None)
+        if value in refused:
+            raise NotImplementedError(f"{key}={value!r}: {refused[value]}")
 
 
 def make_params() -> SimpleNamespace:

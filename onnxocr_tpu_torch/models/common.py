@@ -8,9 +8,19 @@ hardsigmoid is clip(0.2x + 0.5) (ONNX's default, not torch's x/6 + 0.5),
 batch norm is x·inv + (bias − mean·inv) with eps 1e-5, convolutions pad
 k//2 on both sides, and the 2x transposed conv takes the JAX kernel flipped
 on both spatial axes (models/convert.py does the flip).
+
+The seeded init helpers (`as_rng` … `linear_init`) build numpy parameter
+trees in the JAX layout (HWIO conv kernels, (in, out) linear weights) from
+the same numpy streams as the JAX package's (`default_rng`, `spawn` in the
+same order), so that every `init` of the port gives the JAX package's tree
+leaf for leaf.
 """
 from __future__ import annotations
 
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -24,6 +34,54 @@ def make_divisible(v: float, divisor: int = 8, min_value=None) -> int:
     if new_v < 0.9 * v:
         new_v += divisor
     return new_v
+
+
+# ------------------------------------------------------------------ init
+def as_rng(rng) -> np.random.Generator:
+    """An int seed or a numpy Generator → a Generator."""
+    if isinstance(rng, np.random.Generator):
+        return rng
+    return np.random.default_rng(int(rng))
+
+
+def split_rng(rng, n: int):
+    return as_rng(rng).spawn(n)
+
+
+def conv_init(rng, k: int, cin: int, cout: int, groups: int = 1,
+              bias: bool = False) -> Dict[str, Any]:
+    """He-normal (k, k, cin / groups, cout) kernel, zero bias."""
+    std = math.sqrt(2.0 / (k * k * cin // groups))
+    p = {"w": as_rng(rng).normal(0.0, std, (k, k, cin // groups, cout))
+         .astype(np.float32)}
+    if bias:
+        p["b"] = np.zeros((cout,), np.float32)
+    return p
+
+
+def bn_init(c: int) -> Dict[str, Any]:
+    return {"scale": np.ones((c,), np.float32),
+            "bias": np.zeros((c,), np.float32),
+            "mean": np.zeros((c,), np.float32),
+            "var": np.ones((c,), np.float32)}
+
+
+def convbn_init(rng, k: int, cin: int, cout: int, groups: int = 1):
+    return {"conv": conv_init(rng, k, cin, cout, groups), "bn": bn_init(cout)}
+
+
+def se_init(rng, c: int, mid: Optional[int] = None) -> Dict[str, Any]:
+    mid = c // 4 if mid is None else mid
+    r1, r2 = split_rng(rng, 2)
+    return {"reduce": conv_init(r1, 1, c, mid, bias=True),
+            "expand": conv_init(r2, 1, mid, c, bias=True)}
+
+
+def linear_init(rng, cin: int, cout: int) -> Dict[str, Any]:
+    """normal(0, sqrt(1 / cin)) (cin, cout) weight, zero bias."""
+    return {"w": as_rng(rng).normal(0.0, math.sqrt(1.0 / cin), (cin, cout))
+            .astype(np.float32),
+            "b": np.zeros((cout,), np.float32)}
 
 
 def hardswish(x):

@@ -12,6 +12,9 @@ package.
 """
 from __future__ import annotations
 
+from typing import Any, Dict
+
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -25,6 +28,32 @@ STAGES = (
     (256, (3, 1)),
 )
 HIDDEN = 256
+
+
+def init(rng, vocab_size: int) -> Dict[str, Any]:
+    """Seeded tree of the JAX package's `crnn.init`: both BiLSTMs draw from
+    one generator, normal(0, 1/sqrt(hidden)) weights, zero biases."""
+    keys = iter(cm.split_rng(rng, 4 + len(STAGES) + 4 * 2 + 2))
+    p: Dict[str, Any] = {"stem": cm.convbn_init(next(keys), 3, 3, 32),
+                         "stages": []}
+    cin = 32
+    for cout, _s in STAGES:
+        p["stages"].append(cm.convbn_init(next(keys), 3, cin, cout))
+        cin = cout
+    gen = cm.as_rng(next(keys))
+
+    def lstm(in_dim):
+        std = 1.0 / np.sqrt(HIDDEN)
+        return {"wi": gen.normal(0, std, (2, 4 * HIDDEN, in_dim))
+                .astype(np.float32),
+                "wh": gen.normal(0, std, (2, 4 * HIDDEN, HIDDEN))
+                .astype(np.float32),
+                "b": np.zeros((2, 4 * HIDDEN), np.float32)}
+
+    p["lstm1"] = lstm(cin)
+    p["lstm2"] = lstm(2 * HIDDEN)
+    p["head"] = cm.linear_init(next(keys), 2 * HIDDEN, vocab_size)
+    return p
 
 
 class CRNN(nn.Module):

@@ -4,8 +4,9 @@ binarization head. Counterpart of onnxocr_tpu/models/dbnet.py.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -15,6 +16,36 @@ from . import resnet
 
 # backbone taps at 1/4, 1/8, 1/16; the post-`last` map is 1/32
 _TAPS = (3, 6, 12)
+
+
+def init(rng, scale: float = 0.5, inner: int = 96, out: int = 24,
+         backbone_arch: str = "mbv3") -> Dict[str, Any]:
+    """Seeded tree of the JAX package's `dbnet.init` (16 generators: the
+    backbone, 5 laterals, smooth convs from the 7th, the head's conv and
+    two transposed convs)."""
+    keys = cm.split_rng(rng, 16)
+    if backbone_arch == "resnet18":
+        backbone = resnet.init(keys[0])
+        in_chs = list(resnet.STAGE_CH)
+    else:
+        backbone = mbv3.init(keys[0], "large", scale)
+        cfg = mbv3.scaled_cfg(mbv3.LARGE_CFG, scale)
+        in_chs = [cfg[i - 1][2] for i in _TAPS] + \
+            [backbone["last"]["conv"]["w"].shape[-1]]
+    p: Dict[str, Any] = {"backbone": backbone}
+    p["lateral"] = [cm.conv_init(keys[1 + i], 1, c, inner)
+                    for i, c in enumerate(in_chs)]
+    p["smooth"] = [cm.conv_init(keys[6 + i], 3, inner, out)
+                   for i in range(4)]
+    p["head"] = {
+        "conv": cm.convbn_init(keys[11], 3, out * 4, out),
+        "up1": {"w": cm.as_rng(keys[12]).normal(0, 0.1, (2, 2, out, out))
+                .astype(np.float32), "b": np.zeros((out,), np.float32)},
+        "bn1": cm.bn_init(out),
+        "up2": {"w": cm.as_rng(keys[13]).normal(0, 0.1, (2, 2, out, 1))
+                .astype(np.float32), "b": np.zeros((1,), np.float32)},
+    }
+    return p
 
 
 class DBNet(nn.Module):

@@ -6,7 +6,7 @@ classifier's.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch.nn as nn
 
@@ -51,6 +51,32 @@ CONFIGS = {"small": (SMALL_CFG, 576), "large": (LARGE_CFG, 960)}
 def scaled_cfg(cfg, scale: float):
     return [(k, cm.make_divisible(exp * scale), cm.make_divisible(c * scale),
              se, act, s) for k, exp, c, se, act, s in cfg]
+
+
+def init(rng, cfg_name: str = "small", scale: float = 0.35,
+         in_ch: int = 3) -> Dict[str, Any]:
+    """Seeded tree of the JAX package's `mobilenetv3.init`: one generator a
+    layer, spawned in layer order (a block without SE takes three of its
+    four; the last conv takes the final one)."""
+    table, last_ch = CONFIGS[cfg_name]
+    cfg = scaled_cfg(table, scale)
+    stem_ch = cm.make_divisible(16 * scale)
+    keys = cm.split_rng(rng, 4 * len(cfg) + 2)
+    ki = iter(keys)
+    params: Dict[str, Any] = {
+        "stem": cm.convbn_init(next(ki), 3, in_ch, stem_ch), "blocks": []}
+    cin = stem_ch
+    for k, exp, cout, se, _act, _s in cfg:
+        blk = {"expand": cm.convbn_init(next(ki), 1, cin, exp),
+               "dw": cm.convbn_init(next(ki), k, exp, exp, groups=exp),
+               "project": cm.convbn_init(next(ki), 1, exp, cout)}
+        if se:
+            blk["se"] = cm.se_init(next(ki), exp)
+        params["blocks"].append(blk)
+        cin = cout
+    params["last"] = cm.convbn_init(keys[-1], 1, cin,
+                                    cm.make_divisible(last_ch * scale))
+    return params
 
 
 class Block(nn.Module):

@@ -10,8 +10,9 @@ count changes. Module names mirror the JAX tree (`stem/#i/...`,
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Any, Dict, List
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -20,6 +21,31 @@ from . import common as cm
 
 DEPTHS = (2, 2, 2, 2)
 STAGE_CH = (64, 128, 256, 512)
+
+
+def init(rng, in_ch: int = 3) -> Dict[str, Any]:
+    """Seeded tree of the JAX package's `resnet.init(rng, 18)`. SkipInit:
+    each block's `conv2` BN scale is zero, so every block starts as the
+    identity."""
+    keys = iter(cm.split_rng(rng, 3 + 2 * sum(DEPTHS) * 2 + 8))
+    p: Dict[str, Any] = {
+        "stem": [cm.convbn_init(next(keys), 3, in_ch, 32),
+                 cm.convbn_init(next(keys), 3, 32, 32),
+                 cm.convbn_init(next(keys), 3, 32, 64)],
+        "stages": []}
+    cin = 64
+    for n_blocks, cout in zip(DEPTHS, STAGE_CH):
+        stage = []
+        for _ in range(n_blocks):
+            blk = {"conv1": cm.convbn_init(next(keys), 3, cin, cout),
+                   "conv2": cm.convbn_init(next(keys), 3, cout, cout)}
+            blk["conv2"]["bn"]["scale"] = np.zeros((cout,), np.float32)
+            if cin != cout:
+                blk["short"] = cm.convbn_init(next(keys), 1, cin, cout)
+            stage.append(blk)
+            cin = cout
+        p["stages"].append(stage)
+    return p
 
 
 class BasicBlock(nn.Module):

@@ -10,8 +10,9 @@ default).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -22,6 +23,39 @@ from ..ops.kernels import ctc_head
 # (out_ch, (stride_h, stride_w)) depthwise-separable stages after the stem
 STAGES = ((64, (2, 1)), (64, (1, 1)), (128, (2, 2)), (128, (1, 1)),
           (256, (2, 1)), (256, (1, 1)))
+
+
+def init(rng, vocab_size: int, dim: int = 192, depth: int = 2,
+         width_mult: float = 1.0, mlp_ratio: int = 2) -> Dict[str, Any]:
+    """Seeded tree of the JAX package's `svtr.init` (its defaults: dim 192,
+    2 mixer blocks, MLP ratio 2)."""
+    keys = iter(cm.split_rng(rng, 8 + 2 * len(STAGES) + 6 * depth))
+
+    def ch(c):
+        return int(round(c * width_mult / 8) * 8) or 8
+
+    def ln():
+        return {"scale": np.ones((dim,), np.float32),
+                "bias": np.zeros((dim,), np.float32)}
+
+    p: Dict[str, Any] = {"stem": cm.convbn_init(next(keys), 3, 3, ch(32)),
+                         "stages": []}
+    cin = ch(32)
+    for cout, _s in STAGES:
+        p["stages"].append({
+            "dw": cm.convbn_init(next(keys), 3, cin, cin, groups=cin),
+            "pw": cm.convbn_init(next(keys), 1, cin, ch(cout))})
+        cin = ch(cout)
+    p["neck"] = cm.convbn_init(next(keys), 1, cin, dim)
+    p["mixer"] = [{"ln1": ln(), "qkv": cm.linear_init(next(keys), dim,
+                                                      3 * dim),
+                   "proj": cm.linear_init(next(keys), dim, dim),
+                   "ln2": ln(),
+                   "fc1": cm.linear_init(next(keys), dim, mlp_ratio * dim),
+                   "fc2": cm.linear_init(next(keys), mlp_ratio * dim, dim)}
+                  for _ in range(depth)]
+    p["head"] = cm.linear_init(next(keys), dim, vocab_size)
+    return p
 
 
 class Stage(nn.Module):

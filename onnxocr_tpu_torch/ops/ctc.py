@@ -1,7 +1,8 @@
 """CTC decoding: on-device argmax/max-prob reduce + host string assembly.
 
-Port of onnxocr_tpu/ops/ctc.py: `ctc_reduce_logits` is the plain form of the
-fused head (ops/kernels/ctc_head.py), `CTCLabelDecode` is a copy of the
+Port of onnxocr_tpu/ops/ctc.py: `ctc_reduce` reduces a rec graph's
+probabilities, `ctc_reduce_logits` is the plain form of the fused head
+(ops/kernels/ctc_head.py), `CTCLabelDecode` is a copy of the
 reference host decoder (rec_postprocess.py contract: blank at index 0,
 optional space appended, dedup then drop blank, mean confidence), and
 `ClsPostProcess` is the angle classifier's (label, score) postprocess.
@@ -13,6 +14,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+def ctc_reduce(probs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., V) probabilities (a rec graph's softmax output) → ((...)
+    first-index argmax int32, (...) max prob)."""
+    return torch.argmax(probs, dim=-1).to(torch.int32), \
+        torch.amax(probs, dim=-1)
 
 
 def ctc_reduce_logits(logits: torch.Tensor

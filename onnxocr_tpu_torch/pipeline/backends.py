@@ -1,10 +1,14 @@
-"""Native checkpoint loading and its load-time adjustments. Port of the
-parts of onnxocr_tpu/pipeline/backends.py the ported paths read:
-the architecture of a stage, the committed `native_params.npz` beside a
-stage's model path (or the family fallback), the det
-`calibration.json` sidecar, the CTC-head decode-support mask read from
-the committed `<dict>.trained_support.json` sidecar, and the angle
-classifier's weight resolution.
+"""Backend resolution and the native checkpoints' load-time adjustments.
+Port of onnxocr_tpu/pipeline/backends.py's `resolve_backend` and what it
+reads: the architecture of a stage, the ONNX graph a stage may run
+(`tpu_backend` 'graph', or 'auto' for a det / rec file that exists), the
+angle classifier lifted from its graph (models/lift.py), the committed
+`native_params.npz` beside a stage's model path (or the family fallback),
+the seeded untrained init under `tpu_allow_untrained`, the det
+`calibration.json` sidecar, and the CTC-head decode-support mask read
+from the committed `<dict>.trained_support.json` sidecar. The graph and
+native forwards themselves are the stages' (pipeline/detector.py,
+classifier.py, recognizer.py).
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import numpy as np
 
 from .. import config
 from ..models import cls as cls_model
+from ..models import crnn, dbnet, lift, svtr
+from ..onnx import ir
 from ..utils.params_io import load_tree
 
 
@@ -27,83 +33,132 @@ def pick_arch(kind: str, model_path: str, algorithm: str = "") -> str:
         if "CRNN" in (algorithm or "") or "server" in (model_path or ""):
             return "crnn"
         return "svtr"
-    return "resnet18" if "server" in (model_path or "") else "mbv3"
+    if kind == "det":
+        return "resnet18" if "server" in (model_path or "") else "mbv3"
+    return "mbv3"
+
+
+def _native_checkpoint(model_path: str, kind: str, arch: str
+                       ) -> Tuple[Optional[dict], str]:
+    """<dir of model_path>/native_params.npz, else for an mbv3 / svtr
+    det / rec stage the ppocrv5 family checkpoint of the stage (with a
+    warning) → (tree or None, the npz path loaded or '')."""
+    path = os.path.join(os.path.dirname(model_path), "native_params.npz")
+    if os.path.exists(path):
+        return load_tree(path), path
+    if kind in ("det", "rec") and arch in ("mbv3", "svtr"):
+        fb = config.find_asset(f"ppocrv5/{kind}/native_params.npz")
+        if os.path.exists(fb) and os.path.abspath(fb) != os.path.abspath(path):
+            warnings.warn(f"{kind}: no checkpoint at {path}; using the "
+                          f"ppocrv5 family checkpoint {fb}")
+            return load_tree(fb), fb
+    return None, ""
+
+
+def _untrained(kind: str, arch: str, vocab_size: int) -> dict:
+    """The seeded (seed 0) untrained tree of a stage, equal to the JAX
+    package's."""
+    if kind == "det":
+        return dbnet.init(0, backbone_arch=arch)
+    if kind == "cls":
+        return cls_model.init_tree(0)
+    if arch == "crnn":
+        return crnn.init(0, vocab_size)
+    return svtr.init(0, vocab_size)
+
+
+def _resolve(kind: str, model_path: str, requested: str, vocab_size: int,
+             arch: str, allow_untrained: bool):
+    """resolve_backend's branches → (backend, tree, arch, npz path loaded
+    or '')."""
+    allow_untrained = allow_untrained or \
+        os.environ.get("ONNXOCR_TPU_ALLOW_UNTRAINED", "") in ("1", "true")
+    have_file = bool(model_path) and os.path.exists(model_path)
+    if requested == "graph" or (requested == "auto" and have_file
+                                and kind != "cls"):
+        if not have_file:
+            raise FileNotFoundError(
+                f"{kind} model not found: {model_path}. Stage the .onnx "
+                "into onnxocr_tpu/assets/ (see tools/fetch_assets.py) or "
+                "use tpu_backend='native'.")
+        return "graph", None, arch, ""
+    tree, ckpt = None, ""
+    if have_file and kind == "cls":
+        try:
+            tree = lift.lift_cls(ir.load_model(model_path))
+        except ValueError:
+            # not a MobileNetV3-small-0.35 export: run the graph itself
+            return "graph", None, arch, ""
+    if tree is None and model_path:
+        tree, ckpt = _native_checkpoint(model_path, kind, arch)
+    if tree is None and kind == "det" and arch == "resnet18":
+        # no trained server-det checkpoint: the trained mobile detector
+        fb = config.find_asset("ppocrv5/det/native_params.npz")
+        if os.path.exists(fb):
+            warnings.warn("det: no server (resnet18) checkpoint; falling "
+                          "back to the trained mbv3 detector")
+            tree, ckpt, arch = load_tree(fb), fb, "mbv3"
+    if tree is None:
+        if requested != "native" and have_file:
+            return "graph", None, arch, ""
+        if not allow_untrained:
+            raise FileNotFoundError(
+                f"{kind}: no weights found — neither a model file at "
+                f"{model_path!r} nor a native checkpoint "
+                "(native_params.npz) next to it. Stage assets (see "
+                "tools/fetch_assets.py), train with "
+                "tools/train_synthetic.py, or opt in to untrained "
+                "weights with tpu_allow_untrained=True / "
+                "ONNXOCR_TPU_ALLOW_UNTRAINED=1.")
+        tree = _untrained(kind, arch, vocab_size)
+        warnings.warn(
+            f"{kind}: no weights at {model_path!r}; using randomly "
+            "initialized native model (functional pipeline, untrained "
+            "outputs).")
+    return "native", tree, arch, ckpt
+
+
+def resolve_backend(kind: str, model_path: str, requested: str,
+                    vocab_size: int = 0, arch: str = "mbv3",
+                    allow_untrained: bool = False):
+    """The backend of one stage (kind 'det', 'cls' or 'rec'), in the JAX
+    package's branch order. `requested` ∈ {auto, native, graph}:
+
+    * the ONNX graph when requested, or under auto for a det / rec file
+      that exists (FileNotFoundError when 'graph' finds no file);
+    * a cls file is lifted into the native classifier, or runs as a graph
+      when it is not a MobileNetV3-small-0.35 export;
+    * the native checkpoint beside the model path, the ppocrv5 family's
+      for an mbv3 / svtr stage without one, the mbv3 detector for a
+      server det without one;
+    * the seeded untrained init, only under `allow_untrained` /
+      ONNXOCR_TPU_ALLOW_UNTRAINED=1, where 'native' was requested or no
+      file exists; otherwise the graph of an existing file, or
+      FileNotFoundError.
+
+    → (backend 'graph' | 'native', model_path, tree (None for a graph),
+    arch, calibration): the calibration sidecar of the checkpoint loaded,
+    empty for graph, lifted and untrained stages."""
+    backend, tree, arch, ckpt = _resolve(kind, model_path, requested,
+                                         vocab_size, arch, allow_untrained)
+    return backend, model_path, tree, arch, checkpoint_calibration(ckpt)
 
 
 def load_native_params(kind: str, model_path: str, arch: str,
-                       allow_untrained: bool = False
+                       allow_untrained: bool = False, vocab_size: int = 0
                        ) -> Tuple[dict, str, str]:
-    """→ (parameter tree, npz path actually loaded, architecture) from
-    <dir of model_path>/native_params.npz, resolved as the JAX package
-    resolves a native det / rec stage: a missing mbv3 / svtr checkpoint
-    falls back to the ppocrv5 family's of the same stage, and a missing
-    server (resnet18) det checkpoint to the ppocrv5 mbv3 detector, each
-    with a warning; the calibration sidecar follows the path loaded. The
-    ONNX graph executor is not ported, so an existing .onnx model file
-    cannot be run, and the seeded untrained init (`tpu_allow_untrained`)
-    is not ported for det and rec."""
-    if model_path and os.path.exists(model_path) and \
-            model_path.endswith(".onnx"):
-        raise NotImplementedError(
-            f"{kind}: running an .onnx model ({model_path}) needs the graph "
-            "executor, which is not ported; only native checkpoints run")
-    path = os.path.join(os.path.dirname(model_path), "native_params.npz")
-    if os.path.exists(path):
-        return load_tree(path), path, arch
-    fb = config.find_asset(f"ppocrv5/{kind}/native_params.npz")
-    if arch in ("mbv3", "svtr") and os.path.exists(fb) and \
-            os.path.abspath(fb) != os.path.abspath(path):
-        warnings.warn(f"{kind}: no checkpoint at {path}; using the "
-                      f"ppocrv5 family checkpoint {fb}")
-        return load_tree(fb), fb, arch
-    if kind == "det" and arch == "resnet18" and os.path.exists(fb):
-        warnings.warn("det: no server (resnet18) checkpoint; falling back "
-                      "to the trained mbv3 detector")
-        return load_tree(fb), fb, "mbv3"
-    if allow_untrained or \
-            os.environ.get("ONNXOCR_TPU_ALLOW_UNTRAINED", "") in ("1", "true"):
-        raise NotImplementedError(
-            f"{kind}: the untrained {arch} init (tpu_allow_untrained) is "
-            "not ported; only native checkpoints run")
-    raise FileNotFoundError(f"{kind}: no native checkpoint at {path}")
-
-
-def load_cls_params(model_path: str, allow_untrained: bool = False) -> dict:
-    """The angle classifier's parameter tree, resolved as the reference
-    does: a model file is lifted into the native model (`lift_cls`, not
-    ported, so a present cls.onnx raises), else the native checkpoint beside
-    it, else — only under `allow_untrained` or
-    ONNXOCR_TPU_ALLOW_UNTRAINED=1 — the seeded untrained tree, with a
-    warning. Without any of these it fails loudly."""
-    allow_untrained = allow_untrained or \
-        os.environ.get("ONNXOCR_TPU_ALLOW_UNTRAINED", "") in ("1", "true")
-    if model_path and os.path.exists(model_path):
-        raise NotImplementedError(
-            f"cls: lifting {model_path} into the native classifier needs "
-            "lift_cls and the ONNX reader, which are not ported")
-    if model_path:
-        path = os.path.join(os.path.dirname(model_path), "native_params.npz")
-        if os.path.exists(path):
-            return load_tree(path)
-    if not allow_untrained:
-        raise FileNotFoundError(
-            f"cls: no weights found — neither a model file at "
-            f"{model_path!r} nor a native checkpoint "
-            "(native_params.npz) next to it. Stage assets (see "
-            "tools/fetch_assets.py), train with "
-            "tools/train_synthetic.py, or opt in to untrained "
-            "weights with tpu_allow_untrained=True / "
-            "ONNXOCR_TPU_ALLOW_UNTRAINED=1.")
-    warnings.warn(
-        f"cls: no weights at {model_path!r}; using randomly "
-        "initialized native model (functional pipeline, untrained "
-        "outputs).")
-    return cls_model.init_tree(0)
+    """The native branches alone (tpu_backend='native') → (tree, npz path
+    loaded or '', architecture)."""
+    _, tree, arch, ckpt = _resolve(kind, model_path, "native", vocab_size,
+                                   arch, allow_untrained)
+    return tree, ckpt, arch
 
 
 def checkpoint_calibration(ckpt_path: str) -> dict:
-    """Flag-name → value pairs from <ckpt dir>/calibration.json ({} if none
-    or unreadable)."""
+    """Flag-name → value pairs from <ckpt dir>/calibration.json ({} if no
+    checkpoint, none or unreadable)."""
+    if not ckpt_path:
+        return {}
     cal = os.path.join(os.path.dirname(ckpt_path), "calibration.json")
     if not os.path.exists(cal):
         return {}

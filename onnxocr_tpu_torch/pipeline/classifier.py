@@ -1,5 +1,6 @@
 """Text angle classifier (0° / 180°) on the device. Counterpart of
-onnxocr_tpu/pipeline/classifier.py: the forward over (N, 48, 192, 3) crops;
+onnxocr_tpu/pipeline/classifier.py: the forward over (N, 48, 192, 3) crops
+(native, or a cls.onnx's graph);
 `run_boxes`, which classifies crops warped straight from the uploaded page
 and returns only the rotation verdicts — the 180° turn itself is folded
 into the recognizer's warp homography; and the reference's `__call__` on a
@@ -9,13 +10,14 @@ turns the crops it finds upside down.
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import config
 from ..models import convert
+from ..onnx.executor import GraphExecutor
 from ..ops import ctc
 from ..ops import warp as warp_ops
 from ..utils import cv_ops
@@ -23,14 +25,26 @@ from . import backends, batching
 
 
 class ClsForward:
-    """(N, 48, 192, 3) float32 crops in [−1, 1] → (N, 2) softmax probs."""
+    """(N, 48, 192, 3) float32 crops in [−1, 1] → (N, 2) softmax probs: the
+    native classifier (seeded, from a checkpoint, or lifted from a
+    cls.onnx), or a cls.onnx that does not lift run by the graph executor
+    (its output is the probabilities), as backends.resolve_backend picks."""
 
-    def __init__(self, tree, device: torch.device):
-        self.model = convert.build_cls(tree, device)
+    def __init__(self, tree, device: torch.device, backend: str = "native",
+                 model_path: Optional[str] = None):
+        self.backend = backend
+        if backend == "graph":
+            self.executor = GraphExecutor(model_path, name="cls",
+                                          device=device)
+        else:
+            self.model = convert.build_cls(tree, device)
 
     @torch.inference_mode()
     def __call__(self, crops: torch.Tensor) -> torch.Tensor:
-        return self.model(crops.permute(0, 3, 1, 2))
+        x = crops.permute(0, 3, 1, 2)
+        if self.backend == "graph":
+            return self.executor({self.executor.input_names[0]: x})[0]
+        return self.model(x)
 
 
 class TextClassifier:
@@ -46,9 +60,10 @@ class TextClassifier:
         self.batch_ladder = tuple(args.tpu_batch_buckets)
         self.warp_form = warp_ops.form_of(args)
         self.postprocess_op = ctc.ClsPostProcess(label_list=args.label_list)
-        self.forward = ClsForward(
-            backends.load_cls_params(args.cls_model_dir,
-                                     args.tpu_allow_untrained), device)
+        backend, path, tree, _, _ = backends.resolve_backend(
+            "cls", args.cls_model_dir, args.tpu_backend,
+            allow_untrained=args.tpu_allow_untrained)
+        self.forward = ClsForward(tree, device, backend, path)
 
     def _forward_batches(self, crops: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) float32 host crops → (N, 2) probs, in chunks of the

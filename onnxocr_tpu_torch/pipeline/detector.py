@@ -1,7 +1,8 @@
 """Text detector on the device: the DBNet (MobileNetV3 backbone, or
-ResNet18-vd for the ch_ppocr_server_v2.0 family), the host DB
-postprocess, the checkpoint calibration, and the det forwards of the
-staged routes.
+ResNet18-vd for the ch_ppocr_server_v2.0 family; or a user's det.onnx run
+by the graph executor, `GraphDBNet`, as backends.resolve_backend picks),
+the host DB postprocess, the checkpoint calibration, and the det forwards
+of the staged routes.
 Counterpart of onnxocr_tpu/pipeline/detector.py and of the det forwards of
 its backends.DetForward:
 
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from ..models import convert
+from ..onnx.executor import GraphExecutor
 from ..ops import db_device, det_pre, geometry, resize_dev
 from ..ops.db_post import DBPostProcess
 from . import backends
@@ -53,6 +55,22 @@ def page_batch_mode(args) -> Optional[str]:
     return "maps"
 
 
+class GraphDBNet:
+    """A det.onnx run by the graph executor, behind the native DBNet's call:
+    (N, 3, H, W) normalized float32 → (N, H, W) float32 map, the graph's
+    (N, 1, H, W) output. `valid_hw` is not applied: the graph keeps its
+    unmasked GlobalAveragePool (the JAX package's graph det does too), so
+    its map depends on the canvas padding."""
+
+    def __init__(self, model_path: str, device: torch.device):
+        self.executor = GraphExecutor(model_path, name="det", device=device)
+
+    def __call__(self, x: torch.Tensor, valid_hw=None) -> torch.Tensor:
+        out = self.executor({self.executor.input_names[0]:
+                             x.to(torch.float32)})[0]
+        return out[:, 0].to(torch.float32)
+
+
 class TextDetector:
     def __init__(self, args, device: torch.device):
         self.args = args
@@ -63,13 +81,14 @@ class TextDetector:
         self.keep_ratio = getattr(args, "det_keep_ratio", False)
         self.bucket = int(getattr(args, "tpu_det_bucket", 320))
         self.map_dtype = getattr(args, "tpu_det_map_dtype", "uint8")
-        tree, ckpt, self.arch = backends.load_native_params(
-            "det", args.det_model_dir,
-            backends.pick_arch("det", args.det_model_dir),
-            allow_untrained=args.tpu_allow_untrained)
+        self.backend, path, tree, self.arch, calib = \
+            backends.resolve_backend(
+                "det", args.det_model_dir, args.tpu_backend,
+                arch=backends.pick_arch("det", args.det_model_dir),
+                allow_untrained=args.tpu_allow_untrained)
         # checkpoint calibration applies only to flags the caller did not set
         user_keys = getattr(args, "_user_keys", set()) or set()
-        for k, v in backends.checkpoint_calibration(ckpt).items():
+        for k, v in calib.items():
             if k.startswith("det_") and k not in user_keys:
                 setattr(args, k, v)
         self.postprocess_op = DBPostProcess(
@@ -78,7 +97,8 @@ class TextDetector:
             use_dilation=args.use_dilation,
             score_mode=args.det_db_score_mode, box_type=args.det_box_type)
         self.device = device
-        self.model = convert.build_dbnet(tree, device, self.arch)
+        self.model = GraphDBNet(path, device) if self.backend == "graph" \
+            else convert.build_dbnet(tree, device, self.arch)
         self._page_batcher = None
         if args.tpu_det_microbatch:
             self.enable_page_batching(
@@ -87,16 +107,17 @@ class TextDetector:
     @property
     def masks_canvas(self) -> bool:
         """True when the DBNet's map over the valid region does not depend
-        on the canvas padding (the masked mbv3; not the ResNet), so that
-        pages may share a fixed canvas."""
-        return self.arch == "mbv3"
+        on the canvas padding (the masked native mbv3; not the ResNet, not
+        a graph), so that pages may share a fixed canvas."""
+        return self.backend == "native" and self.arch == "mbv3"
 
     def enable_page_batching(self, max_wait_ms: float = 8.0) -> bool:
         """Cross-request det batching: concurrent pages share one DBNet
         forward (runtime/batcher.DetPageBatcher) in the mode of
         `page_batch_mode`, on the fixed det canvas for the masked mbv3 and
-        on each page's own bucket canvas for the ResNet. False, and no
-        batcher, without limit_type 'max' sizing, as in the JAX package."""
+        on each page's own bucket canvas for the ResNet and a graph. False,
+        and no batcher, without limit_type 'max' sizing, as in the JAX
+        package."""
         mode = page_batch_mode(self.args)
         if mode is None:
             return False

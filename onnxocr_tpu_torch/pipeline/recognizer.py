@@ -1,6 +1,7 @@
 """CTC text recognizer on the device. Counterpart of
 onnxocr_tpu/pipeline/recognizer.py: the SVTR forward through the fused CTC
-head kernel or the CRNN's (`RecForward`), and the two per-width-bucket paths over boxes of an uploaded
+head kernel, the CRNN's, or a user's rec.onnx through the graph executor
+(`RecForward`), and the two per-width-bucket paths over boxes of an uploaded
 page — `run_boxes_fused` (cls + rec in one pass per bucket through
 pipeline/fused.py: the staged device-det path, and the one-call pipeline's
 re-runs for wide lines and boxes past its K_rec budget),
@@ -23,6 +24,7 @@ import torch
 
 from .. import config
 from ..models import convert
+from ..onnx.executor import GraphExecutor
 from ..ops import ctc
 from ..ops import warp as warp_ops
 from ..ops.kernels import ctc_head
@@ -32,24 +34,34 @@ from . import backends, batching
 
 class RecForward:
     """(N, 48, W, 3) float32 crops in [−1, 1] → ((N, T) int32 argmax, (N, T)
-    float32 max-prob), by architecture as the JAX package's RecForward:
+    float32 max-prob), by backend and architecture as the JAX package's
+    RecForward:
 
-    * 'svtr' (the PP-OCR mobile families): T = W/8, the width masked to
-      each row's valid token count, the fused CTC head kernel;
-    * 'crnn' (ch_ppocr_server_v2.0): T = W/4, no width mask, the (N, T, V)
-      logits materialised and reduced by `ctc.ctc_reduce_logits` (the JAX
-      package runs no Pallas head there)."""
+    * native 'svtr' (the PP-OCR mobile families): T = W/8, the width
+      masked to each row's valid token count, the fused CTC head kernel;
+    * native 'crnn' (ch_ppocr_server_v2.0): T = W/4, no width mask, the
+      (N, T, V) logits materialised and reduced by `ctc.ctc_reduce_logits`
+      (the JAX package runs no Pallas head there);
+    * 'graph' (a user's rec.onnx, onnx/executor.py): NCHW crops → the
+      graph's (N, T, V) probabilities → `ctc.ctc_reduce`; no width mask."""
 
-    def __init__(self, tree, device: torch.device, arch: str = "svtr"):
+    def __init__(self, tree, device: torch.device, arch: str = "svtr",
+                 backend: str = "native", model_path: Optional[str] = None):
         self.arch = arch
-        self.model = convert.build_crnn(tree, device) if arch == "crnn" \
-            else convert.build_svtr(tree, device)
+        self.backend = backend
+        self.device = device
+        if backend == "graph":
+            self.executor = GraphExecutor(model_path, name="rec",
+                                          device=device)
+        else:
+            self.model = convert.build_crnn(tree, device) \
+                if arch == "crnn" else convert.build_svtr(tree, device)
 
     @property
     def masks_width(self) -> bool:
         """True when valid-region outputs do not depend on the bucket's
-        padding (the width-masked SVTR)."""
-        return self.arch == "svtr"
+        padding (the width-masked native SVTR)."""
+        return self.backend == "native" and self.arch == "svtr"
 
     def valid_t(self, valid_w: torch.Tensor) -> Optional[torch.Tensor]:
         """The token counts to mask with, from (N,) valid pixel widths;
@@ -61,6 +73,9 @@ class RecForward:
                  valid_t: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = crops.permute(0, 3, 1, 2)
+        if self.backend == "graph":
+            ex = self.executor
+            return ctc.ctc_reduce(ex({ex.input_names[0]: x})[0])
         if self.arch == "crnn":
             return ctc.ctc_reduce_logits(self.model(x))
         feats = self.model.features(x, valid_t)
@@ -78,16 +93,20 @@ class TextRecognizer:
         self.postprocess_op = ctc.CTCLabelDecode(
             character_dict_path=args.rec_char_dict_path,
             use_space_char=args.use_space_char)
-        tree, _, arch = backends.load_native_params(
-            "rec", args.rec_model_dir,
-            backends.pick_arch("rec", args.rec_model_dir,
-                               args.rec_algorithm),
+        backend, path, tree, arch, _ = backends.resolve_backend(
+            "rec", args.rec_model_dir, args.tpu_backend,
+            vocab_size=len(self.postprocess_op.character),
+            arch=backends.pick_arch("rec", args.rec_model_dir,
+                                    args.rec_algorithm),
             allow_untrained=args.tpu_allow_untrained)
-        if getattr(args, "tpu_decode_support", "trained") == "trained":
+        # the decode-support mask is the native checkpoints' (a graph's
+        # weights know the whole dictionary)
+        if backend == "native" and \
+                getattr(args, "tpu_decode_support", "trained") == "trained":
             sup = backends.trained_support(args.rec_char_dict_path)
             if sup is not None:
                 tree = backends.apply_support_bias(tree, sup)
-        self.forward = RecForward(tree, device, arch)
+        self.forward = RecForward(tree, device, arch, backend, path)
         self._crop_batcher = None
         if args.tpu_rec_microbatch:
             self.enable_crop_batching(

@@ -402,7 +402,7 @@ class RecCropBatcher:
         zero pages, and register each, so that no first use of a shape
         (cuDNN's choice of algorithms, the allocator's first blocks) falls
         inside live traffic."""
-        device = next(fused.rec_forward.model.parameters()).device
+        device = fused.rec_forward.device
         bsz = self.batch_ladder[-1]
         eye = np.tile(np.eye(3, dtype=np.float32), (bsz, 1, 1))
         valid = np.zeros(bsz, np.int32)

@@ -251,9 +251,11 @@ def test_missing_mobile_checkpoint_takes_v5(tmp_path, kind, arch):
         f"ppocrv5/{kind}/native_params.npz")
 
 
-def test_missing_crnn_checkpoint_raises(tmp_path):
-    """No CRNN checkpoint: FileNotFoundError, and the untrained init is not
-    ported (NotImplementedError under the opt-in)."""
+def test_missing_crnn_checkpoint_raises(tmp_path, monkeypatch):
+    """No CRNN checkpoint: FileNotFoundError; under the opt-in the seeded
+    untrained CRNN, with the JAX package's warning and its tree leaf for
+    leaf."""
+    monkeypatch.delenv("ONNXOCR_TPU_ALLOW_UNTRAINED", raising=False)
     d = tmp_path / "server" / "rec"
     d.mkdir(parents=True)
     path = str(d / "rec.onnx")
@@ -261,9 +263,14 @@ def test_missing_crnn_checkpoint_raises(tmp_path):
         warnings.simplefilter("error")
         with pytest.raises(FileNotFoundError):
             backends.load_native_params("rec", path, "crnn")
-        with pytest.raises(NotImplementedError, match="untrained crnn"):
-            backends.load_native_params("rec", path, "crnn",
-                                        allow_untrained=True)
+    with pytest.warns(UserWarning, match="randomly initialized"):
+        tree, ckpt, arch = backends.load_native_params(
+            "rec", path, "crnn", allow_untrained=True, vocab_size=6625)
+    assert (ckpt, arch) == ("", "crnn")
+    got, want = convert.flatten(tree), convert.flatten(jcrnn.init(0, 6625))
+    assert set(got) == set(want)
+    for k in got:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]))
 
 
 # ------------------------------------------------------------- the slice

@@ -248,7 +248,8 @@ def test_classifier_needs_weights_or_the_opt_in(dict_path, tmp_path,
                                                 monkeypatch):
     """No trained classifier is committed: use_angle_cls=True fails loudly
     as the reference does, runs untrained only under the explicit opt-in
-    (kwarg or environment), and refuses a cls.onnx it cannot lift."""
+    (kwarg or environment), and fails on an empty cls.onnx as the JAX
+    package does (its lift and then its graph reader raise ValueError)."""
     kw = dict(device="cpu", rec_char_dict_path=dict_path, use_angle_cls=True)
     monkeypatch.delenv("ONNXOCR_TPU_ALLOW_UNTRAINED", raising=False)
     with pytest.raises(FileNotFoundError, match="tpu_allow_untrained"):
@@ -263,8 +264,11 @@ def test_classifier_needs_weights_or_the_opt_in(dict_path, tmp_path,
         ONNXPaddleOcr(**kw)
     onnx = tmp_path / "cls.onnx"
     onnx.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="lift_cls"):
+    with pytest.raises(ValueError, match="no graph in model"):
         ONNXPaddleOcr(cls_model_dir=str(onnx), **kw)
+    with pytest.raises(ValueError, match="no graph in model"):
+        JaxOcr(cls_model_dir=str(onnx),
+               **{k: v for k, v in kw.items() if k != "device"})
     # a native checkpoint beside cls_model_dir is loaded without the opt-in
     monkeypatch.delenv("ONNXOCR_TPU_ALLOW_UNTRAINED")
     from onnxocr_tpu_torch.models import cls as cls_model

@@ -112,7 +112,21 @@
    requests (p50, p95), and answers
    one return_image and one multi-file text / zip request; the codec's
    decode ms a page and the preview's encode ms are timed too;
-11. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+11. drives path P, batch image/PDF OCR (`phase_p`): `OCRLogic(status,
+   device=...).run(files, save_txt=True, merge_txt=True, output_img=True)`
+   at 4 workers over two held-out pages copied as PNG files, one written as
+   a JPEG, scanned PDFs with a /DCTDecode and a /FlateDecode page image, one
+   with the committed CMYK JPEG (onnxocr_tpu_torch/assets/samples/, the
+   held-out synth_03_doc converted by PIL), a vector PDF (sans, serif and
+   mono faces; Tj, TJ with kerning, ', re f), a PDF whose CMYK bitmap the
+   rasteriser places rotated, and a broken PDF; once unmeasured and once
+   timed on the card (launch counts set to 0 just before), once on the
+   CPU; every page's result, the txt and merged-txt files and the overlays'
+   sizes must agree, the broken PDF must be reported, and the CTC head must
+   have launched; prints pages/s, ms per stage (ingest, recognize, emit),
+   overlay ms, CTC-head launches a page and where each DejaVu face was read
+   from;
+12. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
@@ -120,8 +134,9 @@
    ms a page, launches, the BiLSTM share and the models' times),
    {"serve": {...}} (path S's requests/s, serial p50 / p95 ms, seconds to
    readiness and CTC-head launches a request by mode, decode and preview
-   ms), {"kernels": [...]} and, last, {"ok": true, "device": {...}}; the run's
-   seconds on a line before them.
+   ms), {"graph": {...}}, {"batch_ocr": {...}} (path P), {"kernels": [...]}
+   and, last, {"ok": true, "device": {...}}; the run's seconds on a line
+   before them.
 
 Any failure raises and exits non-zero without the "ok" line. The
 recognition dictionaries are not in the repository: stand-ins with 18383
@@ -1788,6 +1803,298 @@ def phase_f(kwargs, pages):
     return summary, runs
 
 
+# ------------------------------------------------------------ phase P
+# the batch layer's inputs: held-out pages as files and inside PDFs
+P_PAGES = ("synth_00_doc", "synth_08_table", "synth_03_doc", "synth_07_table",
+           "synth_12_scan", "synth_16_photo")
+
+
+def _pdf(path, content, resources, objects):
+    """One-page PDF: `content` (FlateDecode) under `resources`, with extra
+    indirect objects numbered from 4."""
+    import zlib
+    comp = zlib.compress(content)
+    objs = [b"1 0 obj\n<< /Type /Catalog /Pages 2 0 R >>\nendobj\n",
+            b"2 0 obj\n<< /Type /Pages /Kids [3 0 R] /Count 1 /MediaBox "
+            b"[0 0 612 792] >>\nendobj\n",
+            b"3 0 obj\n<< /Type /Page /Parent 2 0 R /Resources << " +
+            resources + b" >> /Contents 4 0 R >>\nendobj\n",
+            b"4 0 obj\n<< /Length %d /Filter /FlateDecode >>\nstream\n" %
+            len(comp) + comp + b"\nendstream\nendobj\n"]
+    for i, (head, stream) in enumerate(objects):
+        body = head if stream is None else (
+            head + b" /Length %d >>\nstream\n" % len(stream) + stream +
+            b"\nendstream")
+        objs.append(b"%d 0 obj\n" % (5 + i) + body + b"\nendobj\n")
+    with open(path, "wb") as f:
+        f.write(b"%PDF-1.4\n" + b"".join(objs) + b"%%EOF\n")
+
+
+def _image_pdf(path, data, w, h, flt, cs, cm, text=b""):
+    _pdf(path, b"q " + cm + b" /Im0 Do Q " + text,
+         b"/XObject << /Im0 5 0 R >> /Font << /F1 6 0 R >>",
+         [(b"<< /Type /XObject /Subtype /Image /Width %d /Height %d "
+           b"/ColorSpace %s /BitsPerComponent 8 /Filter %s" %
+           (w, h, cs, flt), data),
+          (b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>", None)])
+
+
+def phase_p_inputs(pages, root):
+    """Phase P's files in `root`: two held-out pages copied as files, one
+    written as a JPEG, a scanned PDF with a /DCTDecode page image, one with
+    a /FlateDecode RGB image, one with the committed CMYK JPEG, a vector
+    PDF (Tf on the sans, serif and mono faces; Tj, TJ with kerning, ',
+    re f), a PDF whose CMYK bitmap is placed rotated (the affine route of
+    the rasteriser) beside a text run, and a broken PDF. → the file list
+    (the broken PDF last)."""
+    import shutil
+    import zlib
+    from onnxocr_tpu_torch import config
+    from onnxocr_tpu_torch.utils import imcodec
+    heldout = config.ASSETS.parent / "test_images_heldout"
+    os.makedirs(root, exist_ok=True)
+    files = [shutil.copy(heldout / f"{n}.png", os.path.join(root, f"{n}.png"))
+             for n in P_PAGES[:2]]
+    path = os.path.join(root, f"{P_PAGES[2]}.jpg")
+    with open(path, "wb") as f:
+        f.write(imcodec.imencode_jpeg(pages[P_PAGES[2]], 90))
+    files.append(path)
+    h, w = pages[P_PAGES[3]].shape[:2]
+    path = os.path.join(root, "scan_dct.pdf")
+    _image_pdf(path, imcodec.imencode_jpeg(pages[P_PAGES[3]], 90), w, h,
+               b"/DCTDecode", b"/DeviceRGB", b"612 0 0 792 0 0 cm")
+    files.append(path)
+    rgb = np.ascontiguousarray(pages[P_PAGES[4]][:, :, ::-1])
+    path = os.path.join(root, "scan_flate.pdf")
+    _image_pdf(path, zlib.compress(rgb.tobytes()), rgb.shape[1],
+               rgb.shape[0], b"/FlateDecode", b"/DeviceRGB",
+               b"612 0 0 792 0 0 cm")
+    files.append(path)
+    cmyk_path = os.path.join(os.path.dirname(config.__file__), "assets",
+                             "samples", "synth_03_doc_cmyk.jpg")
+    with open(cmyk_path, "rb") as f:
+        cmyk = f.read()
+    path = os.path.join(root, "scan_cmyk.pdf")
+    _image_pdf(path, cmyk, 680, 900, b"/DCTDecode", b"/DeviceCMYK",
+               b"612 0 0 792 0 0 cm")
+    files.append(path)
+    path = os.path.join(root, "vector.pdf")
+    _pdf(path,
+         b"q 0.85 0.9 0.95 rg 50 560 500 150 re f Q 0 0 0 rg "
+         b"BT /F1 28 Tf 60 680 Td (Quarterly Report 2024) Tj ET "
+         b"BT /F2 20 Tf 60 640 Td [(Wa) 90 (ter AV To) -250 (tal 1,234.50)] "
+         b"TJ ET BT /F3 16 Tf 18 TL 60 600 Td (Mono 42 == x) Tj "
+         b"(second line 7) ' ET BT /F4 22 Tf 60 500 Td (Bold Heading) Tj ET",
+         b"/Font << /F1 5 0 R /F2 6 0 R /F3 7 0 R /F4 8 0 R >>",
+         [(b"<< /Type /Font /Subtype /Type1 /BaseFont /%s >>" % f, None)
+          for f in (b"Helvetica", b"Times-Roman", b"Courier",
+                    b"Helvetica-Bold")])
+    files.append(path)
+    # a bitmap the extractor does not take (DeviceCMYK, Flate): the page
+    # goes through the rasteriser, which places it rotated
+    page = pages[P_PAGES[5]][:, :, ::-1].astype(np.int32)
+    k = 255 - page.max(axis=2, keepdims=True)
+    c = np.concatenate([255 - page - k, k], axis=2).clip(0, 255)
+    path = os.path.join(root, "rotated.pdf")
+    _image_pdf(path, zlib.compress(c.astype(np.uint8).tobytes()),
+               page.shape[1], page.shape[0], b"/FlateDecode", b"/DeviceCMYK",
+               b"330 60 -45 250 200 120 cm",
+               b"BT /F1 26 Tf 60 720 Td (Rotated scan) Tj ET")
+    files.append(path)
+    path = os.path.join(root, "broken.pdf")
+    with open(path, "wb") as f:
+        f.write(b"%PDF-1.7\n\xde\xad\xbe\xef trailer garbage")
+    files.append(path)
+    return files
+
+
+def _p_run(log, files, stages=None):
+    """OCRLogic.run over `files` with the stage boundaries recorded: →
+    (all_text, results by page content hash, per-stage ms)."""
+    import hashlib
+    import threading
+    from onnxocr_tpu_torch.batch import logic
+    marks = {"ingest": [], "recognize": [], "overlay": []}
+    results = {}
+    lock = threading.Lock()
+    model_ocr = log.model.ocr
+    real_ingest, real_page, real_sav = log._ingest, log._ocr_page, \
+        logic.sav2Img
+
+    def ocr(img, *a, **kw):
+        res = model_ocr(img, *a, **kw)
+        with lock:
+            results[hashlib.sha1(np.ascontiguousarray(img).tobytes())
+                    .hexdigest()] = res[0]
+        return res
+
+    def timed_call(key, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            with lock:
+                marks[key].append(time.perf_counter())
+            return out
+        return call
+
+    def sav(*a, **kw):
+        t = time.perf_counter()
+        real_sav(*a, **kw)
+        with lock:
+            marks["overlay"].append(time.perf_counter() - t)
+
+    log.model.ocr = ocr
+    log._ingest = timed_call("ingest", real_ingest)
+    log._ocr_page = timed_call("recognize", real_page)
+    logic.sav2Img = sav
+    try:
+        t0 = time.perf_counter()
+        all_text = log.run(files, save_txt=True, merge_txt=True,
+                           output_img=True, max_workers=4)
+        t1 = time.perf_counter()
+    finally:
+        log.model.ocr = model_ocr
+        del log._ingest, log._ocr_page
+        logic.sav2Img = real_sav
+    t_ing, t_rec = max(marks["ingest"]), max(marks["recognize"])
+    ms = {"ingest": (t_ing - t0) * 1e3, "recognize": (t_rec - t_ing) * 1e3,
+          "emit": (t1 - t_rec) * 1e3, "total": (t1 - t0) * 1e3,
+          "overlay_ms_per_page": float(np.mean(marks["overlay"])) * 1e3}
+    return all_text, results, ms
+
+
+def _txt_files(root):
+    out = {}
+    for name in sorted(os.listdir(os.path.join(root, "Output_OCR"))):
+        if name.endswith(".txt"):
+            with open(os.path.join(root, "Output_OCR", name),
+                      encoding="utf-8") as f:
+                out[name.rsplit("_ocr_", 1)[0]] = f.read()
+    return out
+
+
+def phase_p(pages, tmp):
+    """Path P: batch image/PDF OCR (`OCRLogic(status, device=...).run(
+    files, save_txt=True, merge_txt=True, output_img=True)`, 4 workers) on
+    phase_p_inputs' files, on the card (once unmeasured, once timed with
+    the launch counts set to 0 just before and read just after) and on the
+    CPU, with the stand-in dictionary under an ONNXOCR_TPU_ASSETS root and
+    the untrained classifier (ONNXOCR_TPU_ALLOW_UNTRAINED=1: OCRLogic
+    builds ONNXPaddleOcr(use_angle_cls=True)). Each page's result on the
+    card must equal the CPU's by the repo's gate (texts equal, boxes within
+    2 px, scores within 2e-3), the txt and merged-txt files must be equal,
+    every overlay JPEG must decode at the CPU overlay's size with the text
+    panel (its black right border), and the broken PDF must
+    be reported as read failed. → (summary, {"P": launches})."""
+    import torch
+    from onnxocr_tpu_torch.batch import logic
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.utils import font, imcodec
+    root = os.path.join(tmp, "batch_assets")
+    os.makedirs(os.path.join(root, "ppocrv5"), exist_ok=True)
+    with open(os.path.join(root, "ppocrv5", "ppocrv5_dict.txt"), "w") as f:
+        f.write("".join(f"<{i}>\n" for i in range(18383)))
+    saved = {k: os.environ.get(k) for k in
+             ("ONNXOCR_TPU_ASSETS", "ONNXOCR_TPU_ALLOW_UNTRAINED")}
+    os.environ["ONNXOCR_TPU_ASSETS"] = root
+    os.environ["ONNXOCR_TPU_ALLOW_UNTRAINED"] = "1"
+    # the default dictionary path as it resolves with the assets root set
+    # (the defaults resolve at import, before this phase set it)
+    from onnxocr_tpu_torch import config
+    saved_dict = config.DEFAULTS["rec_char_dict_path"]
+    config.DEFAULTS["rec_char_dict_path"] = config.find_asset(
+        "ppocrv5/ppocrv5_dict.txt")
+    faces = {name: font.dejavu_path(name) for name in (
+        "DejaVuSans.ttf", "DejaVuSans-Bold.ttf", "DejaVuSerif.ttf",
+        "DejaVuSerif-Bold.ttf", "DejaVuSansMono.ttf",
+        "DejaVuSansMono-Bold.ttf")}
+    for name, path in faces.items():
+        where = "system" if path.startswith(str(font.SYSTEM_FONT_DIR)) \
+            else "committed copy"
+        print(f"path P font {name}: {where} ({path})")
+    t_phase = time.perf_counter()
+    try:
+        msgs = {"cuda": [], "cpu": []}
+        logs = {d: logic.OCRLogic(msgs[d].append, device=d)
+                for d in ("cuda", "cpu")}
+        runs = {}
+        for device, label in (("cuda", "warm"), ("cuda", "timed"),
+                              ("cpu", "cpu")):
+            files = phase_p_inputs(pages, os.path.join(tmp, f"p_{label}"))
+            if label == "timed":
+                torch.cuda.synchronize()
+                build.LAUNCHES.clear()
+            runs[label] = _p_run(logs[device], files)
+            if label == "timed":
+                torch.cuda.synchronize()
+                launches = dict(build.LAUNCHES)
+        for lg in logs.values():
+            lg.model.close()
+    finally:
+        config.DEFAULTS["rec_char_dict_path"] = saved_dict
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    text, res, ms = runs["timed"]
+    text_cpu, res_cpu, _ = runs["cpu"]
+    assert text == text_cpu, "path P: GPU and CPU texts differ"
+    assert set(res) == set(res_cpu) and len(res) == 8, sorted(res)
+    worst_box = worst_score = 0.0
+    for key, got in res.items():
+        ref = res_cpu[key]
+        assert [l[1][0] for l in got] == [l[1][0] for l in ref]
+        for g, r in zip(got, ref):
+            worst_box = max(worst_box, float(np.abs(
+                np.asarray(g[0]) - np.asarray(r[0])).max()))
+            worst_score = max(worst_score, abs(g[1][1] - r[1][1]))
+    assert worst_box <= 2.0 and worst_score < 2e-3, (worst_box, worst_score)
+    gpu_dir = os.path.join(tmp, "p_timed")
+    cpu_dir = os.path.join(tmp, "p_cpu")
+    assert _txt_files(gpu_dir) == _txt_files(cpu_dir)
+    assert "merged" in _txt_files(gpu_dir)
+    overlays = sorted(n for n in os.listdir(os.path.join(gpu_dir,
+                                                         "Output_OCR"))
+                      if n.endswith(".jpg"))
+    assert len(overlays) == 8, overlays
+    for name in overlays:
+        with open(os.path.join(gpu_dir, "Output_OCR", name), "rb") as f:
+            got = imcodec.imdecode(f.read())
+        with open(os.path.join(cpu_dir, "Output_OCR", name), "rb") as f:
+            want = imcodec.imdecode(f.read())
+        assert got is not None and got.shape == want.shape, name
+        # the text panel: 600 columns a panel, each ending in a black
+        # 1 px border
+        assert got.shape[1] > 600 and (got[:, -1] < 96).mean() > 0.9, \
+            (name, got.shape)
+    for device in ("cuda", "cpu"):
+        assert any("read failed" in m and "broken.pdf" in m
+                   for m in msgs[device]), device
+    assert launches.get("ctc_head_reduce", 0) > 0, \
+        "path P: the CTC head never launched"
+    n_pages = len(res)
+    summary = {
+        "files": 9, "pages": n_pages, "workers": 4,
+        "pages_per_s": n_pages / (ms["total"] / 1e3),
+        "stage_ms": {k: ms[k] for k in ("ingest", "recognize", "emit",
+                                        "total")},
+        "overlay_ms_per_page": ms["overlay_ms_per_page"],
+        "ctc_head_launches_per_page":
+            launches.get("ctc_head_reduce", 0) / n_pages,
+        "launches": launches,
+        "max_box_diff_px": worst_box, "max_score_diff": worst_score,
+        "fonts": {k: v for k, v in faces.items()},
+        "seconds": time.perf_counter() - t_phase}
+    print(f"path P: {n_pages} pages from 9 files (the broken PDF reported) "
+          f"in {ms['total']:.1f} ms, {summary['pages_per_s']:.2f} pages/s at "
+          f"4 workers; stages ms: ingest {ms['ingest']:.1f}, recognize "
+          f"{ms['recognize']:.1f}, emit {ms['emit']:.1f}; overlay (draw + "
+          f"JPEG q75) {ms['overlay_ms_per_page']:.1f} ms a page; CTC-head "
+          f"launches a page {summary['ctc_head_launches_per_page']:.2f}; "
+          f"GPU vs CPU: texts and txt files equal, boxes within "
+          f"{worst_box:.2f} px, scores within {worst_score:.1e}")
+    return summary, {"P": launches}
+
+
 # ------------------------------------------------------------ graph export
 class _GraphBuilder:
     """Nodes and initializers of one ONNX graph, encoded by the repo's test
@@ -2186,17 +2493,18 @@ def main() -> int:
     from onnxocr_tpu_torch import ONNXPaddleOcr, config
     from onnxocr_tpu_torch.ops import native
     from onnxocr_tpu_torch.ops.kernels import build
-    from onnxocr_tpu_torch.utils import imcodec
+    from onnxocr_tpu_torch.utils import font, imcodec
     from onnxocr_tpu_torch.utils.png import read_bgr
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         t0 = time.perf_counter()
         host = pool.submit(native.build)
         codec = pool.submit(native.build, imcodec.SOURCE, "libocrimcodec")
+        ttf = pool.submit(native.build, font.SOURCE, "libocrttf")
         print(f"kernels built in {build.build_all():.1f} s")
-        print(f"host libraries {host.result().name}, {codec.result().name} "
-              f"built, {time.perf_counter() - t0:.1f} s from the start of "
-              f"the build")
+        print(f"host libraries {host.result().name}, {codec.result().name}, "
+              f"{ttf.result().name} built, {time.perf_counter() - t0:.1f} s "
+              f"from the start of the build")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if "Used" in line:
@@ -2354,6 +2662,8 @@ def main() -> int:
         runs.update(serve_runs)
         graph, graph_runs = phase_g(model, pages, tmp)
         runs.update(graph_runs)
+        batch_ocr, p_runs = phase_p(pages, tmp)
+        runs.update(p_runs)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -2375,6 +2685,7 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"serve": served}))
     print(json.dumps({"graph": graph}))
+    print(json.dumps({"batch_ocr": batch_ocr}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

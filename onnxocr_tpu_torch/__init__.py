@@ -7,6 +7,6 @@ through hand-written CUDA kernels (csrc/). It imports torch and numpy only
 — never jax, and nothing of the onnxocr_tpu package, whose committed data
 files (checkpoints, sidecars) it reads by path.
 """
-from .pipeline.api import ONNXPaddleOcr
+from .pipeline.api import ONNXPaddleOcr, sav2Img
 
-__all__ = ["ONNXPaddleOcr"]
+__all__ = ["ONNXPaddleOcr", "sav2Img"]

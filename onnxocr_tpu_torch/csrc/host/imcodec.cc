@@ -5,8 +5,10 @@
 // * PNG: unfiltering (None, Sub, Up, Average, Paeth) and Adam7
 //   de-interlacing of the inflated stream (zlib inflates in Python); every
 //   bit depth, 16-bit samples reduced to their high byte as cv2 does.
-// * JPEG decoder: baseline and progressive Huffman, 8-bit, 1 or 3
-//   components, any integral sampling factors, restart intervals. It
+// * JPEG decoder: baseline and progressive Huffman, 8-bit, 1, 3 or 4
+//   components (4: CMYK, or YCCK under an Adobe transform 2, both to CMYK
+//   as libjpeg converts them), any integral sampling factors, restart
+//   intervals. It
 //   computes what libjpeg-turbo computes at cv2's settings: the integer
 //   "islow" IDCT, "fancy" triangular chroma upsampling (h2v1, h1v2, h2v2;
 //   replication otherwise) and the fixed-point YCbCr -> BGR tables. Its
@@ -298,7 +300,7 @@ struct Jpeg {
   uint16_t qt[4][64] = {};
   bool qt_present[4] = {false, false, false, false};
   Huff dc[4], ac[4];
-  Comp comp[3];
+  Comp comp[4];
   bool done = false;
 
   int u16(size_t p) const { return (data[p] << 8) | data[p + 1]; }
@@ -319,7 +321,7 @@ struct Jpeg {
     width = u16(p + 3);
     ncomp = data[p + 5];
     if (width == 0 || height == 0) return false;
-    if (ncomp != 1 && ncomp != 3) return false;  // CMYK / YCCK not read
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4) return false;
     if (n < 6 + 3u * ncomp) return false;
     progressive = marker == 0xC2;
     for (int i = 0; i < ncomp; ++i) {
@@ -571,7 +573,7 @@ struct Jpeg {
   bool read_sos(size_t p, size_t n) {
     if (!have_frame || n < 1) return false;
     int ns = data[p];
-    if (ns < 1 || ns > 3 || n < 4 + 2u * ns) return false;
+    if (ns < 1 || ns > 4 || n < 4 + 2u * ns) return false;
     int ids[4];
     int blocks = 0;
     for (int i = 0; i < ns; ++i) {
@@ -1207,18 +1209,37 @@ int ocr_jpeg_size(const uint8_t* buf, long long n, int* h, int* w) {
   }
 }
 
-// Decode a JPEG of the size ocr_jpeg_size gave into out (h * w * 3 BGR, in
-// the stored orientation; the caller applies the EXIF tag). → 0, or -1
-// where cv2.imdecode gives None (or the format is not read).
-int ocr_jpeg_decode(const uint8_t* buf, long long n, int h, int w,
-                    uint8_t* out) try {
+}  // extern "C"
+
+namespace {
+
+// libjpeg's YCbCr -> RGB tables (jdcolor.c, SCALEBITS 16)
+struct YccTables {
+  int cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+  YccTables() {
+    for (int i = 0; i < 256; ++i) {
+      int x = i - 128;
+      cr_r[i] = (fix16(1.40200) * x + (1 << 15)) >> 16;
+      cb_b[i] = (fix16(1.77200) * x + (1 << 15)) >> 16;
+      cr_g[i] = -fix16(0.71414) * x;
+      cb_g[i] = -fix16(0.34414) * x + (1 << 15);
+    }
+  }
+};
+
+// The components of a JPEG after libjpeg's colour conversion to its
+// default output space: grey (1), RGB (3, from YCbCr unless the file says
+// RGB) or CMYK (4, from YCCK under an Adobe transform 2), interleaved
+// into `out` (h * w * ncomp). → ncomp, or -1.
+int decode_native(const uint8_t* buf, long long n, int h, int w,
+                  std::vector<uint8_t>& out) {
   Jpeg j;
   j.data = buf;
   j.size = static_cast<size_t>(n);
   if (!j.parse() || j.height != h || j.width != w) return -1;
-  const int W = j.width, H = j.height;
-  std::vector<uint8_t> planes[3];
-  for (int ci = 0; ci < j.ncomp; ++ci) {
+  const int W = j.width, H = j.height, nc = j.ncomp;
+  std::vector<uint8_t> planes[4];
+  for (int ci = 0; ci < nc; ++ci) {
     Comp& c = j.comp[ci];
     int pstride = c.bw * 8;
     std::vector<uint8_t> plane(static_cast<size_t>(pstride) * c.bh * 8);
@@ -1232,40 +1253,90 @@ int ocr_jpeg_decode(const uint8_t* buf, long long n, int h, int w,
     upsample(plane, pstride, c, j.hmax / c.h, j.vmax / c.v, W, H, planes[ci]);
   }
   size_t npx = static_cast<size_t>(W) * H;
-  if (j.ncomp == 1) {
-    for (size_t i = 0; i < npx; ++i)
-      out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = planes[0][i];
-    return 0;
+  out.resize(npx * nc);
+  if (nc == 1) {
+    std::memcpy(out.data(), planes[0].data(), npx);
+    return 1;
   }
-  bool rgb;
-  if (j.jfif) rgb = false;
-  else if (j.adobe) rgb = j.adobe_transform == 0;
-  else rgb = j.comp[0].id == 'R' && j.comp[1].id == 'G' && j.comp[2].id == 'B';
-  if (rgb) {
-    for (size_t i = 0; i < npx; ++i) {
-      out[3 * i] = planes[2][i];
-      out[3 * i + 1] = planes[1][i];
-      out[3 * i + 2] = planes[0][i];
-    }
-    return 0;
+  // jdapimin.c default_decompress_parms: which space the file is in
+  bool convert;
+  if (nc == 3) {
+    if (j.jfif) convert = true;
+    else if (j.adobe) convert = j.adobe_transform != 0;
+    else convert = !(j.comp[0].id == 'R' && j.comp[1].id == 'G' &&
+                     j.comp[2].id == 'B');
+  } else {
+    convert = j.adobe && j.adobe_transform != 0;  // YCCK, else CMYK
   }
-  int cr_r[256], cb_b[256], cr_g[256], cb_g[256];
-  for (int i = 0; i < 256; ++i) {
-    int x = i - 128;
-    cr_r[i] = (fix16(1.40200) * x + (1 << 15)) >> 16;
-    cb_b[i] = (fix16(1.77200) * x + (1 << 15)) >> 16;
-    cr_g[i] = -fix16(0.71414) * x;
-    cb_g[i] = -fix16(0.34414) * x + (1 << 15);
-  }
+  static const YccTables t;
   for (size_t i = 0; i < npx; ++i) {
+    uint8_t* o = &out[i * nc];
+    if (!convert) {
+      for (int c = 0; c < nc; ++c) o[c] = planes[c][i];
+      continue;
+    }
     int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
-    out[3 * i] = static_cast<uint8_t>(clamp255(y + cb_b[cb]));
-    out[3 * i + 1] =
-        static_cast<uint8_t>(clamp255(y + ((cb_g[cb] + cr_g[cr]) >> 16)));
-    out[3 * i + 2] = static_cast<uint8_t>(clamp255(y + cr_r[cr]));
+    int r = y + t.cr_r[cr];
+    int g = y + ((t.cb_g[cb] + t.cr_g[cr]) >> 16);
+    int b = y + t.cb_b[cb];
+    if (nc == 3) {
+      o[0] = static_cast<uint8_t>(clamp255(r));
+      o[1] = static_cast<uint8_t>(clamp255(g));
+      o[2] = static_cast<uint8_t>(clamp255(b));
+    } else {  // ycck_cmyk_convert: inverted RGB, K passed through
+      o[0] = static_cast<uint8_t>(clamp255(255 - r));
+      o[1] = static_cast<uint8_t>(clamp255(255 - g));
+      o[2] = static_cast<uint8_t>(clamp255(255 - b));
+      o[3] = planes[3][i];
+    }
+  }
+  return nc;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode a JPEG of the size ocr_jpeg_size gave into out (h * w * 3 BGR, in
+// the stored orientation; the caller applies the EXIF tag), as cv2's
+// IMREAD_COLOR converts libjpeg's output (CMYK by icvCvt_CMYK2BGR). → 0,
+// or -1 where cv2.imdecode gives None (or the format is not read).
+int ocr_jpeg_decode(const uint8_t* buf, long long n, int h, int w,
+                    uint8_t* out) try {
+  std::vector<uint8_t> px;
+  int nc = decode_native(buf, n, h, w, px);
+  if (nc < 0) return -1;
+  size_t npx = static_cast<size_t>(w) * h;
+  for (size_t i = 0; i < npx; ++i) {
+    const uint8_t* s = &px[i * nc];
+    uint8_t* o = &out[3 * i];
+    if (nc == 1) {
+      o[0] = o[1] = o[2] = s[0];
+    } else if (nc == 3) {
+      o[0] = s[2]; o[1] = s[1]; o[2] = s[0];
+    } else {
+      int k = s[3];
+      o[2] = static_cast<uint8_t>(k - ((255 - s[0]) * k >> 8));
+      o[1] = static_cast<uint8_t>(k - ((255 - s[1]) * k >> 8));
+      o[0] = static_cast<uint8_t>(k - ((255 - s[2]) * k >> 8));
+    }
   }
   return 0;
 } catch (...) {  // out of memory
+  return -1;
+}
+
+// The JPEG's components in libjpeg's output space (grey, RGB or CMYK,
+// stored orientation) into out (h * w * 4 bytes at most): → their number,
+// or -1.
+int ocr_jpeg_decode_native(const uint8_t* buf, long long n, int h, int w,
+                           uint8_t* out) try {
+  std::vector<uint8_t> px;
+  int nc = decode_native(buf, n, h, w, px);
+  if (nc < 0) return -1;
+  std::memcpy(out, px.data(), px.size());
+  return nc;
+} catch (...) {
   return -1;
 }
 

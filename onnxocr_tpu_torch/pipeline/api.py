@@ -1,8 +1,10 @@
 """Public API: ONNXPaddleOcr with the reference kwargs, the det/rec/cls forms
 of `ocr()` and their result nesting (onnxocr_tpu/pipeline/api.py), plus
-`device` — "cuda" by default; "cpu" only when the caller passes it. The
-reference's `sav2Img` (a drawing written as a JPEG) is not ported."""
+`device` — "cuda" by default; "cpu" only when the caller passes it — and
+`sav2Img`, the reference's drawing written as a JPEG."""
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -50,3 +52,25 @@ class ONNXPaddleOcr(TextSystem):
         if not rec:
             return []
         return [self.text_recognizer(crops)]
+
+
+_JPEG_EXTENSIONS = (".jpg", ".jpeg", ".jpe", ".jfif")
+
+
+def sav2Img(org_img, result, name: str = "draw_ocr.jpg"):
+    """Render boxes + texts next to the (BGR) image and write it to `name`
+    (reference onnx_paddleocr.py:64-77): the bytes PIL's
+    `Image.fromarray(rgb).save(name)` writes for a JPEG name, at its default
+    quality 75. Other formats are not written."""
+    from ..utils.draw import draw_ocr
+    from ..utils.imcodec import imencode_jpeg
+    if os.path.splitext(name)[1].lower() not in _JPEG_EXTENSIONS:
+        raise ValueError(f"sav2Img writes JPEG files only, not {name!r}")
+    result = result[0]
+    image = org_img[:, :, ::-1]
+    boxes = [line[0] for line in result]
+    txts = [line[1][0] for line in result]
+    scores = [line[1][1] for line in result]
+    im_show = draw_ocr(image, boxes, txts, scores)
+    with open(name, "wb") as f:
+        f.write(imencode_jpeg(im_show[:, :, ::-1], quality=75))

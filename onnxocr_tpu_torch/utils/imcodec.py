@@ -3,13 +3,15 @@ cv2 or PIL: counterparts of `cv2.imdecode(buf, cv2.IMREAD_COLOR)` and of
 `cv2.imencode('.jpg', img, [cv2.IMWRITE_JPEG_QUALITY, q])`.
 
 `imdecode` reads PNG (every colour type and bit depth, Adam7 interlace),
-JPEG (baseline and progressive Huffman, 8-bit, 1 or 3 components, any
-integral sampling factors, restart intervals, the EXIF orientation) and BMP
-(24- and 32-bit, bottom-up and top-down) into (H, W, 3) uint8 BGR, and
-gives None where cv2 gives None: bytes of another format (WebP, TIFF, ...),
-arithmetic-coded, 12-bit, lossless or 4-component (CMYK / YCCK) JPEGs,
-other BMP depths, truncated or corrupt files, and sides longer than
-libpng or libjpeg reads. As IMREAD_COLOR does, it
+JPEG (baseline and progressive Huffman, 8-bit, 1, 3 or 4 (CMYK, YCCK)
+components, any integral sampling factors, restart intervals, the EXIF
+orientation) and BMP (24- and 32-bit, bottom-up and top-down) into
+(H, W, 3) uint8 BGR, and gives None where cv2 gives None: bytes of another
+format (WebP, TIFF, ...), arithmetic-coded, 12-bit or lossless JPEGs, other
+BMP depths, truncated or corrupt files, and sides longer than libpng or
+libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
+PIL's `Image.open(...).convert('RGB')`: the stored orientation, and
+Adobe's inverted CMYK through Pillow's cmyk2rgb. As IMREAD_COLOR does, it
 drops alpha, replicates grey, reduces 16-bit samples to their high byte and
 applies the EXIF orientation (a JPEG's APP1, a PNG's eXIf chunk).
 
@@ -48,6 +50,9 @@ _SIGNATURES = {
     "ocr_jpeg_decode": (ctypes.c_int, [
         _U8P, _LL, ctypes.c_int, ctypes.c_int,     # buf, bytes, h, w
         _U8P]),                                    # out BGR
+    "ocr_jpeg_decode_native": (ctypes.c_int, [
+        _U8P, _LL, ctypes.c_int, ctypes.c_int,     # buf, bytes, h, w
+        _U8P]),                                    # out h * w * ncomp
     "ocr_jpeg_encode": (_LL, [
         _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bgr, h, w, quality
         _U8P, _LL]),                                     # out, capacity
@@ -219,6 +224,45 @@ def _jpeg(buf: bytes) -> np.ndarray:
                              _ptr(out)) != 0:
         raise _Unreadable("JPEG: not decoded")
     return _oriented(out, _jpeg_orientation(buf))
+
+
+def jpeg_native(buf: bytes) -> Optional[np.ndarray]:
+    """A JPEG's samples in libjpeg's output space, in the stored
+    orientation: (H, W, 1) grey, (H, W, 3) RGB or (H, W, 4) CMYK (as
+    stored: Adobe files hold it inverted); None where this decoder does
+    not read the file."""
+    data = np.frombuffer(bytes(buf), np.uint8)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    codec = lib()
+    if codec.ocr_jpeg_size(_ptr(data), data.size, ctypes.byref(h),
+                           ctypes.byref(w)) != 0 or not h.value or \
+            not w.value or h.value * w.value > MAX_PIXELS:
+        return None
+    out = np.empty(h.value * w.value * 4, np.uint8)
+    nc = codec.ocr_jpeg_decode_native(_ptr(data), data.size, h.value,
+                                      w.value, _ptr(out))
+    if nc <= 0:
+        return None
+    return out[:h.value * w.value * nc].reshape(h.value, w.value, nc)
+
+
+def jpeg_pil_rgb(buf: bytes) -> Optional[np.ndarray]:
+    """(H, W, 3) uint8 RGB as `Image.open(BytesIO(buf)).convert('RGB')`
+    gives it for a JPEG: grey replicated, RGB as decoded, CMYK read as
+    Adobe's inverted CMYK ("CMYK;I") and converted by Pillow's cmyk2rgb
+    (c' = (255 - k) - (c (255 - k)) / 255, rounded as MULDIV255); None
+    where this decoder does not read the file."""
+    px = jpeg_native(buf)
+    if px is None:
+        return None
+    if px.shape[2] == 1:
+        return np.repeat(px, 3, axis=2)
+    if px.shape[2] == 3:
+        return px
+    inv = 255 - px.astype(np.int32)
+    nk = 255 - inv[:, :, 3:4]
+    t = inv[:, :, :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
 
 
 def _jpeg_orientation(buf: bytes) -> int:

@@ -13,7 +13,8 @@ setup(
     package_data={
         "onnxocr_tpu": ["runtime/native/*.cc",
                         "assets/**/*.npz"],
-        "onnxocr_tpu_torch": ["csrc/*.cu"],
+        "onnxocr_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "csrc/host/*.cc",
+                              "assets/fonts/dejavu/*"],
     },
     python_requires=">=3.10",
     install_requires=["jax>=0.4.30", "numpy", "optax"],

@@ -647,15 +647,16 @@ def test_polylines_twin_matches_cv2(seed):
 
 def test_draw_ocr_matches_jax():
     """The v2 preview's drawing: float boxes truncated to pixels, the
-    drop_score filter, the input left untouched."""
+    drop_score filter, the input left untouched; with texts, the text
+    panel of sav2Img."""
     img = smooth_image(9, 120, 160)
     rng = np.random.default_rng(9)
     boxes = [rng.uniform(-5, 165, (4, 2)).tolist() for _ in range(12)]
     scores = list(rng.uniform(0, 1, 12))
     before = img.copy()
-    for kw in (dict(drop_score=0.0), dict(scores=scores, drop_score=0.5)):
+    for kw in (dict(drop_score=0.0), dict(scores=scores, drop_score=0.5),
+               dict(txts=[f"line {i} text" for i in range(12)],
+                    scores=scores, drop_score=0.5)):
         np.testing.assert_array_equal(draw_ocr(img, boxes, **kw),
                                       jdraw_ocr(img, boxes, **kw))
     np.testing.assert_array_equal(img, before)
-    with pytest.raises(NotImplementedError, match="TrueType"):
-        draw_ocr(img, boxes, txts=["a"] * 12)

@@ -223,12 +223,13 @@ def test_default_device_is_cuda_and_never_falls_back(dict_path,
 
 
 def test_unported_settings_raise(dict_path):
-    """Only the text panel of sav2Img (a TrueType rasteriser) waits;
-    save_crop_res builds and takes the host crops, and the settings that
-    waited for the host image operations and the wave coalescer build."""
+    """Nothing waits any more: the text panel of sav2Img draws (an 8 px
+    page resized to 600 beside one 600 px panel), save_crop_res builds and
+    takes the host crops, and the settings that waited for the host image
+    operations and the wave coalescer build."""
     from onnxocr_tpu_torch.utils.draw import draw_ocr
-    with pytest.raises(NotImplementedError, match="sav2Img"):
-        draw_ocr(np.zeros((8, 8, 3), np.uint8), [], txts=[])
+    shown = draw_ocr(np.zeros((8, 8, 3), np.uint8), [], txts=[])
+    assert shown.shape == (600, 1200, 3)
     model = ONNXPaddleOcr(device="cpu", rec_char_dict_path=dict_path,
                           save_crop_res=True)
     assert model.route == "host_crops"

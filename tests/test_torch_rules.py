@@ -1,14 +1,14 @@
 """Import rules of the PyTorch port, checked on the syntax tree: no module
 of onnxocr_tpu_torch, and none of chip_smoke.py, ab_torch_kernels.py and
-ab_warp.py, imports jax, the onnxocr_tpu package, cv2 or PIL (the machine
-with the GPU has none of them)."""
+ab_warp.py, imports jax, the onnxocr_tpu package, cv2, PIL or fitz (the
+machine with the GPU has none of them)."""
 import ast
 from pathlib import Path
 
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "onnxocr_tpu", "cv2", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "onnxocr_tpu", "cv2", "PIL", "fitz")
 FILES = sorted((ROOT / "onnxocr_tpu_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "ab_torch_kernels.py",
                              "ab_warp.py")]

@@ -126,7 +126,24 @@
    have launched; prints pages/s, ms per stage (ingest, recognize, emit),
    overlay ms, CTC-head launches a page and where each DejaVu face was read
    from;
-12. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+12. runs phase T, the trainers (`phase_t`): from the committed checkpoints
+   at full width and seeded batches, a DB step (v5 MobileNetV3 DBNet,
+   16 × 320²), a distillation step (server ResNet18-vd student, v5
+   teacher), an SVTR CTC step (v5, vocab 18385, 32 × 48 × 320, valid_t)
+   and a CRNN CTC step (server, vocab 6625, 16 × 48 × 320), each one step
+   on the card held against the port's step on the CPU (loss, every
+   gradient, every update), then 20 steps on its fixed batch (ms a step,
+   peak MiB, the loss falling to 0.7 of its first value or below); the
+   dp × tp SVTR step on `make_mesh()` (1 × 1) and on a 2 × 5 mesh over
+   cuda:0 repeated (18385 splits 5 ways, not 2), each against the
+   unsharded step; the trained SVTR
+   saved with `save_tree` and served on path C, where kernel 1 must launch
+   on the head split from the trained weights;
+13. runs phase BF (`phase_bf`): paths C, B and A with
+   `tpu_dtype='bfloat16'` on one held-out page each, kernel 1 on each,
+   kernels 2–3 on B and 4–5 on A, the page held against the CPU port in
+   bfloat16, and its ms against the float32 model of the same path;
+14. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
@@ -134,7 +151,9 @@
    ms a page, launches, the BiLSTM share and the models' times),
    {"serve": {...}} (path S's requests/s, serial p50 / p95 ms, seconds to
    readiness and CTC-head launches a request by mode, decode and preview
-   ms), {"graph": {...}}, {"batch_ocr": {...}} (path P), {"kernels": [...]}
+   ms), {"graph": {...}}, {"batch_ocr": {...}} (path P), {"train": {...}}
+   (phase T: ms a step, peak MiB, losses, card-vs-CPU figures),
+   {"bf16": {...}} (phase BF: ms a page bf16 and f32), {"kernels": [...]}
    and, last, {"ok": true, "device": {...}}; the run's seconds on a line
    before them.
 
@@ -2476,6 +2495,339 @@ def phase_g(model, pages, tmp):
     return summary, runs
 
 
+# ------------------------------------------------------------ phase T
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-3
+# the loss of a step's fixed batch after TRAIN_STEPS steps must be at most
+# this share of the first step's
+TRAIN_DROP = 0.7
+
+
+def det_train_batch(b, hw=320, seed=0):
+    """Seeded det batch: light pages with 3–6 dark filled rectangles,
+    ImageNet-normalized (B, hw, hw, 3); shrink maps the rectangles shrunk
+    by a quarter of their height on each side; full shrink masks."""
+    from onnxocr_tpu_torch.ops import det_pre
+    rng = np.random.default_rng(seed)
+    img = np.full((b, hw, hw, 3), 0.9, np.float32)
+    maps = np.zeros((b, hw, hw), np.float32)
+    for i in range(b):
+        for _ in range(rng.integers(3, 7)):
+            h, w = rng.integers(12, 40), rng.integers(40, 200)
+            y, x = rng.integers(0, hw - h), rng.integers(0, hw - w)
+            img[i, y:y + h, x:x + w] = rng.uniform(0.0, 0.3)
+            s = max(2, h // 4)
+            maps[i, y + s:y + h - s, x + s:x + w - s] = 1.0
+    img += rng.normal(0.0, 0.03, img.shape).astype(np.float32)
+    img = (img - det_pre.IMAGENET_MEAN) / det_pre.IMAGENET_STD
+    return img.astype(np.float32), maps, np.ones_like(maps)
+
+
+def rec_train_batch(b, vocab, width=320, seed=0, max_len=15):
+    """Seeded rec batch: (B, 48, width, 3) crops in [−1, 1], labels of 5–15
+    classes in 1..vocab−1 right-padded with 0 (at most 29 steps with
+    repeats: feasible for the SVTR's 40 and the CRNN's 80), paddings, and
+    valid token counts in [30, width / 8]."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(-1, 1, (b, 48, width, 3)).astype(np.float32)
+    lens = rng.integers(5, max_len + 1, b)
+    labels = np.zeros((b, max_len), np.int32)
+    for i, n in enumerate(lens):
+        labels[i, :n] = rng.integers(1, vocab, n)
+    pads = (np.arange(max_len)[None] >= lens[:, None]).astype(np.float32)
+    valid_t = rng.integers(30, width // 8 + 1, b).astype(np.int32)
+    return images, labels, pads, valid_t
+
+
+def _tree_np(model, grads=False):
+    from onnxocr_tpu_torch.models import convert
+    from onnxocr_tpu_torch.utils.params_io import flatten
+    return {k: np.asarray(v, np.float32)
+            for k, v in flatten(convert.tree_from_model(model, grads)).items()}
+
+
+def step_record(step, model, batch, tree=None):
+    """One step → {"loss", "grads", "p0", "p1"} (numpy trees)."""
+    tree = tree or (lambda grads=False: _tree_np(model, grads))
+    p0 = tree()
+    loss = float(step(model, *batch))
+    return {"loss": loss, "grads": tree(grads=True), "p0": p0, "p1": tree()}
+
+
+def check_step(got, ref, label):
+    """One AdamW step of the port on the card (`got`) against the CPU's
+    (`ref`) with the tolerances of tests/test_torch_train.py: loss relative
+    1e-5, gradients max |dg| / max |g| 1e-4, each element's update / lr
+    within what its gradient difference explains (Adam's first update is
+    g / (|g| + eps): 2 |dg| / (max |g| + eps), at most 2) plus 4 spacings
+    of the parameter and 1e-4. → the figures."""
+    rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    assert rel <= 1e-5, f"{label}: loss {got['loss']} vs {ref['loss']}"
+    gmax = max(np.abs(v).max() for v in ref["grads"].values())
+    gerr = max(np.abs(got["grads"][k] - v).max()
+               for k, v in ref["grads"].items())
+    assert gerr <= 1e-4 * gmax, f"{label}: gradients {gerr} of {gmax}"
+    worst = 0.0
+    for k, v0 in ref["p0"].items():
+        assert np.array_equal(got["p0"][k], v0), f"{label}: init {k}"
+        du = np.abs((got["p1"][k] - v0) - (ref["p1"][k] - v0)) / TRAIN_LR
+        g, gc = ref["grads"][k], got["grads"][k]
+        bound = np.minimum(2.0, 2.0 * np.abs(gc - g) /
+                           (np.maximum(np.abs(g), np.abs(gc)) + 1e-8))
+        spacing = np.spacing(np.maximum(np.abs(v0), np.abs(ref["p1"][k])))
+        excess = du - bound - 4 * spacing / TRAIN_LR - 1e-4
+        assert excess.max() <= 0, f"{label}: update of {k}"
+        worst = max(worst, float(du.max()))
+    return {"loss_rel": rel, "grad_rel": float(gerr / gmax),
+            "max_update_diff": worst}
+
+
+def train_loop(step, model, batch, label):
+    """TRAIN_STEPS steps on one fixed batch already on the card: ms a step
+    (CUDA events around the loop), peak MiB, first and last loss."""
+    import torch
+    step(model, *batch)                      # first use of every shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = [step(model, *batch) for _ in range(TRAIN_STEPS)]
+    end.record()
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    out = {"ms_a_step": start.elapsed_time(end) / TRAIN_STEPS,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "loss_first": losses[0], "loss_last": losses[-1]}
+    assert all(np.isfinite(losses)), f"{label}: loss {losses}"
+    assert losses[-1] <= TRAIN_DROP * losses[0], \
+        f"{label}: loss {losses[0]} → {losses[-1]} in {TRAIN_STEPS} steps"
+    print(f"phase T {label}: {out['ms_a_step']:.2f} ms a step, peak "
+          f"{out['peak_mib']:.0f} MiB, loss {losses[0]:.4f} → "
+          f"{losses[-1]:.4f} in {TRAIN_STEPS} steps")
+    return out
+
+
+def ctc_loss_ms(shape, labels, pads):
+    """ms of the CTC loss's forward + backward alone at a step's logits
+    shape (B, T, V) on seeded logits (CUDA events): the port's loss (optax's
+    recursion) and F.ctc_loss (the library's fused kernel, inf on an
+    infeasible label) on the same feasible labels."""
+    import torch
+    import torch.nn.functional as F
+    from onnxocr_tpu_torch.train import rec_trainer
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(*shape, device="cuda", generator=g,
+                         requires_grad=True)
+    lab = torch.as_tensor(labels, device="cuda")
+    pad = torch.as_tensor(pads, device="cuda")
+    steps = torch.full((shape[0],), shape[1], device="cuda")
+    lens = (1 - pad).sum(1).long()
+
+    def ours():
+        rec_trainer.ctc_loss(logits, lab, pad).mean().backward()
+
+    def library():
+        F.ctc_loss(torch.log_softmax(logits, -1).transpose(0, 1), lab.long(),
+                   steps, lens, reduction="none").mean().backward()
+
+    return {"ms": timed(ours, iters=5), "library_ms": timed(library, iters=5)}
+
+
+def phase_t(model, pages, tmp):
+    """Phase T, the trainers at full width with TF32 off, from the
+    committed checkpoints (seeded batches; `det_train_batch`,
+    `rec_train_batch`): a DB step (the v5 MobileNetV3 DBNet, batch 16 ×
+    320²), a distillation step (the server ResNet18-vd student, the v5
+    DBNet teacher), an SVTR CTC step (v5, vocab 18385, batch 32 × 48 × 320,
+    valid_t) and a CRNN CTC step (server, vocab 6625, batch 16 × 48 × 320).
+    Each: one step on the card held against the same step of the port on
+    the CPU (on the first 4 images / 8 crops of the batch, `check_step`),
+    then TRAIN_STEPS steps on the whole batch (ms a step, peak MiB, the
+    loss falling to TRAIN_DROP of its first value; for the CTC steps the
+    loss's own ms, `ctc_loss_ms`). The sharded SVTR step
+    on `make_mesh()` (1 × 1) and on a 2 × 5 mesh over cuda:0 repeated (the
+    v5 vocabulary splits 5 ways, not 2), each held against the unsharded
+    step. Then the trained SVTR is saved with
+    `save_tree`, served by ONNXPaddleOcr(rec_model_dir=...) on path C, and
+    one page read with the launch counts set to 0: kernel 1 must launch, on
+    the head operand split from the trained head. → (summary, {"T":
+    launches})."""
+    import torch
+    from onnxocr_tpu_torch import config
+    from onnxocr_tpu_torch.models import convert
+    from onnxocr_tpu_torch.parallel import mesh
+    from onnxocr_tpu_torch.train import det_trainer, optim, rec_trainer
+    from onnxocr_tpu_torch.utils.params_io import load_tree, save_tree
+    a = config.ASSETS
+    trees = {k: load_tree(str(a / k / "native_params.npz")) for k in (
+        "ppocrv5/det", "ppocrv5/rec", "ch_ppocr_server_v2.0/det",
+        "ch_ppocr_server_v2.0/rec")}
+
+    def fresh(build, tree, dev, **kw):
+        m = build(tree, dev, **kw)
+        return m, optim.adamw(optim.trainable(m), TRAIN_LR, weight_decay=1e-5)
+
+    def on(batch, dev):
+        return tuple(torch.as_tensor(v, device=dev) for v in batch)
+
+    summary = {}
+    det_b = det_train_batch(16)
+    rec_v5 = rec_train_batch(32, 18385)
+    rec_srv = rec_train_batch(16, 6625, seed=1)[:3]
+    teacher = {d: convert.build_dbnet(trees["ppocrv5/det"], d)
+               for d in ("cuda", "cpu")}
+    cases = (
+        ("db", convert.build_dbnet, "ppocrv5/det", {},
+         lambda opt, d: det_trainer.make_train_step(opt, device=d), det_b, 4),
+        ("distill", convert.build_dbnet, "ch_ppocr_server_v2.0/det",
+         {"arch": "resnet18"},
+         lambda opt, d: (lambda m, *b, s=det_trainer.make_distill_step(
+             opt, device=d): s(m, teacher[d], *b)), det_b, 4),
+        ("svtr_ctc", convert.build_svtr, "ppocrv5/rec", {},
+         lambda opt, d: rec_trainer.make_train_step(opt, device=d), rec_v5,
+         8),
+        ("crnn_ctc", convert.build_crnn, "ch_ppocr_server_v2.0/rec", {},
+         lambda opt, d: rec_trainer.make_train_step(opt, device=d), rec_srv,
+         8))
+    trained_svtr = None
+    for label, build, key, kw, make, batch, n_cmp in cases:
+        small = tuple(v[:n_cmp] for v in batch)
+        m_gpu, o_gpu = fresh(build, trees[key], "cuda", **kw)
+        m_cpu, o_cpu = fresh(build, trees[key], "cpu", **kw)
+        got = step_record(make(o_gpu, "cuda"), m_gpu, on(small, "cuda"))
+        ref = step_record(make(o_cpu, "cpu"), m_cpu, small)
+        figures = check_step(got, ref, f"phase T {label}")
+        print(f"phase T {label}: one step on the card vs the CPU (batch "
+              f"{n_cmp}): loss rel {figures['loss_rel']:.2e}, gradients "
+              f"{figures['grad_rel']:.2e} of the largest, max update diff "
+              f"{figures['max_update_diff']:.3g} lr")
+        m_gpu, o_gpu = fresh(build, trees[key], "cuda", **kw)
+        summary[label] = dict(train_loop(make(o_gpu, "cuda"), m_gpu,
+                                         on(batch, "cuda"), label),
+                              batch=int(batch[0].shape[0]),
+                              card_vs_cpu=figures)
+        if label.endswith("_ctc"):
+            steps = batch[0].shape[2] // (8 if label == "svtr_ctc" else 4)
+            vocab = 18385 if label == "svtr_ctc" else 6625
+            loss_ms = ctc_loss_ms((batch[0].shape[0], steps, vocab),
+                                  batch[1], batch[2])
+            summary[label]["ctc_loss_ms"] = loss_ms
+            print(f"phase T {label}: the CTC loss alone, forward + "
+                  f"backward: {loss_ms['ms']:.2f} ms (F.ctc_loss "
+                  f"{loss_ms['library_ms']:.2f})")
+        if label == "svtr_ctc":
+            trained_svtr = m_gpu
+        del m_gpu, o_gpu, m_cpu, o_cpu
+    # the dp × tp step: 1 × 1 on make_mesh(), 2 × 5 over cuda:0 repeated
+    images, labels, pads, _ = rec_v5
+    shard_b = (images[:8], labels[:8], pads[:8])
+    m_ref, o_ref = fresh(convert.build_svtr, trees["ppocrv5/rec"], "cuda")
+    ref = step_record(rec_trainer.make_train_step(o_ref, device="cuda"),
+                      m_ref, on(shard_b, "cuda"))
+    # the v5 vocabulary, 18385 = 5 × 3677, splits 5 ways, not 2 (JAX's
+    # NamedSharding refuses an uneven split too)
+    for name, grid in (("1x1", mesh.make_mesh()),
+                       ("2x5", mesh.make_mesh(10, 5, ["cuda:0"] * 10))):
+        m, _ = fresh(convert.build_svtr, trees["ppocrv5/rec"], "cuda")
+        placed = mesh.shard_rec_params(m, grid)
+        opt = optim.adamw(placed.parameters(), TRAIN_LR, weight_decay=1e-5)
+        step = rec_trainer.make_sharded_train_step(grid, opt)
+
+        def tree(grads=False, placed=placed):
+            from onnxocr_tpu_torch.utils.params_io import flatten
+            if not grads:
+                t = placed.tree()
+            else:
+                t = convert.tree_from_model(placed.body[0], grads=True)
+                t["head"] = {
+                    "w": torch.cat([p.grad for p in placed.head_w.shards[0]],
+                                   1).cpu().numpy(),
+                    "b": torch.cat([p.grad for p in placed.head_b.shards[0]]
+                                   ).cpu().numpy()}
+            return {k: np.asarray(v, np.float32)
+                    for k, v in flatten(t).items()}
+
+        got = step_record(step, placed, shard_b, tree=tree)
+        figures = check_step(got, ref, f"phase T sharded {name}")
+        for (i, j), t in np.ndenumerate(placed.head_w.shards):
+            assert t.device == torch.device(grid.devices[i, j]), name
+        summary[f"sharded_{name}"] = figures
+        print(f"phase T sharded step on a {name} mesh vs the unsharded "
+              f"step (batch 8): loss rel {figures['loss_rel']:.2e}, "
+              f"gradients {figures['grad_rel']:.2e}, max update diff "
+              f"{figures['max_update_diff']:.3g} lr")
+    # serve the trained SVTR
+    rec_dir = os.path.join(tmp, "trained", "rec")
+    save_tree(os.path.join(rec_dir, "native_params.npz"),
+              convert.tree_from_model(trained_svtr))
+    ocr = model("cuda", rec_model_dir=os.path.join(rec_dir, "rec.onnx"))
+    head = ocr.text_recognizer.forward.model.head
+    want = trained_svtr.head.w.detach().half().float()
+    assert torch.equal(head.w, want), "the served head is not the trained one"
+    assert not torch.equal(head.w, torch.as_tensor(
+        trees["ppocrv5/rec"]["head"]["w"], device=head.w.device))
+    assert torch.equal((head.w_split[0] + head.w_split[1]).t(), head.w)
+    _, launches = drive(ocr, pages, PAGES[:1], False, "T")
+    assert launches.get("ctc_head_reduce", 0) > 0, \
+        "phase T: the trained SVTR's page launched no CTC head"
+    return summary, {"T": launches}
+
+
+# ------------------------------------------------------------ phase BF
+BF_PAGE = PAGES[2]
+
+
+def phase_bf(model, f32_models, pages):
+    """Phase BF, bfloat16 compute (`tpu_dtype='bfloat16'`, TF32 off): paths
+    C, B and A, one held-out page each (BF_PAGE) driven as `drive` does,
+    the launch counts set to 0 before the counted pass (kernel 1 on each,
+    kernels 2–3 on B, 4–5 on A), the page held against the port on the CPU
+    in bfloat16 (`same_result`: texts equal, boxes within 2 px), and the
+    page's ms timed against the float32 model of the same path, in turns
+    (f32, bf16, bf16, f32). → (summary, {"BF-<path>": launches})."""
+    import torch
+    kw_b = dict(tpu_pipeline="onecall", use_angle_cls=False)
+    kw_a = dict(tpu_pipeline="staged", tpu_det_postprocess="device",
+                tpu_db_reduce="pallas", use_angle_cls=True,
+                tpu_allow_untrained=True)
+    slot_keyed = ("ctc_head_reduce", "seg_sum_bands", "seg_min_bands")
+    label_keyed = ("ctc_head_reduce", "label_moment_sums",
+                   "label_proj_extents")
+    summary, runs = {}, {}
+    img = pages[BF_PAGE]
+    for label, kw, cls, needs in (("C", {}, False, ("ctc_head_reduce",)),
+                                  ("B", kw_b, False, label_keyed),
+                                  ("A", kw_a, True, slot_keyed)):
+        gpu = model("cuda", tpu_dtype="bfloat16", **kw)
+        assert next(gpu.text_detector.model.parameters()).dtype == \
+            torch.bfloat16
+        results, launches = drive(gpu, pages, [BF_PAGE], cls, f"BF-{label}")
+        for name in needs:
+            assert launches.get(name, 0) > 0, \
+                f"path BF-{label}: {name} never launched"
+        cpu = model("cpu", tpu_dtype="bfloat16", **kw)
+        same_result(results[BF_PAGE], cpu.ocr(img, cls=cls)[0])
+        ms = {"float32": [], "bfloat16": []}
+        for dt, m in (("float32", f32_models[label]), ("bfloat16", gpu),
+                      ("bfloat16", gpu), ("float32", f32_models[label])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.ocr(img, cls=cls)
+            torch.cuda.synchronize()
+            ms[dt].append((time.perf_counter() - t0) * 1e3)
+        summary[label] = {"ms_a_page": {k: float(np.mean(v))
+                                        for k, v in ms.items()},
+                          "boxes": len(results[BF_PAGE]),
+                          "launches": launches}
+        runs[f"BF-{label}"] = launches
+        print(f"path BF-{label} page {BF_PAGE}: bfloat16 agrees with the "
+              f"CPU's bfloat16 ({len(results[BF_PAGE])} boxes); ms a page "
+              f"bfloat16 {summary[label]['ms_a_page']['bfloat16']:.1f} vs "
+              f"float32 {summary[label]['ms_a_page']['float32']:.1f}")
+    return summary, runs
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -2664,6 +3016,11 @@ def main() -> int:
         runs.update(graph_runs)
         batch_ocr, p_runs = phase_p(pages, tmp)
         runs.update(p_runs)
+        trained, t_runs = phase_t(model, pages, tmp)
+        runs.update(t_runs)
+        bf16, bf_runs = phase_bf(model, {"C": ocr_c, "B": ocr, "A": ocr_a},
+                                 pages)
+        runs.update(bf_runs)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -2686,6 +3043,8 @@ def main() -> int:
     print(json.dumps({"serve": served}))
     print(json.dumps({"graph": graph}))
     print(json.dumps({"batch_ocr": batch_ocr}))
+    print(json.dumps({"train": trained}))
+    print(json.dumps({"bf16": bf16}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

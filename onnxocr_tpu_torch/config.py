@@ -3,9 +3,8 @@
 Own copy of the flag table of onnxocr_tpu/config.py (the reference kwargs
 surface of ONNXPaddleOcr, plus the engine's `tpu_*` knobs). Every flag of
 the JAX package's table is in `DEFAULTS`, or in `INERT_FLAGS` (read by no
-path of either package), and `check_flags` refuses the values the port
-does not run (`REFUSED_VALUES`) instead of dropping them. Unknown keys are
-accepted and stored, as in the reference.
+path of either package), and every value the JAX package runs, the port
+runs. Unknown keys are accepted and stored, as in the reference.
 Every default is the JAX package's (tests/test_torch_onecall.py
 `test_defaults_match_jax`): `ONNXPaddleOcr()` runs the staged pipeline's
 bitmap wire with the host DB postprocess, as the JAX package does.
@@ -115,9 +114,10 @@ DEFAULTS = {
     # a cls.onnx into the native classifier, else the native checkpoint;
     # 'native' never runs a graph; 'graph' always does
     "tpu_backend": "auto",
-    # compute dtype of the native models, and the det forward's override
-    # ('' follows tpu_dtype): only 'float32' runs; 'bfloat16' is refused
-    # (REFUSED_VALUES)
+    # compute dtype of the native models ('float32' or 'bfloat16': the
+    # native stages' parameters cast, models/common.tree_cast, and their
+    # inputs; graph stages ignore it), and the det forward's override ('':
+    # follows tpu_dtype)
     "tpu_dtype": "float32",
     "tpu_det_dtype": "",
     # the source page's upload wire in the JAX package ('flat': content
@@ -183,25 +183,6 @@ LAYOUT_ONLY = {
                       "the host pad (resize_dev.put_src_bucket), which the "
                       "port uploads for every value",
 }
-
-# flag → {refused value: reason}: values the JAX package runs and the port
-# does not yet; check_flags raises NotImplementedError naming the flag
-REFUSED_VALUES = {
-    "tpu_dtype": {"bfloat16": "the native models compute in float32 only; "
-                              "bfloat16 is not ported"},
-    "tpu_det_dtype": {"bfloat16": "the DBNet computes in float32 only; "
-                                  "bfloat16 is not ported"},
-}
-
-
-def check_flags(params) -> None:
-    """Raise NotImplementedError for a flag set to a value the port does
-    not run (REFUSED_VALUES), rather than running something else."""
-    for key, refused in REFUSED_VALUES.items():
-        value = getattr(params, key, None)
-        if value in refused:
-            raise NotImplementedError(f"{key}={value!r}: {refused[value]}")
-
 
 def make_params() -> SimpleNamespace:
     """A fresh namespace of the defaults."""

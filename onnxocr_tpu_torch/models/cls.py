@@ -22,7 +22,7 @@ class Cls(nn.Module):
     def __init__(self, num_classes: int = 2):
         super().__init__()
         self.backbone = mbv3.MobileNetV3("small", 0.35)
-        self.fc = nn.Linear(self.backbone.last.conv.out_channels,
+        self.fc = cm.Linear(self.backbone.last.conv.out_channels,
                             num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

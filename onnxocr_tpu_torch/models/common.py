@@ -9,6 +9,19 @@ batch norm is x·inv + (bias − mean·inv) with eps 1e-5, convolutions pad
 k//2 on both sides, and the 2x transposed conv takes the JAX kernel flipped
 on both spatial axes (models/convert.py does the flip).
 
+Dtypes follow the JAX forms too. A layer casts its weight to the input's
+dtype and multiplies in float32 (the JAX layers' `preferred_element_type`:
+a bfloat16 × bfloat16 product accumulated in float32 is the float32 product
+of the two operands), then adds its bias by type promotion; batch norm
+folds its four leaves in float32; everything else promotes as PyTorch does
+(bfloat16 with float32 → float32). So under `tree_cast(model,
+torch.bfloat16)` with bfloat16 inputs (inference at tpu_dtype='bfloat16'),
+the first layer reads bfloat16 operands and every activation after it is
+float32; with float32 parameters and bfloat16 inputs (the trainers' dtype)
+only the first layer's weight is rounded, as in JAX. Every JAX tree leaf,
+batch-norm `mean` and `var` included, is a parameter: optax trains them
+all.
+
 The seeded init helpers (`as_rng` … `linear_init`) build numpy parameter
 trees in the JAX layout (HWIO conv kernels, (in, out) linear weights) from
 the same numpy streams as the JAX package's (`default_rng`, `spawn` in the
@@ -84,43 +97,126 @@ def linear_init(rng, cin: int, cout: int) -> Dict[str, Any]:
             "b": np.zeros((cout,), np.float32)}
 
 
+class _Clip(torch.autograd.Function):
+    """torch.clamp with the derivative of JAX's clip (maximum, then
+    minimum): 1 inside, ½ on a bound (lax.max and lax.min split a tie), 0
+    outside. The ties are common where it matters: a ReLU sees exact zeros
+    wherever a whole receptive field was zeroed by the ReLU before it."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = lo, hi
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = x > lo if hi is None else (x > lo) & (x < hi)
+        tie = x == lo if hi is None else (x == lo) | (x == hi)
+        return g * (inside.to(g.dtype) + 0.5 * tie.to(g.dtype)), None, None
+
+
+def clip(x, lo: float, hi: Optional[float] = None):
+    """jnp.clip(x, lo, hi) (no upper bound when hi is None), its gradient
+    included."""
+    return _Clip.apply(x, lo, hi)
+
+
+def relu(x):
+    """jnp.maximum(x, 0), its gradient included (½ at 0)."""
+    return _Clip.apply(x, 0.0, None)
+
+
 def hardswish(x):
-    return x * torch.clamp(x / 6.0 + 0.5, 0.0, 1.0)
+    return x * clip(x / 6.0 + 0.5, 0.0, 1.0)
 
 
 def hardsigmoid(x, alpha: float = 0.2, beta: float = 0.5):
-    return torch.clamp(alpha * x + beta, 0.0, 1.0)
+    return clip(alpha * x + beta, 0.0, 1.0)
 
 
 ACTS = {
-    "relu": torch.relu,
+    "relu": relu,
     "hswish": hardswish,
     "none": lambda x: x,
 }
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm with the JAX tree's names (scale, bias, mean,
-    var) and arithmetic."""
+    """Inference batch norm (no batch statistics) with the JAX tree's names
+    (scale, bias, mean, var) and arithmetic. The leaves are folded into a
+    scale and a shift in float32 whatever their dtype: the JAX jaxpr types
+    that fold bfloat16 under tree_cast, but XLA computes the scale and shift
+    in float32 inside the fusion that applies them (its default excess
+    precision), rounding only what it materialises between fusions; JAX's
+    jit and eager runs of one bfloat16 BN differ by a bfloat16 ulp of the
+    scale. The float32 fold is the nearer of the two forms to JAX's jitted
+    output (tests/test_torch_bf16.py)."""
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(c), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(c), requires_grad=False)
-        self.register_buffer("mean", torch.zeros(c))
-        self.register_buffer("var", torch.ones(c))
+        self.mean = nn.Parameter(torch.zeros(c), requires_grad=False)
+        self.var = nn.Parameter(torch.ones(c), requires_grad=False)
 
     def forward(self, x):
-        inv = self.scale * torch.rsqrt(self.var + self.eps)
-        shift = self.bias - self.mean * inv
+        inv = self.scale.float() * torch.rsqrt(self.var.float() + self.eps)
+        shift = self.bias.float() - self.mean.float() * inv
         return x * inv[:, None, None] + shift[:, None, None]
 
 
+def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.float()
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d with the JAX `conv2d`'s dtypes: the weight cast to the
+    input's dtype, the product and the bias in float32."""
+
+    def forward(self, x):
+        return F.conv2d(x.float(), self.weight.to(x.dtype).float(),
+                        _f32(self.bias), self.stride, self.padding,
+                        self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d with the weight cast to the input's dtype (JAX
+    `conv_transpose2x`; the DB head calls it on float32 activations only,
+    so its float32 product is the JAX one)."""
+
+    def forward(self, x):
+        return F.conv_transpose2d(x.float(), self.weight.to(x.dtype).float(),
+                                  _f32(self.bias), self.stride)
+
+
+class Linear(nn.Linear):
+    """nn.Linear with the JAX `linear`'s dtypes: the weight cast to the
+    input's dtype, the product and the bias in float32."""
+
+    def forward(self, x):
+        return F.linear(x.float(), self.weight.to(x.dtype).float(),
+                        _f32(self.bias))
+
+
 def conv(k: int, cin: int, cout: int, stride=1, groups: int = 1,
-         bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2,
-                     groups=groups, bias=bias)
+         bias: bool = False) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2,
+                  groups=groups, bias=bias)
+
+
+def tree_cast(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every floating parameter (every JAX tree leaf) of `model` to
+    `dtype` in place (JAX `tree_cast` over the parameter tree) and return
+    it. A float32 copy made from the parameters (the CTC head's kernel
+    operand) is made again after the cast by its owner."""
+    for p in model.parameters():
+        if p.is_floating_point():
+            p.data = p.data.to(dtype)
+    return model
 
 
 class ConvBN(nn.Module):
@@ -147,7 +243,8 @@ def mask_valid_(x, vh, vw):
     """Zero x (N, C, H, W) beyond the (vh, vw) valid region IN PLACE (the
     callers pass intermediates they own) and return it. vh, vw: ints shared
     by every sample, or (N,) int tensors, one extent per sample (JAX
-    `mask_valid`)."""
+    `mask_valid`). Only the inference forwards mask (the trainers pass no
+    valid extent, as JAX's do), so autograd never records the write."""
     if isinstance(vh, torch.Tensor):
         return x.masked_fill_(~_valid_mask(x, vh, vw), 0)
     if vh < x.shape[2]:
@@ -165,8 +262,8 @@ class SE(nn.Module):
 
     def __init__(self, c: int, mid: int):
         super().__init__()
-        self.reduce = nn.Conv2d(c, mid, 1, bias=True)
-        self.expand = nn.Conv2d(mid, c, 1, bias=True)
+        self.reduce = Conv2d(c, mid, 1, bias=True)
+        self.expand = Conv2d(mid, c, 1, bias=True)
 
     def forward(self, x, valid_hw=None):
         if valid_hw is None:
@@ -181,7 +278,7 @@ class SE(nn.Module):
             vh, vw = valid_hw
             s = x[:, :, :vh, :vw].sum(dim=(2, 3), keepdim=True) / \
                 max(vh * vw, 1)
-        s = torch.relu(self.reduce(s))
+        s = relu(self.reduce(s))
         s = hardsigmoid(self.expand(s))
         return x * s
 

@@ -18,6 +18,8 @@ model is looked up by its module path (`mixer.3.qkv.weight` ↔
   w and (V,) b) as it is.
 
 Every tree leaf must be used and every model tensor filled, with its shape.
+`tree_from_model` is the inverse: a model's parameters (or their
+gradients) → a tree in the JAX layout, each transform undone.
 """
 from __future__ import annotations
 
@@ -28,19 +30,13 @@ import torch
 import torch.nn as nn
 
 from . import cls, crnn, dbnet, svtr
+from . import common as cm
+from ..utils import params_io
 
 
-def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
-    out: Dict[str, np.ndarray] = {}
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            out.update(flatten(v, f"{prefix}{k}/"))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            out.update(flatten(v, f"{prefix}#{i}/"))
-    else:
-        out[prefix[:-1]] = np.asarray(tree)
-    return out
+def flatten(tree) -> Dict[str, np.ndarray]:
+    """Tree → {'mixer/#3/qkv/w': numpy leaf, ...}."""
+    return {k: np.asarray(v) for k, v in params_io.flatten(tree).items()}
 
 
 def state_dict_from_tree(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -73,32 +69,36 @@ def state_dict_from_tree(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def build_dbnet(tree, device="cpu", arch: str = "mbv3") -> dbnet.DBNet:
+def _built(model: nn.Module, tree, device, dtype) -> nn.Module:
+    """Load the tree, freeze, move, cast (`tree_cast`, the JAX backends'
+    cast of a native stage's tree) and set inference mode."""
+    model.load_state_dict(state_dict_from_tree(tree, model))
+    return cm.tree_cast(model.requires_grad_(False).to(device).eval(), dtype)
+
+
+def build_dbnet(tree, device="cpu", arch: str = "mbv3",
+                dtype=torch.float32) -> dbnet.DBNet:
     """The DBNet on the `arch` backbone: 'mbv3' or 'resnet18'."""
-    model = dbnet.DBNet(backbone_arch=arch)
-    model.load_state_dict(state_dict_from_tree(tree, model))
-    return model.requires_grad_(False).to(device).eval()
+    return _built(dbnet.DBNet(backbone_arch=arch), tree, device, dtype)
 
 
-def build_cls(tree, device="cpu") -> cls.Cls:
+def build_cls(tree, device="cpu", dtype=torch.float32) -> cls.Cls:
     """The angle classifier, its class count from the `fc` linear."""
-    model = cls.Cls(num_classes=tree["fc"]["w"].shape[1])
-    model.load_state_dict(state_dict_from_tree(tree, model))
-    return model.requires_grad_(False).to(device).eval()
+    return _built(cls.Cls(num_classes=tree["fc"]["w"].shape[1]), tree,
+                  device, dtype)
 
 
-def build_svtr(tree, device="cpu") -> svtr.SVTR:
+def build_svtr(tree, device="cpu", dtype=torch.float32) -> svtr.SVTR:
     """SVTR sized from the tree: vocab and dim from the head, depth from the
     mixer list, channel width from the stem, MLP ratio from fc1. The head's
-    kernel operand is split here, once, on `device`."""
+    kernel operand is split here, once, on `device`, after the cast."""
     dim, vocab = tree["head"]["w"].shape
     mixer = tree["mixer"]
     mlp_ratio = mixer[0]["fc1"]["w"].shape[1] // dim if mixer else 2
     width_mult = tree["stem"]["conv"]["w"].shape[-1] / 32.0
-    model = svtr.SVTR(vocab, dim=dim, depth=len(mixer),
-                      width_mult=width_mult, mlp_ratio=mlp_ratio)
-    model.load_state_dict(state_dict_from_tree(tree, model))
-    model = model.requires_grad_(False).to(device).eval()
+    model = _built(svtr.SVTR(vocab, dim=dim, depth=len(mixer),
+                             width_mult=width_mult, mlp_ratio=mlp_ratio),
+                   tree, device, dtype)
     model.head.prepare()
     return model
 
@@ -119,10 +119,50 @@ def _lstm_leaves(p: dict) -> Dict[str, np.ndarray]:
     return out
 
 
-def build_crnn(tree, device="cpu") -> crnn.CRNN:
+def build_crnn(tree, device="cpu", dtype=torch.float32) -> crnn.CRNN:
     """The CRNN, its vocabulary from the head."""
     tree = dict(tree, lstm1=_lstm_leaves(tree["lstm1"]),
                 lstm2=_lstm_leaves(tree["lstm2"]))
-    model = crnn.CRNN(vocab=tree["head"]["w"].shape[1])
-    model.load_state_dict(state_dict_from_tree(tree, model))
-    return model.requires_grad_(False).to(device).eval()
+    return _built(crnn.CRNN(vocab=tree["head"]["w"].shape[1]), tree, device,
+                  dtype)
+
+
+def tree_from_model(model: nn.Module, grads: bool = False):
+    """The model's parameters (or, with `grads`, their gradients, None
+    where a leaf has none) as a float32 numpy tree in the JAX layout: the
+    inverse of `state_dict_from_tree` (OIHW → HWIO, the transposed conv's
+    flip undone, (out, in) → (in, out) linears) and of `_lstm_leaves` (the
+    two directions stacked; b = bias_ih + bias_hh, whose gradient is
+    bias_ih's: the trainers keep bias_hh frozen at zero)."""
+    modules = dict(model.named_modules())
+    flat: Dict[str, np.ndarray] = {}
+    lstm: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, p in model.named_parameters():
+        t = p.grad if grads else p
+        arr = None if t is None else np.array(t.detach().float().cpu())
+        mod_name, _, leaf = key.rpartition(".")
+        mod = modules[mod_name]
+        path = "/".join("#" + q if q.isdigit() else q
+                        for q in mod_name.split("."))
+        if isinstance(mod, nn.LSTM):
+            lstm.setdefault(path, {})[leaf] = arr
+            continue
+        layer = isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))
+        jleaf = {"weight": "w", "bias": "b"}[leaf] if layer else leaf
+        if arr is not None and leaf == "weight":
+            if isinstance(mod, nn.Conv2d):
+                arr = arr.transpose(2, 3, 1, 0)
+            elif isinstance(mod, nn.ConvTranspose2d):
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif isinstance(mod, nn.Linear):
+                arr = arr.T
+        flat[f"{path}/{jleaf}"] = None if arr is None else \
+            np.ascontiguousarray(arr)
+    for path, d in lstm.items():
+        def both(name):
+            return np.stack([d[f"{name}_l0"], d[f"{name}_l0_reverse"]])
+        flat[f"{path}/wi"] = both("weight_ih")
+        flat[f"{path}/wh"] = both("weight_hh")
+        flat[f"{path}/b"] = both("bias_ih") if grads else \
+            both("bias_ih") + both("bias_hh")
+    return params_io.unflatten(flat)

@@ -70,7 +70,7 @@ class CRNN(nn.Module):
                              bidirectional=True)
         self.lstm2 = nn.LSTM(2 * HIDDEN, HIDDEN, batch_first=True,
                              bidirectional=True)
-        self.head = nn.Linear(2 * HIDDEN, vocab)
+        self.head = cm.Linear(2 * HIDDEN, vocab)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """x (N, 3, 48, W) → (N, W/4, 256): the conv stack, its remaining
@@ -81,7 +81,15 @@ class CRNN(nn.Module):
         return x.mean(dim=2).transpose(1, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(N, 3, 48, W) → (N, W/4, V) logits."""
-        x, _ = self.lstm1(self.features(x))
-        x, _ = self.lstm2(x)
-        return self.head(x)
+        """(N, 3, 48, W) → (N, W/4, V) float32 logits."""
+        return self.head(bilstm(self.lstm2, bilstm(self.lstm1,
+                                                   self.features(x))))
+
+
+def bilstm(lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
+    """(N, T, D) → (N, T, 2H), the LSTM's weights cast to x's dtype (the
+    JAX BiLSTM promotes bfloat16 leaves to the float32 activations)."""
+    if lstm.weight_ih_l0.dtype == x.dtype:
+        return lstm(x)[0]
+    params = {n: p.to(x.dtype) for n, p in lstm.named_parameters()}
+    return torch.func.functional_call(lstm, params, (x,))[0]

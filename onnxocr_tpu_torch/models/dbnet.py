@@ -69,9 +69,9 @@ class DBNet(nn.Module):
             [cm.conv(3, inner, out) for _ in range(4)])
         self.head = nn.Module()
         self.head.conv = cm.ConvBN(3, out * 4, out, act="relu")
-        self.head.up1 = nn.ConvTranspose2d(out, out, 2, stride=2)
+        self.head.up1 = cm.ConvTranspose2d(out, out, 2, stride=2)
         self.head.bn1 = cm.BatchNorm(out)
-        self.head.up2 = nn.ConvTranspose2d(out, 1, 2, stride=2)
+        self.head.up2 = cm.ConvTranspose2d(out, 1, 2, stride=2)
 
     def forward(self, x: torch.Tensor,
                 valid_hw: Optional[tuple] = None) -> torch.Tensor:
@@ -106,5 +106,5 @@ class DBNet(nn.Module):
                            (valid_hw[1] + 3) // 4)
         h = self.head
         y = h.conv(fused)
-        y = torch.relu(h.bn1(h.up1(y)))
+        y = cm.relu(h.bn1(h.up1(y)))
         return torch.sigmoid(h.up2(y)[:, 0])

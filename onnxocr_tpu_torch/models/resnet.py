@@ -62,7 +62,7 @@ class BasicBlock(nn.Module):
             short = F.avg_pool2d(short, 2, 2)
         if self.short is not None:
             short = self.short(short)
-        return torch.relu(self.conv2(self.conv1(x)) + short)
+        return cm.relu(self.conv2(self.conv1(x)) + short)
 
 
 class ResNet18vd(nn.Module):

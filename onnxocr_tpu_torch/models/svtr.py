@@ -70,11 +70,11 @@ class Mixer(nn.Module):
     def __init__(self, dim: int, mlp_ratio: int):
         super().__init__()
         self.ln1 = cm.LayerNorm(dim)
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = cm.Linear(dim, 3 * dim)
+        self.proj = cm.Linear(dim, dim)
         self.ln2 = cm.LayerNorm(dim)
-        self.fc1 = nn.Linear(dim, mlp_ratio * dim)
-        self.fc2 = nn.Linear(mlp_ratio * dim, dim)
+        self.fc1 = cm.Linear(dim, mlp_ratio * dim)
+        self.fc2 = cm.Linear(mlp_ratio * dim, dim)
 
     def attn(self, x, valid_t=None):
         n, t, d = x.shape
@@ -107,9 +107,10 @@ class Head(nn.Module):
         self.register_buffer("w_split", None, persistent=False)
 
     def prepare(self) -> None:
-        """Split w for the kernel, on w's device. Call again after w
-        changes or moves."""
-        self.w_split = ctc_head.split_head(self.w)
+        """Split w (in float32, whatever its dtype: the kernel reads float32
+        operands, as JAX's head wrapper casts them) for the kernel, on w's
+        device. Call again after w changes, moves or is cast."""
+        self.w_split = ctc_head.split_head(self.w.detach().float())
 
 
 def _mask_w(x, vw):
@@ -165,5 +166,6 @@ class SVTR(nn.Module):
         return x
 
     def forward(self, x, valid_t=None) -> torch.Tensor:
-        """(N, 3, 48, W) → (N, W/8, V) logits (the plain head)."""
-        return self.features(x, valid_t) @ self.head.w + self.head.b
+        """(N, 3, 48, W) → (N, W/8, V) float32 logits (the plain head)."""
+        f = self.features(x, valid_t)
+        return f @ self.head.w.to(f.dtype) + self.head.b

@@ -5,8 +5,9 @@ reads: the architecture of a stage, the ONNX graph a stage may run
 angle classifier lifted from its graph (models/lift.py), the committed
 `native_params.npz` beside a stage's model path (or the family fallback),
 the seeded untrained init under `tpu_allow_untrained`, the det
-`calibration.json` sidecar, and the CTC-head decode-support mask read
-from the committed `<dict>.trained_support.json` sidecar. The graph and
+`calibration.json` sidecar, the CTC-head decode-support mask read
+from the committed `<dict>.trained_support.json` sidecar, and a stage's
+compute dtype. The graph and
 native forwards themselves are the stages' (pipeline/detector.py,
 classifier.py, recognizer.py).
 """
@@ -19,6 +20,7 @@ import warnings
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from .. import config
 from ..models import cls as cls_model
@@ -36,6 +38,18 @@ def pick_arch(kind: str, model_path: str, algorithm: str = "") -> str:
     if kind == "det":
         return "resnet18" if "server" in (model_path or "") else "mbv3"
     return "mbv3"
+
+
+def stage_dtype(backend: str, args, kind: str) -> torch.dtype:
+    """The compute dtype of a stage ('det', 'cls' or 'rec'), by the JAX
+    stages' rule: tpu_det_dtype, else tpu_dtype, for the det; tpu_dtype for
+    the others; float32 for a graph, which ignores the dtype (its
+    `resolve_backend` casts native trees only)."""
+    name = (kind == "det" and getattr(args, "tpu_det_dtype", "")) or \
+        getattr(args, "tpu_dtype", "float32")
+    if backend == "native" and name == "bfloat16":
+        return torch.bfloat16
+    return torch.float32
 
 
 def _native_checkpoint(model_path: str, kind: str, arch: str

@@ -31,20 +31,21 @@ class ClsForward:
     (its output is the probabilities), as backends.resolve_backend picks."""
 
     def __init__(self, tree, device: torch.device, backend: str = "native",
-                 model_path: Optional[str] = None):
+                 model_path: Optional[str] = None, dtype=torch.float32):
         self.backend = backend
+        self.dtype = dtype
         if backend == "graph":
             self.executor = GraphExecutor(model_path, name="cls",
                                           device=device)
         else:
-            self.model = convert.build_cls(tree, device)
+            self.model = convert.build_cls(tree, device, dtype)
 
     @torch.inference_mode()
     def __call__(self, crops: torch.Tensor) -> torch.Tensor:
         x = crops.permute(0, 3, 1, 2)
         if self.backend == "graph":
             return self.executor({self.executor.input_names[0]: x})[0]
-        return self.model(x)
+        return self.model(x.to(self.dtype))
 
 
 class TextClassifier:
@@ -63,7 +64,8 @@ class TextClassifier:
         backend, path, tree, _, _ = backends.resolve_backend(
             "cls", args.cls_model_dir, args.tpu_backend,
             allow_untrained=args.tpu_allow_untrained)
-        self.forward = ClsForward(tree, device, backend, path)
+        self.forward = ClsForward(tree, device, backend, path,
+                                  backends.stage_dtype(backend, args, "cls"))
 
     def _forward_batches(self, crops: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) float32 host crops → (N, 2) probs, in chunks of the

@@ -97,8 +97,9 @@ class TextDetector:
             use_dilation=args.use_dilation,
             score_mode=args.det_db_score_mode, box_type=args.det_box_type)
         self.device = device
+        self.dtype = backends.stage_dtype(self.backend, args, "det")
         self.model = GraphDBNet(path, device) if self.backend == "graph" \
-            else convert.build_dbnet(tree, device, self.arch)
+            else convert.build_dbnet(tree, device, self.arch, self.dtype)
         self._page_batcher = None
         if args.tpu_det_microbatch:
             self.enable_page_batching(
@@ -165,10 +166,15 @@ class TextDetector:
         return det_pre.det_resize_target(src_h, src_w, self.limit_side_len,
                                          self.limit_type)
 
+    def net(self, x: torch.Tensor, valid_hw) -> torch.Tensor:
+        """The DBNet on (N, 3, H, W) normalized canvases, cast to the
+        stage's dtype → (N, H, W) float32 maps."""
+        return self.model(x.to(self.dtype), valid_hw=valid_hw)
+
     def forward(self, x: torch.Tensor, rh: int, rw: int) -> torch.Tensor:
         """(H, W, 3) normalized canvas (valid rh × rw) → (H, W) float32 map;
         the backbone's SE pools see the valid region only."""
-        return self.model(x.permute(2, 0, 1)[None], valid_hw=(rh, rw))[0]
+        return self.net(x.permute(2, 0, 1)[None], (rh, rw))[0]
 
     def encode_map(self, prob: torch.Tensor) -> torch.Tensor:
         """The map in the wire dtype. uint8 floors (does not round): rounding
@@ -215,8 +221,7 @@ class TextDetector:
         if pages.dtype == torch.uint8:
             pages = det_pre.normalize_det(pages)
         rhw = torch.as_tensor(batch["rhw"]).to(pages.device)
-        return self.model(pages.permute(0, 3, 1, 2),
-                          valid_hw=(rhw[:, 0], rhw[:, 1]))
+        return self.net(pages.permute(0, 3, 1, 2), (rhw[:, 0], rhw[:, 1]))
 
     @torch.inference_mode()
     def pages_bits(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -168,8 +168,7 @@ class OneCallPipeline:
         """The single-page program: → packed float32 buffer on the device."""
         x = resize_dev.resize_normalize_det(image_u8, src_h, src_w, r_h, r_w,
                                             out_h, out_w)
-        prob = self.detector.model(x.permute(2, 0, 1)[None],
-                                   valid_hw=(r_h, r_w))[0]
+        prob = self.detector.net(x.permute(2, 0, 1)[None], (r_h, r_w))[0]
         boxes = self.page_boxes(prob, r_h, r_w, src_h, src_w, ex_h, ex_w)
         cls_m, cls_vw, rec_m, rec_m_rot, rec_vw, desired = self._crop_mats(
             boxes[2], boxes[4], use_cls)
@@ -205,7 +204,7 @@ class OneCallPipeline:
             for b in range(B)])
         vh = torch.as_tensor(list(r_h), device=dev)
         vw = torch.as_tensor(list(r_w), device=dev)
-        probs = self.detector.model(x.permute(0, 3, 1, 2), valid_hw=(vh, vw))
+        probs = self.detector.net(x.permute(0, 3, 1, 2), (vh, vw))
         pages = [self.page_boxes(probs[b], r_h[b], r_w[b], src_h[b],
                                  src_w[b], ex_h, ex_w) for b in range(B)]
         k = pages[0][2].shape[0]

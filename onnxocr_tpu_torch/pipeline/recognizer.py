@@ -43,19 +43,27 @@ class RecForward:
       (N, T, V) logits materialised and reduced by `ctc.ctc_reduce_logits`
       (the JAX package runs no Pallas head there);
     * 'graph' (a user's rec.onnx, onnx/executor.py): NCHW crops → the
-      graph's (N, T, V) probabilities → `ctc.ctc_reduce`; no width mask."""
+      graph's (N, T, V) probabilities → `ctc.ctc_reduce`; no width mask.
+
+    A native model computes in `dtype` (its parameters cast, the crops cast
+    on the way in); its features and logits are float32, and the head
+    kernel reads the bfloat16-rounded head in float32, as JAX's head
+    wrapper casts it."""
 
     def __init__(self, tree, device: torch.device, arch: str = "svtr",
-                 backend: str = "native", model_path: Optional[str] = None):
+                 backend: str = "native", model_path: Optional[str] = None,
+                 dtype=torch.float32):
         self.arch = arch
         self.backend = backend
         self.device = device
+        self.dtype = dtype
         if backend == "graph":
             self.executor = GraphExecutor(model_path, name="rec",
                                           device=device)
         else:
-            self.model = convert.build_crnn(tree, device) \
-                if arch == "crnn" else convert.build_svtr(tree, device)
+            build = convert.build_crnn if arch == "crnn" \
+                else convert.build_svtr
+            self.model = build(tree, device, dtype=dtype)
 
     @property
     def masks_width(self) -> bool:
@@ -76,11 +84,13 @@ class RecForward:
         if self.backend == "graph":
             ex = self.executor
             return ctc.ctc_reduce(ex({ex.input_names[0]: x})[0])
+        x = x.to(self.dtype)
         if self.arch == "crnn":
             return ctc.ctc_reduce_logits(self.model(x))
         feats = self.model.features(x, valid_t)
         head = self.model.head
-        return ctc_head.ctc_head_reduce_batched(feats, head.w_split, head.b)
+        return ctc_head.ctc_head_reduce_batched(feats, head.w_split,
+                                                head.b.float())
 
 
 class TextRecognizer:
@@ -106,7 +116,9 @@ class TextRecognizer:
             sup = backends.trained_support(args.rec_char_dict_path)
             if sup is not None:
                 tree = backends.apply_support_bias(tree, sup)
-        self.forward = RecForward(tree, device, arch, backend, path)
+        self.forward = RecForward(
+            tree, device, arch, backend, path,
+            backends.stage_dtype(backend, args, "rec"))
         self._crop_batcher = None
         if args.tpu_rec_microbatch:
             self.enable_crop_batching(

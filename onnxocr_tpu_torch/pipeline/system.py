@@ -110,7 +110,6 @@ def route_of(args) -> str:
 
 class TextSystem:
     def __init__(self, args, device="cuda"):
-        config.check_flags(args)
         self.args = args
         self.device = resolve_device(device)
         self.use_angle_cls = args.use_angle_cls

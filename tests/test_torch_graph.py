@@ -580,16 +580,15 @@ def test_missing_native_stage_without_the_opt_in_raises(tmp_path,
 
 
 # ------------------------------------------------------------ flag table
-def test_flag_table_is_honest():
+def test_flag_table_is_honest(tmp_path):
     """Every flag of the JAX package's table is in the port's, or named as
     read by neither package or as layout-only, with its reason; no inert
-    flag is read by the port; bfloat16 raises naming its flag."""
+    flag is read by the port; bfloat16 runs (no value is refused): the
+    native stages it names compute in bfloat16 and a page goes through."""
     named = set(config.DEFAULTS) | config.INERT_FLAGS | set(config.LAYOUT_ONLY)
     assert set(jconfig.DEFAULTS) <= named, set(jconfig.DEFAULTS) - named
     assert not config.INERT_FLAGS & set(config.DEFAULTS)
-    assert all(config.LAYOUT_ONLY.values()) and all(
-        reason for refused in config.REFUSED_VALUES.values()
-        for reason in refused.values())
+    assert all(config.LAYOUT_ONLY.values())
     root = config.ASSETS.parent.parent / "onnxocr_tpu_torch"
     src = "".join(p.read_text() for p in root.rglob("*.py")
                   if p.name != "config.py")
@@ -597,9 +596,18 @@ def test_flag_table_is_honest():
         assert f"args.{flag}" not in src and \
             f'(args, "{flag}"' not in src, flag
     assert config.DEFAULTS["tpu_backend"] == "auto"
+    dict_path = tmp_path / "ppocrv5_dict.txt"
+    dict_path.write_text("".join(f"<{i}>\n" for i in range(18383)))
+    page = np.full((96, 160, 3), 255, np.uint8)
+    page[40:56, 16:144] = 0
     for key in ("tpu_dtype", "tpu_det_dtype"):
-        with pytest.raises(NotImplementedError, match=key):
-            ONNXPaddleOcr(device="cpu", **{key: "bfloat16"})
+        model = ONNXPaddleOcr(device="cpu", rec_char_dict_path=str(dict_path),
+                              **{key: "bfloat16"})
+        det = next(model.text_detector.model.parameters()).dtype
+        rec = next(model.text_recognizer.forward.model.parameters()).dtype
+        assert (det, rec) == (torch.bfloat16, torch.bfloat16
+                              if key == "tpu_dtype" else torch.float32)
+        assert isinstance(model.ocr(page)[0], list)
 
 
 # ------------------------------------------------------------- the slice

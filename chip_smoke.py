@@ -143,7 +143,23 @@
    `tpu_dtype='bfloat16'` on one held-out page each, kernel 1 on each,
    kernels 2–3 on B and 4–5 on A, the page held against the CPU port in
    bfloat16, and its ms against the float32 model of the same path;
-14. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+14. runs phase M, serving across devices (`phase_m`), on `make_mesh()`
+   (every card: 1 × 1 on a one-card host) and on a 4 × 1 grid of cuda:0
+   repeated: ShardedDetBatch on 5 pages at the 960² canvas against the
+   port's DBNet, ShardedRecBatch on 64 crops of 48 × 640 against the
+   unsharded SVTR, `sharded_batch_fn(True, mesh)` on 4 pages decoded
+   against path B's single pages at the gather warp, with kernels 1–3
+   launched for every row (build.count_launch, mesh.current_row) and on
+   each row's device (torch.profiler); then the serving engine (MODEL_CONCURRENCY=8,
+   DET_BATCH=1, 24 requests from 8 threads) with its det page batch on the
+   mesh, against the same engine's model with the maps wave on one device;
+   pages a second of every sharded form beside its one-device form (rates
+   across cards only where the host has them);
+15. runs phase PR, utils/profiling.py (`phase_pr`): the stage timer on,
+   paths C, B and A on 4 pages each, whose stage names must be the JAX
+   package's (JAX_STAGES), and the captured det_bits, fused_scored and
+   onecall programs replayed (replay_ms) and their FLOPs counted (flops);
+16. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
@@ -153,7 +169,9 @@
    readiness and CTC-head launches a request by mode, decode and preview
    ms), {"graph": {...}}, {"batch_ocr": {...}} (path P), {"train": {...}}
    (phase T: ms a step, peak MiB, losses, card-vs-CPU figures),
-   {"bf16": {...}} (phase BF: ms a page bf16 and f32), {"kernels": [...]}
+   {"bf16": {...}} (phase BF: ms a page bf16 and f32), {"multi_device":
+   {...}, "profiling": {...}, "card": ...} (phases M and PR),
+   {"kernels": [...]}
    and, last, {"ok": true, "device": {...}}; the run's seconds on a line
    before them.
 
@@ -2828,6 +2846,386 @@ def phase_bf(model, f32_models, pages):
     return summary, runs
 
 
+M_DET_PAGES = PAGES[:5]
+M_ONECALL_PAGES = PAGES[:4]
+M_REQUESTS = 24
+# the stages the JAX package's pipeline/system.py opens on one page of
+# each route (C: the staged bitmap wire, B: one-call, A: the staged device
+# det postprocess with the fused cls + rec pass)
+JAX_STAGES = {"C": ("cls_rec_fused", "det", "img_upload"),
+              "B": ("onecall",),
+              "A": ("cls_rec_fused", "det", "img_upload")}
+
+
+def _rate(fn, n_items, calls=3):
+    """Items a second of `fn` on the card: one unmeasured call, then
+    `calls` calls between two synchronisations."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return n_items * calls / (time.perf_counter() - t0)
+
+
+def _system_order(boxes, rec_res, drop_score):
+    """A one-call page's decoded (boxes, results) as ocr() returns them:
+    sorted_boxes order, drop_score applied."""
+    from onnxocr_tpu_torch.pipeline.system import _sorted_pair_order
+    order = _sorted_pair_order(boxes)
+    return [[boxes[i].tolist(), rec_res[i]] for i in order
+            if rec_res[i][1] >= drop_score]
+
+
+def _row_launches(fn):
+    """Run fn() while recording for which mesh row (mesh.current_row) each
+    kernel launched → (fn's result, {kernel: [rows]})."""
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.parallel.mesh import current_row
+    seen = {}
+    real = build.count_launch
+
+    def spy(name):
+        seen.setdefault(name, []).append(current_row())
+        real(name)
+
+    build.count_launch = spy
+    try:
+        return fn(), seen
+    finally:
+        build.count_launch = real
+
+
+def _kernels_by_device(fn):
+    """Kernel launches of fn() on each CUDA device, from torch.profiler →
+    {device index: {kernel name: count}} for the port's kernels."""
+    import torch
+    names = ("ctc_head_partial", "moment_sums_kernel", "proj_extents_kernel")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for n in names:
+                if n in e.name:
+                    d = out.setdefault(int(e.device_index), {})
+                    d[n] = d.get(n, 0) + 1
+    return out
+
+
+def _m_mesh(label, m, ocr_b, ocr_off, pages, crops, canv):
+    """Phase M on one mesh: ShardedDetBatch, ShardedRecBatch and
+    sharded_batch_fn against their one-device forms → summary."""
+    import torch
+    from onnxocr_tpu_torch.ops import ctc, det_pre, resize_dev
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.parallel import serving
+    n_rows = m.shape["data"]
+    devices = sorted({str(d) for d in m.devices.flat})
+    det_model = ocr_b.text_detector.model
+    rec_model = ocr_b.text_recognizer.forward.model
+    out = {"mesh": list(m.devices.shape), "devices": devices}
+
+    # det: 5 pages on the 960² canvas, padded to a multiple of the rows
+    pages_u8, rhw = canv
+    det = serving.ShardedDetBatch(det_model, m)
+    got = det(pages_u8, rhw)
+
+    def plain_det():
+        # the one-device form of the same call, host pages uploaded
+        x = det_pre.normalize_det(torch.from_numpy(pages_u8).cuda())
+        ext = torch.from_numpy(rhw).cuda()
+        return det_model(x.permute(0, 3, 1, 2),
+                         valid_hw=(ext[:, 0], ext[:, 1]))
+
+    with torch.inference_mode():
+        ref = plain_det()
+    err = float((got.to(ref.device) - ref).abs().max())
+    assert err <= 1e-4, f"phase M {label}: sharded det differs by {err}"
+    n = len(pages_u8)
+    out["det"] = {"pages": n, "max_abs_err": err,
+                  "pages_per_s": _rate(lambda: det(pages_u8, rhw), n),
+                  "pages_per_s_one_device": _rate(plain_det, n)}
+    det.close()
+
+    # rec: 64 crops of 48 × 640, full logits + ctc_reduce_logits
+    rec = serving.ShardedRecBatch(rec_model, m)
+    idx, prob = rec(crops)
+    def plain_rec():
+        xc = torch.from_numpy(crops).cuda().permute(0, 3, 1, 2)
+        return ctc.ctc_reduce_logits(rec_model(xc).float())
+
+    with torch.inference_mode():
+        logits = rec_model(torch.from_numpy(crops).cuda().permute(
+            0, 3, 1, 2)).float()
+        ref_idx, ref_prob = ctc.ctc_reduce_logits(logits)
+    idx, prob = idx.to(ref_idx.device), prob.to(ref_idx.device)
+    differ = idx != ref_idx
+    if differ.any():   # only where the top two logits tie within 1e-5
+        gap = logits.amax(-1) - logits.gather(
+            -1, idx.long()[..., None])[..., 0]
+        assert float(gap[differ].max()) <= 1e-5, \
+            f"phase M {label}: sharded rec argmax differs"
+    perr = float((prob - ref_prob).abs().max())
+    assert perr <= 1e-5, f"phase M {label}: rec prob differs by {perr}"
+    out["rec"] = {"crops": len(crops), "argmax_differ": int(differ.sum()),
+                  "prob_max_abs_err": perr,
+                  "crops_per_s": _rate(lambda: rec(crops), len(crops)),
+                  "crops_per_s_one_device": _rate(plain_rec, len(crops))}
+    rec.close()
+
+    # one-call: 4 pages, each row's step_wave on its own thread
+    oc = ocr_b._onecall
+    ups = [resize_dev.put_src_bucket(pages[nm], "cuda")
+           for nm in M_ONECALL_PAGES]
+    images = torch.stack([u[0] for u in ups])
+    sh, sw = [u[1] for u in ups], [u[2] for u in ups]
+    cv = [oc.canvas(h, w) for h, w in zip(sh, sw)]
+    rh, rw = [c[0][0] for c in cv], [c[0][1] for c in cv]
+    (hb, wb), _ = cv[0][1:]
+    fn = oc.sharded_batch_fn(True, m)
+    fn(images, sh, sw, rh, rw)          # unmeasured (first use of shapes)
+    torch.cuda.synchronize()
+    build.LAUNCHES.clear()
+    packed, rows_of = _row_launches(lambda: fn(images, sh, sw, rh, rw))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    by_device = _kernels_by_device(lambda: fn(images, sh, sw, rh, rw))
+    packed = packed.cpu().numpy()
+    use_cls = oc.use_cls(True)
+    lines = 0
+    for b, nm in enumerate(M_ONECALL_PAGES):
+        boxes, res = oc.decode_packed(packed[b], ups[b][0], use_cls)
+        got = _system_order(boxes, res, ocr_b.drop_score)
+        same_result(got, ocr_off.ocr(pages[nm], cls=False)[0])
+        lines += len(got)
+    for k in ("ctc_head_reduce", "label_moment_sums", "label_proj_extents"):
+        rows_seen = set(rows_of.get(k, []))
+        assert rows_seen == set(range(n_rows)), \
+            f"phase M {label}: {k} launched on rows {sorted(rows_seen)}"
+        assert launches.get(k, 0) >= n_rows
+    for d in {torch.device(dv).index or 0 for dv in m.devices.flat}:
+        assert by_device.get(d, {}).get("ctc_head_partial", 0) >= 1, \
+            f"phase M {label}: no CTC head on cuda:{d} ({by_device})"
+    n = len(M_ONECALL_PAGES)
+    out["onecall"] = {
+        "pages": n, "lines": lines, "launches": launches,
+        "kernels_by_device": {str(k): v for k, v in by_device.items()},
+        "pages_per_s": _rate(lambda: fn(images, sh, sw, rh, rw).cpu(), n),
+        "pages_per_s_one_device": _rate(lambda: oc.step_wave(
+            images, sh, sw, rh, rw, hb, wb, 0, 0, use_cls).cpu(), n)}
+    fn.rows.close()
+    print(f"phase M {label} ({m.devices.shape[0]} x {m.devices.shape[1]} "
+          f"over {devices}): det {out['det']['pages']} pages max abs err "
+          f"{err:.2e}, "
+          f"{out['det']['pages_per_s']:.1f} pages/s vs one device "
+          f"{out['det']['pages_per_s_one_device']:.1f}; rec {len(crops)} crops "
+          f"argmax equal ({out['rec']['argmax_differ']} ties differ), prob "
+          f"{perr:.2e}, {out['rec']['crops_per_s']:.0f} crops/s vs "
+          f"{out['rec']['crops_per_s_one_device']:.0f}; one-call "
+          f"{n} pages equal path B's ({lines} lines), "
+          f"{out['onecall']['pages_per_s']:.1f} pages/s vs step_wave "
+          f"{out['onecall']['pages_per_s_one_device']:.1f}; launches "
+          f"{launches} by device {by_device}")
+    return out, launches
+
+
+def _m_engine(m, pages, tmp):
+    """The serving engine with the det page batch on the mesh:
+    MODEL_CONCURRENCY=8, DET_BATCH=1, 24 requests from 8 threads, against
+    the same engine's model with the maps wave on one device (the route
+    the mesh's maps wave takes) → summary."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from onnxocr_tpu_torch import ONNXPaddleOcr
+    from onnxocr_tpu_torch.service import engine as engine_mod
+    from onnxocr_tpu_torch.service.settings import settings
+    root = os.path.join(tmp, "m_assets")
+    os.makedirs(os.path.join(root, "ppocrv5"), exist_ok=True)
+    with open(os.path.join(root, "ppocrv5", "ppocrv5_dict.txt"), "w") as f:
+        f.write("".join(f"<{i}>\n" for i in range(18383)))
+    keys = ("ONNXOCR_TPU_ASSETS", "ONNXOCR_TPU_ALLOW_UNTRAINED", "DET_BATCH",
+            "REC_BATCH", "PIPELINE_MODE", "MICRO_BATCH", "WAVE_BATCH")
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ.update(ONNXOCR_TPU_ASSETS=root, ONNXOCR_TPU_ALLOW_UNTRAINED="1",
+                      DET_BATCH="1")
+    settings.DEVICE = "cuda"
+    em = engine_mod.EngineManager(concurrency=8, device="cuda")
+    ref = None
+    try:
+        multi_card = torch.cuda.device_count() >= 2
+        model = em.get_model()
+        if not multi_card:
+            # one card: _maybe_shard_det leaves it be, as in JAX; the
+            # mesh goes in through the detector's own switch
+            assert em._det_mesh() is None
+            model.text_detector.enable_page_batching(mesh=m)
+        pb = model.text_detector._page_batcher
+        assert pb.mode == "maps" and pb.mesh is not None and \
+            model.route == "map"
+        waves = []
+        fn = pb.batcher.fn
+        pb.batcher.fn = lambda batch: waves.append(
+            (int((batch["rhw"][:, 0] > 0).sum()), len(batch["rhw"]))) \
+            or fn(batch)
+        kw = em._get_model_kwargs("PP-OCRv5")
+        ref = ONNXPaddleOcr(device="cuda", tpu_det_wire="map", **kw)
+        assert ref.text_detector._page_batcher.mode == "maps" and \
+            ref.text_detector._page_batcher.mesh is None
+        names = list(PAGES[:4]) * (M_REQUESTS // 4)
+
+        def run(target):
+            with ThreadPoolExecutor(8) as pool:
+                t0 = time.perf_counter()
+                res = list(pool.map(lambda nm: target(pages[nm]), names))
+                return res, time.perf_counter() - t0
+
+        run(lambda img: em._sync_ocr(img))           # unmeasured
+        run(lambda img: ref.ocr(img))
+        waves.clear()
+        got, wall = run(lambda img: em._sync_ocr(img)[1])
+        want, ref_wall = run(lambda img: ref.ocr(img))
+        for g, w in zip(got, want):
+            same_result(g[0], w[0])
+        summary = {
+            "mesh": list(pb.mesh.devices.shape),
+            "through": "_maybe_shard_det" if multi_card else
+            "enable_page_batching(mesh=)",
+            "ladder": list(pb.batcher.batch_ladder),
+            "waves": [{"pages": a, "batch": b} for a, b in waves],
+            "requests": len(names), "threads": 8,
+            "pages_per_s": len(names) / wall,
+            "pages_per_s_one_device": len(names) / ref_wall}
+        if multi_card:
+            summary["pages_per_s_per_card"] = summary["pages_per_s"] / \
+                torch.cuda.device_count()
+        print(f"phase M engine ({summary['through']}, mesh "
+              f"{summary['mesh']}): ladder {summary['ladder']}, det waves "
+              f"(pages/batch) {waves}; {len(names)} requests from 8 threads "
+              f"equal the one-device maps engine's; "
+              f"{summary['pages_per_s']:.2f} pages/s vs "
+              f"{summary['pages_per_s_one_device']:.2f}")
+        return summary
+    finally:
+        em.close()
+        if ref is not None:
+            ref.close()
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def phase_m(model, pages, tmp):
+    """Phase M, serving across devices (TF32 off, the v5 checkpoints, the
+    held-out pages) on `make_mesh()` (every card) and on a 4 × 1 grid of
+    cuda:0 repeated: ShardedDetBatch on 5 pages at the 960² canvas against
+    the port's DBNet on the card, ShardedRecBatch on 64 crops of 48 × 640
+    against the unsharded SVTR (argmax equal, prob within 1e-5),
+    sharded_batch_fn(True, mesh) on 4 pages decoded against path B's
+    single pages at the gather warp, kernels 1–3 launched for every row
+    and on each row's device; then the engine with the det batch on
+    the 4 × 1 grid (or, on a host with several cards, on every card through
+    _maybe_shard_det). Pages (or crops) a second of each sharded form next
+    to its one-device form. → (summary, {"M": launches of sharded_batch_fn
+    on the 4 × 1 grid})."""
+    import torch
+    from onnxocr_tpu_torch.ops import det_pre
+    from onnxocr_tpu_torch.parallel import mesh as mesh_lib
+    from onnxocr_tpu_torch.utils.image import get_rotate_crop_image
+    t_phase = time.perf_counter()
+    ocr_b = model("cuda", tpu_pipeline="onecall", use_angle_cls=False)
+    ocr_off = model("cuda", tpu_pipeline="onecall", use_angle_cls=False,
+                    tpu_warp_stage="off")
+    ocr_c = model("cuda")
+    try:
+        canv = [det_pre.prepare_det_input(pages[n], 960, "max", bucket=320,
+                                          canvas=(960, 960))
+                for n in M_DET_PAGES]
+        pages_u8 = np.stack([c[0] for c in canv])
+        rhw = np.array([c[2] for c in canv], np.int32)
+        crops = []
+        rec = ocr_c.text_recognizer
+        for n in PAGES:
+            for box in ocr_c.text_detector(pages[n]):
+                crop = get_rotate_crop_image(pages[n], np.asarray(
+                    box, np.float32))
+                crops.append(rec.resize_norm_img(crop, 640)[0])
+                if len(crops) == 64:
+                    break
+            if len(crops) == 64:
+                break
+        crops = np.stack(crops)
+        meshes = {"make_mesh()": mesh_lib.make_mesh(),
+                  "4x1 cuda:0": mesh_lib.make_mesh(
+                      4, devices=["cuda:0"] * 4)}
+        summary, runs = {"meshes": {}}, {}
+        for label, m in meshes.items():
+            summary["meshes"][label], launches = _m_mesh(
+                label, m, ocr_b, ocr_off, pages, crops, (pages_u8, rhw))
+            if label == "4x1 cuda:0":
+                runs["M"] = launches
+        summary["engine"] = _m_engine(meshes["4x1 cuda:0"] if
+                                      torch.cuda.device_count() < 2 else
+                                      meshes["make_mesh()"], pages, tmp)
+    finally:
+        for o in (ocr_b, ocr_off, ocr_c):
+            o.close()
+    summary["cards"] = torch.cuda.device_count()
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"phase M ran {summary['seconds']:.1f} s on "
+          f"{summary['cards']} card(s)")
+    return summary, runs
+
+
+def phase_pr(ocrs, pages):
+    """Phase PR, utils/profiling.py: with the stage timer on (what
+    ONNXOCR_TPU_PROFILE=1 sets at import), paths C, B and A each read 4
+    pages; the stage names of each route must be the JAX package's
+    (JAX_STAGES), one count a page each; with CAPTURE on, the captured
+    det_bits, fused_scored and onecall programs replayed back to back
+    (replay_ms, CUDA synchronised once at the end) and their FLOPs counted
+    (flops: PyTorch's matmuls and convolutions). → summary."""
+    from onnxocr_tpu_torch.utils import profiling
+    timer, cap = profiling.GLOBAL, profiling.CAPTURE
+    stages = {}
+    names = PAGES[:4]
+    try:
+        timer.enabled = cap.enabled = True
+        for label in ("C", "B", "A"):
+            timer.reset()
+            for n in names:
+                ocrs[label].ocr(pages[n], cls=label == "A")
+            summ = timer.summary()
+            assert tuple(sorted(summ)) == JAX_STAGES[label], \
+                f"phase PR path {label}: stages {sorted(summ)}"
+            for k, v in summ.items():
+                assert v["count"] >= len(names), (label, k, v)
+            stages[label] = summ
+            print(f"phase PR path {label}: stages (mean ms) " + ", ".join(
+                f"{k} {v['mean_ms']:.2f} x{v['count']}"
+                for k, v in sorted(summ.items())))
+        programs = {}
+        for name in ("det_bits", "fused_scored", "onecall"):
+            assert name in cap.names(), f"phase PR: {name} not captured"
+            programs[name] = {"replay_ms": cap.replay_ms(name, n=10),
+                              "flops": cap.flops(name)}
+            print(f"phase PR program {name}: {programs[name]['replay_ms']:.3f}"
+                  f" ms a replay, {programs[name]['flops'] or 0:.3e} FLOPs "
+                  f"(matmuls and convolutions)")
+    finally:
+        timer.enabled = cap.enabled = False
+        timer.reset()
+        cap._calls.clear()
+    return {"stages": stages, "programs": programs}
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -3021,6 +3419,9 @@ def main() -> int:
         bf16, bf_runs = phase_bf(model, {"C": ocr_c, "B": ocr, "A": ocr_a},
                                  pages)
         runs.update(bf_runs)
+        multi, m_runs = phase_m(model, pages, tmp)
+        runs.update(m_runs)
+        prof = phase_pr({"C": ocr_c, "B": ocr, "A": ocr_a}, pages)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -3045,6 +3446,8 @@ def main() -> int:
     print(json.dumps({"batch_ocr": batch_ocr}))
     print(json.dumps({"train": trained}))
     print(json.dumps({"bf16": bf16}))
+    print(json.dumps({"multi_device": multi, "profiling": prof,
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ nothing back from the device: a graph's outputs stay there.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -86,6 +87,17 @@ class GraphExecutor:
         # index tables, each uploaded once (ops._Ctx)
         self._uploads: Dict[Any, torch.Tensor] = {}
         self._static_ids = {id(v) for v in self.static_weights.values()}
+
+    def to(self, device) -> "GraphExecutor":
+        """A copy of this executor whose uploaded weights live on `device`
+        (a mesh row's replica); the graph and the host constants are
+        shared."""
+        out = copy.copy(self)
+        out.device = _device(device)
+        out.device_weights = {k: v.to(out.device)
+                              for k, v in self.device_weights.items()}
+        out._uploads = {}
+        return out
 
     # -- graph interpretation ----------------------------------------------
     def _interpret(self, weights: Dict[str, Any], feeds: Dict[str, Any]):

@@ -1,4 +1,5 @@
-"""Device mesh for the dp × tp recognizer training step. Counterpart of
+"""Device mesh for the dp × tp recognizer training step and for serving
+across cards (parallel/serving.py). Counterpart of
 onnxocr_tpu/parallel/mesh.py.
 
 The JAX package runs one SPMD program over a `jax.sharding.Mesh` with axes
@@ -12,11 +13,19 @@ each shard itself and moves tensors between devices with `.to` (no
 torch.distributed, no NCCL). A device may appear in the grid more than once
 (the CPU tests build a 4 × 2 grid of 'cpu'); every cell still holds its own
 copy.
+
+Serving is data-parallel only: `replicate` holds one copy of a model per
+data row, on the row's first device, and `Rows` runs a function on every
+row, one worker thread per device, padding the batch to a multiple of the
+rows, splitting it evenly and gathering the results in batch order.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import Dict, Optional, Sequence, Tuple
+import threading
+from concurrent.futures import ThreadPoolExecutor, wait
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,6 +126,145 @@ def data_sharding(mesh: Mesh, ndim: int = 4) -> NamedSharding:
     return NamedSharding(mesh, ("data",) + (None,) * (ndim - 1))
 
 
+def row_devices(mesh: Mesh) -> List[torch.device]:
+    """The first device of each data row (an error for a CUDA device
+    without CUDA)."""
+    return [resolve_device(d) for d in mesh.devices[:, 0]]
+
+
+def replicate(module, mesh: Mesh) -> list:
+    """One copy of `module` per data row, on the row's first device. An
+    nn.Module is deep-copied and moved with `.to`, which moves its
+    non-persistent buffers too (the SVTR head's `w_split`); anything else
+    (a graph executor) makes its own copy with `.to(device)`. Along a row's
+    model axis the JAX program computes the same thing on every device, so
+    the port runs it once per row."""
+    if isinstance(module, torch.nn.Module):
+        return [copy.deepcopy(module).to(dev) for dev in row_devices(mesh)]
+    return [module.to(dev) for dev in row_devices(mesh)]
+
+
+def _tree_rows(tree, start: int, stop: int):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_rows(t, start, stop) for t in tree)
+    return tree[start:stop]
+
+
+def _gather(outs: list, device):
+    """Row outputs (tensors, or tuples of them) → one tree, each leaf the
+    rows' leaves concatenated on `device`."""
+    if isinstance(outs[0], (tuple, list)):
+        return type(outs[0])(_gather([o[k] for o in outs], device)
+                             for k in range(len(outs[0])))
+    return torch.cat([o.to(device) for o in outs])
+
+
+_ROW = threading.local()
+
+
+def current_row() -> Optional[int]:
+    """The data row the calling thread is running for `Rows`, else None."""
+    return getattr(_ROW, "index", None)
+
+
+class Rows:
+    """The data rows of a mesh, run by one worker thread per distinct
+    device (the rows of a device one after another, in row order), each
+    row under its device (`torch.cuda.device`) and inference mode. Rows on
+    different cards run side by side; rows that share a card (a grid of
+    one device repeated) run on one thread, since their kernels queue on
+    the card's one stream anyway, and threads that share a card contend
+    for the interpreter (ab_mesh.py on an H100: a thread a row was 2.7–
+    5.3× slower on a 4 × 1 grid of one card, with or without a CUDA
+    stream a row). No collectives: the rows never exchange data."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.devices = row_devices(mesh)
+        self._pools = {}
+        for dev in self.devices:
+            if dev not in self._pools:
+                self._pools[dev] = ThreadPoolExecutor(1, f"mesh-{dev}")
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def close(self) -> None:
+        for pool in self._pools.values():
+            pool.shutdown(wait=True)
+
+    def _run(self, rows: List[int], fn: Callable, parts: Sequence[tuple]):
+        """Run `rows` in order → [(row, result, error)]; a failing row does
+        not stop the next."""
+        out = []
+        for i in rows:
+            dev = self.devices[i]
+            ctx = torch.cuda.device(dev) if dev.type == "cuda" \
+                else contextlib.nullcontext()
+            _ROW.index = i
+            try:
+                with ctx, torch.inference_mode():
+                    out.append((i, fn(i, *parts[i]), None))
+            except Exception as e:
+                out.append((i, None, e))
+            finally:
+                _ROW.index = None
+        return out
+
+    def map(self, fn: Callable, parts: Sequence[tuple]) -> list:
+        """fn(row, *parts[row]) for every row on its device's thread → the
+        results in row order. Waits for every row; a failure on any row is
+        raised here (the first row's, in row order), never served
+        around."""
+        by_dev: Dict[torch.device, List[int]] = {}
+        for i, dev in enumerate(self.devices):
+            by_dev.setdefault(dev, []).append(i)
+        futures = [self._pools[dev].submit(self._run, rows, fn, parts)
+                   for dev, rows in by_dev.items()]
+        wait(futures)
+        done = sorted((r for f in futures for r in f.result()),
+                      key=lambda r: r[0])
+        for _, _, error in done:
+            if error is not None:
+                raise error
+        return [result for _, result, _ in done]
+
+    def split(self, fn: Callable, arrays: Sequence, pads: Sequence = (),
+              device=None):
+        """Pad the batch (the arrays' shared leading dim B) to a multiple of
+        the rows, split it evenly, run fn(row, *its parts) on each row and
+        gather the outputs (a tensor or a tuple of tensors with the part's
+        leading dim) in batch order on `device` (default: row 0's), the
+        padding sliced off. `pads[k]`, where given and not None, is the row
+        that pads arrays[k] (broadcast); zeros otherwise. Parts are the
+        arrays' slices as given (numpy or tensors): fn moves them."""
+        b = len(arrays[0])
+        n = len(self)
+        pad = (-b) % n
+        if pad:
+            arrays = [_pad(a, pad, pads[k] if k < len(pads) else None)
+                      for k, a in enumerate(arrays)]
+        size = (b + pad) // n
+        outs = self.map(fn, [tuple(a[i * size:(i + 1) * size]
+                                   for a in arrays) for i in range(n)])
+        out = _gather(outs, device or self.devices[0])
+        return _tree_rows(out, 0, b) if pad else out
+
+
+def _pad(a, n: int, row=None):
+    """a with n rows appended: `row` broadcast, or zeros."""
+    shape = (n,) + tuple(a.shape[1:])
+    if isinstance(a, torch.Tensor):
+        fill = a.new_zeros(shape) if row is None else \
+            torch.as_tensor(row, dtype=a.dtype, device=a.device).expand(
+                shape)
+        return torch.cat([a, fill])
+    a = np.asarray(a)
+    fill = np.zeros(shape, a.dtype) if row is None else \
+        np.broadcast_to(np.asarray(row, a.dtype), shape)
+    return np.concatenate([a, fill])
+
+
 class ShardedRec:
     """An SVTR placed as JAX's `shard_rec_params` places its tree: every
     leaf but the CTC head replicated, the head's vocab axis split over
@@ -135,8 +283,7 @@ class ShardedRec:
         self.body_sharding = replicated(mesh)
         body = copy.deepcopy(model)
         del body.head
-        self.body = [copy.deepcopy(body).to(dev)
-                     for dev in mesh.devices[:, 0]]
+        self.body = replicate(body, mesh)
         head = model.head
         self.head_w = NamedSharding(mesh, (None, "model")).place(
             head.w.detach())

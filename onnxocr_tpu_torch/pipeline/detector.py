@@ -21,7 +21,9 @@ its backends.DetForward:
   fixed det canvas, or per canvas shape for the ResNet
   (runtime/batcher.DetPageBatcher), in the mode
   `page_batch_mode` picks: the bitmap wire (`pages_bits`), the maps wire
-  (`pages_maps`) or device box extraction (`pages_boxes`).
+  (`pages_maps`) or device box extraction (`pages_boxes`); on a mesh of
+  devices (the serving engine of a host with several cards) the maps wave
+  split over the mesh's data rows (`pages_maps_sharded`).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from ..models import convert
 from ..onnx.executor import GraphExecutor
 from ..ops import db_device, det_pre, geometry, resize_dev
 from ..ops.db_post import DBPostProcess
+from ..utils.profiling import CAPTURE
 from . import backends
 
 
@@ -64,6 +67,12 @@ class GraphDBNet:
 
     def __init__(self, model_path: str, device: torch.device):
         self.executor = GraphExecutor(model_path, name="det", device=device)
+
+    def to(self, device) -> "GraphDBNet":
+        """The same graph on `device` (a mesh row's replica)."""
+        out = GraphDBNet.__new__(GraphDBNet)
+        out.executor = self.executor.to(device)
+        return out
 
     def __call__(self, x: torch.Tensor, valid_hw=None) -> torch.Tensor:
         out = self.executor({self.executor.input_names[0]:
@@ -112,23 +121,36 @@ class TextDetector:
         a graph), so that pages may share a fixed canvas."""
         return self.backend == "native" and self.arch == "mbv3"
 
-    def enable_page_batching(self, max_wait_ms: float = 8.0) -> bool:
+    def enable_page_batching(self, max_wait_ms: float = 8.0,
+                             mesh=None) -> bool:
         """Cross-request det batching: concurrent pages share one DBNet
         forward (runtime/batcher.DetPageBatcher) in the mode of
         `page_batch_mode`, on the fixed det canvas for the masked mbv3 and
         on each page's own bucket canvas for the ResNet and a graph. False,
         and no batcher, without limit_type 'max' sizing, as in the JAX
-        package."""
+        package. A batcher enabled before is closed and replaced.
+
+        With `mesh` (parallel/mesh.py, serving across cards), the wave
+        splits over the mesh's `data` axis (`pages_maps_sharded`) and the
+        mode is 'maps', as the JAX package's mesh turns its wire into
+        maps; a graph det and the boxes mode drop the mesh, as there."""
         mode = page_batch_mode(self.args)
         if mode is None:
             return False
+        if self.backend != "native" or mode == "boxes":
+            mesh = None
         from ..runtime.batcher import DetPageBatcher
-        fn = {"bits": self.pages_bits, "maps": self.pages_maps,
-              "boxes": self.pages_boxes}[mode]
+        if mesh is not None:
+            mode, fn = "maps", self.pages_maps_sharded(mesh)
+        else:
+            fn = {"bits": self.pages_bits, "maps": self.pages_maps,
+                  "boxes": self.pages_boxes}[mode]
+        if self._page_batcher is not None:
+            self._page_batcher.close()
         self._page_batcher = DetPageBatcher(
             fn, mode, self.limit_side_len, self.limit_type,
             max_wait_ms=max_wait_ms, bucket=self.bucket,
-            fixed_canvas=self.masks_canvas)
+            fixed_canvas=self.masks_canvas, mesh=mesh)
         return True
 
     def clip_det_res(self, points, img_height, img_width):
@@ -208,9 +230,18 @@ class TextDetector:
             wb = det_pre.round_up(rw, self.bucket)
         x = resize_dev.resize_normalize_det(image_u8, src_h, src_w, rh, rw,
                                             hb, wb)
+        if CAPTURE.enabled:
+            CAPTURE.record("det_bits", self.bits_forward, (x, rh, rw))
+        return (*self.bits_forward(x, rh, rw), (rh, rw))
+
+    @torch.inference_mode()
+    def bits_forward(self, x: torch.Tensor, rh: int, rw: int):
+        """The bitmap wire's device program on a normalized canvas (H, W, 3)
+        (valid rh × rw): DBNet → (bits (H, W // 8) uint8, prob (H, W)
+        float32), both on the device."""
         prob = self.forward(x, rh, rw)
-        bits = det_pre.bitpack_map(prob, rh, rw, self.postprocess_op.thresh)
-        return bits, prob, (rh, rw)
+        return det_pre.bitpack_map(prob, rh, rw,
+                                   self.postprocess_op.thresh), prob
 
     def _pages_forward(self, batch) -> torch.Tensor:
         """A wave's DBNet forward: {"pages": (B, H, W, 3) uint8 canvases or
@@ -240,6 +271,22 @@ class TextDetector:
         uint8 canvases → (B, H, W) maps in the wire dtype."""
         return self.encode_map(self._pages_forward(batch))
 
+    def pages_maps_sharded(self, mesh):
+        """The maps wave split over a mesh (the JAX batcher's
+        `_make_sharded_fn`): host-resized uint8 canvases → (B, H, W) maps
+        in the wire dtype, each row's DBNet replica masked to its pages'
+        extents and its maps encoded on its device, gathered on the host.
+        The replicas are built here, once."""
+        from ..parallel.serving import ShardedDetBatch
+        det = ShardedDetBatch(self.model, mesh, self.arch)
+
+        def fn(batch):
+            return det(batch["pages"], batch["rhw"], encode=self.encode_map,
+                       device="cpu")
+
+        fn.close = det.close
+        return fn
+
     @torch.inference_mode()
     def pages_boxes(self, batch) -> torch.Tensor:
         """The det batcher's boxes wave (`make_pages_boxes_fn`): host-resized
@@ -249,9 +296,9 @@ class TextDetector:
         args, pp = self.args, self.postprocess_op
         max_k = int(args.tpu_det_max_boxes)
         probs = self._pages_forward(batch)
-        rhw = np.asarray(batch["rhw"])
+        rhw = torch.as_tensor(batch["rhw"]).tolist()
         out = probs.new_zeros((len(rhw), max_k, 10))
-        for i, (rh, rw) in enumerate(rhw.tolist()):
+        for i, (rh, rw) in enumerate(rhw):
             if rh and rw:
                 quads, scores, valid = db_device.device_boxes(
                     probs[i], rh, rw, max_k=max_k, thresh=pp.thresh,

@@ -26,6 +26,7 @@ import torch
 from .. import config
 from ..ops import db_device
 from ..ops import warp as warp_ops
+from ..utils.profiling import CAPTURE
 
 
 def _on(dev, *arrays):
@@ -126,15 +127,18 @@ class FusedClsRec:
         carry zero quads, which score 0. → packed (N, 2T + 1) float32 [idx,
         prob, score] on the device."""
         dev = image_u8.device
+        mats = _on(dev, pre_quads, cls_mats, cls_valid, rec_mats,
+                   rec_mats_rot, rec_valid)
+        if CAPTURE.enabled:
+            CAPTURE.record("fused_scored",
+                           partial(self.call_scored, use_cls=use_cls),
+                           (image_u8, prob, r_h, r_w, *mats, out_h, out_w))
         H, W = prob.shape
         in_valid = (torch.arange(H, device=dev)[:, None] < r_h) & \
             (torch.arange(W, device=dev)[None, :] < r_w)
-        scores = db_device.quad_mask_mean(prob, *_on(dev, pre_quads),
-                                          in_valid)
+        scores = db_device.quad_mask_mean(prob, mats[0], in_valid)
         idx, prob_max, _, _ = self._cls_rec(
-            partial(self.warp, image_u8), *_on(
-                dev, cls_mats, cls_valid, rec_mats, rec_mats_rot, rec_valid),
-            out_h, out_w, use_cls)
+            partial(self.warp, image_u8), *mats[1:], out_h, out_w, use_cls)
         f32 = torch.float32
         return torch.cat([idx.to(f32), prob_max.to(f32),
                           scores.to(f32)[:, None]], -1)

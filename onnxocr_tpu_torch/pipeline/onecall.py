@@ -26,9 +26,14 @@ extraction per page, one gather warp and one recognizer pass over every
 page's crops) with one download a wave, at the largest page count of
 `tpu_onecall_wave_tiers` that has been warmed; a lone call runs the
 single-page step at once and never waits.
+
+`sharded_batch_fn` runs a page batch over a mesh of devices: each data row
+runs `step_wave` on its share of the pages with its own replica of the det,
+cls and rec models, on its device's worker thread (parallel/mesh.Rows).
 """
 from __future__ import annotations
 
+import copy
 import math
 import threading
 from typing import List, Sequence, Tuple
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import db_device, det_pre, resize_dev, warp_dev
+from ..utils.profiling import CAPTURE
 
 
 class OneCallPipeline:
@@ -222,6 +228,72 @@ class OneCallPipeline:
                                        prob_max[r])
                             for p, r in zip(pages, rows)])
 
+    def _row_pipeline(self, dev, det_model, cls_fwd, rec_fwd):
+        """A shallow copy of this pipeline that runs on `dev` with the given
+        replicas (no wave coalescer, no det batcher)."""
+        det = copy.copy(self.detector)
+        det.model, det.device, det._page_batcher = det_model, dev, None
+        fused = copy.copy(self.fused)
+        fused.cls_forward, fused.rec_forward = cls_fwd, rec_fwd
+        pipe = copy.copy(self)
+        pipe.detector, pipe.fused, pipe.device, pipe._wave = \
+            det, fused, dev, None
+        return pipe
+
+    def sharded_batch_fn(self, use_cls: bool, mesh, out_h: int = 0,
+                         out_w: int = 0):
+        """The multi-device one-call program (the JAX package's vmapped
+        wave step sharded over the mesh's `data` axis): each data row runs
+        `step_wave` on its share of the pages, with its own replica of the
+        det, cls and rec models (built here, once) on the row's first
+        device, from that device's worker thread (mesh.Rows): rows on
+        different cards overlap although `step_wave` waits on its device
+        inside the labelling, rows that share a card run in turn. No
+        collectives: pages are independent.
+
+        The det canvas (out_h, out_w) defaults to round_up(limit_side_len,
+        bucket) when 0. The JAX package's callable takes the det, cls and
+        rec param trees first; the port's modules hold their weights, so
+        the returned callable holds the replicas and takes the page
+        arguments only:
+
+            fn(images_u8 (B, Hs, Ws, 3) uint8, src_h, src_w, r_h, r_w (B,)
+               ints) → (B, rows, 12 + 2T) float32 packed buffers on row 0's
+               device, each page's block decoding as the single-page
+               download. B must split evenly over the rows, as the JAX
+               program's input sharding requires."""
+        from ..parallel import mesh as mesh_lib
+        if not out_h or not out_w:
+            det = self.detector
+            cap = det_pre.round_up(int(det.limit_side_len), det.bucket)
+            out_h = out_h or cap
+            out_w = out_w or cap
+        use_cls = self.use_cls(use_cls)
+        rows = mesh_lib.Rows(mesh)
+        n = len(rows)
+        dets = mesh_lib.replicate(self.detector.model, mesh)
+        recs = _replicate_forward(self.fused.rec_forward, mesh)
+        clss = _replicate_forward(self.fused.cls_forward, mesh) \
+            if use_cls else [self.fused.cls_forward] * n
+        pipes = [self._row_pipeline(dev, *models) for dev, *models in
+                 zip(rows.devices, dets, clss, recs)]
+
+        def row(i, images, src_h, src_w, r_h, r_w):
+            ints = [np.asarray(a).astype(int).tolist()
+                    for a in (src_h, src_w, r_h, r_w)]
+            return pipes[i].step_wave(
+                torch.as_tensor(images).to(rows.devices[i]), *ints,
+                out_h, out_w, 0, 0, use_cls)
+
+        def fn(images_u8, src_h, src_w, r_h, r_w) -> torch.Tensor:
+            if len(images_u8) % n:
+                raise ValueError(f"{len(images_u8)} pages do not split "
+                                 f"over {n} data rows")
+            return rows.split(row, (images_u8, src_h, src_w, r_h, r_w))
+
+        fn.rows = rows
+        return fn
+
     def use_cls(self, cls: bool) -> bool:
         """Whether a call with `cls` runs the classifier."""
         return bool(cls and self.fused.cls_forward is not None and
@@ -244,6 +316,10 @@ class OneCallPipeline:
     def _run_single(self, use_cls: bool, image_dev: torch.Tensor,
                     src_h: int, src_w: int, rh: int, rw: int, hb: int,
                     wb: int, eh: int = 0, ew: int = 0) -> np.ndarray:
+        if CAPTURE.enabled:
+            CAPTURE.record("onecall",
+                           lambda *a: self.step(*a, hb, wb, eh, ew, use_cls),
+                           (image_dev, src_h, src_w, rh, rw))
         return self.step(image_dev, src_h, src_w, rh, rw, hb, wb, eh, ew,
                          use_cls).cpu().numpy()
 
@@ -301,6 +377,21 @@ class OneCallPipeline:
             rest = self._rerun(image_dev, boxes_all[self.k_rec:], use_cls)
             return boxes_all, rec_res + rest
         return boxes, rec_res
+
+
+def _replicate_forward(fwd, mesh) -> list:
+    """Per data row, a shallow copy of a cls or rec forward whose model (a
+    graph's executor) is that row's replica."""
+    from ..parallel import mesh as mesh_lib
+    attr = "executor" if fwd.backend == "graph" else "model"
+    out = []
+    for dev, model in zip(mesh_lib.row_devices(mesh),
+                          mesh_lib.replicate(getattr(fwd, attr), mesh)):
+        f = copy.copy(fwd)
+        setattr(f, attr, model)
+        f.device = dev
+        out.append(f)
+    return out
 
 
 class _WaveReq:

@@ -47,7 +47,13 @@ det forwards run as one wave (the bitmap wire's, the map route's or the
 device postprocess's, runtime/batcher.DetPageBatcher), with
 `tpu_rec_microbatch` the fused passes of every route but one-call's own
 program run as multi-page passes. `close()` stops their threads and the
-wave coalescer's.
+wave coalescer's. A det batcher on a mesh of devices (the serving engine's
+`_maybe_shard_det`) runs the maps wave, so the bitmap route then takes the
+map route's det step, as the JAX package's does (`route` says so).
+
+The stages of utils/profiling.GLOBAL ("img_upload", "det",
+"cls_rec_fused", "onecall", "cls", "rec") open where the JAX package's
+open them, route by route.
 """
 from __future__ import annotations
 
@@ -61,6 +67,7 @@ import torch
 from .. import config
 from ..ops import db_post, det_pre, geometry, resize_dev
 from ..utils import imcodec
+from ..utils.profiling import GLOBAL as timer
 from ..utils.image import get_minarea_rect_crop, get_rotate_crop_image, \
     minarea_quad
 from .classifier import TextClassifier
@@ -118,12 +125,12 @@ class TextSystem:
         self._crop_res_lock = threading.Lock()
         self.text_detector = TextDetector(args, self.device)
         # the checkpoint calibration has set the det flags by now
-        self.route = route_of(args)
+        self._route = route_of(args)
         self.text_recognizer = TextRecognizer(args, self.device)
         if self.use_angle_cls:
             self.text_classifier = TextClassifier(args, self.device)
         self._fused = None
-        if args.tpu_fused_cls_rec and self.route != "host_crops":
+        if args.tpu_fused_cls_rec and self._route != "host_crops":
             warp_form = self.text_recognizer.warp_form
             if self.use_angle_cls:
                 cls = self.text_classifier
@@ -136,10 +143,22 @@ class TextSystem:
                 self._fused = FusedClsRec(None, self.text_recognizer.forward,
                                           warp_form=warp_form)
         self._onecall = None
-        if self.route == "onecall":
+        if self._route == "onecall":
             self._onecall = OneCallPipeline(
                 self.text_detector, self.text_recognizer, self._fused, args,
                 self.device)
+
+    @property
+    def route(self) -> str:
+        """The route a page of normal size takes (route_of), where a det
+        batcher that does not run the bitmap wire (one on a mesh) turns the
+        bitmap route into the map route, as the JAX package's
+        `_call_device_crops` checks the batcher's wire."""
+        batcher = self.text_detector._page_batcher
+        if self._route == "bitmap" and batcher is not None and \
+                batcher.mode != "bits":
+            return "map"
+        return self._route
 
     def close(self):
         """Stop the cross-request batchers' and the wave coalescer's
@@ -200,38 +219,43 @@ class TextSystem:
         the packed rec buffer; the prob map stays on the device."""
         det, rec = self.text_detector, self.text_recognizer
         pp = det.postprocess_op
-        image_dev, src_h, src_w = resize_dev.put_src_bucket(img, self.device)
-        batcher = det._page_batcher
-        if batcher is not None:
-            # the det batcher: concurrent pages' forwards as one wave, the
-            # wave's bitmaps downloaded as one copy; each fixed canvas
-            # resized on the device from the uploaded page, or on the host
-            # (tpu_det_batch_input='host', and the ResNet's own canvases)
-            if batcher.canvas is not None and \
-                    self.args.tpu_det_batch_input == "device":
-                bitmap, prob_dev, (rh, rw), _ = batcher.submit_bits_dev(
-                    image_dev, src_h, src_w)
+        with timer.stage("img_upload"):
+            image_dev, src_h, src_w = resize_dev.put_src_bucket(img,
+                                                                self.device)
+        with timer.stage("det"):
+            batcher = det._page_batcher
+            if batcher is not None:
+                # the det batcher: concurrent pages' forwards as one wave,
+                # the wave's bitmaps downloaded as one copy; each fixed
+                # canvas resized on the device from the uploaded page, or
+                # on the host (tpu_det_batch_input='host', and the ResNet's
+                # own canvases)
+                if batcher.canvas is not None and \
+                        self.args.tpu_det_batch_input == "device":
+                    bitmap, prob_dev, (rh, rw), _ = batcher.submit_bits_dev(
+                        image_dev, src_h, src_w)
+                else:
+                    bitmap, prob_dev, (rh, rw), _ = batcher.submit_bits(img)
             else:
-                bitmap, prob_dev, (rh, rw), _ = batcher.submit_bits(img)
-        else:
-            bits, prob_dev, (rh, rw) = det.bitmap_forward(
-                image_dev, src_h, src_w, self._fixed_canvas())
-            # the whole canvas comes down and is sliced on the host
-            bitmap = det_pre.unpack_bitmap(bits.cpu().numpy()[:rh, :rw // 8],
-                                           rw)
-        if pp.use_dilation:
-            bitmap = geometry.dilate2x2(bitmap)
-        pre_quads, cand = pp.candidates_from_bitmap(bitmap, img.shape[1],
-                                                    img.shape[0])
-        boxes, pre = self._keep_candidates(pre_quads, cand, img.shape)
+                bits, prob_dev, (rh, rw) = det.bitmap_forward(
+                    image_dev, src_h, src_w, self._fixed_canvas())
+                # the whole canvas comes down and is sliced on the host
+                bitmap = det_pre.unpack_bitmap(
+                    bits.cpu().numpy()[:rh, :rw // 8], rw)
+            if pp.use_dilation:
+                bitmap = geometry.dilate2x2(bitmap)
+            pre_quads, cand = pp.candidates_from_bitmap(
+                bitmap, img.shape[1], img.shape[0])
+            boxes, pre = self._keep_candidates(pre_quads, cand, img.shape)
         if len(boxes) == 0:
             return [], []
         use_cls = self._use_cls(cls)
         cls_shape = (self._fused.cls_h, self._fused.cls_w)
         if len(boxes) <= rec.batch_ladder[-1] * 4:
-            rec_res, scores = rec.run_candidates_scored(
-                image_dev, prob_dev, rh, rw, boxes, pre, self._fused,
-                cls_shape, use_cls=use_cls)
+            with timer.stage("cls_rec_fused"):
+                rec_res, scores = rec.run_candidates_scored(
+                    image_dev, prob_dev, rh, rw, boxes, pre, self._fused,
+                    cls_shape, use_cls=use_cls)
             keep = scores >= pp.box_thresh
             fb = [b for b, k in zip(boxes, keep) if k]
             fr = [r for r, k in zip(rec_res, keep) if k]
@@ -239,16 +263,18 @@ class TextSystem:
             return [fb[i] for i in order], [fr[i] for i in order]
         # more candidates than the scored passes take (a speckled page):
         # the map comes down, the host scores, the kept boxes run fused
-        prob = np.ascontiguousarray(prob_dev.cpu().numpy()[:rh, :rw])
-        scores = np.asarray([db_post.box_score_fast(prob, q) for q in pre],
-                            np.float32)
-        dt_boxes = sorted_boxes(
-            [b for b, s in zip(boxes, scores) if s >= pp.box_thresh])
+        with timer.stage("det"):
+            prob = np.ascontiguousarray(prob_dev.cpu().numpy()[:rh, :rw])
+            scores = np.asarray([db_post.box_score_fast(prob, q)
+                                 for q in pre], np.float32)
+            dt_boxes = sorted_boxes(
+                [b for b, s in zip(boxes, scores) if s >= pp.box_thresh])
         if not dt_boxes:
             return dt_boxes, []
-        return dt_boxes, rec.run_boxes_fused(
-            image_dev, np.asarray(dt_boxes, np.float32), self._fused,
-            cls_shape, use_cls=use_cls)
+        with timer.stage("cls_rec_fused"):
+            return dt_boxes, rec.run_boxes_fused(
+                image_dev, np.asarray(dt_boxes, np.float32), self._fused,
+                cls_shape, use_cls=use_cls)
 
     def _det_boxes(self, img, tiny: bool):
         """The det step of the staged routes, in the JAX package's order
@@ -259,23 +285,30 @@ class TextSystem:
         det = self.text_detector
         batcher = det._page_batcher
         if batcher is not None and batcher.mode == "boxes":
-            return det(img), None
-        if self.route == "device" and not tiny:
-            image_dev, src_h, src_w = resize_dev.put_src_bucket(img,
-                                                                self.device)
-            return det.filter_tag_det_res(
-                det.infer_boxes_device(image_dev, src_h, src_w),
-                img.shape), image_dev
-        if batcher is None and not tiny and self.route == "map":
-            image_dev, src_h, src_w = resize_dev.put_src_bucket(img,
-                                                                self.device)
-            prob, shape_info = det.infer_prob_map_device(image_dev, src_h,
-                                                         src_w)
-            return det.boxes_from_prob(prob, shape_info, img.shape), \
-                image_dev
+            with timer.stage("det"):
+                return det(img), None
+        route = self.route
+        if route == "device" and not tiny:
+            with timer.stage("img_upload"):
+                image_dev, src_h, src_w = resize_dev.put_src_bucket(
+                    img, self.device)
+            with timer.stage("det"):
+                return det.filter_tag_det_res(
+                    det.infer_boxes_device(image_dev, src_h, src_w),
+                    img.shape), image_dev
+        if batcher is None and not tiny and route == "map":
+            with timer.stage("img_upload"):
+                image_dev, src_h, src_w = resize_dev.put_src_bucket(
+                    img, self.device)
+            with timer.stage("det"):
+                prob, shape_info = det.infer_prob_map_device(
+                    image_dev, src_h, src_w)
+                return det.boxes_from_prob(prob, shape_info, img.shape), \
+                    image_dev
         # the det batcher's waves (maps, or bits for the host scores) and
         # the host det input
-        return det(img), None
+        with timer.stage("det"):
+            return det(img), None
 
     def _call_staged(self, img, cls: bool, tiny: bool = False):
         """The routes past the one-call program and the bitmap wire: det
@@ -285,24 +318,29 @@ class TextSystem:
         dt_boxes = sorted_boxes(dt_boxes)
         if len(dt_boxes) == 0:
             return dt_boxes, []
-        if image_dev is None:
-            image_dev = torch.from_numpy(np.ascontiguousarray(img)).to(
-                self.device)
         if self.args.det_box_type == "quad":
             crop_quads = np.asarray(dt_boxes, dtype=np.float32)
         else:
             crop_quads = np.stack([minarea_quad(np.asarray(b))
                                    for b in dt_boxes]).astype(np.float32)
+        if image_dev is None:
+            with timer.stage("img_upload"):
+                image_dev = torch.from_numpy(np.ascontiguousarray(img)).to(
+                    self.device)
         rec = self.text_recognizer
         if self._fused is not None:
-            return dt_boxes, rec.run_boxes_fused(
-                image_dev, crop_quads, self._fused,
-                (self._fused.cls_h, self._fused.cls_w),
-                use_cls=self._use_cls(cls))
+            with timer.stage("cls_rec_fused"):
+                return dt_boxes, rec.run_boxes_fused(
+                    image_dev, crop_quads, self._fused,
+                    (self._fused.cls_h, self._fused.cls_w),
+                    use_cls=self._use_cls(cls))
         rot180 = None
         if self.use_angle_cls and cls:
-            rot180, _ = self.text_classifier.run_boxes(image_dev, crop_quads)
-        return dt_boxes, rec.run_boxes(image_dev, crop_quads, rot180)
+            with timer.stage("cls"):
+                rot180, _ = self.text_classifier.run_boxes(image_dev,
+                                                           crop_quads)
+        with timer.stage("rec"):
+            return dt_boxes, rec.run_boxes(image_dev, crop_quads, rot180)
 
     def _call_host_crops(self, img, cls: bool):
         """tpu_crop_backend='host': the reference's own flow — det boxes,
@@ -322,14 +360,16 @@ class TextSystem:
 
     def __call__(self, img, cls: bool = True):
         tiny = img.shape[0] + img.shape[1] < 64
-        if self.route == "host_crops":
+        route = self.route
+        if route == "host_crops":
             dt_boxes, rec_res = self._call_host_crops(img, cls)
         elif self._onecall is not None and not tiny:
-            boxes, rec_res = self._onecall(img, cls)
+            with timer.stage("onecall"):
+                boxes, rec_res = self._onecall(img, cls)
             order = _sorted_pair_order(boxes)
             dt_boxes = [boxes[i] for i in order]
             rec_res = [rec_res[i] for i in order]
-        elif self.route == "bitmap" and not tiny:
+        elif route == "bitmap" and not tiny:
             dt_boxes, rec_res = self._call_bitmap_wire(img, cls)
         else:
             dt_boxes, rec_res = self._call_staged(img, cls, tiny)

@@ -25,12 +25,14 @@ from __future__ import annotations
 
 import queue
 import threading
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..ops import db_device, det_pre, resize_dev
+from ..utils.profiling import CAPTURE
 
 
 class _Work:
@@ -195,8 +197,11 @@ class MicroBatcher:
                     (bsz - n,) + out.shape[1:], out.dtype)])
             return out
 
-        out = self._to_host(self.fn(_tree_map(stack, works[0].item,
-                                              *[w.item for w in works[1:]])))
+        stacked = _tree_map(stack, works[0].item,
+                            *[w.item for w in works[1:]])
+        if CAPTURE.enabled:
+            CAPTURE.record("det_pages_b%d" % bsz, self.fn, (stacked,))
+        out = self._to_host(self.fn(stacked))
         off = 0
         for w, k in zip(works, sizes):
             w.result = _tree_map(lambda a, o=off, kk=k: a[o:o + kk], out)
@@ -234,16 +239,33 @@ class DetPageBatcher:
       (`submit_boxes`).
 
     The host resize is det_pre.prepare_det_input (cv2's pixels, the tiny
-    page quirk kept)."""
+    page quirk kept).
+
+    With `mesh` (serving across cards), fn is the maps wave split over the
+    mesh's data rows (TextDetector.pages_maps_sharded) and the batch ladder
+    is padded up to multiples of the data axis, max(n_data, ceil(b /
+    n_data) * n_data), as in the JAX package; the mode must be 'maps' (the
+    JAX package's mesh turns its wire into maps), and the boxes mode drops
+    the mesh (its sharded program is "not yet" there)."""
 
     def __init__(self, fn: Callable, mode: str, limit_side_len: float = 960,
                  limit_type: str = "max", max_wait_ms: float = 8.0,
                  batch_ladder: Sequence[int] = (1, 2, 4, 8),
-                 bucket: int = 320, fixed_canvas: bool = True):
+                 bucket: int = 320, fixed_canvas: bool = True, mesh=None):
         if limit_type != "max":
             raise ValueError("the det batcher needs limit_type 'max'")
         if mode not in ("bits", "maps", "boxes"):
             raise ValueError(f"unknown det batcher mode {mode!r}")
+        if mode == "boxes":
+            mesh = None
+        if mesh is not None:
+            if mode != "maps":
+                raise ValueError("a det batcher on a mesh runs the maps "
+                                 f"mode, not {mode}")
+            n_data = mesh.shape["data"]
+            batch_ladder = tuple(sorted({
+                max(n_data, -(-b // n_data) * n_data) for b in batch_ladder}))
+        self.mesh = mesh
         self.mode = mode
         self.limit_side_len = limit_side_len
         self.limit_type = limit_type
@@ -256,9 +278,14 @@ class DetPageBatcher:
             fn, max_batch=batch_ladder[-1], max_wait_ms=max_wait_ms,
             batch_ladder=batch_ladder,
             to_host=_bits_to_host if mode == "bits" else None)
+        self._fn = fn
 
     def close(self):
+        """Stop the batcher's thread and, on a mesh, the rows' threads."""
         self.batcher.close()
+        close = getattr(self._fn, "close", None)
+        if self.mesh is not None and close is not None:
+            close()
 
     def _prepare(self, img: np.ndarray):
         """The host det input on the fixed canvas, or the page's own
@@ -544,15 +571,20 @@ class RecCropBatcher:
         if scored:
             probs = torch.stack([p["prob"] for p in pages])
             rhw = np.stack([p["rhw"] for p in pages])
-            packed = fused.call_multi_scored(
-                images, probs, rhw, img_idx,
-                pack("pre_quads", np.zeros((4, 2), np.float32)), *mats,
-                use_cls=use_cls).cpu().numpy()
-            T = (packed.shape[1] - 1) // 2
+            fn = partial(fused.call_multi_scored, use_cls=use_cls)
+            args = (images, probs, rhw, img_idx,
+                    pack("pre_quads", np.zeros((4, 2), np.float32)), *mats)
         else:
-            packed = fused.call_multi(images, img_idx, *mats,
-                                      use_cls=use_cls).cpu().numpy()
-            T = packed.shape[1] // 2
+            fn = partial(fused.call_multi, use_cls=use_cls)
+            args = (images, img_idx, *mats)
+        if CAPTURE.enabled:
+            # a one-page scored run is this route's per-page fused program:
+            # the name the JAX package's bench looks for
+            CAPTURE.record("fused_scored" if (b_img == 1 and scored) else
+                           "rec_multi%s_i%d" % ("_scored" if scored else "",
+                                                b_img), fn, args)
+        packed = fn(*args).cpu().numpy()
+        T = (packed.shape[1] - 1) // 2 if scored else packed.shape[1] // 2
         idx = packed[:, :T].astype(np.int32)
         prob = packed[:, T:2 * T]
         off = 0

@@ -2,8 +2,10 @@
 Counterpart of onnxocr_tpu/service/engine.py (reference: app/engine.py:
 19-178), serving the port's ONNXPaddleOcr on `settings.DEVICE`.
 
-One process owns the card; requests pass an asyncio.Semaphore, then run in
-a thread executor (the device calls release the GIL, so host pre/post of
+One process owns the card (or the cards: with DET_BATCH on a host with
+two CUDA devices or more, `_maybe_shard_det` splits the det page batch over
+every card, parallel/serving.py); requests pass an asyncio.Semaphore, then
+run in a thread executor (the device calls release the GIL, so host pre/post of
 concurrent requests overlaps device work). Every device call an executor
 thread makes runs under torch.inference_mode(), which is per thread.
 
@@ -154,16 +156,29 @@ class EngineManager:
                 self._models[model_name] = model
             return self._models[model_name]
 
+    def _det_mesh(self):
+        """The mesh the det page batch shards over: every CUDA device of
+        the host, one data row each (`make_mesh(model_parallel=1)`), on a
+        CUDA engine with two devices or more; None otherwise."""
+        if torch.device(self.device).type != "cuda" or \
+                torch.cuda.device_count() < 2:
+            return None
+        from ..parallel import mesh as mesh_lib
+        return mesh_lib.make_mesh(model_parallel=1)
+
     def _maybe_shard_det(self, model):
-        """The JAX engine shards the det page batch over a mesh of two
-        chips or more. Serving across cards is not ported (ROADMAP §1,
-        multi-GPU): with several CUDA devices the engine says so and
-        serves on its own device."""
-        if torch.device(self.device).type == "cuda" and \
-                torch.cuda.device_count() > 1:
-            logger.warning("%d CUDA devices: multi-GPU serving is not "
-                           "ported; serving on %s", torch.cuda.device_count(),
-                           self.device)
+        """On a host with several cards, re-enable det page batching with
+        the page batch split over a data mesh (parallel/mesh.py): the
+        engine's request stream fans out across cards with no collectives,
+        as the JAX engine fans it out across chips. With one device it does
+        nothing. Unlike the JAX engine, a failure to build the mesh is
+        raised, not swallowed: a failing card is not served around."""
+        mesh = self._det_mesh()
+        if mesh is None:
+            return
+        det = getattr(model, "text_detector", None)
+        if det is not None:
+            det.enable_page_batching(mesh=mesh)
 
     async def run_ocr(self, img: np.ndarray,
                       model_name: Optional[str] = None,

@@ -5,11 +5,13 @@ cv2 or PIL: counterparts of `cv2.imdecode(buf, cv2.IMREAD_COLOR)` and of
 `imdecode` reads PNG (every colour type and bit depth, Adam7 interlace),
 JPEG (baseline and progressive Huffman, 8-bit, 1, 3 or 4 (CMYK, YCCK)
 components, any integral sampling factors, restart intervals, the EXIF
-orientation) and BMP (24- and 32-bit, bottom-up and top-down) into
-(H, W, 3) uint8 BGR, and gives None where cv2 gives None: bytes of another
-format (WebP, TIFF, ...), arithmetic-coded, 12-bit or lossless JPEGs, other
-BMP depths, truncated or corrupt files, and sides longer than libpng or
-libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
+orientation) and BMP (1-, 4- and 8-bit palettes, RLE8 and RLE4, 16-bit
+5-5-5 and 5-6-5, 24- and 32-bit with or without bit-field masks, bottom-up
+and top-down, the OS/2 core header too) into (H, W, 3) uint8 BGR, and
+gives None where cv2 gives None: bytes of another format (WebP, TIFF,
+...), arithmetic-coded, 12-bit or lossless JPEGs, BMPs cv2 does not read
+(other 16-bit masks, other compressions), truncated or corrupt files, and
+sides longer than libpng or libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
 PIL's `Image.open(...).convert('RGB')`: the stored orientation, and
 Adobe's inverted CMYK through Pillow's cmyk2rgb. As IMREAD_COLOR does, it
 drops alpha, replicates grey, reduces 16-bit samples to their high byte and
@@ -290,28 +292,193 @@ def _jpeg_orientation(buf: bytes) -> int:
 
 
 # ------------------------------------------------------------------ BMP
+def _u32(buf: bytes, pos: int) -> int:
+    if pos + 4 > len(buf):
+        raise _Unreadable("BMP: truncated header")
+    return struct.unpack("<I", buf[pos:pos + 4])[0]
+
+
 def _bmp(buf: bytes) -> np.ndarray:
-    offset, = struct.unpack("<I", buf[10:14])
-    dib, = struct.unpack("<I", buf[14:18])
-    if dib < 40:
-        raise _Unreadable("BMP: core headers are not read")
-    w, h, _planes, bits, compression = struct.unpack("<iiHHI", buf[18:34])
-    if bits not in (24, 32) or w <= 0 or h == 0:
-        raise _Unreadable(f"BMP: {bits}-bit images are not read")
-    if compression == 3 and bits == 32:      # BI_BITFIELDS: BGRX masks only
-        masks = struct.unpack("<III", buf[54:66])  # after or in the header
-        if masks != (0xFF0000, 0xFF00, 0xFF):
-            raise _Unreadable("BMP: other bit-field masks are not read")
-    elif compression != 0:
-        raise _Unreadable("BMP: compressed images are not read")
-    rows, bpp = abs(h), bits // 8
+    """cv2's BmpDecoder at IMREAD_COLOR: a BITMAPINFOHEADER or a later one
+    (36 bytes or more) or the 12-byte OS/2 core header; 1-, 4- and 8-bit
+    palettes (entries past the palette's count are black, as cv2's zeroed
+    palette gives), RLE8 and RLE4, 16 bits as 5-5-5 (BI_RGB, or bit fields
+    of 5-5-5 or 5-6-5 read after the header), 24 bits, and 32 bits (the
+    header's R, G, B masks applied when it has them, 56 bytes or more, and
+    none is 0; else the bytes as B, G, R)."""
+    offset = _u32(buf, 10)
+    dib = struct.unpack("<i", buf[14:18])[0]
+    masks32 = None
+    if dib >= 36:
+        w, h = struct.unpack("<ii", buf[18:26])
+        bits = _u32(buf, 26) >> 16
+        comp = _u32(buf, 30)
+        clrused = struct.unpack("<i", buf[46:50])[0]
+        if comp > 3:
+            raise _Unreadable(f"BMP: compression {comp}")
+        ok = w > 0 and h != 0 and (
+            (bits in (1, 4, 8, 24, 32) and comp == 0) or
+            (bits in (16, 32) and comp in (0, 3)) or
+            (bits == 4 and comp == 2) or (bits == 8 and comp == 1))
+        if not ok:
+            raise _Unreadable(f"BMP: {bits}-bit, compression {comp}")
+        n_pal, entry = clrused or 1 << bits, 4
+        if bits <= 8 and not 0 <= clrused <= 256:
+            raise _Unreadable("BMP: palette count past 256")
+        if bits == 16:
+            if comp == 3:
+                rgb = tuple(_u32(buf, 14 + dib + 4 * k) for k in range(3))
+                if rgb not in ((0x7C00, 0x3E0, 0x1F), (0xF800, 0x7E0, 0x1F)):
+                    raise _Unreadable("BMP: other 16-bit masks")
+                bits = 15 if rgb[0] == 0x7C00 else 16
+            else:
+                bits = 15
+        elif bits == 32 and comp == 3 and dib >= 56:
+            masks32 = [_u32(buf, 54 + 4 * k) for k in range(3)]
+            if 0 in masks32:
+                masks32 = None
+    elif dib == 12:
+        w, h, _planes, bits = struct.unpack("<HHHH", buf[18:26])
+        comp, n_pal, entry = 0, 1 << bits, 3
+        if w == 0 or h == 0 or bits not in (1, 4, 8, 24, 32):
+            raise _Unreadable(f"BMP: {bits}-bit core header")
+    else:
+        raise _Unreadable(f"BMP: a {dib}-byte header")
+    palette = None
+    if bits <= 8:                    # read with the header, as cv2 does
+        pos = 14 + dib
+        if pos + n_pal * entry > len(buf):
+            raise _Unreadable("BMP: truncated palette")
+        palette = np.zeros((256, 3), np.uint8)
+        n = min(n_pal, 256)
+        palette[:n] = np.frombuffer(buf, np.uint8, n * entry, pos).reshape(
+            n, entry)[:, :3]
+    rows = abs(h)
     _check_size("bmp", w, rows)
-    stride = (w * bpp + 3) & ~3
+    if comp in (1, 2):
+        px = palette[_bmp_rle(buf, offset, w, rows, comp == 2)]
+    else:
+        px = _bmp_rows(buf, offset, w, rows, bits, palette, masks32)
+    return np.ascontiguousarray(px[::-1] if h > 0 else px)
+
+
+def _bmp_rows(buf, offset, w, rows, bits, palette, masks32):
+    """Uncompressed rows, in file order → (rows, w, 3) BGR."""
+    stride = ((w * (16 if bits == 15 else bits) + 7) // 8 + 3) & ~3
     if offset + stride * rows > len(buf):
         raise _Unreadable("BMP: truncated pixel data")
-    px = np.frombuffer(buf, np.uint8, stride * rows, offset).reshape(
-        rows, stride)[:, :w * bpp].reshape(rows, w, bpp)[:, :, :3]
-    return np.ascontiguousarray(px[::-1] if h > 0 else px)
+    raw = np.frombuffer(buf, np.uint8, stride * rows, offset).reshape(
+        rows, stride)
+    if bits <= 8:
+        idx = np.unpackbits(raw, axis=1) if bits == 1 else raw
+        if bits == 4:
+            idx = np.stack([raw >> 4, raw & 15], -1).reshape(rows, -1)
+        return palette[idx[:, :w]]
+    if bits in (15, 16):
+        t = raw[:, :2 * w].view("<u2").astype(np.uint32)
+        if bits == 15:
+            chans = [t << 3, t >> 2, t >> 7]
+            keep = (0xF8, 0xF8, 0xF8)
+        else:
+            chans = [t << 3, t >> 3, t >> 8]
+            keep = (0xF8, 0xFC, 0xF8)
+        return np.stack([(c & k).astype(np.uint8)
+                         for c, k in zip(chans, keep)], -1)
+    bpp = bits // 8
+    px = raw[:, :w * bpp].reshape(rows, w, bpp)
+    if masks32 is None:
+        return px[:, :, :3]
+    v = px.view("<u4")[:, :, 0]
+    out = []
+    for mask in masks32[::-1]:       # B, G, R from the R, G, B masks
+        shift = (mask & -mask).bit_length() - 1
+        # cv2 scales in float32 and truncates: 7 of a 3-bit field is 254
+        scale = np.float32(255) / np.float32(mask >> shift)
+        out.append(((v & np.uint32(mask)) >> np.uint32(shift)).astype(
+            np.float32) * scale)
+    return np.stack(out, -1).astype(np.uint8)
+
+
+def _bmp_rle(buf, offset, w, rows, rle4):
+    """RLE8 / RLE4 codes from `offset` → (rows, w) palette indices in file
+    order, as cv2 decodes them: a run or an absolute block past the row's
+    end, or codes running out before the last row, make the file
+    unreadable; end of line, end of bitmap and delta skip pixels with
+    palette entry 0 (a delta in RLE4 skips dx pixels only and an end of
+    bitmap in RLE4 ends the row only, as cv2 does); an end of line just
+    after a run that ended its row is no second line break in RLE8."""
+    idx = np.zeros((rows, w), np.uint8)
+    x = y = 0
+    pos = offset
+    end = len(buf)
+
+    def fill(count):
+        nonlocal x, y
+        while True:
+            n = min(count, w - x)
+            x += n
+            count -= n
+            if x >= w:
+                x = 0
+                y += 1
+                if y >= rows:
+                    return
+            if count <= 0:
+                return
+
+    line_end_flag = 0
+    while True:
+        if pos + 2 > end:
+            raise _Unreadable("BMP: RLE codes run out")
+        n, code = buf[pos], buf[pos + 1]
+        pos += 2
+        if n:                                    # a run
+            if x + n > w:
+                raise _Unreadable("BMP: RLE run past the row")
+            if rle4:
+                idx[y, x:x + n] = np.resize(
+                    np.array([code >> 4, code & 15], np.uint8), n)
+                x += n
+                continue
+            idx[y, x:x + n] = code
+            prev = y
+            fill(n)
+            line_end_flag = y - prev
+            if y >= rows:
+                break
+        elif code > 2:                           # an absolute block
+            if x + code > w:
+                raise _Unreadable("BMP: RLE block past the row")
+            size = ((code + 1) // 2 + 1) & ~1 if rle4 else (code + 1) & ~1
+            if pos + size > end:
+                raise _Unreadable("BMP: RLE block past the data")
+            raw = np.frombuffer(buf, np.uint8, size, pos)
+            pos += size
+            if rle4:
+                raw = np.stack([raw >> 4, raw & 15], -1).reshape(-1)
+            idx[y, x:x + code] = raw[:code]
+            x += code
+            line_end_flag = 0
+        else:                                    # end of line / bitmap, delta
+            skip, down = w - x, rows - y
+            if code == 2:
+                if pos + 2 > end:
+                    raise _Unreadable("BMP: RLE delta past the data")
+                skip, down = buf[pos], buf[pos + 1]
+                pos += 2
+            if rle4:
+                fill(skip)
+                if y >= rows:
+                    break
+                continue
+            if code or not line_end_flag or x > 0:
+                if code:
+                    skip += down * w
+                fill(skip)
+            line_end_flag = 0
+            if y >= rows:
+                break
+    return idx
 
 
 def _check_size(fmt: str, w: int, h: int) -> None:
@@ -336,7 +503,7 @@ def imdecode(buf) -> Optional[np.ndarray]:
             return _jpeg(buf)
         if buf[:8] == PNG_SIGNATURE:
             return _png(buf)
-        if buf[:2] == b"BM" and len(buf) >= 54:
+        if buf[:2] == b"BM":
             return _bmp(buf)
     except (_Unreadable, struct.error, zlib.error):
         return None

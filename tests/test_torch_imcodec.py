@@ -7,9 +7,15 @@ value for value: PNG of every colour type, bit depth and filter type,
 plain and Adam7-interlaced, with its eXIf orientation; JPEG baseline at
 4:4:4, 4:2:2, 4:2:0, 4:1:1, 4:4:0 and grey, with restart intervals,
 progressive, odd sizes and EXIF orientations 1–8; BMP at 24 and 32 bits,
-bottom-up and top-down. Bytes cv2 gives None for (garbage, every
-truncation) give None. Formats the codec does not read (WebP, TIFF, 16-bit
-BMP) give None where cv2 decodes them. Hostile uploads of a few hundred
+bottom-up and top-down, at 1, 4 and 8 bits with palettes (PIL's, cv2's and
+hand-built ones, the OS/2 core header too), RLE8 and RLE4 built by hand
+(runs, absolute blocks, end of line, delta, end of bitmap and cv2's quirks
+around them), 16 bits (5-5-5, 5-6-5 bit fields) and 32 bits with bit-field
+masks (cv2 applies them from a 56-byte header on, scaling in float32), and
+seeded BMPs of every kind, truncated and corrupted too. Bytes cv2 gives
+None for (garbage, every truncation) give None. Formats the codec does not
+read (WebP, TIFF) give None where cv2 decodes them. Hostile uploads of a
+few hundred
 bytes (over-subscribed or refused Huffman tables, sides and pixel counts
 past libpng's, libjpeg's and cv2's limits) answer as cv2 does (None, or
 ValueError where cv2 raises), a PNG zip bomb inflates only its image, and
@@ -266,6 +272,262 @@ def test_bmp_matches_cv2():
         assert_decodes_as_cv2(blob)
 
 
+def bmp_file(w, h, bits, comp=0, pixels=b"", palette=b"", dib=40,
+             clrused=0, masks=None, tail=b""):
+    """A BMP: the header of `dib` bytes (12: the OS/2 core header; 56 and
+    more carry R, G, B, A masks), `tail` (16-bit bit fields read after the
+    header), the palette, then the pixels."""
+    if dib == 12:
+        hdr = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        hdr = struct.pack("<IiiHHIIiiII", dib, w, h, 1, bits, comp,
+                          len(pixels), 2835, 2835, clrused, 0)
+        hdr += struct.pack("<IIII", *(tuple(masks or (0, 0, 0)) + (0,))[:4])
+        hdr = (hdr + bytes(max(0, dib - len(hdr))))[:dib]
+    body = hdr + tail + palette
+    return b"BM" + struct.pack("<IHHI", 14 + len(body) + len(pixels), 0, 0,
+                               14 + len(body)) + body + pixels
+
+
+def _palette(n, seed, entry=4):
+    return bytes(np.random.default_rng(seed).integers(
+        0, 256, n * entry).astype(np.uint8))
+
+
+def test_bmp_palettes_match_cv2():
+    """1-, 4- and 8-bit palettes from PIL (modes 1, L, P) and cv2 (grey),
+    and built by hand: fewer entries than the depth holds (indices past
+    them are black, as cv2's zeroed palette gives), top-down, a 4-bit
+    palette and the OS/2 core header at 1, 4, 8 and 24 bits."""
+    img = smooth_image(12, 23, 29)
+    blobs = [bytes(cv2.imencode(".bmp", img[:, :, 1])[1])]
+    for mode in ("1", "L", "P"):
+        out = io.BytesIO()
+        Image.fromarray(img[:, :, ::-1]).convert(mode).save(out, "BMP")
+        blobs.append(out.getvalue())
+    rng = np.random.default_rng(3)
+    for bits, clrused, h in ((8, 5, 7), (8, 0, -7), (4, 0, 7), (4, 3, -7),
+                             (1, 0, 7), (1, 1, 7)):
+        stride = ((13 * bits + 7) // 8 + 3) & ~3
+        pixels = bytes(rng.integers(0, 256, stride * 7).astype(np.uint8))
+        blobs.append(bmp_file(13, h, bits, pixels=pixels,
+                              palette=_palette(clrused or 1 << bits, bits),
+                              clrused=clrused))
+    for bits in (1, 4, 8, 24):
+        stride = ((11 * bits + 7) // 8 + 3) & ~3
+        pixels = bytes(rng.integers(0, 256, stride * 5).astype(np.uint8))
+        blobs.append(bmp_file(11, 5, bits, pixels=pixels, dib=12,
+                              palette=_palette(1 << bits, bits, 3)
+                              if bits <= 8 else b""))
+    for blob in blobs:
+        assert_decodes_as_cv2(blob)
+
+
+def test_bmp_16_and_32_bit_masks_match_cv2():
+    """16 bits: BI_RGB (5-5-5) and the 5-5-5 and 5-6-5 bit fields after a
+    40- and a 108-byte header; 32 bits with masks: ignored in a 40-byte
+    header, applied from a 56-byte one on (another channel order, 10-bit
+    fields, a 3-bit field whose top value cv2's float32 scale makes 254)."""
+    rng = np.random.default_rng(4)
+    px16 = bytes(rng.integers(0, 256, 20 * 4).astype(np.uint8))
+    blobs = [bmp_file(9, 4, 16, pixels=px16)]
+    for rgb in ((0x7C00, 0x3E0, 0x1F), (0xF800, 0x7E0, 0x1F)):
+        for dib in (40, 108):
+            blobs.append(bmp_file(9, -4, 16, 3, px16, dib=dib, masks=rgb,
+                                  tail=struct.pack("<III", *rgb)))
+    px32 = bytes(rng.integers(0, 256, 4 * 7 * 3).astype(np.uint8)) +         struct.pack("<I", 0xFFFFFFFF)
+    for dib, rgb in ((40, (0xFF, 0xFF00, 0xFF0000)),
+                     (56, (0xFF, 0xFF00, 0xFF0000)),
+                     (108, (0xFF000000, 0xFF0000, 0xFF00)),
+                     (124, (0x3FF00000, 0xFFC00, 0x3FF)),
+                     (108, (0x1C000000, 0xFF00, 0x7))):
+        blobs.append(bmp_file(11, 2, 32, 3, px32, dib=dib, masks=rgb,
+                              tail=b"" if dib > 40 else
+                              struct.pack("<III", *rgb)))
+    for blob in blobs:
+        assert_decodes_as_cv2(blob)
+    # 7 of a 3-bit field: 254, not 255
+    assert imcodec.imdecode(blobs[-1])[0, -1, 2] == 254
+
+
+def _rle8_cases():
+    """Hand-built RLE8 streams, 6 px wide, 3 rows: runs, an absolute block
+    (odd, padded), end of line, delta, end of bitmap; a run that ends its
+    row followed by an end of line (no second line break in cv2); an end
+    of bitmap early (the rest filled with entry 0)."""
+    return {
+        "runs-eol": bytes([3, 1, 3, 2, 0, 0, 0, 5, 7, 8, 9, 10, 11, 0,
+                           1, 4, 0, 0, 6, 3, 0, 1]),
+        "full-row-then-eol": bytes([6, 5, 0, 0, 2, 6, 0, 0, 6, 7, 0, 1]),
+        "delta": bytes([2, 9, 0, 2, 3, 1, 1, 4, 0, 0, 6, 2, 0, 1]),
+        "early-eof": bytes([4, 3, 0, 1]),
+        "absolute-fills-row": bytes([0, 6, 1, 2, 3, 4, 5, 6, 0, 0, 6, 1,
+                                     6, 2]),
+    }
+
+
+def _rle4_cases():
+    """Hand-built RLE4 streams, 7 px wide, 2 rows: alternating runs, an
+    absolute block, end of line, a delta (cv2 skips dx pixels only), an
+    end of bitmap ending the last row."""
+    return {
+        "runs-abs-eol": bytes([5, 0x12, 0, 0, 0, 5, 0x34, 0x56, 0x70, 0,
+                               2, 0x89, 0, 0, 0, 1]),
+        "delta": bytes([2, 0x1F, 0, 2, 3, 5, 2, 0xAB, 0, 0, 7, 0xCD, 0, 1]),
+        "eof-ends-last-row": bytes([7, 0x21, 0, 0, 3, 0x43, 0, 1]),
+    }
+
+
+@pytest.mark.parametrize("case", list(_rle8_cases()) + [
+    f"rle4-{c}" for c in _rle4_cases()])
+def test_bmp_rle_matches_cv2(case):
+    if case.startswith("rle4-"):
+        stream, w, h, bits, comp = _rle4_cases()[case[5:]], 7, 2, 4, 2
+    else:
+        stream, w, h, bits, comp = _rle8_cases()[case], 6, 3, 8, 1
+    assert_decodes_as_cv2(bmp_file(w, h, bits, comp, stream,
+                                   _palette(1 << bits, 7)))
+
+
+BMP_REFUSED = {
+    # cv2 gives None for each, and so does the codec
+    "palette-past-the-file": lambda: bmp_file(4, 1, 8, pixels=b"\0" * 4,
+                                              palette=_palette(2, 0),
+                                              clrused=0),
+    "palette-count-300": lambda: bmp_file(4, 1, 8, pixels=b"\0" * 4,
+                                          palette=_palette(300, 0),
+                                          clrused=300),
+    "rle8-run-past-the-row": lambda: bmp_file(
+        6, 2, 8, 1, bytes([7, 1, 0, 1]), _palette(256, 0)),
+    "rle8-block-past-the-row": lambda: bmp_file(
+        6, 2, 8, 1, bytes([3, 1, 0, 4, 1, 2, 3, 4, 0, 1]), _palette(256, 0)),
+    "rle8-block-after-a-full-row": lambda: bmp_file(
+        6, 2, 8, 1, bytes([0, 6, 1, 2, 3, 4, 5, 6, 2, 1, 0, 1]),
+        _palette(256, 0)),
+    "rle8-codes-run-out": lambda: bmp_file(
+        6, 2, 8, 1, bytes([6, 1, 0, 0, 3, 2]), _palette(256, 0)),
+    "rle8-delta-past-the-data": lambda: bmp_file(
+        6, 2, 8, 1, bytes([2, 1, 0, 2, 1]), _palette(256, 0)),
+    "rle4-run-past-the-row": lambda: bmp_file(
+        7, 1, 4, 2, bytes([8, 0x12, 0, 1]), _palette(16, 0)),
+    "rle4-eof-before-the-last-row": lambda: bmp_file(
+        7, 2, 4, 2, bytes([3, 0x12, 0, 1]), _palette(16, 0)),
+    "16-bit-other-masks": lambda: bmp_file(
+        2, 1, 16, 3, b"\0" * 4, tail=struct.pack("<III", 0xF00, 0xF0, 0xF)),
+    "bits-per-pixel-2": lambda: bmp_file(4, 1, 2, pixels=b"\0" * 4,
+                                         palette=_palette(4, 0)),
+}
+
+
+@pytest.mark.parametrize("case", list(BMP_REFUSED))
+def test_bmp_refused_as_cv2(case):
+    blob = BMP_REFUSED[case]()
+    assert cv2.imdecode(np.frombuffer(blob, np.uint8),
+                        cv2.IMREAD_COLOR) is None
+    assert imcodec.imdecode(blob) is None
+
+
+def test_bmp_palette_past_the_size_limit_raises_as_cv2():
+    blob = bmp_file((1 << 20) + 1, 1, 8, palette=_palette(256, 0))
+    with pytest.raises(cv2.error, match="validateInputImageSize"):
+        cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+    with pytest.raises(ValueError, match="validateInputImageSize"):
+        imcodec.imdecode(blob)
+
+
+def _seeded_bmp(rng):
+    """A seeded BMP of one of the kinds cv2 reads (or a near miss): its
+    depth, compression, header size, palette count, masks and pixels
+    drawn at random; truncated or with one byte changed now and then."""
+    w, h = int(rng.integers(1, 12)), int(rng.integers(1, 6))
+    h = h if rng.random() < 0.8 else -h
+    dib = int(rng.choice([40, 40, 56, 108, 124, 36, 52]))
+    kind = int(rng.integers(0, 7))
+    if kind <= 1:                                       # palettes, core
+        bits = int(rng.choice([1, 4, 8]))
+        clr = int(rng.choice([0, 0, 3, 16, 256]))
+        pal = _palette(clr or 1 << bits, int(rng.integers(0, 99)),
+                       3 if kind else 4)
+        stride = ((w * bits + 7) // 8 + 3) & ~3
+        px = bytes(rng.integers(0, 256, stride * abs(h)).astype(np.uint8))
+        blob = bmp_file(w, abs(h), bits, pixels=px, palette=pal, dib=12)             if kind else bmp_file(w, h, bits, pixels=px, palette=pal,
+                                  clrused=clr, dib=dib)
+    elif kind <= 3:                                     # RLE8, RLE4
+        rle4 = kind == 3
+        codes = bytearray()
+        for _ in range(int(rng.integers(1, 30))):
+            r = rng.random()
+            if r < 0.4:
+                codes += bytes([int(rng.integers(1, w + 2)),
+                                int(rng.integers(0, 256))])
+            elif r < 0.6:
+                n = int(rng.integers(3, max(w + 2, 4)))
+                size = (((n + 1) >> 1) + 1) & ~1 if rle4 else (n + 1) & ~1
+                codes += bytes([0, n]) + bytes(
+                    rng.integers(0, 256, size).astype(np.uint8))
+            elif r < 0.8:
+                codes += bytes([0, 0])
+            elif r < 0.9:
+                codes += bytes([0, 2, int(rng.integers(0, w + 2)),
+                                int(rng.integers(0, 3))])
+            else:
+                codes += bytes([0, 1])
+        if rng.random() < 0.7:
+            codes += bytes([0, 1])
+        bits = 4 if rle4 else 8
+        blob = bmp_file(w, h, bits, 2 if rle4 else 1, bytes(codes),
+                        _palette(1 << bits, 5), dib=dib)
+    elif kind == 4:                                     # 16-bit
+        px = bytes(rng.integers(0, 256, ((w * 2 + 3) & ~3) * abs(h))
+                   .astype(np.uint8))
+        rgb = [(0x7C00, 0x3E0, 0x1F), (0xF800, 0x7E0, 0x1F),
+               (0xF00, 0xF0, 0xF)][int(rng.integers(0, 3))]
+        comp = int(rng.integers(0, 2)) * 3
+        blob = bmp_file(w, h, 16, comp, px, dib=dib, masks=rgb,
+                        tail=struct.pack("<III", *rgb) if comp else b"")
+    else:                                               # 24, 32 (masks)
+        bits = 24 if kind == 5 else 32
+        px = bytes(rng.integers(0, 256, ((w * bits // 8 + 3) & ~3) * abs(h))
+                   .astype(np.uint8))
+        rgb = []
+        for _ in range(3):
+            nb = int(rng.integers(1, 33))
+            rgb.append(((1 << nb) - 1) << int(rng.integers(0, 33 - nb)))
+        blob = bmp_file(w, h, bits, 3 if bits == 32 else 0, px, dib=dib,
+                        masks=rgb)
+    if rng.random() < 0.15:
+        blob = blob[:int(rng.integers(14, len(blob)))]
+    if rng.random() < 0.1:
+        b = bytearray(blob)
+        b[int(rng.integers(0, len(b)))] = int(rng.integers(0, 256))
+        blob = bytes(b)
+    return blob
+
+
+def test_seeded_bmps_answer_as_cv2():
+    """600 seeded BMPs (_seeded_bmp): each decodes to cv2's values, or
+    gives None where cv2 does, or raises where cv2 raises."""
+    rng = np.random.default_rng(14)
+    decoded = 0
+    for _ in range(600):
+        blob = _seeded_bmp(rng)
+        try:
+            want = cv2.imdecode(np.frombuffer(blob, np.uint8),
+                                cv2.IMREAD_COLOR)
+        except cv2.error:
+            with pytest.raises(ValueError):
+                imcodec.imdecode(blob)
+            continue
+        got = imcodec.imdecode(blob)
+        if want is None:
+            assert got is None
+            continue
+        decoded += 1
+        assert got is not None and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    assert decoded > 300
+
+
 # --------------------------------------------------------- unreadable
 def test_garbage_and_truncations_give_none():
     """Wherever cv2 gives None: garbage, a bare signature, and every
@@ -295,8 +557,9 @@ def test_garbage_and_truncations_give_none():
 
 
 def test_formats_not_read_give_none():
-    """WebP, TIFF and 16-bit BMP: cv2 decodes them, the codec does not
-    (ROADMAP lists them as not ported) and says None."""
+    """WebP and TIFF: cv2 decodes them, the codec does not (ROADMAP lists
+    them as not ported) and says None. A palette BMP, once among them, is
+    read now, value-equal to cv2."""
     img = smooth_image(6, 20, 24)
     for ext in (".webp", ".tiff"):
         ok, buf = cv2.imencode(ext, img)
@@ -304,9 +567,7 @@ def test_formats_not_read_give_none():
         assert imcodec.imdecode(bytes(buf)) is None
     out = io.BytesIO()
     Image.fromarray(img[:, :, 0]).convert("P").save(out, "BMP")
-    assert cv2.imdecode(np.frombuffer(out.getvalue(), np.uint8),
-                        cv2.IMREAD_COLOR) is not None
-    assert imcodec.imdecode(out.getvalue()) is None
+    assert_decodes_as_cv2(out.getvalue())
 
 
 # ------------------------------------------------ hostile uploads

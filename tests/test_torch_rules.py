@@ -1,7 +1,7 @@
 """Import rules of the PyTorch port, checked on the syntax tree: no module
-of onnxocr_tpu_torch, and none of chip_smoke.py, ab_torch_kernels.py and
-ab_warp.py, imports jax, the onnxocr_tpu package, cv2, PIL or fitz (the
-machine with the GPU has none of them)."""
+of onnxocr_tpu_torch, and none of chip_smoke.py, ab_torch_kernels.py,
+ab_warp.py and ab_mesh.py, imports jax, the onnxocr_tpu package, cv2, PIL
+or fitz (the machine with the GPU has none of them)."""
 import ast
 from pathlib import Path
 
@@ -11,7 +11,7 @@ ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "onnxocr_tpu", "cv2", "PIL", "fitz")
 FILES = sorted((ROOT / "onnxocr_tpu_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "ab_torch_kernels.py",
-                             "ab_warp.py")]
+                             "ab_warp.py", "ab_mesh.py")]
 
 
 def _imported(path: Path):

@@ -49,12 +49,15 @@ from onnxocr_tpu.service.http import TestClient as JaxClient
 from onnxocr_tpu.service.settings import settings as jsettings
 
 from onnxocr_tpu_torch import ONNXPaddleOcr, config
+from onnxocr_tpu_torch.parallel import mesh as port_mesh
 from onnxocr_tpu_torch.service import engine, routes
 from onnxocr_tpu_torch.service.http import TestClient
 from onnxocr_tpu_torch.service.settings import settings
 from onnxocr_tpu_torch.utils.png import read_bgr
 
 HELDOUT = config.ASSETS.parent / "test_images_heldout"
+# the JAX engine's own _maybe_shard_det, before serving_env patches it off
+JAX_SHARD_DET = jengine.EngineManager.__dict__["_maybe_shard_det"]
 SIDES = {"jax": (jengine, jroutes, JaxClient, jsettings),
          "port": (engine, routes, TestClient, settings)}
 
@@ -489,8 +492,9 @@ def serving_env(assets_root):
     mp.setattr(jconfig, "_ASSET_SEARCH_PATHS",
                [str(assets_root), str(jconfig._PKG_DIR / "assets")])
     # tests/conftest.py gives JAX 8 virtual CPU devices, on which the JAX
-    # engine shards its det batch over a mesh; the port serves one card
-    # (multi-device serving is not ported), so both serve one device
+    # engine shards its det batch over a mesh; the cases here serve one
+    # device on both sides (the port's CPU engine does not shard), and
+    # test_sharded_engines_match lets both shard
     mp.setattr(jengine.EngineManager, "_maybe_shard_det",
                staticmethod(lambda model: None))
     yield mp
@@ -568,6 +572,44 @@ def test_served_pages_match_jax(served):
     for have, want in zip(burst["port"], burst["jax"]):
         assert have.status_code == want.status_code == 200
         _assert_close(have.json()["results"], want.json()["results"])
+
+
+def test_sharded_engines_match(serving_env, monkeypatch):
+    """Both engines shard the det page batch (DET_BATCH on by default): the
+    JAX engine's own _maybe_shard_det over conftest's 8 virtual CPU
+    devices, the port's over a 4 × 1 'cpu' grid through its mesh factory.
+    On either side the mesh turns the bitmap wire into the maps wave, so
+    the staged route takes the map route's det step; 8 concurrent
+    requests agree (texts equal, boxes within 2 px, confidences within
+    2e-3)."""
+    monkeypatch.setattr(jengine.EngineManager, "_maybe_shard_det",
+                        JAX_SHARD_DET)
+    monkeypatch.setattr(
+        engine.EngineManager, "_det_mesh",
+        lambda self: port_mesh.make_mesh(4, devices=["cpu"] * 4))
+    jem = jengine.EngineManager(concurrency=4)
+    pem = engine.EngineManager(concurrency=4, device="cpu")
+    try:
+        jpb = jem.get_model().text_detector._page_batcher
+        assert jpb.wire == "maps" and jpb.batcher.batch_ladder == (8,)
+        model = pem.get_model()
+        pb = model.text_detector._page_batcher
+        assert pb.mode == "maps" and pb.mesh.shape == {"data": 4,
+                                                       "model": 1}
+        assert pb.batcher.batch_ladder == (4, 8) and model.route == "map"
+        names = ["synth_00_doc", "synth_03_doc", "synth_07_table",
+                 "synth_08_table"] * 2
+        pages = [read_bgr(str(HELDOUT / f"{n}.png")) for n in names]
+        got = {}
+        for side, em in (("jax", jem), ("port", pem)):
+            with ThreadPoolExecutor(8) as pool:
+                got[side] = list(pool.map(lambda p, em=em: em._sync_ocr(p),
+                                          pages))
+        for (_, have), (_, want) in zip(got["port"], got["jax"]):
+            _assert_close(routes._format_results(have),
+                          jroutes._format_results(want))
+    finally:
+        pem.close()
 
 
 @pytest.fixture(scope="module")

@@ -159,7 +159,20 @@
    paths C, B and A on 4 pages each, whose stage names must be the JAX
    package's (JAX_STAGES), and the captured det_bits, fused_scored and
    onecall programs replayed (replay_ms) and their FLOPs counted (flops);
-16. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+16. runs phase SY, the synthetic-data renderer and the training CLI
+   (`phase_sy`): with a stand-in dictionary of real characters (every
+   code point of U+0020–U+2BFF a DejaVu face covers, padded to 18383
+   lines), tools/train_synthetic.main in one subprocess trains the SVTR
+   at full width (40 steps of 32 × 48 × 320 at --replay 1, the same
+   under torch.profiler for the busy share alone, and at --replay 4),
+   the DBNet (20 steps of 8 × 320², hard
+   and table pages) and the CRNN (10 steps); each run's losses must be
+   finite and fall (last 5 steps' mean below the first 5's); prints the
+   renderer's host ms a call by style, ms a step, steps/s and the card's
+   busy share; then serves the written checkpoints through
+   ONNXPaddleOcr(det_model_dir=..., rec_model_dir=...) on a held-out
+   page at the defaults (kernel 1) and one-call (kernels 1–3);
+17. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
@@ -171,7 +184,7 @@
    (phase T: ms a step, peak MiB, losses, card-vs-CPU figures),
    {"bf16": {...}} (phase BF: ms a page bf16 and f32), {"multi_device":
    {...}, "profiling": {...}, "card": ...} (phases M and PR),
-   {"kernels": [...]}
+   {"synthetic_training": {...}, "card": ...} (phase SY), {"kernels": [...]}
    and, last, {"ok": true, "device": {...}}; the run's seconds on a line
    before them.
 
@@ -3226,6 +3239,259 @@ def phase_pr(ocrs, pages):
     return {"stages": stages, "programs": programs}
 
 
+# ------------------------------------------------------------ phase SY
+# The training CLI, run in one subprocess through its entry point
+# (tools/train_synthetic.main) with instruments around it: each step's loss
+# (kept on the card until the end) and CUDA-event time, the renderer's
+# host ms a call by method, the window from the first step to the final
+# save (the card synchronised), and for one run torch.profiler's device
+# time over that window.
+_SY_DRIVER = """
+import json, sys, threading, time
+import torch
+from onnxocr_tpu_torch.tools import train_synthetic as cli
+from onnxocr_tpu_torch.train import det_trainer, rec_trainer, synth
+from onnxocr_tpu_torch.utils import params_io
+
+rec = {}
+lock = threading.Lock()
+STYLES = ("rec_batch", "det_batch", "render_line", "render_line_photo",
+          "render_line_dotmatrix", "add_margins", "det_page",
+          "det_page_hard", "det_page_table")
+
+
+def timed(cls, name):
+    f = getattr(cls, name)
+
+    def run(self, *a, **k):
+        t = time.perf_counter()
+        try:
+            return f(self, *a, **k)
+        finally:
+            with lock:
+                d = rec["render"].setdefault(name, [0, 0.0])
+                d[0] += 1
+                d[1] += (time.perf_counter() - t) * 1e3
+    setattr(cls, name, run)
+
+
+def stepped(module, name):
+    make = getattr(module, name)
+
+    def factory(*a, **k):
+        step = make(*a, **k)
+
+        def run(*args):
+            if rec["t_first"] is None:
+                rec["t_first"] = time.perf_counter()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            loss = step(*args)
+            e.record()
+            rec["events"].append((s, e))
+            rec["loss"].append(loss)
+            return loss
+        return run
+    setattr(module, name, factory)
+
+
+def saved(path, tree, _save=params_io.save_tree):
+    torch.cuda.synchronize()
+    rec["t_save"] = time.perf_counter()
+    _save(path, tree)
+
+
+for n in STYLES:
+    timed(synth.TextRenderer, n)
+stepped(rec_trainer, "make_train_step")
+stepped(det_trainer, "make_train_step")
+params_io.save_tree = saved
+results = []
+for run in json.loads(sys.argv[2]):
+    rec.clear()
+    rec.update(render={}, events=[], loss=[], t_first=None, t_save=None)
+    busy_us = None
+    if run["profile"]:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cli.main(run["argv"])
+        busy_us = 0.0
+        for ev in prof.key_averages():
+            busy_us += getattr(ev, "self_device_time_total",
+                               getattr(ev, "self_cuda_time_total", 0.0))
+    else:
+        cli.main(run["argv"])
+    torch.cuda.synchronize()
+    window = rec["t_save"] - rec["t_first"]
+    results.append({
+        "argv": run["argv"],
+        "loss": [float(l) for l in rec["loss"]],
+        "step_ms": [s.elapsed_time(e) for s, e in rec["events"]],
+        "window_s": window,
+        "busy": None if busy_us is None else busy_us / 1e6 / window,
+        "render": {k: {"calls": v[0], "ms_a_call": v[1] / v[0]}
+                   for k, v in rec["render"].items()}})
+with open(sys.argv[1], "w") as f:
+    json.dump(results, f)
+"""
+
+
+def sy_standin_dict(path):
+    """The stand-in dictionary of real characters: every code point of
+    U+0020–U+2BFF that one of the DejaVu faces of synth.FONTS present here
+    covers, then `<i>` placeholders up to 18383 lines."""
+    from onnxocr_tpu_torch.train import synth
+    from onnxocr_tpu_torch.utils import font
+    covered = set()
+    for face in synth.FONTS:
+        if "DejaVu" in face and os.path.exists(face):
+            covered |= font.codepoints(face)
+    chars = [chr(c) for c in range(0x20, 0x2C00) if c in covered]
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("".join(line + "\n" for line in chars + [
+            f"<{i}>" for i in range(18383 - len(chars))]))
+    return len(chars)
+
+
+def phase_sy(pages, tmp):
+    """Phase SY, the synthetic-data renderer and the training CLI on the
+    card: with the stand-in dictionary of real characters under an
+    ONNXOCR_TPU_ASSETS root, the CLI (one subprocess) trains the full-width
+    SVTR (dim 192, depth 2, vocab 18385) for 40 steps of 32 × 48 × 320 at
+    --replay 1, again at --replay 1 under torch.profiler (the card's busy
+    share; its steps/s are not used) and at --replay 4, the MobileNetV3
+    DBNet for 20 steps of 8 × 320² and the CRNN for 10 steps; every loss
+    must be finite and the last 5 steps' mean below the first 5 steps'.
+    The written rec and det checkpoints are then served by
+    ONNXPaddleOcr(det_model_dir=..., rec_model_dir=...) on a held-out page
+    at the defaults (path C: kernel 1) and one-call (kernels 1–3), the
+    launch counts set to 0 just before. → (summary, {"SY": launches})."""
+    import torch
+    from onnxocr_tpu_torch import ONNXPaddleOcr
+    from onnxocr_tpu_torch.models import convert
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.utils import params_io
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "sy_assets")
+    os.makedirs(os.path.join(root, "ppocrv5"), exist_ok=True)
+    dict_path = os.path.join(root, "ppocrv5", "ppocrv5_dict.txt")
+    n_chars = sy_standin_dict(dict_path)
+    out = os.path.join(tmp, "sy")
+    common = ["--structured-frac", "0.5"]
+    rec_args = ["rec", "--steps", "40", "--batch", "32", "--width", "320",
+                "--lowres-frac", "0.2", "--photo-frac", "0.2",
+                "--dotmatrix-frac", "0.1"] + common
+    runs = [
+        {"name": "rec", "profile": False, "argv": rec_args + [
+            "--replay", "1", "--out", os.path.join(out, "rec",
+                                                   "native_params.npz")]},
+        # the same run again under torch.profiler, for the card's busy
+        # share only: its steps/s carry the profiler's cost
+        {"name": "rec_profiled", "profile": True, "argv": rec_args + [
+            "--replay", "1", "--out", os.path.join(out, "recp",
+                                                   "native_params.npz")]},
+        {"name": "rec_replay4", "profile": False, "argv": rec_args + [
+            "--replay", "4", "--out", os.path.join(out, "rec4",
+                                                   "native_params.npz")]},
+        {"name": "det", "profile": False, "argv": [
+            "det", "--steps", "20", "--batch", "8", "--size", "320",
+            "--hard-frac", "0.3", "--table-frac", "0.2", "--out",
+            os.path.join(out, "det", "native_params.npz")]},
+        {"name": "crnn", "profile": False, "argv": [
+            "rec", "--arch", "crnn", "--steps", "10", "--out",
+            os.path.join(out, "crnn", "native_params.npz")]}]
+    result_path = os.path.join(tmp, "sy_runs.json")
+    env = dict(os.environ, ONNXOCR_TPU_ASSETS=root)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _SY_DRIVER, result_path,
+         json.dumps([{k: r[k] for k in ("argv", "profile")} for r in runs])],
+        env=env, capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    assert proc.returncode == 0, \
+        f"phase SY: the CLI failed:\n{proc.stderr[-3000:]}"
+    for line in proc.stdout.splitlines():
+        if line.startswith(("arch=", "saved", "  pred=")):
+            print(f"phase SY cli: {line.strip()}")
+    with open(result_path) as f:
+        results = json.load(f)
+    summary = {"dictionary_chars": n_chars, "cli_seconds": cli_s, "runs": {}}
+    for run, res in zip(runs, results):
+        loss = np.asarray(res["loss"], np.float64)
+        steps = len(loss)
+        assert steps and np.isfinite(loss).all(), \
+            f"phase SY {run['name']}: losses {loss.tolist()}"
+        first, last = loss[:5].mean(), loss[-5:].mean()
+        assert last < first, \
+            f"phase SY {run['name']}: loss did not fall ({first} → {last})"
+        step_ms = np.asarray(res["step_ms"])
+        entry = {"steps": steps, "first_loss": float(loss[0]),
+                 "last_loss": float(loss[-1]), "first5_mean": float(first),
+                 "last5_mean": float(last),
+                 "step_ms_mean": float(step_ms.mean()),
+                 "step_ms_median": float(np.median(step_ms)),
+                 "steps_per_s": steps / res["window_s"],
+                 "window_s": res["window_s"], "busy": res["busy"],
+                 "render_ms_a_call": {k: round(v["ms_a_call"], 3)
+                                      for k, v in res["render"].items()}}
+        summary["runs"][run["name"]] = entry
+        busy = "" if res["busy"] is None else \
+            f", card busy {res['busy']:.3f} of the window"
+        print(f"phase SY {run['name']}: {steps} steps, loss {loss[0]:.4f} → "
+              f"{loss[-1]:.4f} (first 5 mean {first:.4f}, last 5 mean "
+              f"{last:.4f}), {entry['step_ms_mean']:.2f} ms a step (CUDA "
+              f"events), {entry['steps_per_s']:.2f} steps/s{busy}")
+        print(f"phase SY {run['name']}: host ms a call (nested calls "
+              f"included) " + ", ".join(
+                  f"{k} {v['ms_a_call']:.2f} x{v['calls']}"
+                  for k, v in sorted(res["render"].items())))
+    # the trained checkpoints served on a held-out page
+    kw = dict(det_model_dir=os.path.join(out, "det", "det.onnx"),
+              rec_model_dir=os.path.join(out, "rec", "rec.onnx"),
+              rec_char_dict_path=dict_path)
+    page = pages[PAGES[0]]
+    launches, served = {}, {}
+    for label, extra in (("C", {}), ("B", {"tpu_pipeline": "onecall",
+                                           "use_angle_cls": False})):
+        ocr = ONNXPaddleOcr(device="cuda", **kw, **extra)
+        if label == "C":   # the stages hold the checkpoints the CLI wrote
+            for stage, model, skip in (
+                    ("det", ocr.text_detector.model, ()),
+                    # the head bias may carry the trained-support bias
+                    ("rec", ocr.text_recognizer.forward.model,
+                     ("head/b",))):
+                want = params_io.flatten(params_io.load_tree(
+                    os.path.join(out, stage, "native_params.npz")))
+                have = params_io.flatten(convert.tree_from_model(model))
+                assert sorted(want) == sorted(have), stage
+                err = max(float(np.abs(want[k] - have[k]).max())
+                          for k in want if k not in skip)
+                assert err == 0.0, f"phase SY {stage}: not the trained tree"
+        ocr.ocr(page)                        # first use of each shape
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = ocr.ocr(page)[0] or []
+        ms = (time.perf_counter() - t0) * 1e3
+        got = dict(build.LAUNCHES)
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        boxes = np.asarray([l[0] for l in res], np.float64)
+        scores = np.asarray([l[1][1] for l in res], np.float64)
+        assert np.isfinite(boxes).all() and np.isfinite(scores).all()
+        served[label] = {"ms": ms, "boxes": len(res), "launches": got}
+        print(f"phase SY serve {label}: the trained checkpoints on "
+              f"{PAGES[0]}: {len(res)} boxes, {ms:.1f} ms, launches {got}")
+    assert launches.get("ctc_head_reduce", 0) > 0, \
+        "phase SY: no CTC head on the trained SVTR"
+    assert served["B"]["launches"].get("label_moment_sums", 0) > 0 and \
+        served["B"]["launches"].get("label_proj_extents", 0) > 0, \
+        "phase SY: one-call launched no label-keyed reduction"
+    summary.update(serve=served, seconds=time.perf_counter() - t_phase)
+    print(f"phase SY {summary['seconds']:.1f} s (the CLI {cli_s:.1f} s)")
+    return summary, {"SY": launches}
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -3422,6 +3688,8 @@ def main() -> int:
         multi, m_runs = phase_m(model, pages, tmp)
         runs.update(m_runs)
         prof = phase_pr({"C": ocr_c, "B": ocr, "A": ocr_a}, pages)
+        synthetic, sy_runs = phase_sy(pages, tmp)
+        runs.update(sy_runs)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -3448,6 +3716,7 @@ def main() -> int:
     print(json.dumps({"bf16": bf16}))
     print(json.dumps({"multi_device": multi, "profiling": prof,
                       "card": smi}))
+    print(json.dumps({"synthetic_training": synthetic, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

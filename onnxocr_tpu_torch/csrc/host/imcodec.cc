@@ -12,7 +12,19 @@
 //   computes what libjpeg-turbo computes at cv2's settings: the integer
 //   "islow" IDCT, "fancy" triangular chroma upsampling (h2v1, h1v2, h2v2;
 //   replication otherwise) and the fixed-point YCbCr -> BGR tables. Its
-//   Huffman tables are checked as libjpeg checks them, before use.
+//   Huffman tables are checked as libjpeg checks them, before use. A
+//   baseline frame whose first scan holds every component streams as
+//   libjpeg's single-scan mode does: each MCU row is decoded, transformed
+//   into a ring of three MCU rows of samples (the row above and below
+//   that fancy upsampling reads, as jdsample.c's context rows) and
+//   converted into the output as its rows complete, so a decode holds the
+//   output and O(width x 3 MCU rows). Progressive frames and baseline
+//   frames of several scans keep every coefficient, as libjpeg's buffered
+//   mode does, and are transformed the same way at the end.
+// * TIFF: the LZW and PackBits decoders of libtiff (the rest of the TIFF
+//   reader is numpy in imcodec.py).
+// * Netpbm: the numbers of the header and of P1–P3's ASCII samples, read
+//   as cv2's ReadNumber reads them.
 // * JPEG encoder: baseline 4:2:0 with the Annex K tables scaled for the
 //   quality as libjpeg scales them, libjpeg-turbo's fixed-point BGR ->
 //   YCbCr, h2v2 downsampling, "islow" forward DCT, reciprocal
@@ -23,6 +35,8 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <memory>
 #include <vector>
 
 namespace {
@@ -198,7 +212,10 @@ struct Comp {
   int bw = 0, bh = 0;        // blocks of the component's own samples
   int abw = 0, abh = 0;      // blocks allocated (whole MCUs)
   int dw = 0, dh = 0;        // downsampled width and height
-  std::vector<int16_t> coef;  // abh * abw * 64, natural order
+  // the coefficients (natural order): of the whole component (abh * abw
+  // blocks) when buffered, of one MCU row (v * abw blocks) when streamed
+  std::vector<int16_t> coef;
+  int srows = 1;              // block rows of the one-row buffer
   int dc_pred = 0;
 };
 
@@ -302,6 +319,12 @@ struct Jpeg {
   Huff dc[4], ac[4];
   Comp comp[4];
   bool done = false;
+  // streaming: the first scan of a baseline frame holds every component;
+  // `on_row(k)` takes each decoded MCU row k (the coefficients in each
+  // component's one-row buffer) and `on_end()` follows the last
+  bool streaming = false, buffered = false;
+  std::function<bool(int)> on_row;
+  std::function<bool()> on_end;
 
   int u16(size_t p) const { return (data[p] << 8) | data[p + 1]; }
 
@@ -345,7 +368,6 @@ struct Jpeg {
       c.bh = (c.dh + 7) / 8;
       c.abw = mcux * c.h;
       c.abh = mcuy * c.v;
-      c.coef.assign(static_cast<size_t>(c.abw) * c.abh * 64, 0);
     }
     have_frame = true;
     return true;
@@ -386,6 +408,7 @@ struct Jpeg {
   }
 
   int16_t* block(Comp& c, int by, int bx) {
+    if (streaming) by %= c.srows;  // the one MCU row held
     return &c.coef[(static_cast<size_t>(by) * c.abw + bx) * 64];
   }
 
@@ -433,7 +456,12 @@ struct Jpeg {
       total = static_cast<long long>(mcux) * mcuy;
     }
     bool halted = false;  // out of data until the next restart
+    const int rows_units = ns == 1 ? sc[0]->bh : mcuy;
     for (long long m = 0; m < total; ++m) {
+      if (streaming && m % mw == 0) {  // a new MCU row: clear its blocks
+        for (int i = 0; i < ns; ++i)
+          std::fill(sc[i]->coef.begin(), sc[i]->coef.end(), 0);
+      }
       if (restart && m > 0 && m % restart == 0) {
         br.align();
         // the expected restart marker, or resynchronise on the next one
@@ -462,112 +490,127 @@ struct Jpeg {
         for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
       }
       int my = static_cast<int>(m / mw), mx = static_cast<int>(m % mw);
+      if (streaming && mx == mw - 1) {
+        // after this MCU the row is complete (a skipped one stays zero)
+        if (!(halted || br.short_data))
+          decode_mcu(br, sc, ns, my, mx, ss, se, ah, al, eobrun);
+        if (br.truncated) return false;
+        if (!on_row(my)) return false;
+        continue;
+      }
       if (halted || br.short_data) continue;
-      for (int i = 0; i < ns; ++i) {
-        Comp& c = *sc[i];
-        int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
-        for (int yy = 0; yy < nv; ++yy) {
-          for (int xx = 0; xx < nh; ++xx) {
-            int by = ns == 1 ? my : my * c.v + yy;
-            int bx = ns == 1 ? mx : mx * c.h + xx;
-            int16_t* b = block(c, by, bx);
-            if (!progressive) {
+      decode_mcu(br, sc, ns, my, mx, ss, se, ah, al, eobrun);
+      if (br.truncated) return false;
+    }
+    if (br.truncated) return false;
+    if (streaming && (rows_units <= 0 || !on_end())) return false;
+    // continue the marker loop at the marker that ended the data
+    pos = br.pos;
+    return true;
+  }
+
+  // the blocks of MCU (my, mx) of the scan (one block when ns is 1)
+  void decode_mcu(Bits& br, Comp** sc, int ns, int my, int mx, int ss,
+                  int se, int ah, int al, int& eobrun) {
+    for (int i = 0; i < ns; ++i) {
+      Comp& c = *sc[i];
+      int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
+      for (int yy = 0; yy < nv; ++yy) {
+        for (int xx = 0; xx < nh; ++xx) {
+          int by = ns == 1 ? my : my * c.v + yy;
+          int bx = ns == 1 ? mx : mx * c.h + xx;
+          int16_t* b = block(c, by, bx);
+          if (!progressive) {
+            int s = br.decode(dc[c.td]);
+            int d = s ? extend(br.get(s), s) : 0;
+            c.dc_pred += d;
+            b[0] = static_cast<int16_t>(c.dc_pred);
+            const Huff& t = ac[c.ta];
+            for (int k = 1; k < 64; ++k) {
+              int rs = br.decode(t);
+              int r = rs >> 4;
+              s = rs & 15;
+              if (s) {
+                k += r;
+                b[kNatural[k]] = static_cast<int16_t>(extend(br.get(s), s));
+              } else {
+                if (r != 15) break;
+                k += 15;
+              }
+            }
+          } else if (ss == 0) {
+            if (ah == 0) {
               int s = br.decode(dc[c.td]);
               int d = s ? extend(br.get(s), s) : 0;
               c.dc_pred += d;
-              b[0] = static_cast<int16_t>(c.dc_pred);
-              const Huff& t = ac[c.ta];
-              for (int k = 1; k < 64; ++k) {
-                int rs = br.decode(t);
-                int r = rs >> 4;
-                s = rs & 15;
-                if (s) {
-                  k += r;
-                  b[kNatural[k]] = static_cast<int16_t>(extend(br.get(s), s));
-                } else {
-                  if (r != 15) break;
-                  k += 15;
+              b[0] = static_cast<int16_t>(
+                  static_cast<uint32_t>(c.dc_pred) << al);
+            } else if (br.get(1)) {
+              b[0] = static_cast<int16_t>(b[0] | (1 << al));
+            }
+          } else if (ah == 0) {
+            if (eobrun > 0) {
+              --eobrun;
+              return;  // one block a MCU in AC scans
+            }
+            const Huff& t = ac[c.ta];
+            for (int k = ss; k <= se; ++k) {
+              int rs = br.decode(t);
+              int r = rs >> 4, s = rs & 15;
+              if (s) {
+                k += r;
+                b[kNatural[k]] = static_cast<int16_t>(
+                    static_cast<uint32_t>(extend(br.get(s), s)) << al);
+              } else {
+                if (r < 15) {
+                  eobrun = (1 << r) - 1;
+                  if (r) eobrun += br.get(r);
+                  break;
                 }
+                k += 15;
               }
-            } else if (ss == 0) {
-              if (ah == 0) {
-                int s = br.decode(dc[c.td]);
-                int d = s ? extend(br.get(s), s) : 0;
-                c.dc_pred += d;
-                b[0] = static_cast<int16_t>(
-                    static_cast<uint32_t>(c.dc_pred) << al);
-              } else if (br.get(1)) {
-                b[0] = static_cast<int16_t>(b[0] | (1 << al));
-              }
-            } else if (ah == 0) {
-              if (eobrun > 0) {
-                --eobrun;
-                continue;
-              }
-              const Huff& t = ac[c.ta];
-              for (int k = ss; k <= se; ++k) {
+            }
+          } else {
+            int p1 = 1 << al, m1 = -1 * (1 << al);
+            int k = ss;
+            const Huff& t = ac[c.ta];
+            if (eobrun == 0) {
+              for (; k <= se; ++k) {
                 int rs = br.decode(t);
                 int r = rs >> 4, s = rs & 15;
                 if (s) {
-                  k += r;
-                  b[kNatural[k]] = static_cast<int16_t>(
-                      static_cast<uint32_t>(extend(br.get(s), s)) << al);
-                } else {
-                  if (r < 15) {
-                    eobrun = (1 << r) - 1;
-                    if (r) eobrun += br.get(r);
-                    break;
-                  }
-                  k += 15;
+                  s = br.get(1) ? p1 : m1;
+                } else if (r != 15) {
+                  eobrun = 1 << r;
+                  if (r) eobrun += br.get(r);
+                  break;
                 }
-              }
-            } else {
-              int p1 = 1 << al, m1 = -1 * (1 << al);
-              int k = ss;
-              const Huff& t = ac[c.ta];
-              if (eobrun == 0) {
-                for (; k <= se; ++k) {
-                  int rs = br.decode(t);
-                  int r = rs >> 4, s = rs & 15;
-                  if (s) {
-                    s = br.get(1) ? p1 : m1;
-                  } else if (r != 15) {
-                    eobrun = 1 << r;
-                    if (r) eobrun += br.get(r);
-                    break;
-                  }
-                  do {
-                    int16_t* co = b + kNatural[k];
-                    if (*co != 0) {
-                      if (br.get(1) && (*co & p1) == 0)
-                        *co = static_cast<int16_t>(*co >= 0 ? *co + p1
-                                                            : *co + m1);
-                    } else {
-                      if (--r < 0) break;
-                    }
-                    ++k;
-                  } while (k <= se);
-                  if (s) b[kNatural[k]] = static_cast<int16_t>(s);
-                }
-              }
-              if (eobrun > 0) {
-                for (; k <= se; ++k) {
+                do {
                   int16_t* co = b + kNatural[k];
-                  if (*co != 0 && br.get(1) && (*co & p1) == 0)
-                    *co = static_cast<int16_t>(*co >= 0 ? *co + p1 : *co + m1);
-                }
-                --eobrun;
+                  if (*co != 0) {
+                    if (br.get(1) && (*co & p1) == 0)
+                      *co = static_cast<int16_t>(*co >= 0 ? *co + p1
+                                                          : *co + m1);
+                  } else {
+                    if (--r < 0) break;
+                  }
+                  ++k;
+                } while (k <= se);
+                if (s) b[kNatural[k]] = static_cast<int16_t>(s);
               }
+            }
+            if (eobrun > 0) {
+              for (; k <= se; ++k) {
+                int16_t* co = b + kNatural[k];
+                if (*co != 0 && br.get(1) && (*co & p1) == 0)
+                  *co = static_cast<int16_t>(*co >= 0 ? *co + p1 : *co + m1);
+              }
+              --eobrun;
             }
           }
         }
       }
-      if (br.truncated) return false;
     }
-    if (br.truncated) return false;
-    // continue the marker loop at the marker that ended the data
-    pos = br.pos;
-    return true;
   }
 
   bool read_sos(size_t p, size_t n) {
@@ -589,6 +632,23 @@ struct Jpeg {
       blocks += comp[k].h * comp[k].v;
     }
     if (ns > 1 && blocks > 10) return false;
+    if (streaming) return false;  // a single-scan frame has one scan
+    if (!buffered) {
+      if (!progressive && ns == ncomp && on_row) {
+        // libjpeg's single-scan mode: one MCU row of coefficients
+        streaming = true;
+        for (int i = 0; i < ncomp; ++i) {
+          comp[i].srows = ns == 1 ? 1 : comp[i].v;
+          comp[i].coef.assign(
+              static_cast<size_t>(comp[i].abw) * comp[i].srows * 64, 0);
+        }
+      } else {
+        buffered = true;
+        for (int i = 0; i < ncomp; ++i)
+          comp[i].coef.assign(static_cast<size_t>(comp[i].abw) *
+                                  comp[i].abh * 64, 0);
+      }
+    }
     size_t q = p + 1 + 2 * ns;
     int ss = data[q], se = data[q + 1], ah = data[q + 2] >> 4,
         al = data[q + 2] & 15;
@@ -756,58 +816,52 @@ void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
   }
 }
 
-// A component's samples upsampled to width x height (libjpeg-turbo's
-// jdsample.c methods; edges replicate, as its context rows do).
-void upsample(const std::vector<uint8_t>& plane, int pstride, const Comp& c,
-              int hs, int vs, int width, int height,
-              std::vector<uint8_t>& out) {
-  out.resize(static_cast<size_t>(width) * height);
+// Output row y of a component upsampled to `width` (libjpeg-turbo's
+// jdsample.c methods; edges replicate, as its context rows do): `row(k)`
+// is the component's sample row k, k clamped to [0, dh) here; `sums` holds
+// dw + 2 ints.
+template <typename RowFn>
+void upsample_row(const RowFn& row, const Comp& c, int hs, int vs,
+                  int width, int y, int* sums, uint8_t* o) {
   const int dw = c.dw, dh = c.dh;
-  auto row = [&](int y) {
-    return &plane[static_cast<size_t>(std::min(std::max(y, 0), dh - 1)) *
-                  pstride];
-  };
+  auto at = [&](int k) { return row(std::min(std::max(k, 0), dh - 1)); };
   // fancy vertical (h1v2, h2v2): column sums 3 * near + far, edges
   // replicated one column either side
-  std::vector<int> sums(dw + 2);
   const bool fancy_v = vs == 2 && (hs == 1 || (hs == 2 && dw > 2));
   const bool fancy_h = hs == 2 && dw > 2;
-  for (int y = 0; y < height; ++y) {
-    uint8_t* o = &out[static_cast<size_t>(y) * width];
-    if (fancy_v) {
-      const uint8_t* near = row(y >> 1);
-      const uint8_t* far = row((y & 1) ? (y >> 1) + 1 : (y >> 1) - 1);
-      for (int x = 0; x < dw; ++x) sums[x + 1] = near[x] * 3 + far[x];
-      sums[0] = sums[1];
-      sums[dw + 1] = sums[dw];
-      if (hs == 1) {
-        const int bias = (y & 1) ? 2 : 1;
-        for (int x = 0; x < width; ++x)
-          o[x] = static_cast<uint8_t>((sums[x + 1] + bias) >> 2);
-      } else {
-        for (int x = 0; x < width; ++x) {
-          const int* t = &sums[(x >> 1) + 1];
-          o[x] = static_cast<uint8_t>(
-              (x & 1) ? (t[0] * 3 + t[1] + 7) >> 4 : (t[0] * 3 + t[-1] + 8) >> 4);
-        }
-      }
-    } else if (fancy_h && vs == 1) {
-      const uint8_t* r = row(y);
-      for (int x = 0; x < dw; ++x) sums[x + 1] = r[x];
-      sums[0] = sums[1];
-      sums[dw + 1] = sums[dw];
+  if (fancy_v) {
+    const uint8_t* near = at(y >> 1);
+    const uint8_t* far = at((y & 1) ? (y >> 1) + 1 : (y >> 1) - 1);
+    for (int x = 0; x < dw; ++x) sums[x + 1] = near[x] * 3 + far[x];
+    sums[0] = sums[1];
+    sums[dw + 1] = sums[dw];
+    if (hs == 1) {
+      const int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < width; ++x)
+        o[x] = static_cast<uint8_t>((sums[x + 1] + bias) >> 2);
+    } else {
       for (int x = 0; x < width; ++x) {
         const int* t = &sums[(x >> 1) + 1];
         o[x] = static_cast<uint8_t>(
-            (x & 1) ? (t[0] * 3 + t[1] + 2) >> 2 : (t[0] * 3 + t[-1] + 1) >> 2);
+            (x & 1) ? (t[0] * 3 + t[1] + 7) >> 4 : (t[0] * 3 + t[-1] + 8) >> 4);
       }
+    }
+  } else if (fancy_h && vs == 1) {
+    const uint8_t* r = at(y);
+    for (int x = 0; x < dw; ++x) sums[x + 1] = r[x];
+    sums[0] = sums[1];
+    sums[dw + 1] = sums[dw];
+    for (int x = 0; x < width; ++x) {
+      const int* t = &sums[(x >> 1) + 1];
+      o[x] = static_cast<uint8_t>(
+          (x & 1) ? (t[0] * 3 + t[1] + 2) >> 2 : (t[0] * 3 + t[-1] + 1) >> 2);
+    }
+  } else {
+    const uint8_t* r = at(y / vs);
+    if (hs == 1) {
+      std::memcpy(o, r, width);
     } else {
-      const uint8_t* r = row(y / vs);
-      if (hs == 1) {
-        std::memcpy(o, r, width);
-      } else {
-        for (int x = 0; x < width; ++x) o[x] = r[x / hs];
-      }
+      for (int x = 0; x < width; ++x) o[x] = r[x / hs];
     }
   }
 }
@@ -1227,70 +1281,197 @@ struct YccTables {
   }
 };
 
-// The components of a JPEG after libjpeg's colour conversion to its
-// default output space: grey (1), RGB (3, from YCbCr unless the file says
-// RGB) or CMYK (4, from YCCK under an Adobe transform 2), interleaved
-// into `out` (h * w * ncomp). → ncomp, or -1.
+// MCU rows of samples to output rows: each unit (an MCU row; a block row
+// of a single-component frame) is transformed by the islow IDCT into a
+// ring of three units a component, and a unit's output rows are upsampled
+// and colour-converted once the unit below it is in the ring (or is the
+// last), as libjpeg's context rows allow.
+struct Rows {
+  Jpeg& j;
+  int W, H, nc, units, out_rows;
+  int U[4], pstride[4];
+  bool convert = false;
+  std::vector<uint8_t> ring[4], up[4], px;
+  std::vector<int> sums;
+  std::function<void(int, const uint8_t*, int)> sink;  // (y, W * nc, nc)
+
+  Rows(Jpeg& jp, std::function<void(int, const uint8_t*, int)> s)
+      : j(jp), W(jp.width), H(jp.height), nc(jp.ncomp), sink(std::move(s)) {
+    const bool single = nc == 1;
+    units = single ? j.comp[0].bh : j.mcuy;
+    out_rows = single ? 8 : 8 * j.vmax;
+    int widest = 0;
+    for (int ci = 0; ci < nc; ++ci) {
+      const Comp& c = j.comp[ci];
+      U[ci] = single ? 8 : 8 * c.v;
+      pstride[ci] = c.bw * 8;
+      ring[ci].assign(static_cast<size_t>(3) * U[ci] * pstride[ci], 0);
+      up[ci].assign(W, 0);
+      widest = std::max(widest, c.dw);
+    }
+    sums.assign(widest + 2, 0);
+    px.assign(static_cast<size_t>(W) * nc, 0);
+    // jdapimin.c default_decompress_parms: which space the file is in
+    if (nc == 3) {
+      if (j.jfif) convert = true;
+      else if (j.adobe) convert = j.adobe_transform != 0;
+      else convert = !(j.comp[0].id == 'R' && j.comp[1].id == 'G' &&
+                       j.comp[2].id == 'B');
+    } else if (nc == 4) {
+      convert = j.adobe && j.adobe_transform != 0;  // YCCK, else CMYK
+    }
+  }
+
+  const uint8_t* row(int ci, int k) const {
+    const int u = U[ci];
+    return &ring[ci][(static_cast<size_t>(k / u % 3) * u + k % u) *
+                     pstride[ci]];
+  }
+
+  // the samples of unit k, from the coefficients j.block() gives
+  void transform(int k) {
+    for (int ci = 0; ci < nc; ++ci) {
+      Comp& c = j.comp[ci];
+      const uint16_t* q = j.qt[c.tq];
+      const int brows = U[ci] / 8, ps = pstride[ci];
+      uint8_t* base = &ring[ci][static_cast<size_t>(k % 3) * U[ci] * ps];
+      for (int lb = 0; lb < brows; ++lb) {
+        const int by = k * brows + lb;
+        if (by >= c.bh) break;
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct_islow(j.block(c, by, bx), q,
+                     base + static_cast<size_t>(lb) * 8 * ps + bx * 8, ps);
+      }
+    }
+  }
+
+  // the output rows of unit k, upsampled and converted, to the sink
+  void emit(int k) {
+    static const YccTables t;
+    const int y1 = std::min((k + 1) * out_rows, H);
+    for (int y = k * out_rows; y < y1; ++y) {
+      for (int ci = 0; ci < nc; ++ci) {
+        const Comp& c = j.comp[ci];
+        upsample_row([&](int r) { return row(ci, r); }, c, j.hmax / c.h,
+                     j.vmax / c.v, W, y, sums.data(), up[ci].data());
+      }
+      uint8_t* o = px.data();
+      for (int x = 0; x < W; ++x, o += nc) {
+        if (!convert) {
+          for (int ci = 0; ci < nc; ++ci) o[ci] = up[ci][x];
+          continue;
+        }
+        int yy = up[0][x], cb = up[1][x], cr = up[2][x];
+        int r = yy + t.cr_r[cr];
+        int g = yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16);
+        int b = yy + t.cb_b[cb];
+        if (nc == 3) {
+          o[0] = static_cast<uint8_t>(clamp255(r));
+          o[1] = static_cast<uint8_t>(clamp255(g));
+          o[2] = static_cast<uint8_t>(clamp255(b));
+        } else {  // ycck_cmyk_convert: inverted RGB, K passed through
+          o[0] = static_cast<uint8_t>(clamp255(255 - r));
+          o[1] = static_cast<uint8_t>(clamp255(255 - g));
+          o[2] = static_cast<uint8_t>(clamp255(255 - b));
+          o[3] = up[3][x];
+        }
+      }
+      sink(y, px.data(), nc);
+    }
+  }
+
+  // unit k has been transformed: the unit above it can go out
+  void push(int k) {
+    transform(k);
+    if (k > 0) emit(k - 1);
+  }
+};
+
+// The components of a JPEG of the frame size h x w after libjpeg's colour
+// conversion to its default output space — grey (1), RGB (3, from YCbCr
+// unless the file says RGB) or CMYK (4, from YCCK under an Adobe transform
+// 2) — row by row to `sink(y, row, ncomp)` (w * ncomp samples). → ncomp,
+// or -1 (rows already sunk are then to be discarded).
 int decode_native(const uint8_t* buf, long long n, int h, int w,
-                  std::vector<uint8_t>& out) {
+                  const std::function<void(int, const uint8_t*, int)>& sink) {
   Jpeg j;
   j.data = buf;
   j.size = static_cast<size_t>(n);
+  std::unique_ptr<Rows> rows;
+  // a baseline frame whose first scan holds every component streams
+  j.on_row = [&](int k) {
+    if (!rows) {
+      if (j.height != h || j.width != w) return false;
+      rows.reset(new Rows(j, sink));
+    }
+    rows->push(k);
+    return true;
+  };
+  j.on_end = [&]() {
+    if (!rows) return false;
+    rows->emit(rows->units - 1);
+    return true;
+  };
   if (!j.parse() || j.height != h || j.width != w) return -1;
-  const int W = j.width, H = j.height, nc = j.ncomp;
-  std::vector<uint8_t> planes[4];
-  for (int ci = 0; ci < nc; ++ci) {
-    Comp& c = j.comp[ci];
-    int pstride = c.bw * 8;
-    std::vector<uint8_t> plane(static_cast<size_t>(pstride) * c.bh * 8);
-    const uint16_t* q = j.qt[c.tq];
-    for (int by = 0; by < c.bh; ++by)
-      for (int bx = 0; bx < c.bw; ++bx)
-        idct_islow(j.block(c, by, bx), q,
-                   &plane[static_cast<size_t>(by) * 8 * pstride + bx * 8],
-                   pstride);
-    std::vector<int16_t>().swap(c.coef);  // its samples are all it needs now
-    upsample(plane, pstride, c, j.hmax / c.h, j.vmax / c.v, W, H, planes[ci]);
+  if (j.buffered) {
+    Rows r(j, sink);
+    for (int k = 0; k < r.units; ++k) r.push(k);
+    r.emit(r.units - 1);
+    for (int ci = 0; ci < j.ncomp; ++ci)
+      std::vector<int16_t>().swap(j.comp[ci].coef);
+  } else if (!rows) {
+    return -1;
   }
-  size_t npx = static_cast<size_t>(W) * H;
-  out.resize(npx * nc);
-  if (nc == 1) {
-    std::memcpy(out.data(), planes[0].data(), npx);
-    return 1;
-  }
-  // jdapimin.c default_decompress_parms: which space the file is in
-  bool convert;
-  if (nc == 3) {
-    if (j.jfif) convert = true;
-    else if (j.adobe) convert = j.adobe_transform != 0;
-    else convert = !(j.comp[0].id == 'R' && j.comp[1].id == 'G' &&
-                     j.comp[2].id == 'B');
-  } else {
-    convert = j.adobe && j.adobe_transform != 0;  // YCCK, else CMYK
-  }
-  static const YccTables t;
-  for (size_t i = 0; i < npx; ++i) {
-    uint8_t* o = &out[i * nc];
-    if (!convert) {
-      for (int c = 0; c < nc; ++c) o[c] = planes[c][i];
-      continue;
+  return j.ncomp;
+}
+
+// Netpbm's ASCII numbers as cv2's PxMDecoder reads them (ReadNumber, in
+// grfmt_pxm.cpp): n numbers from buf[*pos] into out, each min(v, clip).
+// Before a number, whitespace and '#' comments (to a '\n' or '\r', which
+// is read too) are skipped and any other byte is an error. A number is its
+// digits, only the first one when `single` (P1's samples); otherwise the
+// byte after the digits, whatever it is, is read too. → 0 with *pos past
+// what was read, or -1 where cv2 raises: another byte before a number, a
+// value past INT_MAX, the end of the data.
+template <typename T>
+int pxm_numbers(const uint8_t* buf, long long size, long long* pos,
+                       long long n, int single, long long clip, T* out) {
+  long long p = *pos;
+  auto space = [](int c) { return c == ' ' || (c >= '\t' && c <= '\r'); };
+  auto digit = [](int c) { return c >= '0' && c <= '9'; };
+  for (long long i = 0; i < n; ++i) {
+    if (p >= size) return -1;
+    int code = buf[p++];
+    while (!digit(code)) {
+      if (code == '#') {
+        do {
+          if (p >= size) return -1;
+          code = buf[p++];
+        } while (code != '\n' && code != '\r');
+        if (p >= size) return -1;
+        code = buf[p++];
+      } else if (space(code)) {
+        while (space(code)) {
+          if (p >= size) return -1;
+          code = buf[p++];
+        }
+      } else {
+        return -1;
+      }
     }
-    int y = planes[0][i], cb = planes[1][i], cr = planes[2][i];
-    int r = y + t.cr_r[cr];
-    int g = y + ((t.cb_g[cb] + t.cr_g[cr]) >> 16);
-    int b = y + t.cb_b[cb];
-    if (nc == 3) {
-      o[0] = static_cast<uint8_t>(clamp255(r));
-      o[1] = static_cast<uint8_t>(clamp255(g));
-      o[2] = static_cast<uint8_t>(clamp255(b));
-    } else {  // ycck_cmyk_convert: inverted RGB, K passed through
-      o[0] = static_cast<uint8_t>(clamp255(255 - r));
-      o[1] = static_cast<uint8_t>(clamp255(255 - g));
-      o[2] = static_cast<uint8_t>(clamp255(255 - b));
-      o[3] = planes[3][i];
+    long long v = 0;
+    for (;;) {
+      v = v * 10 + (code - '0');
+      if (v > 0x7FFFFFFF) return -1;
+      if (single) break;
+      if (p >= size) return -1;
+      code = buf[p++];
+      if (!digit(code)) break;
     }
+    out[i] = static_cast<T>(std::min(v, clip));
   }
-  return nc;
+  *pos = p;
+  return 0;
 }
 
 }  // namespace
@@ -1303,25 +1484,24 @@ extern "C" {
 // or -1 where cv2.imdecode gives None (or the format is not read).
 int ocr_jpeg_decode(const uint8_t* buf, long long n, int h, int w,
                     uint8_t* out) try {
-  std::vector<uint8_t> px;
-  int nc = decode_native(buf, n, h, w, px);
-  if (nc < 0) return -1;
-  size_t npx = static_cast<size_t>(w) * h;
-  for (size_t i = 0; i < npx; ++i) {
-    const uint8_t* s = &px[i * nc];
-    uint8_t* o = &out[3 * i];
-    if (nc == 1) {
-      o[0] = o[1] = o[2] = s[0];
-    } else if (nc == 3) {
-      o[0] = s[2]; o[1] = s[1]; o[2] = s[0];
-    } else {
-      int k = s[3];
-      o[2] = static_cast<uint8_t>(k - ((255 - s[0]) * k >> 8));
-      o[1] = static_cast<uint8_t>(k - ((255 - s[1]) * k >> 8));
-      o[0] = static_cast<uint8_t>(k - ((255 - s[2]) * k >> 8));
+  const size_t W = static_cast<size_t>(w);
+  auto bgr = [&](int y, const uint8_t* px, int nc) {
+    uint8_t* o = out + static_cast<size_t>(y) * W * 3;
+    for (size_t x = 0; x < W; ++x, o += 3) {
+      const uint8_t* s = px + x * nc;
+      if (nc == 1) {
+        o[0] = o[1] = o[2] = s[0];
+      } else if (nc == 3) {
+        o[0] = s[2]; o[1] = s[1]; o[2] = s[0];
+      } else {
+        int k = s[3];
+        o[2] = static_cast<uint8_t>(k - ((255 - s[0]) * k >> 8));
+        o[1] = static_cast<uint8_t>(k - ((255 - s[1]) * k >> 8));
+        o[0] = static_cast<uint8_t>(k - ((255 - s[2]) * k >> 8));
+      }
     }
-  }
-  return 0;
+  };
+  return decode_native(buf, n, h, w, bgr) < 0 ? -1 : 0;
 } catch (...) {  // out of memory
   return -1;
 }
@@ -1331,13 +1511,118 @@ int ocr_jpeg_decode(const uint8_t* buf, long long n, int h, int w,
 // or -1.
 int ocr_jpeg_decode_native(const uint8_t* buf, long long n, int h, int w,
                            uint8_t* out) try {
-  std::vector<uint8_t> px;
-  int nc = decode_native(buf, n, h, w, px);
-  if (nc < 0) return -1;
-  std::memcpy(out, px.data(), px.size());
-  return nc;
+  const size_t W = static_cast<size_t>(w);
+  return decode_native(buf, n, h, w, [&](int y, const uint8_t* px, int nc) {
+    std::memcpy(out + static_cast<size_t>(y) * W * nc, px, W * nc);
+  });
 } catch (...) {
   return -1;
+}
+
+// TIFF LZW (libtiff's tif_lzw.c, MSB-first codes): the strip or tile
+// `in` (n bytes) into out, exactly `need` bytes. Codes start at 9 bits and
+// widen one code early (at 511, 1023, 2047), up to 12; 256 clears the
+// table, 257 ends the data; data past `need` is ignored, as libtiff stops
+// there. → need, or -1 where libtiff fails: a code past the next free one
+// (its "Corrupted LZW table"), or codes that end before `need` bytes.
+long long ocr_tiff_lzw(const uint8_t* in, long long n, uint8_t* out,
+                       long long need) try {
+  const int kClear = 256, kEoi = 257, kSize = 4096 + 1024;
+  std::vector<int> prefix(kSize, -1), length(kSize, 1);
+  std::vector<uint8_t> suffix(kSize), first(kSize);
+  for (int c = 0; c < 256; ++c) suffix[c] = first[c] = uint8_t(c);
+  long long bitpos = 0, total_bits = n * 8, op = 0;
+  int nbits = 9, next = 258, old = -1;
+  auto read_code = [&]() {
+    if (bitpos + nbits > total_bits) return kEoi;  // out of data
+    int v = 0;
+    for (int k = 0; k < nbits; ++k, ++bitpos)
+      v = (v << 1) | ((in[bitpos >> 3] >> (7 - (bitpos & 7))) & 1);
+    return v;
+  };
+  auto emit = [&](int code) {  // the string of `code`, clipped to need
+    int len = length[code];
+    long long end = op + len;
+    int c = code;
+    for (long long k = end - 1; k >= op; --k, c = prefix[c])
+      if (k < need) out[k] = suffix[c];
+    op = std::min(end, need);
+  };
+  while (op < need) {
+    int code = read_code();
+    if (code == kEoi) break;
+    if (code == kClear) {
+      nbits = 9;
+      next = 258;
+      code = read_code();
+      if (code == kEoi) break;
+      if (code > kClear) return -1;
+      emit(code);
+      old = code;
+      continue;
+    }
+    if (old < 0 || code > next || next >= kSize) return -1;
+    if (code < next) {
+      emit(code);
+      prefix[next] = old;
+      suffix[next] = first[code];
+    } else {  // the KwKwK case: the code being defined
+      prefix[next] = old;
+      suffix[next] = first[old];
+      length[next] = length[old] + 1;
+      first[next] = first[old];
+      emit(next);
+      ++next;
+      old = code;
+      if (next + 1 > (1 << nbits) - 1 && nbits < 12) ++nbits;
+      continue;
+    }
+    length[next] = length[old] + 1;
+    first[next] = first[old];
+    ++next;
+    old = code;
+    if (next + 1 > (1 << nbits) - 1 && nbits < 12) ++nbits;
+  }
+  return op < need ? -1 : need;
+} catch (...) {
+  return -1;
+}
+
+// TIFF PackBits (libtiff's tif_packbits.c) into out, exactly `need` bytes:
+// runs cut at `need` (libtiff's "discarding bytes to avoid buffer
+// overrun"). → need, or -1 when the codes end before (its "Not enough
+// data").
+long long ocr_tiff_packbits(const uint8_t* in, long long n, uint8_t* out,
+                            long long need) {
+  long long ip = 0, op = 0;
+  while (ip < n && op < need) {
+    int c = int8_t(in[ip++]);
+    if (c < 0) {
+      if (c == -128) continue;
+      long long run = std::min<long long>(-c + 1, need - op);
+      if (ip >= n) break;
+      std::memset(out + op, in[ip++], size_t(run));
+      op += run;
+    } else {
+      long long run = std::min<long long>(c + 1, need - op);
+      if (n - ip < run) break;
+      std::memcpy(out + op, in + ip, size_t(run));
+      op += run;
+      ip += run;
+    }
+  }
+  return op < need ? -1 : need;
+}
+
+int ocr_pxm_header(const uint8_t* buf, long long size, long long* pos,
+                   long long n, int32_t* out) {
+  return pxm_numbers(buf, size, pos, n, 0, 0x7FFFFFFF, out);
+}
+
+// The samples of a P1–P3 file, clipped to 65535 (no maxval goes higher).
+int ocr_pxm_samples(const uint8_t* buf, long long size, long long* pos,
+                    long long n, int single, uint16_t* out) {
+  return pxm_numbers(buf, size, pos, n, single, 65535, out);
 }
 
 // Baseline 4:2:0 JPEG of an h x w BGR image at `quality` into out (cap

@@ -4,8 +4,9 @@
 // on a machine without PIL.
 //
 // * Font: the tables head, hhea, maxp, OS/2, hmtx, loca, glyf (simple and
-//   composite glyphs), cmap (formats 4 and 12), GDEF glyph classes, GSUB
-//   and GPOS.
+//   composite glyphs), cmap (formats 4 and 12; the code points of the
+//   subtable fontTools' getBestCmap picks, formats 0, 4, 6, 12), GDEF glyph
+//   classes, GSUB and GPOS.
 // * Size: FreeType's integer-ppem scales (16.16, FT_DivFix) and its
 //   grid-fitted size metrics; advances and outline points scaled by
 //   FT_MulFix to 26.6.
@@ -13,11 +14,14 @@
 //   the GSUB lookups of the features ccmp, locl, rlig, calt, clig, liga and
 //   rclt (single, ligature and chain-context substitutions), then the GPOS
 //   kern lookups (pair adjustment, formats 1 and 2), with offsets scaled as
-//   hb-ft scales them. Mark positioning (mark, mkmk) is not applied.
+//   hb-ft scales them. Mark positioning (mark, mkmk) is not applied; the
+//   Thai / Lao shaper's SARA AM decomposition is.
 // * Hinting: FreeType's TrueType bytecode interpreter as its default v40
 //   runs it for an anti-aliased load (fpgm, prep, glyph programs; backward
-//   compatibility mode: points move along y only), so outlines are the
-//   ones PIL's FT_LOAD_DEFAULT loads.
+//   compatibility mode: points move along y only; every glyph program
+//   starts from the CVT, storage and twilight zone prep left), so outlines
+//   are the ones PIL's FT_LOAD_DEFAULT loads, moved to the origin by the
+//   phantom point pp1 as TT_Load_Glyph moves them.
 // * Rasterising: the exact-area coverage accumulation of FreeType's smooth
 //   renderer (ftgrays: 24.8 cells, quadratic arcs split as it splits them,
 //   non-zero winding), on the outline moved to its bitmap's origin.
@@ -379,6 +383,8 @@ struct Hinter {
   std::vector<FuncDef> fdefs;
   std::map<int, FuncDef> idefs;
   GState size_gs;                // after prep
+  std::vector<i64> size_cvt, size_storage;  // after prep: each glyph
+  Zone size_twilight;                       // starts from these
   Zone twilight, pts;
   Zone* zp[3];
   GState gs;
@@ -1490,6 +1496,9 @@ bool Hinter::setup(int ppem_) {
   gs.gep0 = gs.gep1 = gs.gep2 = 1;
   gs.loop = 1;
   size_gs = gs;
+  size_cvt = cvt;
+  size_storage = storage;
+  size_twilight = twilight;
   return true;
 }
 
@@ -1509,8 +1518,16 @@ void Hinter::hint(Zone& z, const uint8_t* ins, int n_ins, bool is_comp) {
   z.cur[n - 3].x = pix_round(z.cur[n - 3].x);
   z.cur[n - 2].y = pix_round(z.cur[n - 2].y);
   z.cur[n - 1].y = pix_round(z.cur[n - 1].y);
-  if (n_ins <= 0) return;
+  if (n_ins <= 0) {
+    backward = true;  // no program ran: the loader keeps the unrounded pp
+    return;
+  }
   ranges[3] = {ins, n_ins};
+  // a glyph's program starts from the areas prep left, whatever the
+  // glyphs before it wrote (FreeType's output does not depend on order)
+  cvt = size_cvt;
+  storage = size_storage;
+  twilight = size_twilight;
   composite = is_comp;
   backward = !(size_gs.instruct_control & 4);
   std::swap(pts, z);
@@ -1732,6 +1749,11 @@ bool glyph_outline(const Font& f, int gid, int ppem, Outline& o) {
   Outline res;
   Vec pp[4];
   if (!load_glyph(*h, gid, s, res, pp, 0)) return false;
+  // TT_Load_Glyph moves the glyph's origin to pp1: in v40's backward
+  // compatibility the scaled, unrounded pp1, whose x is a fraction of a
+  // pixel where the glyph's xMin is not its left side bearing
+  if (pp[0].x)
+    for (Point& q : res.pts) q.x -= pp[0].x;
   f.outlines[key] = res;
   o = std::move(res);
   return true;
@@ -2493,6 +2515,83 @@ void ttf_size_metrics(void* h, int ppem, long long* out) {
   out[1] = s.descender;
 }
 
+// The code points of the font's preferred cmap subtable, as fontTools'
+// getBestCmap picks it ((3,10), (0,6), (0,4), (3,1), (0,3), (0,2), (0,1),
+// (0,0); formats 0, 4, 6 and 12), those mapped to glyph 0 left out: →
+// their number, written in ascending order to `out`, or -(needed) when
+// cap is short, -1 when no subtable of these is read.
+int ttf_codepoints(void* h, unsigned* out, int cap) {
+  const Font& f = *static_cast<Font*>(h);
+  const Reader& r = f.r;
+  static const int kPrefs[8][2] = {{3, 10}, {0, 6}, {0, 4}, {3, 1},
+                                   {0, 3},  {0, 2}, {0, 1}, {0, 0}};
+  int nsub = r.u16(f.cmap + 2);
+  if (!r.ok(f.cmap + 4, size_t(nsub) * 8)) return -1;
+  size_t table = 0;
+  for (const auto& pref : kPrefs) {
+    for (int i = 0; i < nsub && !table; ++i) {
+      size_t rec = f.cmap + 4 + size_t(i) * 8;
+      if (r.u16(rec) == pref[0] && r.u16(rec + 2) == pref[1])
+        table = f.cmap + r.u32(rec + 4);
+    }
+    if (table) break;
+  }
+  if (!table || !r.ok(table, 8)) return -1;
+  std::vector<unsigned> cps;
+  auto add = [&](uint32_t cp, uint32_t gid) {
+    if (gid && gid < uint32_t(f.num_glyphs)) cps.push_back(cp);
+  };
+  int fmt = r.u16(table);
+  if (fmt == 0) {
+    if (!r.ok(table + 6, 256)) return -1;
+    for (uint32_t c = 0; c < 256; ++c) add(c, r.u8(table + 6 + c));
+  } else if (fmt == 4) {
+    int segx2 = r.u16(table + 6);
+    size_t ends = table + 14, starts = ends + segx2 + 2,
+           deltas = starts + segx2, ranges = deltas + segx2;
+    if (!r.ok(ends, size_t(segx2) * 4 + 2)) return -1;
+    for (int k = 0; k < segx2 / 2; ++k) {
+      uint32_t end = r.u16(ends + 2 * k), start = r.u16(starts + 2 * k);
+      int delta = r.s16(deltas + 2 * k);
+      uint32_t ro = r.u16(ranges + 2 * k);
+      for (uint32_t c = start; c <= end && c <= 0xFFFF; ++c) {
+        uint32_t gid;
+        if (!ro) {
+          gid = (c + delta) & 0xFFFF;
+        } else {
+          size_t at = ranges + 2 * k + ro + 2 * (c - start);
+          if (!r.ok(at, 2)) continue;
+          gid = r.u16(at);
+          if (gid) gid = (gid + delta) & 0xFFFF;
+        }
+        add(c, gid);
+      }
+    }
+  } else if (fmt == 6) {
+    uint32_t first = r.u16(table + 6), count = r.u16(table + 8);
+    if (!r.ok(table + 10, size_t(count) * 2)) return -1;
+    for (uint32_t k = 0; k < count; ++k)
+      add(first + k, r.u16(table + 10 + 2 * k));
+  } else if (fmt == 12) {
+    uint32_t groups = r.u32(table + 12);
+    if (!r.ok(table + 16, size_t(groups) * 12)) return -1;
+    for (uint32_t k = 0; k < groups; ++k) {
+      size_t g = table + 16 + size_t(k) * 12;
+      uint32_t start = r.u32(g), end = r.u32(g + 4), gid = r.u32(g + 8);
+      for (uint32_t c = start; c <= end && c <= 0x10FFFF; ++c)
+        add(c, gid + (c - start));
+    }
+  } else {
+    return -1;
+  }
+  std::sort(cps.begin(), cps.end());
+  cps.erase(std::unique(cps.begin(), cps.end()), cps.end());
+  int m = int(cps.size());
+  if (m > cap) return -m;
+  std::copy(cps.begin(), cps.end(), out);
+  return m;
+}
+
 // Shape one run of `n` code points of one script (an OpenType script tag,
 // 0 for Common) at `ppem`: → the number of glyphs written (gid, cluster,
 // x_advance, x_offset, y_offset in 26.6), or -(needed) when cap is short.
@@ -2502,10 +2601,32 @@ int ttf_shape(void* h, const unsigned* cps, int n, unsigned script, int ppem,
   const Font& f = *static_cast<Font*>(h);
   Size s = make_size(f, ppem);
   std::vector<Glyph> buf;
-  buf.reserve(n);
-  for (int i = 0; i < n; ++i)
-    buf.push_back({glyph_of(f, cps[i]), i, 0, 0, 0,
-                   default_ignorable(cps[i])});
+  buf.reserve(n + 4);
+  const bool thai_shaper = script == tag("thai") || script == tag("lao ");
+  std::vector<uint32_t> seen;  // code points so far (the Thai shaper's)
+  for (int i = 0; i < n; ++i) {
+    uint32_t c = cps[i];
+    // HarfBuzz's Thai / Lao shaper decomposes SARA AM into NIKHAHIT + SARA
+    // AA and moves the NIKHAHIT back over the above-base marks before it
+    if (thai_shaper && (c & ~0x80u) == 0x0E33u) {
+      size_t at = buf.size();
+      while (at > 0) {
+        uint32_t u = seen[at - 1] & ~0x80u;
+        bool above = (u >= 0x0E34 && u <= 0x0E37) ||
+                     (u >= 0x0E47 && u <= 0x0E4E) || u == 0x0E31 ||
+                     u == 0x0E3B;
+        if (!above) break;
+        --at;
+      }
+      uint32_t nikhahit = c - 0x0E33u + 0x0E4Du;
+      buf.insert(buf.begin() + long(at),
+                 Glyph{glyph_of(f, nikhahit), i, 0, 0, 0, false});
+      seen.insert(seen.begin() + long(at), nikhahit);
+      c -= 1;  // SARA AA
+    }
+    buf.push_back({glyph_of(f, c), i, 0, 0, 0, default_ignorable(c)});
+    seen.push_back(c);
+  }
   Layout L(f);
   Shaper sh(f, L, buf);
   std::vector<uint32_t> gsub_tags = {tag("rvrn"), tag("ccmp"), tag("locl"),

@@ -13,8 +13,11 @@ the tolerance tests/test_torch_train.py states, so it is used as it is.
 """
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 from typing import Iterable, List
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -42,3 +45,55 @@ def adamw(params: Iterable[torch.Tensor], lr: float,
     parameter decays."""
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=weight_decay)
+
+
+def _cosf(x) -> np.float32:
+    """The C library's float32 cosine (what XLA's CPU backend calls for
+    optax's jnp.cos; numpy's float32 cosine differs from it by an ulp at
+    some arguments), else the float64 cosine rounded."""
+    global _LIBM
+    if _LIBM is None:
+        name = ctypes.util.find_library("m")
+        _LIBM = ctypes.CDLL(name) if name else False
+        if _LIBM:
+            _LIBM.cosf.restype = ctypes.c_float
+            _LIBM.cosf.argtypes = [ctypes.c_float]
+    if _LIBM:
+        return np.float32(_LIBM.cosf(float(x)))
+    return np.float32(np.cos(np.float64(x)))
+
+
+_LIBM = None
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float,
+                        warmup_steps: int, decay_steps: int,
+                        end_value: float = 0.0):
+    """optax.warmup_cosine_decay_schedule(init_value, peak_value,
+    warmup_steps, decay_steps, end_value): count → the learning rate, in
+    float32 as optax computes it (a linear warmup from init_value to
+    peak_value over warmup_steps, then a cosine from peak_value to
+    end_value over decay_steps − warmup_steps, held there after)."""
+    f32 = np.float32
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError(f"decay_steps {decay_steps} must exceed "
+                         f"warmup_steps {warmup_steps}")
+
+    def warm(count: int):
+        if warmup_steps <= 0:
+            return f32(init_value)
+        c = f32(min(max(count, 0), warmup_steps))
+        frac = f32(1) - c / f32(warmup_steps)
+        return f32(init_value - peak_value) * frac + f32(peak_value)
+
+    def cosine(count: int):
+        c = f32(min(count, span))
+        cos = f32(0.5) * (f32(1) + _cosf(f32(np.pi) * c / f32(span)))
+        return f32(peak_value) * ((f32(1) - f32(alpha)) * cos + f32(alpha))
+
+    def schedule(count: int):
+        return warm(count) if count < warmup_steps else \
+            cosine(count - warmup_steps)
+    return schedule

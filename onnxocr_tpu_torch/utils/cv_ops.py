@@ -33,11 +33,12 @@ import numpy as np
 _COEF_BITS = 11                  # cv2's INTER_RESIZE_COEF_BITS
 
 
-def _as_u8_image(img: np.ndarray) -> Tuple[np.ndarray, bool]:
-    """→ (H, W, C) uint8 view, whether the input had no channel axis."""
+def _as_image(img: np.ndarray, dtype=np.uint8) -> Tuple[np.ndarray, bool]:
+    """→ (H, W, C) view of a `dtype` image, whether the input had no
+    channel axis."""
     img = np.asarray(img)
-    if img.dtype != np.uint8:
-        raise TypeError(f"uint8 images only, got {img.dtype}")
+    if img.dtype != dtype:
+        raise TypeError(f"{np.dtype(dtype).name} images only, got {img.dtype}")
     if img.ndim == 2:
         return img[:, :, None], True
     if img.ndim != 3:
@@ -45,13 +46,23 @@ def _as_u8_image(img: np.ndarray) -> Tuple[np.ndarray, bool]:
     return img, False
 
 
-def _axis_taps(dst_n: int, src_n: int, scale: float, clamp_frac: bool):
+def _axis_taps(dst_n: int, src_n: int, scale: float, clamp_frac: bool,
+               area: bool = False):
     """Source index and 11-bit coefficients of each destination position
-    along one axis: (first tap (dst_n,) int64, (dst_n, 2) int32 weights)."""
+    along one axis: (first tap (dst_n,) int64, (dst_n, 2) int32 weights).
+    `area`: cv2's INTER_AREA taps where it enlarges (area_mode: the first
+    tap floor(d · scale), the fraction of the destination pixel's end past
+    that source pixel's)."""
     d = np.arange(dst_n, dtype=np.float64)
-    f = ((d + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f)
-    f = (f - s).astype(np.float32)
+    if area:
+        s = np.floor(d * scale)
+        f = ((d + 1) - (s + 1) * (1.0 / scale)).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(
+            np.float32)
+    else:
+        f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        s = np.floor(f)
+        f = (f - s).astype(np.float32)
     s = s.astype(np.int64)
     if clamp_frac:
         # columns: before the first, or at or past the last, source column
@@ -68,11 +79,13 @@ def _axis_taps(dst_n: int, src_n: int, scale: float, clamp_frac: bool):
 
 def resize_linear(img: np.ndarray, dsize: Optional[Sequence[int]] = None,
                   fx: float = 0.0, fy: float = 0.0) -> np.ndarray:
-    """cv2.resize(img, dsize, fx=fx, fy=fy) with INTER_LINEAR on a uint8
-    image of 1 or more channels ((H, W) or (H, W, C)). dsize = (width,
-    height); without it the size is (round(W·fx), round(H·fy)), half to
-    even, and the scales are 1/fx and 1/fy, as cv2 takes them."""
-    src, flat = _as_u8_image(img)
+    """cv2.resize(img, dsize, fx=fx, fy=fy) with INTER_LINEAR on a uint8 or
+    float32 image of 1 or more channels ((H, W) or (H, W, C)). dsize =
+    (width, height); without it the size is (round(W·fx), round(H·fy)),
+    half to even, and the scales are 1/fx and 1/fy, as cv2 takes them."""
+    if np.asarray(img).dtype == np.float32:
+        return _resize_float(img, dsize, "linear")
+    src, flat = _as_image(img)
     H, W, C = src.shape
     if dsize is not None and tuple(dsize) != (0, 0):
         dw, dh = int(dsize[0]), int(dsize[1])
@@ -93,10 +106,10 @@ def resize_linear(img: np.ndarray, dsize: Optional[Sequence[int]] = None,
 
 
 def _resize_fixed(src: np.ndarray, dw: int, dh: int, scale_x: float,
-                  scale_y: float) -> np.ndarray:
+                  scale_y: float, area: bool = False) -> np.ndarray:
     H, W, _ = src.shape
-    sx, ax = _axis_taps(dw, W, scale_x, clamp_frac=True)
-    sy, by = _axis_taps(dh, H, scale_y, clamp_frac=False)
+    sx, ax = _axis_taps(dw, W, scale_x, clamp_frac=True, area=area)
+    sy, by = _axis_taps(dh, H, scale_y, clamp_frac=False, area=area)
     x1 = np.minimum(sx + 1, W - 1)
     # horizontal pass on the source rows the vertical pass reads: exact
     # integers up to 255 · 2^11
@@ -111,6 +124,298 @@ def _resize_fixed(src: np.ndarray, dw: int, dh: int, scale_x: float,
     b1 = by[:, 1, None, None]
     v = (((r0 * b0) >> 16) + ((r1 * b1) >> 16) + 2) >> 2
     return np.clip(v, 0, 255).astype(np.uint8)
+
+
+def _dst_size(dsize) -> Tuple[int, int]:
+    dw, dh = int(dsize[0]), int(dsize[1])
+    if dw <= 0 or dh <= 0:
+        raise ValueError(f"empty destination size {(dw, dh)}")
+    return dw, dh
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """a · b + c rounded once to float32 (the product of two float32 values
+    is exact in float64)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _resize_float(img: np.ndarray, dsize, kind: str) -> np.ndarray:
+    """cv2.resize of a float32 image with INTER_LINEAR or INTER_CUBIC, as
+    cv2 5.0's pip build computes it.
+
+    * INTER_LINEAR goes to IPP (cv2's IPP HAL): each destination position
+      in double, its fraction t rounded to float32, taps past the edge
+      clamped to it (a position before the first or at or past the last
+      source column takes that column whole), rows interpolated first, each
+      as one fused multiply-add a + (b − a)·t, then the columns of the
+      result the same way.
+    * INTER_CUBIC from a source under 4 pixels a side (cv2's generic
+      path): the fraction of the float32 position, interpolateCubic's
+      float32 weights (a = −0.75), taps clamped; the horizontal sums tap by
+      tap from the left, the vertical ones as the 4-lane vector loop takes
+      them, S0·b0 + (S1·b1 + (S2·b2 + S3·b3)), and the last (width · C) mod 4
+      values of a row from the left as its scalar tail does.
+    * INTER_CUBIC from 4 pixels a side on goes to IPP. Its weights are the
+      Keys kernel (a = −0.75) evaluated exactly at the float32 fraction and
+      rounded to float32 (read off its impulse responses); the order of its
+      sums is not known, so this twin sums each pass in float64 and rounds
+      once: within 8e-5 of cv2 on values of 40–230 (a few float32 ulps;
+      tests/test_torch_synth.py holds the bound, ROADMAP §3)."""
+    src, flat = _as_image(img, np.float32)
+    H, W, C = src.shape
+    dw, dh = _dst_size(dsize)
+    if (dw, dh) == (W, H):
+        out = src.copy()
+    elif kind == "linear":
+        xs, x1, tx = _linear_taps(dw, W)
+        ys, y1, ty = _linear_taps(dh, H)
+        rows = _fma(src[:, x1] - src[:, xs], tx[None, :, None], src[:, xs])
+        out = _fma(rows[y1] - rows[ys], ty[:, None, None], rows[ys])
+    elif H >= 4 and W >= 4:
+        xs, wx = _cubic_taps(dw, W, keys=True)
+        ys, wy = _cubic_taps(dh, H, keys=True)
+        hor = sum(src[:, xs[:, k]].astype(np.float64) * wx[None, :, k, None]
+                  for k in range(4)).astype(np.float32)
+        out = sum(hor[ys[:, k]].astype(np.float64) * wy[:, k, None, None]
+                  for k in range(4)).astype(np.float32)
+    else:
+        xs, wx = _cubic_taps(dw, W)
+        ys, wy = _cubic_taps(dh, H)
+        hor = None
+        for k in range(4):
+            t = src[:, xs[:, k]] * wx[None, :, k, None]
+            hor = t if hor is None else hor + t
+        terms = [hor[ys[:, k]] * wy[:, k, None, None] for k in range(4)]
+        vec = terms[0] + (terms[1] + (terms[2] + terms[3]))
+        tail = ((terms[0] + terms[1]) + terms[2]) + terms[3]
+        out = vec.reshape(dh, -1)
+        n = out.shape[1]
+        out[:, n - n % 4:] = tail.reshape(dh, -1)[:, n - n % 4:]
+        out = out.reshape(dh, dw, C)
+    return out[:, :, 0] if flat else out
+
+
+def _linear_taps(dst_n: int, src_n: int):
+    """IPP's linear taps along one axis: (first, second source index,
+    float32 fraction)."""
+    x = (np.arange(dst_n) + 0.5) * (src_n / dst_n) - 0.5
+    s = np.floor(x)
+    t = x - s
+    s = s.astype(np.int64)
+    lo, hi = s < 0, s >= src_n - 1
+    t = np.where(lo | hi, 0.0, t).astype(np.float32)
+    s = np.where(lo, 0, np.where(hi, src_n - 1, s))
+    return s, np.minimum(s + 1, src_n - 1), t
+
+
+def _cubic_taps(dst_n: int, src_n: int, keys: bool = False):
+    """The cubic taps along one axis: (dst_n, 4) source indices, clamped,
+    and their float32 weights — cv2's interpolateCubic in float32, or with
+    `keys` the Keys kernel in float64 rounded to float32 (IPP's)."""
+    x = ((np.arange(dst_n) + 0.5) * (src_n / dst_n) - 0.5).astype(
+        np.float32)
+    s = np.floor(x)
+    t = (x - s).astype(np.float32)
+    idx = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3)[None, :],
+                  0, src_n - 1)
+    if keys:
+        t, a = t.astype(np.float64), -0.75
+        w = [a * t ** 3 - 2 * a * t ** 2 + a * t,
+             (a + 2) * t ** 3 - (a + 3) * t ** 2 + 1,
+             -(a + 2) * t ** 3 + (2 * a + 3) * t ** 2 - a * t,
+             -a * t ** 3 + a * t ** 2]
+    else:
+        w = _cubic_weights(t)
+    return idx, np.stack(w, -1).astype(np.float32)
+
+
+def resize_cubic(img: np.ndarray, dsize: Sequence[int]) -> np.ndarray:
+    """cv2.resize(img, dsize, interpolation=cv2.INTER_CUBIC) on a float32
+    image ((H, W) or (H, W, C)); dsize = (width, height)."""
+    return _resize_float(img, dsize, "cubic")
+
+
+def resize_nearest(img: np.ndarray, dsize: Sequence[int]) -> np.ndarray:
+    """cv2.resize(img, dsize, interpolation=cv2.INTER_NEAREST): destination
+    pixel (x, y) takes source (floor(x · W / w), floor(y · H / h)), the
+    products in double with cv2's 1 / (w / W), clamped to the last."""
+    src = np.asarray(img)
+    H, W = src.shape[:2]
+    dw, dh = _dst_size(dsize)
+    fx, fy = 1.0 / (dw / W), 1.0 / (dh / H)
+    xs = np.minimum(np.floor(np.arange(dw) * fx).astype(np.int64), W - 1)
+    ys = np.minimum(np.floor(np.arange(dh) * fy).astype(np.int64), H - 1)
+    return np.ascontiguousarray(src[ys][:, xs])
+
+
+def _area_tab(src_n: int, dst_n: int, scale: float):
+    """cv2's computeResizeAreaTab: (destination, source, float32 weight)
+    triples in cv2's order."""
+    tab = []
+    for dx in range(dst_n):
+        fsx1 = dx * scale
+        fsx2 = fsx1 + scale
+        cell = min(scale, src_n - fsx1)
+        sx1, sx2 = int(np.ceil(fsx1)), int(np.floor(fsx2))
+        sx2 = min(sx2, src_n - 1)
+        sx1 = min(sx1, sx2)
+        if sx1 - fsx1 > 1e-3:
+            tab.append((dx, sx1 - 1, np.float32((sx1 - fsx1) / cell)))
+        for sx in range(sx1, sx2):
+            tab.append((dx, sx, np.float32(1.0 / cell)))
+        if fsx2 - sx2 > 1e-3:
+            tab.append((dx, sx2, np.float32(
+                min(min(fsx2 - sx2, 1.0), cell) / cell)))
+    return tab
+
+
+def _tab_arrays(tab, dst_n: int):
+    """The triples grouped by destination: (dst_n, k) source indices and
+    weights, k the largest group, the missing entries of weight 0 at
+    source 0 (adding 0 to a sum is exact)."""
+    k = max(sum(1 for t in tab if t[0] == d) for d in range(dst_n))
+    idx = np.zeros((dst_n, k), np.int64)
+    w = np.zeros((dst_n, k), np.float32)
+    fill = np.zeros(dst_n, np.int64)
+    for d, s, a in tab:
+        idx[d, fill[d]] = s
+        w[d, fill[d]] = a
+        fill[d] += 1
+    return idx, w, fill
+
+
+def resize_area(img: np.ndarray, dsize: Sequence[int]) -> np.ndarray:
+    """cv2.resize(img, dsize, interpolation=cv2.INTER_AREA) on a uint8 image
+    ((H, W) or (H, W, C)). Reducing on both axes: for integer factors cv2's
+    resizeAreaFast_ (each block's integer sum, rounded), else its
+    ResizeArea_Invoker — computeResizeAreaTab's float32 weights, each
+    source row's weighted columns summed into a float32 row in table order,
+    the rows weighted and summed in float32, rounded half to even.
+    Enlarging on either axis: the fixed-point linear resize of
+    `resize_linear` on cv2's area-mode taps."""
+    src, flat = _as_image(img)
+    H, W, C = src.shape
+    dw, dh = _dst_size(dsize)
+    sx, sy = 1.0 / (dw / W), 1.0 / (dh / H)
+    if sx < 1 or sy < 1:
+        # enlarging on either axis: cv2's linear path with area-mode taps
+        out = _resize_fixed(src, dw, dh, sx, sy, area=True)
+        return out[:, :, 0] if flat else out
+    ix, iy = int(round(sx)), int(round(sy))
+    if abs(sx - ix) < np.finfo(np.float64).eps and \
+            abs(sy - iy) < np.finfo(np.float64).eps:
+        if (dw, dh) == (W, H):
+            out = src.copy()
+        else:
+            blocks = src[:dh * iy, :dw * ix].astype(np.int32).reshape(
+                dh, iy, dw, ix, C).sum(axis=(1, 3))
+            area = ix * iy
+            if area == 4:    # ResizeAreaFastVec: (sum + 2) >> 2
+                out = ((blocks + 2) >> 2).astype(np.uint8)
+            else:            # saturate_cast<uchar>(sum * (1 / area))
+                out = np.clip(np.rint(blocks.astype(np.float32) *
+                                      np.float32(1.0 / area)), 0, 255
+                              ).astype(np.uint8)
+        return out[:, :, 0] if flat else out
+    xi, xw, _ = _tab_arrays(_area_tab(W, dw, sx), dw)
+    ytab = _area_tab(H, dh, sy)
+    f32 = np.float32
+    row_cache = {}
+
+    def row(s):
+        if s not in row_cache:
+            S = src[s].astype(f32)                        # (W, C)
+            buf = np.zeros((dw, C), f32)
+            for k in range(xi.shape[1]):
+                buf = buf + S[xi[:, k]] * xw[:, k, None]
+            row_cache[s] = buf
+        return row_cache[s]
+
+    out = np.empty((dh, dw, C), np.uint8)
+    acc, prev = None, 0
+    for d, s, beta in ytab:
+        term = beta * row(s)
+        if acc is None or d != prev:
+            if acc is not None:
+                out[prev] = np.clip(np.rint(acc), 0, 255)
+            acc, prev = term, d
+        else:
+            acc = acc + term
+    out[prev] = np.clip(np.rint(acc), 0, 255)
+    return out[:, :, 0] if flat else out
+
+
+# ------------------------------------------------------- GaussianBlur
+# cv2's kernels for ksize 3 and 5 at sigma 0 (getGaussianKernel's small
+# table), in 1/256: exact in its 8.8 fixed point and in float32
+_GAUSS = {3: (64, 128, 64), 5: (16, 64, 96, 64, 16)}
+
+
+def _reflect101(n: int, pad: int) -> np.ndarray:
+    """Source indices of 0 - pad .. n - 1 + pad under BORDER_REFLECT_101."""
+    i = np.arange(-pad, n + pad)
+    if n == 1:
+        return np.zeros_like(i)
+    period = 2 * (n - 1)
+    i = np.abs(i) % period
+    return np.where(i >= n, period - i, i)
+
+
+def gaussian_blur(img: np.ndarray, ksize: int) -> np.ndarray:
+    """cv2.GaussianBlur(img, (ksize, ksize), 0) for ksize 3 or 5 (default
+    border, BORDER_REFLECT_101) on a uint8 or float32 image ((H, W) or
+    (H, W, C)). uint8 takes cv2's bit-exact fixed-point path: rows then
+    columns in 8.8 fixed point, exact, then (v + 2^15) >> 16. float32 is
+    the separable float filter with the symmetric kernel, each pass
+    k_c · S_c + k_1 · (S_−1 + S_1) (+ k_2 · (S_−2 + S_2))."""
+    if ksize not in _GAUSS:
+        raise ValueError(f"ksize 3 or 5, got {ksize}")
+    arr = np.asarray(img)
+    if arr.dtype == np.uint8:
+        src, flat = _as_image(arr)
+    else:
+        src, flat = _as_image(arr, np.float32)
+    H, W, C = src.shape
+    r = ksize // 2
+    k = _GAUSS[ksize]
+    cols = _reflect101(W, r)
+    rows = _reflect101(H, r)
+    if src.dtype == np.uint8:
+        x = src.astype(np.int64)
+        hor = sum(k[j] * x[:, cols[j:j + W]] for j in range(ksize))
+        ver = sum(k[j] * hor[rows[j:j + H]] for j in range(ksize))
+        out = ((ver + (1 << 15)) >> 16).astype(np.uint8)
+    else:
+        f = [np.float32(v / 256.0) for v in k]
+
+        def smooth(a, idx, axis, n):
+            def tap(j):
+                return np.take(a, idx[j:j + n], axis=axis)
+            acc = tap(r) * f[r] + (tap(r - 1) + tap(r + 1)) * f[r - 1]
+            if r == 2:
+                acc = acc + (tap(0) + tap(4)) * f[0]
+            return acc.astype(np.float32)
+        out = smooth(smooth(src, cols, 1, W), rows, 0, H)
+    return out[:, :, 0] if flat else out
+
+
+def copy_make_border(img: np.ndarray, top: int, bottom: int, left: int,
+                     right: int, value) -> np.ndarray:
+    """cv2.copyMakeBorder(img, top, bottom, left, right,
+    cv2.BORDER_CONSTANT, value=value)."""
+    src = np.asarray(img)
+    H, W = src.shape[:2]
+    out = np.empty((H + top + bottom, W + left + right) + src.shape[2:],
+                   src.dtype)
+    v = np.asarray(value, np.float64)
+    if src.ndim == 3:
+        v = np.resize(v, src.shape[2]) if v.size else np.zeros(src.shape[2])
+    else:
+        v = v.reshape(-1)[:1] if v.size else np.zeros(1)
+    out[...] = v.astype(src.dtype) if src.ndim == 3 else v[0].astype(
+        src.dtype)
+    out[top:top + H, left:left + W] = src
+    return out
 
 
 # ------------------------------------------------------- warpPerspective
@@ -156,7 +461,7 @@ def remap_cubic(img: np.ndarray, map_x: np.ndarray,
     """cv2.remap(img, map_x, map_y, INTER_CUBIC, BORDER_REPLICATE) on a
     uint8 image with float32 maps: the 4 × 4 taps around each position,
     clamped to the border, weighted in float32 and rounded half to even."""
-    src, flat = _as_u8_image(img)
+    src, flat = _as_image(img)
     H, W, _ = src.shape
     X = np.asarray(map_x, np.float32)
     Y = np.asarray(map_y, np.float32)
@@ -285,20 +590,26 @@ def _div_trunc(a: int, b: int) -> int:
     return q if (a >= 0) == (b >= 0) else -q
 
 
-def _fill_convex(img, pts, color):
-    """cv2's FillConvexPoly (LINE_8) of 16.16 fixed-point vertices."""
+def _fill_convex(img, pts, color, shift: int = _XY_SHIFT):
+    """cv2's FillConvexPoly (LINE_8) of vertices with `shift` fractional
+    bits (16: 16.16 fixed point, the outline by Line2; 0: whole pixels,
+    the outline by the integer Line)."""
     h, w = img.shape[:2]
     n = len(pts)
-    delta = _XY_ONE >> 1
+    delta = 1 << (shift - 1) if shift else 0
+    up = _XY_SHIFT - shift
     p0 = pts[-1]
     for p in pts:
-        _line_fixed(img, p0, p, color)
+        if shift:
+            _line_fixed(img, p0, p, color)
+        else:
+            _line_int(img, p0, p, color)
         p0 = p
     xs = [p[0] for p in pts]
     ys = [p[1] for p in pts]
     imin = int(np.argmin(ys))
-    xmin, xmax = (min(xs) + delta) >> 16, (max(xs) + delta) >> 16
-    ymin, ymax = (min(ys) + delta) >> 16, (max(ys) + delta) >> 16
+    xmin, xmax = (min(xs) + delta) >> shift, (max(xs) + delta) >> shift
+    ymin, ymax = (min(ys) + delta) >> shift, (max(ys) + delta) >> shift
     if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
         return
     ymax = min(ymax, h - 1)
@@ -315,9 +626,9 @@ def _fill_convex(img, pts, color):
                     edges -= 1
                     if edges < 0:
                         break
-                    ty = (pts[idx][1] + delta) >> 16
+                    ty = (pts[idx][1] + delta) >> shift
                     if ty > y:
-                        xs_, xe = pts[idx0][0], pts[idx][0]
+                        xs_, xe = pts[idx0][0] << up, pts[idx][0] << up
                         e["ye"] = ty
                         e["dx"] = _div_trunc((xe - xs_) * 2 + (ty - y),
                                              2 * (ty - y))
@@ -330,8 +641,8 @@ def _fill_convex(img, pts, color):
             break
         if y >= 0:
             left, right = (1, 0) if edge[0]["x"] > edge[1]["x"] else (0, 1)
-            x1 = (edge[left]["x"] + delta) >> 16
-            x2 = (edge[right]["x"] + delta) >> 16
+            x1 = (edge[left]["x"] + (_XY_ONE >> 1)) >> 16
+            x2 = (edge[right]["x"] + (_XY_ONE >> 1)) >> 16
             if x2 >= 0 and x1 < w:
                 img[y, max(x1, 0):min(x2, w - 1) + 1] = color
         edge[0]["x"] += edge[0]["dx"]
@@ -339,6 +650,183 @@ def _fill_convex(img, pts, color):
         y += 1
         if y > ymax:
             break
+
+
+def _line_int(img, p1, p2, color):
+    """cv2's Line (LINE_8): its LineIterator from the left end, clipped to
+    the image (clipLine) when an end lies outside it."""
+    h, w = img.shape[:2]
+    (x1, y1), (x2, y2) = p1, p2
+    if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
+        clipped = _clip_line(w, h, x1, y1, x2, y2)
+        if clipped is None:
+            return
+        x1, y1, x2, y2 = clipped
+    dx, dy = x2 - x1, y2 - y1
+    if dx < 0:
+        x1, y1, dx, dy = x2, y2, -dx, -dy
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    vert = dy > dx
+    major, minor = (dy, dx) if vert else (dx, dy)
+    # err < 0 before a step moves the minor axis (cv2's mask)
+    k = np.arange(major + 1, dtype=np.int64)
+    err0 = major - 2 * minor
+    # err after k steps: err0 - 2·minor·k + 2·major·(minor steps so far);
+    # the minor steps are the Bresenham count, computed by a running sum
+    steps = np.zeros(major + 1, np.int64)
+    err = err0
+    for i in range(1, major + 1):
+        m = err < 0
+        steps[i] = steps[i - 1] + m
+        err += -2 * minor + (2 * major if m else 0)
+    if vert:
+        xs, ys = x1 + steps, y1 + sy * k
+    else:
+        xs, ys = x1 + k, y1 + sy * steps
+    _put(img, xs, ys, color)
+
+
+def _circle(img, cx: int, cy: int, radius: int, color, fill: bool):
+    """cv2's Circle (LINE_8, whole pixels): Bresenham's octants, spans when
+    filled, clipped to the image."""
+    h, w = img.shape[:2]
+    err, dx, dy, plus, minus = 0, radius, 0, 1, (radius << 1) - 1
+    xs, ys = [], []
+    while dx >= dy:
+        for (yy, xa, xb) in ((cy - dy, cx - dx, cx + dx),
+                             (cy + dy, cx - dx, cx + dx),
+                             (cy - dx, cx - dy, cx + dy),
+                             (cy + dx, cx - dy, cx + dy)):
+            if not 0 <= yy < h:
+                continue
+            if fill:
+                a, b = max(xa, 0), min(xb, w - 1)
+                if a <= b:
+                    img[yy, a:b + 1] = color
+            else:
+                xs += [xa, xb]
+                ys += [yy, yy]
+        dy += 1
+        err += plus
+        plus += 2
+        mask = -1 if err > 0 else 0
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    if xs:
+        _put(img, np.array(xs), np.array(ys), color)
+
+
+def _thick_line(img, p0, p1, color, thickness: int, caps: int,
+                shift: int = 0):
+    """cv2's ThickLine (LINE_8) between two points with `shift` fractional
+    bits: thickness 1 a line, else the quadrilateral ± thickness / 2 about
+    it in 16.16 fixed point filled by FillConvexPoly, and a filled circle
+    of radius round(thickness / 2) at the ends `caps` names (bit 0: p0,
+    bit 1: p1)."""
+    up = _XY_SHIFT - shift
+    p0 = (p0[0] << up, p0[1] << up)
+    p1 = (p1[0] << up, p1[1] << up)
+    half = _XY_ONE >> 1
+    if thickness <= 1:
+        if shift == 0:
+            _line_int(img, ((p0[0] + half) >> 16, (p0[1] + half) >> 16),
+                      ((p1[0] + half) >> 16, (p1[1] + half) >> 16), color)
+        else:
+            _line_fixed(img, p0, p1, color)
+        return
+    dx = (p0[0] - p1[0]) / _XY_ONE
+    dy = (p1[1] - p0[1]) / _XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    t = thickness << (_XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (t + odd * _XY_ONE * 0.5) / np.sqrt(r)
+        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        _fill_convex(img, [(p0[0] + ox, p0[1] + oy), (p0[0] - ox, p0[1] - oy),
+                           (p1[0] - ox, p1[1] - oy), (p1[0] + ox, p1[1] + oy)],
+                     color)
+    for i, p in enumerate((p0, p1)):
+        if caps & (1 << i):
+            _circle(img, (p[0] + half) >> 16, (p[1] + half) >> 16,
+                    (t + half) >> 16, color, True)
+
+
+def _color(img, color):
+    c = np.asarray(color, np.float64).reshape(-1)
+    n = img.shape[2] if img.ndim == 3 else 1
+    c = np.resize(c, n) if c.size < n else c[:n]
+    return np.clip(np.rint(c), 0, 255).astype(img.dtype) if n > 1 else \
+        np.clip(np.rint(c[0]), 0, 255).astype(img.dtype)
+
+
+def line(img: np.ndarray, p1, p2, color, thickness: int = 1) -> np.ndarray:
+    """cv2.line(img, p1, p2, color, thickness) in place (LINE_8, integer
+    points) → img."""
+    _thick_line(img, (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1])),
+                _color(img, color), int(thickness), 3)
+    return img
+
+
+def rectangle(img: np.ndarray, p1, p2, color, thickness: int = 1
+              ) -> np.ndarray:
+    """cv2.rectangle(img, p1, p2, color, thickness) in place (LINE_8;
+    thickness -1 fills): the closed outline p1, (p2.x, p1.y), p2, (p1.x,
+    p2.y), each side capped at its end only, as cv2's PolyLine draws it
+    → img."""
+    c = _color(img, color)
+    (x1, y1), (x2, y2) = (int(p1[0]), int(p1[1])), (int(p2[0]), int(p2[1]))
+    pts = [(x1, y1), (x2, y1), (x2, y2), (x1, y2)]
+    if thickness < 0:
+        _fill_convex(img, pts, c, shift=0)
+        return img
+    p0 = pts[-1]
+    for p in pts:
+        _thick_line(img, p0, p, c, int(thickness), 2)
+        p0 = p
+    return img
+
+
+# cv2's SinTable: sin of each whole degree 0..450 to 7 decimals, in float32
+_SIN_TABLE = np.array([float(f"{np.sin(np.radians(d)):.7f}")
+                       for d in range(451)], np.float32)
+
+
+def circle(img: np.ndarray, center, radius: int, color,
+           thickness: int = 1) -> np.ndarray:
+    """cv2.circle(img, center, radius, color, thickness) in place (LINE_8):
+    thickness 1 is the Bresenham circle; thicker ones are cv2's EllipseEx,
+    ellipse2Poly's points (every 90, 30, 18 or 5 degrees by the radius) in
+    16.16 fixed point joined by an open thick polyline → img."""
+    c = _color(img, color)
+    cx, cy, radius = int(center[0]), int(center[1]), int(radius)
+    if thickness <= 1:
+        _circle(img, cx, cy, radius, c, thickness < 0)
+        return img
+    ax = radius << _XY_SHIFT
+    delta = (ax + (_XY_ONE >> 1)) >> _XY_SHIFT
+    delta = 90 if delta < 3 else 30 if delta < 10 else 18 if delta < 15 \
+        else 5
+    pts, prev = [], None
+    for ang in range(0, 360 + delta, delta):
+        ang = min(ang, 360)
+        x = (cx << _XY_SHIFT) + ax * float(_SIN_TABLE[450 - ang])
+        y = (cy << _XY_SHIFT) + ax * float(_SIN_TABLE[ang])
+        px = (int(np.rint(x / _XY_ONE)) << _XY_SHIFT)
+        py = (int(np.rint(y / _XY_ONE)) << _XY_SHIFT)
+        px += int(np.rint(x - px))
+        py += int(np.rint(y - py))
+        if (px, py) != prev:
+            pts.append((px, py))
+            prev = (px, py)
+    if len(pts) == 1:
+        pts = [(cx << _XY_SHIFT, cy << _XY_SHIFT)] * 2
+    caps = 3
+    for a, b in zip(pts[:-1], pts[1:]):
+        _thick_line(img, a, b, c, int(thickness), caps, shift=_XY_SHIFT)
+        caps = 2
+    return img
 
 
 def _disc1(img, cx: int, cy: int, color):

@@ -6,9 +6,9 @@ use them — Pillow 12 with FreeType and the RAQM (HarfBuzz) layout.
 `FreeTypeFont(path, size)` gives `getmetrics()`, `getlength(text)`,
 `getbbox(text)` and `render(text, start)` (the mask and offset of
 `getmask2`); `draw_text(img, xy, text, fill, font)` is `ImageDraw.text` on an
-(H, W, 3) uint8 array. The C++ side (`csrc/host/ttf.cc`, g++ at first use
-into build/host/ like the other host libraries) reads the font, shapes one
-run and rasterises glyphs.
+(H, W, 3) or (H, W) uint8 array. The C++ side (`csrc/host/ttf.cc`, g++ at
+first use into build/host/ like the other host libraries) reads the font,
+shapes one run and rasterises glyphs.
 
 What equals PIL's:
 
@@ -20,7 +20,12 @@ What equals PIL's:
 * Glyphs: outlines are hinted by FreeType's TrueType bytecode interpreter
   as its default (v40) runs it, and rasterised with FreeType's exact-area
   coverage, so `getmetrics`, `getbbox`, the masks and the drawn pixels
-  equal PIL's on the DejaVu faces (tests/test_torch_font.py).
+  equal PIL's on the DejaVu faces (tests/test_torch_font.py), and masks
+  and boxes on the sixteen faces of train/synth.py's FONTS (the DejaVu
+  obliques, italics and Display faces, Computer Modern cmb10, cmss10 and
+  cmtt10: tests/test_torch_synth.py).
+* `codepoints(path)`: the code points of the cmap subtable fontTools'
+  `getBestCmap` reads.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ _SIGNATURES = {
         _IP, _IP, _LLP, _LLP, _LLP, ctypes.c_int]),
     "ttf_glyph_cbox": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, _LL, _LL, _LLP]),
+    "ttf_codepoints": (ctypes.c_int, [ctypes.c_void_p, _UP, ctypes.c_int]),
     "ttf_render_glyph": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, _LL, _LL,
         ctypes.c_int, ctypes.c_int, _U8P, ctypes.c_int, ctypes.c_int]),
@@ -80,6 +86,28 @@ def dejavu_path(name: str) -> str:
     committed copy of the same bytes."""
     system = SYSTEM_FONT_DIR / name
     return str(system if system.exists() else FONT_DIR / name)
+
+
+def codepoints(path) -> set:
+    """The code points a font's cmap maps to a glyph: `set(TTFont(path,
+    lazy=True).getBestCmap())` of fontTools, from the same subtable (its
+    preference: (3,10), (0,6), (0,4), (3,1), (0,3), (0,2), (0,1), (0,0))."""
+    data = np.frombuffer(Path(path).read_bytes(), np.uint8)
+    handle = lib().ttf_open(data.ctypes.data_as(_U8P), data.size)
+    if not handle:
+        raise OSError(f"{path}: not a TrueType font this reader takes")
+    try:
+        cap = 1 << 16
+        while True:
+            out = np.empty(cap, np.uint32)
+            n = lib().ttf_codepoints(handle, out.ctypes.data_as(_UP), cap)
+            if n >= 0:
+                return set(out[:n].tolist())
+            if n == -1:
+                raise OSError(f"{path}: no cmap subtable this reader takes")
+            cap = -n
+    finally:
+        lib().ttf_close(handle)
 
 
 def _pixel(v: int) -> int:
@@ -279,8 +307,8 @@ class FreeTypeFont:
 # ---------------------------------------------------------------- drawing
 def blend_mask(img: np.ndarray, x: int, y: int, mask: np.ndarray,
                fill) -> None:
-    """PIL's fill-with-mask of an RGB image (ImageDraw.draw_bitmap): each
-    channel becomes (in * (255 - m) + ink * m) / 255, rounded as PIL's
+    """PIL's fill-with-mask of an RGB or 'L' image (ImageDraw.draw_bitmap):
+    each channel becomes (in * (255 - m) + ink * m) / 255, rounded as PIL's
     DIV255 rounds; the mask is clipped to the image."""
     h, w = mask.shape
     H, W = img.shape[:2]
@@ -288,9 +316,12 @@ def blend_mask(img: np.ndarray, x: int, y: int, mask: np.ndarray,
     x1, y1 = min(x + w, W), min(y + h, H)
     if x1 <= x0 or y1 <= y0:
         return
-    m = mask[y0 - y:y1 - y, x0 - x:x1 - x].astype(np.int32)[:, :, None]
+    m = mask[y0 - y:y1 - y, x0 - x:x1 - x].astype(np.int32)
     region = img[y0:y1, x0:x1].astype(np.int32)
-    ink = np.asarray(fill, np.int32).reshape(1, 1, -1)
+    ink = np.asarray(fill, np.int32)
+    if img.ndim == 3:
+        m = m[:, :, None]
+        ink = ink.reshape(1, 1, -1)
     t = region * (255 - m) + ink * m + 128
     img[y0:y1, x0:x1] = (((t >> 8) + t) >> 8).astype(np.uint8)
 
@@ -298,9 +329,9 @@ def blend_mask(img: np.ndarray, x: int, y: int, mask: np.ndarray,
 def draw_text(img: np.ndarray, xy, text: str, fill, font: FreeTypeFont,
               spacing: float = 4) -> None:
     """`ImageDraw.Draw(img).text(xy, text, fill, font)` on an (H, W, 3)
-    uint8 array, in place: the integer part of xy places the mask, the
-    fractional part moves the glyphs (`render`); lines split at '\\n' are
-    drawn getbbox('A')[3] + spacing apart."""
+    RGB or (H, W) 'L' uint8 array, in place: the integer part of xy places
+    the mask, the fractional part moves the glyphs (`render`); lines split
+    at '\\n' are drawn getbbox('A')[3] + spacing apart."""
     lines = text.split("\n")
     line_spacing = font.getbbox("A")[3] + spacing if len(lines) > 1 else 0
     x, top = float(xy[0]), float(xy[1])

@@ -5,13 +5,17 @@ cv2 or PIL: counterparts of `cv2.imdecode(buf, cv2.IMREAD_COLOR)` and of
 `imdecode` reads PNG (every colour type and bit depth, Adam7 interlace),
 JPEG (baseline and progressive Huffman, 8-bit, 1, 3 or 4 (CMYK, YCCK)
 components, any integral sampling factors, restart intervals, the EXIF
-orientation) and BMP (1-, 4- and 8-bit palettes, RLE8 and RLE4, 16-bit
-5-5-5 and 5-6-5, 24- and 32-bit with or without bit-field masks, bottom-up
-and top-down, the OS/2 core header too) into (H, W, 3) uint8 BGR, and
-gives None where cv2 gives None: bytes of another format (WebP, TIFF,
-...), arithmetic-coded, 12-bit or lossless JPEGs, BMPs cv2 does not read
-(other 16-bit masks, other compressions), truncated or corrupt files, and
-sides longer than libpng or libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
+orientation; a baseline file streams row by row), BMP (1-, 4- and 8-bit
+palettes, RLE8 and RLE4, 16-bit 5-5-5 and 5-6-5, 24- and 32-bit with or
+without bit-field masks, bottom-up and top-down, the OS/2 core header too),
+baseline TIFF (the first IFD: none, PackBits, LZW, Deflate; predictor 2;
+strips, tiles, planar; 1, 8, 16 bits; grey, RGB(A), palette; the
+Orientation tag) and Netpbm P1–P6 into (H, W, 3) uint8 BGR, and gives None
+where cv2 gives None: bytes of another format (WebP, JPEG 2000, ...),
+arithmetic-coded, 12-bit or lossless JPEGs, BMPs and TIFFs cv2 reads that
+this reader does not (other 16-bit masks, other compressions, CMYK, YCbCr,
+JPEG-in-TIFF), truncated or corrupt files, and sides longer than libpng or
+libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
 PIL's `Image.open(...).convert('RGB')`: the stored orientation, and
 Adobe's inverted CMYK through Pillow's cmyk2rgb. As IMREAD_COLOR does, it
 drops alpha, replicates grey, reduces 16-bit samples to their high byte and
@@ -19,7 +23,7 @@ applies the EXIF orientation (a JPEG's APP1, a PNG's eXIf chunk).
 
 The pixel work is C++ (`csrc/host/imcodec.cc`: PNG unfiltering, the JPEG
 decoder and encoder, written to compute what libjpeg-turbo computes at
-cv2's settings), built with g++ at first use into `build/host/` like the DB
+cv2's settings, TIFF's LZW and PackBits, Netpbm's ASCII numbers), built with g++ at first use into `build/host/` like the DB
 postprocess library (`ops/native.py`); zlib inflates PNG streams. There is
 no fallback: where the library cannot be built, every call raises.
 """
@@ -58,6 +62,13 @@ _SIGNATURES = {
     "ocr_jpeg_encode": (_LL, [
         _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bgr, h, w, quality
         _U8P, _LL]),                                     # out, capacity
+    "ocr_tiff_lzw": (_LL, [_U8P, _LL, _U8P, _LL]),   # in, bytes, out, need
+    "ocr_tiff_packbits": (_LL, [_U8P, _LL, _U8P, _LL]),
+    "ocr_pxm_header": (ctypes.c_int, [               # buf, bytes, pos, n,
+        _U8P, _LL, ctypes.POINTER(_LL), _LL, _IP]),  # out int32
+    "ocr_pxm_samples": (ctypes.c_int, [              # buf, bytes, pos, n,
+        _U8P, _LL, ctypes.POINTER(_LL), _LL, ctypes.c_int,  # single,
+        ctypes.POINTER(ctypes.c_uint16)]),                  # out uint16
 }
 
 # Sizes are checked before anything is allocated. libpng and libjpeg refuse
@@ -481,6 +492,305 @@ def _bmp_rle(buf, offset, w, rows, rle4):
     return idx
 
 
+# ----------------------------------------------------------------- TIFF
+# the integer field types: BYTE, SHORT, LONG → struct code, bytes
+_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4)}
+
+
+def _tiff_ifd(buf: bytes):
+    """The first IFD of a classic TIFF → (byte order, {tag: tuple of
+    values}) for the integer-typed tags."""
+    order = {b"II": "<", b"MM": ">"}[buf[:2]]
+    magic, ifd = struct.unpack(order + "HI", buf[2:8])
+    if magic != 42:
+        raise _Unreadable("TIFF: not a classic TIFF")
+    count, = struct.unpack(order + "H", buf[ifd:ifd + 2])
+    tags = {}
+    for e in range(ifd + 2, ifd + 2 + 12 * count, 12):
+        tag, typ, n, value = struct.unpack(order + "HHI4s", buf[e:e + 12])
+        if typ not in _TIFF_TYPES:
+            continue
+        code, width = _TIFF_TYPES[typ]
+        size = width * n
+        if size <= 4:
+            data = value[:size]
+        else:
+            off, = struct.unpack(order + "I", value)
+            if off + size > len(buf):
+                raise _Unreadable(f"TIFF: tag {tag} past the end")
+            data = buf[off:off + size]
+        tags[tag] = struct.unpack(f"{order}{n}{code}", data)
+    return order, tags
+
+
+def _tiff_chunk(buf: bytes, off: int, n: int, need: int, comp: int
+                ) -> np.ndarray:
+    """One strip or tile decompressed to exactly `need` bytes, as libtiff
+    reads it (None, PackBits, LZW, Deflate)."""
+    if n < 0 or off + n > len(buf):
+        raise _Unreadable("TIFF: strip or tile past the end of the data")
+    raw = np.frombuffer(buf, np.uint8, n, off)
+    if comp == 1:
+        if n < need:
+            raise _Unreadable("TIFF: short strip")
+        return raw[:need]
+    if comp in (8, 32946):
+        inflater = zlib.decompressobj()
+        out = inflater.decompress(raw.tobytes(), need)
+        if len(out) < need:
+            raise _Unreadable("TIFF: short Deflate strip")
+        return np.frombuffer(out, np.uint8)
+    out = np.empty(need, np.uint8)
+    fn = lib().ocr_tiff_lzw if comp == 5 else lib().ocr_tiff_packbits
+    src = np.ascontiguousarray(raw)
+    if fn(_ptr(src), n, _ptr(out), need) != need:
+        raise _Unreadable("TIFF: bad or short LZW / PackBits data")
+    return out
+
+
+def _skew16(chunk: np.ndarray, dtype, predicted: bool, npix: int,
+            per: int) -> np.ndarray:
+    """A 16-bit grey tile cut by the right edge as libtiff's
+    put16bitbwtile reads it: row r from byte r · (npix · 2 · per + tw −
+    npix) of the decoded tile (host order, the predictor undone), the
+    first npix pixels of each row kept (the rest is never read)."""
+    rows, row_bytes = chunk.shape
+    tw = row_bytes // (2 * per)
+    v = chunk.view(dtype).astype(np.uint16).reshape(rows, tw, per)
+    if predicted:
+        v = np.cumsum(v, axis=1, dtype=np.uint16)
+    flat = np.concatenate([v.astype("<u2").reshape(-1).view(np.uint8),
+                           np.zeros(2, np.uint8)])
+    step = npix * 2 * per + (tw - npix)
+    out = np.zeros((rows, row_bytes), np.uint8)
+    for r in range(rows):
+        a = r * step
+        part = flat[a:a + npix * 2 * per]
+        out[r, :part.size] = part
+    out = out.view("<u2").reshape(rows, tw, per)
+    if predicted:                     # undone already: redo the differences
+        out = np.diff(out, axis=1, prepend=np.zeros((rows, 1, per),
+                                                     np.uint16))
+    return out.astype(dtype).view(np.uint8).reshape(rows, row_bytes)
+
+
+def _tiff(buf: bytes) -> np.ndarray:
+    """cv2's TiffDecoder at IMREAD_COLOR, which reads through libtiff's
+    TIFFReadRGBA*: the first IFD; compression none, PackBits, LZW or
+    Deflate; predictor 2 (which libtiff undoes for LZW and Deflate only);
+    strips or tiles; chunky or planar samples; 1, 8 or 16 bits (4 for a
+    palette); grey (MinIsBlack, MinIsWhite), RGB with or without alpha and
+    palette images. As TIFFReadRGBA converts them: 16-bit grey keeps its
+    high byte and 16-bit colour (v + 128) / 257; an unassociated alpha is
+    multiplied in ((c a + 127) / 255) and dropped; a colour map whose
+    entries all lie below 256 is taken as 8-bit, else its high bytes. The
+    Orientation tag is applied as cv2 applies it."""
+    order, tags = _tiff_ifd(buf)
+
+    def one(tag, default=None):
+        v = tags.get(tag)
+        return v[0] if v else default
+    w, h = one(256, 0), one(257, 0)
+    if not w or not h:
+        raise _Unreadable("TIFF: no image size")
+    _check_size("tiff", w, h)
+    spp = one(277, 1)
+    bps_all = tags.get(258, (1,))
+    bps = bps_all[0]
+    comp, photo = one(259, 1), one(262)
+    planar, predictor = one(284, 1), one(317, 1)
+    if any(b != bps for b in bps_all) or bps not in (1, 4, 8, 16) or \
+            comp not in (1, 5, 8, 32773, 32946) or planar not in (1, 2) or \
+            predictor not in (1, 2) or (predictor == 2 and bps == 1) or \
+            one(339, 1) != 1 or not 1 <= spp <= 8 or one(266, 1) != 1:
+        raise _Unreadable("TIFF: a layout TIFFReadRGBA does not take here")
+    extra = tags.get(338, ())
+    if photo in (0, 1):
+        colour = 1
+    elif photo == 2 and spp >= 3:
+        colour = 3
+    elif photo == 3 and spp == 1 and bps <= 8 and 320 in tags:
+        colour = 1
+    else:
+        raise _Unreadable(f"TIFF: photometric {photo} is not read")
+    if bps < 8 and (spp != 1 or predictor == 2 or
+                    (bps == 4 and photo != 3)):
+        # cv2's readHeader takes 4 bits for a palette only, 2 not at all
+        raise _Unreadable("TIFF: packed samples cv2 does not read")
+    tiled = 322 in tags
+    if tiled:
+        cw, ch = one(322, 0), one(323, 0)
+        offsets, counts = tags.get(324, ()), tags.get(325, ())
+    else:
+        cw, ch = w, min(one(278, h), h)      # 0: libtiff's "Bad value"
+        offsets, counts = tags.get(273, ()), tags.get(279, ())
+    if not cw or not ch or cw * ch * spp * max(1, bps // 8) >= 1 << 30:
+        # cv2: "TIFF tile size is too large: >= 1Gb"
+        raise _Unreadable("TIFF: empty or oversized strips or tiles")
+    across, down = -(-w // cw), -(-h // ch)
+    planes = spp if planar == 2 else 1
+    per = spp // planes                      # samples in one chunk
+    if min(len(offsets), len(counts)) < across * down * planes:
+        raise _Unreadable("TIFF: too few strip or tile offsets")
+    n_chunks = across * down * planes
+    if any(o + c > len(buf) for o, c in zip(offsets[:n_chunks],
+                                             counts[:n_chunks])):
+        # checked before the image is allocated
+        raise _Unreadable("TIFF: strip or tile past the end of the data")
+    row_bytes = (cw * per * bps + 7) // 8
+    if tiled and comp == 1 and across * down * planes > 1:
+        # cv2 5.0 refuses uncompressed tiles of most layouts (its libtiff's
+        # "Invalid tile byte count") and reads others: not read here
+        raise _Unreadable("TIFF: uncompressed tiles are not read")
+    if photo == 3:
+        n = 1 << bps
+        cmap = np.asarray(tags[320], np.int64)
+        if cmap.size < 3 * n:
+            raise _Unreadable("TIFF: short colour map")
+        cmap = cmap[:3 * n].reshape(3, n)
+        if (cmap >= 256).any():
+            cmap = cmap >> 8
+        lut = np.ascontiguousarray(cmap[::-1].T.astype(np.uint8))   # BGR
+    elif colour == 1:                 # grey sample → its 8-bit value
+        v = np.arange(1 << bps, dtype=np.uint32)
+        if bps == 16:
+            v = v >> 8
+        elif bps < 8:                            # libtiff's x * 255 / range
+            v = v * 255 // ((1 << bps) - 1)
+        lut = (255 - v if photo == 0 else v).astype(np.uint8)[:, None]
+    else:                             # 16-bit colour: (v + 128) / 257
+        lut = ((np.arange(1 << 16, dtype=np.uint32) + 128) // 257).astype(
+            np.uint8) if bps == 16 else None
+    alpha = colour == 3 and spp > 3 and extra[:1] == (2,)
+    # libtiff's put16bitbwtile steps a clipped tile's rows by the skew in
+    # bytes, not in samples: rows after the first of a tile cut by the
+    # right edge are read from there
+    skewed = tiled and bps == 16 and colour == 1 and photo != 3
+    predicted = predictor == 2 and comp in (5, 8, 32946)
+    dtype = np.dtype(order + "u2") if bps == 16 else np.uint8
+    # converted strip by strip (tile by tile), a band of rows at a time,
+    # into the output, as TIFFReadRGBA* converts: only the output and each
+    # plane's decoded chunk grow with the image
+    band = max(1, (1 << 20) // (cw * spp))
+    out = np.empty((h, w, 3), np.uint8)
+    for ty in range(down):
+        for tx in range(across):
+            rows = ch if tiled else min(ch, h - ty * ch)
+            npix = min(cw, w - tx * cw)
+            chunks = []
+            for p in range(planes):
+                k = (p * down + ty) * across + tx
+                chunk = _tiff_chunk(buf, offsets[k], counts[k],
+                                    rows * row_bytes, comp).reshape(
+                    rows, row_bytes)
+                if skewed and npix < cw:
+                    chunk = _skew16(chunk, dtype, predicted, npix, per)
+                chunks.append(chunk)
+            y0, x0 = ty * ch, tx * cw
+            last = min(rows, h - y0)
+            for b0 in range(0, last, band):
+                b1 = min(b0 + band, last)
+                px = np.concatenate([_tiff_samples(
+                    c[b0:b1], bps, dtype, cw, per, predicted)[:, :npix]
+                    for c in chunks], axis=2)
+                out[y0 + b0:y0 + b1, x0:x0 + npix] = _tiff_bgr(
+                    px, colour, lut, alpha)
+    return _oriented(out, one(274, 1))
+
+
+def _tiff_samples(rows: np.ndarray, bps: int, dtype, cw: int, per: int,
+                  predicted: bool) -> np.ndarray:
+    """Decoded rows of a strip or tile → (rows, cw, per) samples, the
+    horizontal differencing undone (modular: libtiff's LZW and Deflate
+    codecs undo it; none and PackBits ignore it)."""
+    if bps < 8:
+        bits = np.unpackbits(rows, axis=1)[:, :cw * per * bps]
+        px = bits.reshape(len(rows), -1, bps) @ (
+            1 << np.arange(bps - 1, -1, -1)).astype(np.uint8)
+    else:
+        px = rows.view(dtype).astype(np.uint16 if bps == 16 else np.uint8)
+    px = px.reshape(len(rows), cw, per)
+    return np.cumsum(px, axis=1, dtype=px.dtype) if predicted else px
+
+
+def _tiff_bgr(px: np.ndarray, colour: int, lut, alpha: bool) -> np.ndarray:
+    """(rows, n, spp) samples → (rows, n, 3) BGR as TIFFReadRGBA gives
+    them: grey and palette through `lut`, 16-bit colour through `lut`
+    too; an unassociated alpha multiplied in ((c a + 127) / 255, in
+    uint16, which holds 255 · 255 + 127) and dropped."""
+    if colour == 1:
+        return lut[px[:, :, 0]] if lut.shape[1] == 3 else \
+            np.broadcast_to(lut[px[:, :, 0]], px.shape[:2] + (3,))
+    rgb = px[:, :, 2::-1]
+    if lut is not None:
+        rgb = lut[rgb]
+    if alpha:
+        a = px[:, :, 3:4] if lut is None else lut[px[:, :, 3:4]]
+        rgb = (rgb.astype(np.uint16) * a + 127) // 255
+    return rgb
+
+
+# -------------------------------------------------------------- Netpbm
+_SPACE = b" \t\n\v\f\r"
+
+
+def _pxm(buf: bytes) -> np.ndarray:
+    """cv2's PxMDecoder at IMREAD_COLOR for P1–P6: binary samples as they
+    are (16-bit ones big-endian, their high byte; no maxval scaling),
+    ASCII ones clipped to maxval and scaled v · 255 / maxval (16-bit ones
+    kept, then their high byte), bilevel 1 black and 0 white. Numbers are
+    read in C++ (`ocr_pxm_header`, `ocr_pxm_samples`: cv2's ReadNumber)."""
+    kind = buf[1] - 48
+    data = np.frombuffer(buf, np.uint8)
+    pos = _LL(2)
+    head = np.zeros(3, np.int32)
+    if lib().ocr_pxm_header(_ptr(data), len(buf), ctypes.byref(pos),
+                            2 if kind in (1, 4) else 3,
+                            head.ctypes.data_as(_IP)):
+        raise _Unreadable("PxM: bad header")
+    w, h, maxval = (int(v) for v in head)
+    maxval = 1 if kind in (1, 4) else maxval
+    if maxval > 65535 or not w or not h or not maxval:
+        raise _Unreadable("PxM: bad header")
+    _check_size("pxm", w, h)
+    nch = 3 if kind in (3, 6) else 1
+    n = w * h * nch
+    pos = pos.value
+    if kind == 4:
+        pitch = (w + 7) // 8
+        if pos + pitch * h > len(buf):
+            raise _Unreadable("PxM: short data")
+        bits = np.unpackbits(data[pos:pos + pitch * h].reshape(h, pitch),
+                             axis=1)[:, :w]
+        v = (1 - bits) * np.uint8(255)
+    elif kind in (5, 6):
+        size = 2 if maxval > 255 else 1
+        if pos + n * size > len(buf):
+            raise _Unreadable("PxM: short data")
+        v = np.frombuffer(buf, ">u2" if size == 2 else np.uint8, n, pos)
+        if size == 2:
+            v = (v >> 8).astype(np.uint8)
+    else:
+        if n > len(buf) - pos:        # a number takes a byte at least
+            raise _Unreadable("PxM: short data")
+        v = np.empty(n, np.uint16)
+        at = _LL(pos)
+        if lib().ocr_pxm_samples(_ptr(data), len(buf), ctypes.byref(at), n,
+                                 kind == 1, v.ctypes.data_as(
+                                     ctypes.POINTER(ctypes.c_uint16))):
+            raise _Unreadable("PxM: bad or short ASCII data")
+        if kind == 1:
+            v = np.where(v != 0, 0, 255).astype(np.uint8)
+        else:
+            v = np.minimum(v, maxval)
+            v = (v >> 8) if maxval > 255 else \
+                v.astype(np.uint32) * 255 // maxval
+            v = v.astype(np.uint8)
+    v = np.asarray(v, np.uint8).reshape(h, w, nch)
+    return np.ascontiguousarray(v[:, :, ::-1] if nch == 3 else
+                                np.repeat(v, 3, axis=2))
+
+
 def _check_size(fmt: str, w: int, h: int) -> None:
     side = FORMAT_MAX_SIDE.get(fmt)
     if side and (w > side or h > side):
@@ -505,7 +815,12 @@ def imdecode(buf) -> Optional[np.ndarray]:
             return _png(buf)
         if buf[:2] == b"BM":
             return _bmp(buf)
-    except (_Unreadable, struct.error, zlib.error):
+        if buf[:4] in (b"II*\0", b"MM\0*"):
+            return _tiff(buf)
+        if len(buf) >= 3 and buf[:1] == b"P" and 49 <= buf[1] <= 54 and \
+                buf[2] in _SPACE:
+            return _pxm(buf)
+    except (_Unreadable, struct.error, zlib.error, KeyError, IndexError):
         return None
     return None
 

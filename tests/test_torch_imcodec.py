@@ -20,7 +20,16 @@ bytes (over-subscribed or refused Huffman tables, sides and pixel counts
 past libpng's, libjpeg's and cv2's limits) answer as cv2 does (None, or
 ValueError where cv2 raises), a PNG zip bomb inflates only its image, and
 seeded mutants of committed and generated images decode without a fault
-in a build with AddressSanitizer. `imencode_jpeg` writes cv2's bytes
+in a build with AddressSanitizer. A baseline JPEG streams: decoding an
+8192 x 8192 4:2:0 file raises the process's peak RSS by less than its
+output plus 64 MB. TIFF (cv2's LZW, PIL's none / PackBits / LZW / Deflate
+of modes 1, L, P, RGB, RGBA, I;16, and hand-built tiled, planar, 2- to
+16-bit, MinIsWhite, palette, big-endian, multi-strip and oriented files)
+and Netpbm P1–P6 (ASCII with comments, binary, 16-bit, truncated) decode
+value-equal to cv2; hostile TIFF headers give None or cv2's ValueError,
+and their seeded mutants decode without a fault under AddressSanitizer. A
+4096 x 4096 16-bit RGBA Deflate TIFF decodes within its output plus 64 MB
+of peak RSS, and a 24 MB ASCII P2 with a comment on every line in 3 s. `imencode_jpeg` writes cv2's bytes
 at quality 85 and 95 (so its decoded values equal those of cv2's encoding:
 0 differ). `cv_ops.polylines2` equals `cv2.polylines(img, [pts], True,
 (255, 0, 0), 2)` on seeded quads, clipped ones included, and `draw_ocr`
@@ -557,14 +566,15 @@ def test_garbage_and_truncations_give_none():
 
 
 def test_formats_not_read_give_none():
-    """WebP and TIFF: cv2 decodes them, the codec does not (ROADMAP lists
-    them as not ported) and says None. A palette BMP, once among them, is
-    read now, value-equal to cv2."""
+    """WebP: cv2 decodes it, the codec does not (ROADMAP lists it as not
+    ported) and says None. A palette BMP and cv2's own TIFF, once among
+    them, are read now, value-equal to cv2."""
     img = smooth_image(6, 20, 24)
-    for ext in (".webp", ".tiff"):
-        ok, buf = cv2.imencode(ext, img)
-        assert ok and cv2.imdecode(buf, cv2.IMREAD_COLOR) is not None
-        assert imcodec.imdecode(bytes(buf)) is None
+    ok, buf = cv2.imencode(".webp", img)
+    assert ok and cv2.imdecode(buf, cv2.IMREAD_COLOR) is not None
+    assert imcodec.imdecode(bytes(buf)) is None
+    ok, buf = cv2.imencode(".tiff", img)
+    assert_decodes_as_cv2(bytes(buf))
     out = io.BytesIO()
     Image.fromarray(img[:, :, 0]).convert("P").save(out, "BMP")
     assert_decodes_as_cv2(out.getvalue())
@@ -921,3 +931,545 @@ def test_draw_ocr_matches_jax():
         np.testing.assert_array_equal(draw_ocr(img, boxes, **kw),
                                       jdraw_ocr(img, boxes, **kw))
     np.testing.assert_array_equal(img, before)
+
+
+# ------------------------------------------------- JPEG peak memory
+_PEAK_RSS = """
+import resource, sys
+from onnxocr_tpu_torch.utils import imcodec
+imcodec.lib()
+buf = open(sys.argv[1], "rb").read()
+def rss_kb():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+before = rss_kb()
+img = imcodec.imdecode(buf)
+peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+print(img.shape, (peak - before) * 1024, img.nbytes)
+"""
+
+
+def test_baseline_jpeg_streams_within_output_plus_64mb(tmp_path):
+    """A seeded 8192 x 8192 baseline 4:2:0 JPEG decoded in a subprocess:
+    the peak RSS (ru_maxrss) rises above the RSS before the decode by less
+    than the output's bytes plus 64 MB (a decoder that keeps every
+    coefficient, 2 bytes a sample, and whole planes, as this one did
+    before it streamed, needs more)."""
+    import subprocess
+    import sys
+    rng = np.random.default_rng(8192)
+    small = cv2.GaussianBlur(rng.integers(0, 256, (256, 256, 3)).astype(
+        np.uint8), (5, 5), 0)
+    big = cv2.resize(small, (8192, 8192), interpolation=cv2.INTER_LINEAR)
+    big[::7, ::5] ^= 0x55
+    ok, buf = cv2.imencode(".jpg", big, [cv2.IMWRITE_JPEG_QUALITY, 90])
+    del big
+    path = tmp_path / "big.jpg"
+    path.write_bytes(bytes(buf))
+    repo = Path(__file__).resolve().parents[1]
+    # ru_maxrss is kept across exec: the decoding process is forked by a
+    # shell, not by this (large) process, so that its peak is its own
+    proc = subprocess.run(["/bin/sh", "-c", '"$@"', "sh", sys.executable,
+                           "-c", _PEAK_RSS, str(path)],
+                          cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    shape, rise, out = proc.stdout.strip().rsplit(" ", 2)
+    assert shape == "(8192, 8192, 3)"
+    print(f"peak RSS rise {int(rise) / 2**20:.1f} MB, output "
+          f"{int(out) / 2**20:.1f} MB")
+    assert int(rise) < int(out) + 64 * 2**20
+
+
+# ----------------------------------------------------------------- TIFF
+def _packbits(data: bytes) -> bytes:
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([(257 - (j - i + 1)) & 255, data[i]])
+            i = j + 1
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 1 < n and
+                                             data[j + 1] == data[j]):
+            j += 1
+        j = max(j, i + 1)
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _lzw(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it: MSB-first codes from 9 bits, wider
+    once the next code passes the width, a clear when the table fills."""
+    codes, nbits = [], 9
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    codes.append((256, nbits))
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        codes.append((table[w], nbits))
+        table[wc] = nxt
+        nxt += 1
+        if nxt > (1 << nbits) - 1 and nbits < 12:
+            nbits += 1
+        if nxt >= 4094:
+            codes.append((256, nbits))
+            table = {bytes([i]): i for i in range(256)}
+            nxt, nbits = 258, 9
+        w = bytes([c])
+    if w:
+        codes.append((table[w], nbits))
+    codes.append((257, nbits))
+    acc = nb = 0
+    out = bytearray()
+    for code, n in codes:
+        acc, nb = (acc << n) | code, nb + n
+        while nb >= 8:
+            nb -= 8
+            out.append((acc >> nb) & 255)
+    if nb:
+        out.append((acc << (8 - nb)) & 255)
+    return bytes(out)
+
+
+def write_tiff(samples, photo, bps, comp=1, planar=1, predictor=1,
+               tile=None, rps=None, order="<", extra=None, cmap=None,
+               orientation=None):
+    """(h, w, spp) samples → the bytes of a one-IFD TIFF."""
+    h, w, spp = samples.shape
+    dt = np.dtype(order + "u2") if bps == 16 else np.uint8
+    codec = {1: lambda r: r, 32773: _packbits, 5: _lzw,
+             8: zlib.compress}[comp]
+
+    def chunk(px):
+        px = px.astype(np.int64)
+        if predictor == 2:
+            d = px.copy()
+            d[:, 1:] = px[:, 1:] - px[:, :-1]
+            px = d % (65536 if bps == 16 else 256)
+        rows, cols, per = px.shape
+        if bps < 8:
+            bits = ((px.reshape(rows, -1, 1) >> np.arange(bps - 1, -1, -1))
+                    & 1).reshape(rows, -1).astype(np.uint8)
+            return codec(np.packbits(bits, axis=1).tobytes())
+        return codec(px.astype(dt).tobytes())
+    planes = [samples] if planar == 1 else \
+        [samples[:, :, i:i + 1] for i in range(spp)]
+    chunks = []
+    for pl in planes:
+        if tile:
+            tw, th = tile
+            for ty in range(0, h, th):
+                for tx in range(0, w, tw):
+                    t = np.zeros((th, tw, pl.shape[2]), pl.dtype)
+                    part = pl[ty:ty + th, tx:tx + tw]
+                    t[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(chunk(t))
+        else:
+            for y in range(0, h, rps or h):
+                chunks.append(chunk(pl[y:y + (rps or h)]))
+    offs, pos = [], 8
+    for c in chunks:
+        offs.append(pos)
+        pos += len(c)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bps] * spp),
+            259: (3, [comp]), 262: (3, [photo]), 277: (3, [spp]),
+            284: (3, [planar])}
+    if tile:
+        tags.update({322: (4, [tile[0]]), 323: (4, [tile[1]]),
+                     324: (4, offs), 325: (4, [len(c) for c in chunks])})
+    else:
+        tags.update({273: (4, offs), 278: (4, [rps or h]),
+                     279: (4, [len(c) for c in chunks])})
+    if orientation:
+        tags[274] = (3, [orientation])
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if cmap is not None:
+        tags[320] = (3, [int(v) for v in cmap.reshape(-1)])
+    if extra is not None:
+        tags[338] = (3, extra)
+    ifd_pos = pos
+    blob_pos = ifd_pos + 2 + 12 * len(tags) + 4
+    ifd, blob = struct.pack(order + "H", len(tags)), bytearray()
+    for tag in sorted(tags):
+        typ, vals = tags[tag]
+        raw = struct.pack(order + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+        if len(raw) <= 4:
+            ifd += struct.pack(order + "HHI", tag, typ, len(vals)) + \
+                raw.ljust(4, b"\0")
+        else:
+            ifd += struct.pack(order + "HHII", tag, typ, len(vals),
+                               blob_pos + len(blob))
+            blob += raw + b"\0" * (len(raw) % 2)
+    head = (b"II" if order == "<" else b"MM") + struct.pack(
+        order + "HI", 42, ifd_pos)
+    return head + b"".join(chunks) + ifd + b"\0\0\0\0" + bytes(blob)
+
+
+@pytest.mark.parametrize("h,w", ((13, 17), (1, 1), (64, 64), (100, 131)))
+def test_tiff_from_encoders_matches_cv2(h, w):
+    """cv2's own TIFF (LZW, predictor 2) and PIL's at every compression
+    PIL writes, of modes 1, L, P, RGB, RGBA (unassociated alpha: cv2 reads
+    it premultiplied) and I;16."""
+    rng = np.random.default_rng(h * w)
+    img = smooth_image(h + w, h, w)
+    alpha = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    for arr in (img, img[:, :, 0]):
+        ok, buf = cv2.imencode(".tiff", arr)
+        assert_decodes_as_cv2(bytes(buf))
+    rgb = img[:, :, ::-1]
+    grey16 = (alpha.astype(np.uint16) * 257 + rng.integers(0, 200, (h, w))
+              ).astype(np.uint16)
+    images = [Image.fromarray(rgb), Image.fromarray(np.dstack([rgb, alpha])),
+              Image.fromarray(alpha), Image.fromarray(alpha).convert("1"),
+              Image.fromarray(rgb).convert("P"), Image.fromarray(grey16)]
+    for comp in (None, "packbits", "tiff_lzw", "tiff_deflate"):
+        for im in images:
+            out = io.BytesIO()
+            im.save(out, "TIFF", **({} if comp is None else
+                                    {"compression": comp}))
+            assert_decodes_as_cv2(out.getvalue())
+
+
+TIFF_KINDS = {  # name: (photometric, bits, spp, extra samples, colour map)
+    "rgb": (2, 8, 3, None, False), "rgba-unassoc": (2, 8, 4, [2], False),
+    "rgba-assoc": (2, 8, 4, [1], False), "rgb16": (2, 16, 3, None, False),
+    "rgba16": (2, 16, 4, [2], False), "grey": (1, 8, 1, None, False),
+    "white": (0, 8, 1, None, False), "grey16": (1, 16, 1, None, False),
+    "white16": (0, 16, 1, None, False), "bilevel": (1, 1, 1, None, False),
+    "bilevel-white": (0, 1, 1, None, False),
+    "pal4": (3, 4, 1, None, True), "pal8": (3, 8, 1, None, True)}
+
+
+@pytest.mark.parametrize("kind", list(TIFF_KINDS))
+def test_tiff_hand_built_matches_cv2(kind):
+    """Seeded samples written by hand (PIL writes no tiles or planar
+    files): none / PackBits / LZW / Deflate; strips of 3 rows, one strip,
+    16 x 16 tiles (compressed: cv2 refuses most uncompressed tiled
+    layouts, see ROADMAP), planar 2; predictor 2; both byte orders; 8- and
+    16-bit colour maps (libtiff takes a map below 256 as 8-bit). The
+    16-bit grey tiles cut by the right edge follow libtiff's
+    put16bitbwtile, which steps their rows by the skew in bytes."""
+    photo, bps, spp, extra, pal = TIFF_KINDS[kind]
+    rng = np.random.default_rng(len(kind))
+    top = 1 << bps
+    for h, w in ((13, 17), (40, 70)):
+        samples = rng.integers(0, top, (h, w, spp)).astype(
+            np.uint16 if bps == 16 else np.uint8)
+        maps = [None]
+        if pal:
+            maps = [rng.integers(0, 65536, (3, top)),
+                    rng.integers(0, 256, (3, top))]
+        for cmap in maps:
+            for comp in (1, 32773, 5, 8):
+                layouts = [{}, {"rps": 3}]
+                if comp != 1:
+                    layouts.append({"tile": (16, 16)})
+                if spp > 1:
+                    layouts.append({"planar": 2})
+                    if comp != 1:
+                        layouts.append({"planar": 2, "tile": (16, 32)})
+                for layout in layouts:
+                    for pred in ((1, 2) if bps >= 8 else (1,)):
+                        for order in ("<", ">"):
+                            assert_decodes_as_cv2(write_tiff(
+                                samples, photo, bps, comp=comp,
+                                predictor=pred, order=order, extra=extra,
+                                cmap=cmap, **layout))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_tiff_orientation_matches_cv2(orientation):
+    img = smooth_image(orientation, 21, 34)
+    blob = write_tiff(img[:, :, ::-1].copy(), 2, 8, comp=5, rps=4,
+                      orientation=orientation)
+    assert_decodes_as_cv2(blob)
+    out = io.BytesIO()
+    Image.fromarray(img[:, :, ::-1]).save(out, "TIFF",
+                                          tiffinfo={274: orientation})
+    assert_decodes_as_cv2(out.getvalue())
+
+
+def _tiff_entry(blob, tag):
+    """The offset of a tag's 12-byte entry in a little-endian TIFF."""
+    ifd, = struct.unpack("<I", blob[4:8])
+    count, = struct.unpack("<H", blob[ifd:ifd + 2])
+    for e in range(ifd + 2, ifd + 2 + 12 * count, 12):
+        if struct.unpack("<H", blob[e:e + 2])[0] == tag:
+            return e
+    raise KeyError(tag)
+
+
+def _tiff_set(blob, tag, value):
+    e = _tiff_entry(blob, tag)
+    return blob[:e + 8] + struct.pack("<I", value) + blob[e + 12:]
+
+
+def _hostile_tiffs():
+    img = smooth_image(3, 24, 30)[:, :, ::-1].copy()
+    lzw = write_tiff(img, 2, 8, comp=5)
+    raw = write_tiff(img, 2, 8)
+    strips = write_tiff(img, 2, 8, comp=32773, rps=4)
+    bad_lzw = bytearray(lzw)
+    bad_lzw[9] = 0xFF                     # codes past the table
+    return {
+        "offset-past-end": (_tiff_set(raw, 273, len(raw) + 10), "none"),
+        "count-past-end": (_tiff_set(raw, 279, len(raw)), "none"),
+        "short-strip": (_tiff_set(raw, 279, 100), "none"),
+        "strip-count-mismatch": (
+            strips[:_tiff_entry(strips, 273) + 4] + struct.pack("<I", 2) +
+            strips[_tiff_entry(strips, 273) + 8:], "none"),
+        "lzw-codes-out-of-range": (bytes(bad_lzw), "none"),
+        "rows-per-strip-0": (_tiff_set(raw, 278, 0), "none"),
+        "width-2^20+1": (_tiff_set(raw, 256, (1 << 20) + 1), "raises"),
+        "40000x40000": (_tiff_set(_tiff_set(raw, 256, 40000), 257, 40000),
+                        "raises"),
+        "ifd-past-end": (raw[:4] + struct.pack("<I", len(raw) + 8) + raw[8:],
+                         "none"),
+    }
+
+
+@pytest.mark.parametrize("case", list(_hostile_tiffs()))
+def test_tiff_hostile_headers_answer_as_cv2(case):
+    """Strip offsets and counts past the data, a count that does not match
+    the strips, LZW codes past the table, a zero strip height and an IFD
+    past the end give None; sizes past cv2's limits raise as cv2 raises;
+    nothing is allocated for the image before the header is checked."""
+    blob, expect = _hostile_tiffs()[case]
+    if expect == "raises":
+        with pytest.raises(cv2.error, match="validateInputImageSize"):
+            cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+        with pytest.raises(ValueError, match="validateInputImageSize"):
+            imcodec.imdecode(blob)
+    else:
+        assert imcodec.imdecode(blob) is None
+
+
+def test_tiff_not_read_gives_none():
+    """What cv2 refuses gives None here too (4-bit grey: "should be
+    palette"; 2 bits of any kind); what the reader leaves unread (ROADMAP §3) gives None where
+    cv2 decodes: CMYK, FillOrder 2, uncompressed tiled files of more than
+    one tile (cv2 5.0 reads some of those layouts and refuses most)."""
+    img = smooth_image(4, 32, 32)[:, :, ::-1].copy()
+    for photo, bps in ((1, 2), (1, 4), (3, 2)):
+        blob = write_tiff(img[:, :, :1] >> (8 - bps), photo, bps,
+                          cmap=np.arange(3 << bps) * 100)
+        assert cv2.imdecode(np.frombuffer(blob, np.uint8),
+                            cv2.IMREAD_COLOR) is None
+        assert imcodec.imdecode(blob) is None
+    cmyk = write_tiff(np.dstack([img, img[:, :, :1]]), 5, 8)
+    out = io.BytesIO()
+    Image.fromarray(img).save(out, "TIFF", tiffinfo={266: 2})
+    for blob in (cmyk, out.getvalue(),
+                 write_tiff(np.dstack([img, img[:, :, :1]]), 2, 8,
+                            tile=(16, 16), extra=[1])):
+        assert cv2.imdecode(np.frombuffer(blob, np.uint8),
+                            cv2.IMREAD_COLOR) is not None
+        assert imcodec.imdecode(blob) is None
+
+
+# --------------------------------------------------------------- Netpbm
+def _pxm_cases(rng):
+    for h, w in ((5, 7), (1, 1), (13, 17)):
+        for maxval in (1, 7, 255, 256, 1000, 65535):
+            for kind in (1, 2, 3, 5, 6):
+                if kind == 1 and maxval != 1:
+                    continue
+                nch = 3 if kind in (3, 6) else 1
+                vals = rng.integers(0, maxval + 1 if kind != 1 else 2,
+                                    (h, w, nch))
+                if kind in (2, 3):                 # some past maxval
+                    vals = vals + rng.integers(0, 3, (h, w, nch))
+                head = f"P{kind}\n# a comment\n{w} {h}\n" + (
+                    f"{maxval}\n" if kind != 1 else "")
+                if kind in (1, 2, 3):
+                    sep = "" if kind == 1 and h > 1 else " "
+                    body = ("\n".join(sep.join(str(int(v)) for v in
+                                               row.reshape(-1))
+                                      for row in vals) + "\n").encode()
+                    blob = head.encode() + body
+                    yield blob
+                    yield blob[:-1]                # no byte after the last
+                    yield blob.replace(b"\n", b" # c\n", 1)
+                else:
+                    body = vals.astype(">u2").tobytes() if maxval > 255 \
+                        else np.minimum(vals, 255).astype(np.uint8).tobytes()
+                    yield head.encode() + body
+                    yield head.encode() + body[:-1]
+        bits = rng.integers(0, 2, (h, w)).astype(np.uint8)
+        yield f"P4\n{w} {h}\n".encode() + np.packbits(bits, axis=1).tobytes()
+
+
+# comments among the samples: after whitespace, ended by '\r', holding
+# digits and '#'; a '#' right after a number's digits (read as the byte
+# after the number, so what follows it is data); any byte after the digits;
+# P1's single digits, after which '#' does start a comment; a comment that
+# never ends, before and after the last sample
+PXM_COMMENTS = [
+    b"P2\n3 1\n255\n1 # c 9 #\n2\r#x\r3\n",
+    b"P2\n2 1\n255\n1#c\n2\n", b"P2\n2 1\n255\n1#\n2\n",
+    b"P2\n2 1\n255\n1a2 \n", b"P2\n2 1\n255\n1ab2 \n",
+    b"P1\n3 1\n1#c\n01\n", b"P1\n3 1\n1 # 0\r\n0 # 1\n1",
+    b"P3\n1 1\n255\n1 2 3# never ends", b"P2\n2 1\n255\n1 # never ends",
+    b"P2\n2 1\n255\n\t1\v\f#\n\n2 ", b"P2\n2 1\n255\n1 #\n"]
+
+
+def test_netpbm_matches_cv2():
+    """P1–P6 as cv2's PxMDecoder reads them: ASCII (comments, values past
+    maxval, a file ending right after its last number), binary 8- and
+    16-bit (samples as stored, no maxval scaling), bilevel; PIL's PPM,
+    PGM, PBM and 16-bit PGM; bad headers and sizes."""
+    rng = np.random.default_rng(11)
+    decoded = 0
+    blobs = list(_pxm_cases(rng))
+    img = smooth_image(12, 9, 11)
+    for im in (Image.fromarray(img), Image.fromarray(img[:, :, 0]),
+               Image.fromarray(img[:, :, 0]).convert("1"),
+               Image.fromarray(img[:, :, 0].astype(np.uint16) * 257)):
+        out = io.BytesIO()
+        im.save(out, "PPM")
+        blobs.append(out.getvalue())
+    blobs += [b"P6\n0 5\n255\n", b"P5 3 2 70000\n" + bytes(6),
+              b"P2\n2 1\n255\n1 x\n", b"P5\n3 2\n255\n" + bytes(6) + b"x",
+              b"P3\n1 1 255\n300 2 3\n", b"P7\n1 1\n"]
+    blobs += PXM_COMMENTS
+    for blob in blobs:
+        want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+        got = imcodec.imdecode(blob)
+        if want is None:
+            assert got is None, blob[:30]
+            continue
+        decoded += 1
+        assert got is not None and got.shape == want.shape, blob[:30]
+        np.testing.assert_array_equal(got, want)
+    assert decoded > 100
+    for w, h in ((1 << 20) + 1, 1), (40000, 40000):
+        blob = f"P5\n{w} {h}\n255\n".encode()
+        with pytest.raises(cv2.error, match="validateInputImageSize"):
+            cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+        with pytest.raises(ValueError, match="validateInputImageSize"):
+            imcodec.imdecode(blob)
+
+
+def test_tiff_and_netpbm_mutants_never_crash(tmp_path):
+    """Seeded mutants of TIFFs (LZW, PackBits, Deflate, tiled, planar,
+    16-bit) and Netpbm files decode to an image, None or a ValueError in
+    a process whose codec library is built with AddressSanitizer (the LZW
+    and PackBits decoders are C++)."""
+    import pickle
+    import subprocess
+    import sys
+    repo = Path(__file__).resolve().parents[1]
+    img = smooth_image(13, 29, 37)[:, :, ::-1].copy()
+    seeds = [write_tiff(img, 2, 8, comp=5, predictor=2),
+             write_tiff(img, 2, 8, comp=32773, rps=5),
+             write_tiff(img, 2, 8, comp=8, tile=(16, 16)),
+             write_tiff(img.astype(np.uint16) * 257, 2, 16, comp=5,
+                        planar=2),
+             write_tiff(img[:, :, :1] // 64, 3, 2, comp=32773,
+                        cmap=np.arange(12).reshape(3, 4) * 5000),
+             b"P6\n37 29\n255\n" + img.tobytes(),
+             b"P3\n2 2\n255\n1 2 3 4 5 6 7 8 9 10 11 12\n",
+             b"P2\n# c\n3 2\n255\n1 # x 7\n2 3\r4 5 6\n",
+             b"P1\n3 2\n1 0#c\n1\n0 1 0\n"]
+    rng = np.random.default_rng(1)
+    mutants = [_mutant(blob, rng) for blob in seeds for _ in range(60)]
+    with open(tmp_path / "mutants.pkl", "wb") as f:
+        pickle.dump(mutants, f)
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    flags = ["-std=c++17", "-shared", "-fPIC", "-O1", "-g"]
+    asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                          capture_output=True, text=True).stdout.strip()
+    if os.path.isabs(asan) and os.path.exists(asan):
+        flags += ["-fsanitize=address", "-fno-omit-frame-pointer"]
+        env.update(LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0")
+    lib = tmp_path / "libimcodec.so"
+    subprocess.run(["g++", *flags, "-o", str(lib), str(imcodec.SOURCE)],
+                   check=True, timeout=300)
+    proc = subprocess.run(
+        [sys.executable, "-c", _DECODE_MUTANTS, str(lib),
+         str(tmp_path / "mutants.pkl")], env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    counts = eval(proc.stdout.strip().splitlines()[-1])
+    assert sum(counts.values()) == len(mutants)
+    assert counts["decoded"] and counts["none"], counts
+
+
+def test_tiff_converts_into_the_output_within_64mb(tmp_path):
+    """A seeded 4096 x 4096 16-bit RGBA TIFF (unassociated alpha, Deflate,
+    predictor 2, strips of 16 rows: 128 MB of samples in a few MB of file)
+    decoded in a subprocess: the peak RSS rises by less than the output's
+    48 MB plus 64 MB, as each strip is converted into the output as it is
+    decoded (a reader that holds every sample and converts the image in
+    wide integers at once rose by 625 MB here). The pixels equal cv2's."""
+    import subprocess
+    import sys
+    rng = np.random.default_rng(4096)
+    small = rng.integers(0, 65536, (128, 128, 4)).astype(np.uint16)
+    samples = np.repeat(np.repeat(small, 32, axis=0), 32, axis=1)
+    blob = write_tiff(samples, 2, 16, comp=8, predictor=2, rps=16,
+                      extra=[2])
+    del samples
+    path = tmp_path / "big.tiff"
+    path.write_bytes(blob)
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(["/bin/sh", "-c", '"$@"', "sh", sys.executable,
+                           "-c", _PEAK_RSS + _DIGEST, str(path)],
+                          cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    first, digest = proc.stdout.strip().splitlines()
+    shape, rise, out = first.rsplit(" ", 2)
+    assert shape == "(4096, 4096, 3)"
+    print(f"peak RSS rise {int(rise) / 2**20:.1f} MB, output "
+          f"{int(out) / 2**20:.1f} MB, file {len(blob) / 2**20:.1f} MB")
+    assert int(rise) < int(out) + 64 * 2**20
+    want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+    import hashlib
+    assert digest == hashlib.sha256(want.tobytes()).hexdigest()
+
+
+_DIGEST = """
+import hashlib
+print(hashlib.sha256(img.tobytes()).hexdigest())
+"""
+
+
+def test_ascii_netpbm_with_comments_reads_in_bounded_time():
+    """A hostile ASCII upload: a seeded 4000 x 3000 P2 file of 24 MB whose
+    every line ends in a comment holding digits and '#'. It decodes
+    value-equal to cv2 within 3 s (cv2 reads it in C in well under a
+    second, as this reader does; one that takes the numbers one by one in
+    Python spent 10.4 s here, holding the interpreter lock all that
+    time)."""
+    import time
+    rng = np.random.default_rng(3000)
+    h, w = 3000, 4000
+    note = np.frombuffer(b"# 12 #3\r", np.uint8)
+    text = np.empty((h, 2 * w + note.size), np.uint8)
+    text[:, 0:2 * w:2] = 48 + rng.integers(0, 10, (h, w))
+    text[:, 1:2 * w:2] = np.frombuffer(b" \t", np.uint8)[
+        rng.integers(0, 2, (h, w))]
+    text[:, 2 * w:] = note
+    blob = f"P2\n{w} {h}\n9\n".encode() + text.tobytes() + b"\n"
+    del text
+    want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+    t0 = time.perf_counter()
+    got = imcodec.imdecode(blob)
+    took = time.perf_counter() - t0
+    print(f"{len(blob) / 2**20:.1f} MB decoded in {took:.2f} s")
+    assert want is not None and got is not None
+    np.testing.assert_array_equal(got, want)
+    assert took < 3.0

@@ -3,7 +3,8 @@ on the CPU.
 
 * Contract: a FakeModel in both engines, as tests/test_service.py installs
   one; every request of tests/test_service.py and tests/test_engine.py (and
-  a few more error paths, hostile uploads among them) goes to both
+  a few more error paths, hostile uploads among them, TIFF and Netpbm
+  uploads with the preview drawn on their decoded pixels) goes to both
   TestClients, and the status, the content type and the body agree — JSON
   minus `processing_time` and `timestamp`, zip archives by their members,
   other bodies byte for byte (the v2 preview JPEG included). Uploads on
@@ -112,6 +113,25 @@ def _jpeg():
         np.uint8), (5, 5), 0)
     ok, buf = cv2.imencode(".jpg", img)
     return bytes(buf)
+
+
+def _tiff():
+    """A PIL LZW TIFF (predictor off) of a seeded smooth page."""
+    from PIL import Image
+    rng = np.random.default_rng(1)
+    img = cv2.GaussianBlur(rng.integers(0, 255, (48, 64, 3)).astype(
+        np.uint8), (5, 5), 0)
+    out = io.BytesIO()
+    Image.fromarray(img).save(out, "TIFF", compression="tiff_lzw")
+    return out.getvalue()
+
+
+def _ppm():
+    """A binary P6 of a seeded smooth page."""
+    rng = np.random.default_rng(2)
+    img = cv2.GaussianBlur(rng.integers(0, 255, (48, 64, 3)).astype(
+        np.uint8), (5, 5), 0)
+    return b"P6\n# seeded\n64 48\n255\n" + img.tobytes()
 
 
 def _chunk(kind, body):
@@ -230,6 +250,12 @@ CASES = {
     "v2_return_image_jpeg": ("POST", "/api/v2/ocr", dict(
         files=[_file("a.jpg", _jpeg(), "image/jpeg")],
         data={"return_image": "1"}), None),
+    "v2_tiff_return_image": ("POST", "/api/v2/ocr", dict(
+        files=[_file("a.tif", _tiff(), "image/tiff")],
+        data={"return_image": "true"}), None),
+    "v2_netpbm_return_image": ("POST", "/api/v2/ocr", dict(
+        files=[_file("a.ppm", _ppm(), "image/x-portable-pixmap")],
+        data={"return_image": "true"}), None),
     "health": ("GET", "/health", {}, None),
     "healthz": ("GET", "/api/v2/healthz", {}, None),
     "readyz": ("GET", "/api/v2/readyz", {}, None),

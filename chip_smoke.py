@@ -172,7 +172,18 @@
    busy share; then serves the written checkpoints through
    ONNXPaddleOcr(det_model_dir=..., rec_model_dir=...) on a held-out
    page at the defaults (kernel 1) and one-call (kernels 1–3);
-17. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+17. runs phase BE, the bench entries (`phase_be`): decodes the two WebP
+   samples committed under onnxocr_tpu_torch/assets/samples/ (lossy;
+   lossless with alpha) with the port's codec against the shape and
+   sha256 of cv2's decode recorded beside them, then, as subprocesses on
+   the card, `python -m onnxocr_tpu_torch.bench` with BENCH_PIPELINE=
+   onecall and staged and `python -m onnxocr_tpu_torch.tools.bench_service`
+   (BE_RUNS: budgets that bound each run; the phase must end within
+   BE_SECONDS); each must exit 0 and print its JSON line with
+   phase_reached "done", no watchdog, all 12 corpus images, no trimmed
+   corpus and a value above 0; the bench runs' kernel launches a page of
+   their timed rounds come back through BENCH_LAUNCHES_OUT;
+18. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
@@ -184,8 +195,9 @@
    (phase T: ms a step, peak MiB, losses, card-vs-CPU figures),
    {"bf16": {...}} (phase BF: ms a page bf16 and f32), {"multi_device":
    {...}, "profiling": {...}, "card": ...} (phases M and PR),
-   {"synthetic_training": {...}, "card": ...} (phase SY), {"kernels": [...]}
-   and, last, {"ok": true, "device": {...}}; the run's seconds on a line
+   {"synthetic_training": {...}, "card": ...} (phase SY), {"bench":
+   {...}} (phase BE: the three JSON lines, kernels 1–3's launches a page,
+   the WebP decodes), {"kernels": [...]} and, last, {"ok": true, "device": {...}}; the run's seconds on a line
    before them.
 
 Any failure raises and exits non-zero without the "ok" line. The
@@ -198,6 +210,7 @@ decode the same indices.
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -3492,6 +3505,89 @@ def phase_sy(pages, tmp):
     return summary, {"SY": launches}
 
 
+# phase BE: each run's environment; BENCH_BUDGET_S bounds it (the phase
+# must end within BE_SECONDS)
+BE_RUNS = (
+    ("B", "onnxocr_tpu_torch.bench",
+     {"BENCH_PIPELINE": "onecall", "BENCH_BUDGET_S": "100"}),
+    ("Q", "onnxocr_tpu_torch.bench",
+     {"BENCH_PIPELINE": "staged", "BENCH_BUDGET_S": "100"}),
+    ("S", "onnxocr_tpu_torch.tools.bench_service",
+     {"BENCH_BUDGET_S": "60"}),
+)
+BE_SECONDS = 150
+BE_KERNELS = ("ctc_head_reduce", "label_moment_sums", "label_proj_extents")
+
+
+def phase_be(tmp):
+    """Phase BE: the WebP samples through the port's codec against cv2's
+    recorded decode, then the bench entries as subprocesses on the card
+    (BE_RUNS), each line checked. → the {"bench": ...} summary."""
+    import hashlib
+    from pathlib import Path
+    from onnxocr_tpu_torch.utils import imcodec
+    t_phase = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    samples = repo / "onnxocr_tpu_torch" / "assets" / "samples"
+    with open(samples / "webp_samples.json") as f:
+        recorded = json.load(f)
+    webp = {}
+    for name, want in recorded.items():
+        t = time.perf_counter()
+        img = imcodec.imdecode((samples / name).read_bytes())
+        ms = (time.perf_counter() - t) * 1e3
+        assert img is not None, f"{name}: not decoded"
+        assert list(img.shape) == want["shape"], (name, img.shape)
+        assert hashlib.sha256(img.tobytes()).hexdigest() == \
+            want["sha256"], f"{name}: pixels differ from cv2's"
+        webp[name] = {"shape": list(img.shape), "decode_ms": ms}
+        print(f"phase BE {name}: {img.shape} equal to cv2's decode "
+              f"({ms:.2f} ms)")
+    lines, launches, seconds = {}, {}, {}
+    for label, module, env in BE_RUNS:
+        side = os.path.join(tmp, f"be_{label}.json")
+        t = time.perf_counter()
+        # a session of its own: a run cut at its limit is killed with
+        # every process it started (the service bench's server)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", module], cwd=str(repo),
+            env=dict(os.environ, BENCH_LAUNCHES_OUT=side, **env),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(
+                timeout=float(env["BENCH_BUDGET_S"]) + 60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise AssertionError(f"phase BE {label}: cut at its limit")
+        seconds[label] = time.perf_counter() - t
+        out = stdout.strip().splitlines()
+        assert proc.returncode == 0 and out, \
+            f"phase BE {label}: rc {proc.returncode}\n{stderr[-3000:]}"
+        line = json.loads(out[-1])
+        lines[label] = line
+        print(f"phase BE {label} ({module}, {seconds[label]:.1f} s): "
+              f"{json.dumps(line)}")
+        assert line.get("phase_reached") == "done", line
+        assert "watchdog" not in line and line.get("images") == 12, line
+        assert not line.get("corpus_trimmed") and line["value"] > 0, line
+        if os.path.exists(side):
+            with open(side) as f:
+                per_page = json.load(f)["launches_per_page"] or {}
+            launches[label] = {k: per_page.get(k, 0) for k in BE_KERNELS}
+            print(f"phase BE {label}: launches a page of the timed rounds "
+                  f"{launches[label]}")
+    assert launches["B"]["ctc_head_reduce"] > 0
+    assert launches["B"]["label_moment_sums"] > 0
+    assert launches["Q"]["ctc_head_reduce"] > 0
+    total = time.perf_counter() - t_phase
+    print(f"phase BE {total:.1f} s")
+    assert total <= BE_SECONDS, f"phase BE took {total:.1f} s"
+    return {"lines": lines, "launches_per_page": launches,
+            "run_seconds": seconds, "webp": webp, "seconds": total}
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -3690,6 +3786,7 @@ def main() -> int:
         prof = phase_pr({"C": ocr_c, "B": ocr, "A": ocr_a}, pages)
         synthetic, sy_runs = phase_sy(pages, tmp)
         runs.update(sy_runs)
+        bench_summary = phase_be(tmp)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -3717,6 +3814,7 @@ def main() -> int:
     print(json.dumps({"multi_device": multi, "profiling": prof,
                       "card": smi}))
     print(json.dumps({"synthetic_training": synthetic, "card": smi}))
+    print(json.dumps({"bench": bench_summary, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,9 @@ through hand-written CUDA kernels (csrc/). It imports torch and numpy only
 — never jax, and nothing of the onnxocr_tpu package, whose committed data
 files (checkpoints, sidecars) it reads by path.
 """
-from .pipeline.api import ONNXPaddleOcr, sav2Img
+__version__ = "0.1.0"
 
-__all__ = ["ONNXPaddleOcr", "sav2Img"]
+from .pipeline.api import ONNXPaddleOcr, sav2Img
+from .pipeline.system import TextSystem, sorted_boxes
+
+__all__ = ["ONNXPaddleOcr", "sav2Img", "TextSystem", "sorted_boxes"]

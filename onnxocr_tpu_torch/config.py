@@ -35,6 +35,14 @@ def find_asset(rel_path: str) -> str:
     return os.path.join(str(ASSETS), rel_path)
 
 
+def str2bool(v) -> bool:
+    """The reference's bool parsing: a bool as is, else "true", "t" or "1"
+    in any case."""
+    if isinstance(v, bool):
+        return v
+    return str(v).lower() in ("true", "t", "1")
+
+
 # flag → default for every flag a ported path reads (reference names and
 # defaults)
 DEFAULTS = {
@@ -184,9 +192,13 @@ LAYOUT_ONLY = {
                       "port uploads for every value",
 }
 
-def make_params() -> SimpleNamespace:
-    """A fresh namespace of the defaults."""
-    return SimpleNamespace(**DEFAULTS)
+def make_params(**kwargs) -> SimpleNamespace:
+    """A params namespace: the defaults overlaid with kwargs, and in
+    `_user_keys` the flags the caller set (checkpoint calibration never
+    overrides them)."""
+    ns = SimpleNamespace(**{**DEFAULTS, **kwargs})
+    ns._user_keys = set(kwargs)
+    return ns
 
 
 def parse_shape(s) -> tuple:

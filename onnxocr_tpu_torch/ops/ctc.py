@@ -52,6 +52,10 @@ class CTCLabelDecode:
             if "arabic" in character_dict_path:
                 self.reverse = True
         self.character: List[str] = ["blank"] + chars
+        self.dict = {c: i for i, c in enumerate(self.character)}
+
+    def get_ignored_tokens(self) -> List[int]:
+        return [0]
 
     def pred_reverse(self, pred: str) -> str:
         segments: List[str] = []
@@ -82,7 +86,8 @@ class CTCLabelDecode:
             keep = np.ones(len(idx), dtype=bool)
             if is_remove_duplicate:
                 keep[1:] = idx[1:] != idx[:-1]
-            keep &= idx != 0  # blank
+            for ignored in self.get_ignored_tokens():
+                keep &= idx != ignored
             chars = [self.character[i] for i in idx[keep]]
             if text_prob is not None:
                 confs = np.asarray(text_prob[b][:t_end])[keep]
@@ -96,6 +101,32 @@ class CTCLabelDecode:
             results.append((text, float(np.mean(confs))))
         return results
 
+    def __call__(self, preds, label=None, valid_t=None):
+        """(N, T, V) probabilities (the reference's contract), or an
+        ((N, T) index, (N, T) probability) pair as ctc_reduce gives; numpy
+        or torch on any device. With `label`, also its decode."""
+        if isinstance(preds, (tuple, list)) and len(preds) == 2 and (
+                np.ndim(_host(preds[0])) == 2):
+            idx, prob = _host(preds[0]), _host(preds[1])
+        else:
+            if isinstance(preds, (tuple, list)):
+                preds = preds[-1]
+            preds = _host(preds)
+            idx = preds.argmax(axis=2)
+            prob = preds.max(axis=2)
+        text = self.decode_indices(idx, prob, is_remove_duplicate=True,
+                                   valid_t=valid_t)
+        if label is None:
+            return text
+        return text, self.decode_indices(_host(label))
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.is_floating_point() else x).numpy()
+    return np.asarray(x)
+
 
 class ClsPostProcess:
     """Angle-classifier postprocess: (N, C) probabilities → [(label,
@@ -104,10 +135,36 @@ class ClsPostProcess:
     def __init__(self, label_list=None):
         self.label_list = label_list
 
-    def __call__(self, preds) -> List[Tuple[str, float]]:
-        preds = np.asarray(preds)
+    def __call__(self, preds, label=None) -> List[Tuple[str, float]]:
+        preds = _host(preds)
         label_list = self.label_list
         if label_list is None:
             label_list = {i: i for i in range(preds.shape[-1])}
         return [(label_list[i], float(preds[n, i]))
                 for n, i in enumerate(preds.argmax(axis=1))]
+
+
+class DistillationCTCLabelDecode(CTCLabelDecode):
+    """The multi-head CTC decode (reference rec_postprocess.py:116-150):
+    each named head's output decoded as CTCLabelDecode does."""
+
+    def __init__(self, character_dict_path=None, use_space_char=False,
+                 model_name=("student",), key=None, multi_head=False,
+                 **kwargs):
+        super().__init__(character_dict_path, use_space_char)
+        if not isinstance(model_name, (list, tuple)):
+            model_name = [model_name]
+        self.model_name = list(model_name)
+        self.key = key
+        self.multi_head = multi_head
+
+    def __call__(self, preds, label=None, *args, **kwargs):
+        output = {}
+        for name in self.model_name:
+            pred = preds[name]
+            if self.key is not None:
+                pred = pred[self.key]
+            if self.multi_head and isinstance(pred, dict):
+                pred = pred["ctc"]
+            output[name] = super().__call__(pred, label=label)
+        return output

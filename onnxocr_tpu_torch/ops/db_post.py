@@ -212,3 +212,24 @@ class DBPostProcess:
                                  "['quad', 'poly']")
             boxes_batch.append({"points": boxes})
         return boxes_batch
+
+
+class DistillationDBPostProcess:
+    """The multi-head DB postprocess (reference db_postprocess.py:249-276):
+    each named head's map through one DBPostProcess."""
+
+    def __init__(self, model_name=("student",), key=None, thresh=0.3,
+                 box_thresh=0.6, max_candidates=1000, unclip_ratio=1.5,
+                 use_dilation=False, score_mode="fast", box_type="quad",
+                 **kwargs):
+        self.model_name = list(model_name)
+        self.key = key
+        self.post_process = DBPostProcess(
+            thresh=thresh, box_thresh=box_thresh,
+            max_candidates=max_candidates, unclip_ratio=unclip_ratio,
+            use_dilation=use_dilation, score_mode=score_mode,
+            box_type=box_type)
+
+    def __call__(self, predicts, shape_list):
+        return {k: self.post_process(predicts[k], shape_list=shape_list)
+                for k in self.model_name}

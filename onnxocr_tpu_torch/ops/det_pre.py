@@ -39,6 +39,16 @@ def det_resize_target(h: int, w: int, limit_side_len: float = 960,
     return resize_h, resize_w
 
 
+def det_resize_long_target(h: int, w: int, resize_long: float = 960
+                           ) -> Tuple[int, int]:
+    """resize_type 2: the longest side scaled to resize_long, the sides
+    rounded up to a multiple of 128 (reference operators.py:140-161)."""
+    ratio = float(resize_long) / max(h, w)
+    stride = 128
+    return ((int(h * ratio) + stride - 1) // stride * stride,
+            (int(w * ratio) + stride - 1) // stride * stride)
+
+
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -92,6 +102,12 @@ def normalize_det(x: torch.Tensor) -> torch.Tensor:
     mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
     std = torch.as_tensor(IMAGENET_STD, device=x.device)
     return (x.to(torch.float32) / 255.0 - mean) / std
+
+
+def normalize_pm1(x: torch.Tensor) -> torch.Tensor:
+    """uint8 → [-1, 1] float32 on the tensor's device (the rec / cls
+    normalization, predict_rec.py:74-77)."""
+    return x.to(torch.float32) / 127.5 - 1.0
 
 
 def bitpack_map(prob: torch.Tensor, vh, vw, thresh: float) -> torch.Tensor:

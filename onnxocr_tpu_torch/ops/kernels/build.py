@@ -9,11 +9,14 @@ one nvcc per source at once.
 
 A wrapper counts its launches in `LAUNCHES[name]` through `count_launch`,
 adding one each time it launches its kernel and nowhere else; threads that
-launch side by side lose no count.
+launch side by side lose no count. A wrapper whose function is a product
+adds its FLOPs (2 a multiply-add) through `count_flops` to every count
+opened by `counting_flops`, whichever route computes it.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -33,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: collections.Counter = collections.Counter()
 _COUNT_LOCK = threading.Lock()
+_FLOP_COUNTS: List[list] = []
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -130,6 +134,26 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
 def count_launch(name: str) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def counting_flops():
+    """A count of the FLOPs the wrappers' products do while it is open:
+    yields a one-element list, its total."""
+    count = [0]
+    with _COUNT_LOCK:
+        _FLOP_COUNTS.append(count)
+    try:
+        yield count
+    finally:
+        with _COUNT_LOCK:
+            _FLOP_COUNTS.remove(count)
+
+
+def count_flops(n: int) -> None:
+    with _COUNT_LOCK:
+        for count in _FLOP_COUNTS:
+            count[0] += n
 
 
 def ptr(t) -> ctypes.c_void_p:

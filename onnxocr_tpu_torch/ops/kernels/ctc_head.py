@@ -129,10 +129,15 @@ def ctc_head_reduce(x: torch.Tensor, w_split: torch.Tensor, b: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (M, D), w_split (2, V, D) from `split_head`, b (V,) float32 →
     ((M,) int32 argmax, (M,) float32 1/Σexp(l − max)). Ties resolve to the
-    first index."""
+    first index. Its product, 2·M·D·V FLOPs, goes to any open
+    `build.counting_flops` count on either route (the plain version's
+    three TF32 products are hidden from PyTorch's FLOP counter)."""
     _check(x, w_split, b)
+    build.count_flops(2 * x.shape[0] * x.shape[1] * w_split.shape[1])
     if x.device.type == "cpu":
-        return ctc_head_reduce_3xtf32_plain(x, w_split, b)
+        from torch.utils._python_dispatch import _disable_current_modes
+        with _disable_current_modes():
+            return ctc_head_reduce_3xtf32_plain(x, w_split, b)
     if x.device.type != "cuda":
         raise ValueError(f"ctc_head_reduce: unsupported device {x.device}")
     M, D = x.shape

@@ -153,6 +153,9 @@ class TextDetector:
             fixed_canvas=self.masks_canvas, mesh=mesh)
         return True
 
+    def order_points_clockwise(self, pts: np.ndarray) -> np.ndarray:
+        return geometry.order_points_clockwise(pts)
+
     def clip_det_res(self, points, img_height, img_width):
         points = np.array(points)
         points[:, 0] = np.clip(points[:, 0], 0, img_width - 1)

@@ -423,12 +423,14 @@ class RecCropBatcher:
         return _wait(work)
 
     def warm_canonical(self, fused, image_shape, out_h: int,
-                       use_cls: bool = True, prob_shape=None) -> List[str]:
+                       use_cls: bool = True, prob_shape=None,
+                       should_stop=None) -> List[str]:
         """Run every canonical multi-page shape of one source bucket once:
         b_img in img_ladder[1:] × COALESCE_WIDTHS at the top batch size, on
         zero pages, and register each, so that no first use of a shape
         (cuDNN's choice of algorithms, the allocator's first blocks) falls
-        inside live traffic."""
+        inside live traffic. should_stop() → True ends the warm before the
+        next shape (a caller on a budget)."""
         device = fused.rec_forward.device
         bsz = self.batch_ladder[-1]
         eye = np.tile(np.eye(3, dtype=np.float32), (bsz, 1, 1))
@@ -445,6 +447,8 @@ class RecCropBatcher:
                 rhw = np.tile(np.array([list(prob_shape)], np.int32),
                               (b_img, 1))
             for cw in self.COALESCE_WIDTHS:
+                if should_stop is not None and should_stop():
+                    return warmed
                 if prob_shape is not None:
                     out = fused.call_multi_scored(
                         images, probs, rhw, img_idx, quads, eye, valid,

@@ -353,7 +353,9 @@ async def serve(app: App, host: str = "0.0.0.0", port: int = 5005,
                 pass
 
     server = await asyncio.start_server(client, host, port)
-    logger.info("serving on %s:%d", host, port)
+    # the bound port: the one the system chose where port is 0
+    logger.info("serving on %s:%d", host,
+                server.sockets[0].getsockname()[1])
     async with server:
         await server.serve_forever()
 

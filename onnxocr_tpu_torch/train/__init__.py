@@ -1,2 +1,2 @@
-"""Training: the DB and CTC trainers and their AdamW (counterpart of
-onnxocr_tpu/train; the synthetic data renderer is not ported yet)."""
+"""Training: the DB and CTC trainers, their AdamW and the synthetic-data
+renderer (counterpart of onnxocr_tpu/train)."""

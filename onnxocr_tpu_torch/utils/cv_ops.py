@@ -18,6 +18,12 @@ cv2's pixels (the machine with the GPU has no cv2).
   float32 steps this twin does not follow; the double one it takes rounds
   to another float32 on a few pixels in 10^5, which then differ by one.
 * `rotate_180`: `cv2.rotate(img, cv2.ROTATE_180)`.
+* `bgr2gray`, `erode`, `dilate`, `morph_gradient`, `morph_close`,
+  `threshold_otsu`: `cv2.cvtColor(.., COLOR_BGR2GRAY)` in cv2 5.0's
+  15-bit fixed point, the rectangular-kernel morphology with cv2's default border
+  (outside pixels never win the min or the max), and
+  `cv2.threshold(.., 0, 255, THRESH_BINARY + THRESH_OTSU)` with cv2's
+  double-precision Otsu search, on uint8 images.
 * `polylines2`: `cv2.polylines(img, [pts], True, color, 2)` (LINE_8) as
   cv2 5.0 draws it: each side clipped in whole pixels to the image grown
   by 2, a quadrilateral one pixel either side of it in 16.16 fixed point
@@ -866,3 +872,80 @@ def polylines2(img: np.ndarray, pts, color) -> np.ndarray:
         _disc1(img, seg[2], seg[3], color)
         p0 = p
     return img
+
+
+# -------------------------------------------- grey, morphology, Otsu
+def bgr2gray(img: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) of a uint8 BGR image as cv2
+    5.0 computes it: (B·3735 + G·19235 + R·9798 + 2^14) >> 15 (the 14-bit
+    coefficients of cv2 4 round a few pixels in 10^3 the other way)."""
+    img = np.asarray(img, np.uint8).astype(np.int32)
+    return ((img[..., 0] * 3735 + img[..., 1] * 19235 + img[..., 2] * 9798 +
+             (1 << 14)) >> 15).astype(np.uint8)
+
+
+def _morph(img: np.ndarray, kh: int, kw: int, take, pad: int) -> np.ndarray:
+    """A kh x kw rectangular min or max (anchor at the centre) of a 2-D
+    uint8 image, the border padded with `pad`, which never wins."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape
+    ay, ax = kh // 2, kw // 2
+    rows = np.pad(img, ((0, 0), (ax, kw - 1 - ax)), constant_values=pad)
+    out = rows[:, 0:w]
+    for dx in range(1, kw):
+        out = take(out, rows[:, dx:dx + w])
+    cols = np.pad(out, ((ay, kh - 1 - ay), (0, 0)), constant_values=pad)
+    out = cols[0:h]
+    for dy in range(1, kh):
+        out = take(out, cols[dy:dy + h])
+    return np.ascontiguousarray(out)
+
+
+def erode(img: np.ndarray, ksize: Sequence[int]) -> np.ndarray:
+    """cv2.erode(img, np.ones(ksize, np.uint8)) of a 2-D uint8 image."""
+    return _morph(img, ksize[0], ksize[1], np.minimum, 255)
+
+
+def dilate(img: np.ndarray, ksize: Sequence[int]) -> np.ndarray:
+    """cv2.dilate(img, np.ones(ksize, np.uint8)) of a 2-D uint8 image."""
+    return _morph(img, ksize[0], ksize[1], np.maximum, 0)
+
+
+def morph_gradient(img: np.ndarray, ksize: Sequence[int]) -> np.ndarray:
+    """cv2.morphologyEx(img, MORPH_GRADIENT, np.ones(ksize, np.uint8))."""
+    return dilate(img, ksize) - erode(img, ksize)
+
+
+def morph_close(img: np.ndarray, ksize: Sequence[int]) -> np.ndarray:
+    """cv2.morphologyEx(img, MORPH_CLOSE, np.ones(ksize, np.uint8))."""
+    return erode(dilate(img, ksize), ksize)
+
+
+def threshold_otsu(img: np.ndarray) -> Tuple[float, np.ndarray]:
+    """cv2.threshold(img, 0, 255, THRESH_BINARY + THRESH_OTSU) of a uint8
+    image → (the threshold, the 0 / 255 image): the level of the largest
+    between-class variance, searched in double as cv2 searches it (the
+    first of equal maxima)."""
+    img = np.asarray(img, np.uint8)
+    hist = np.bincount(img.ravel(), minlength=256)
+    scale = 1.0 / img.size
+    mu = 0.0
+    for i in range(256):
+        mu += i * float(hist[i])
+    mu *= scale
+    mu1 = q1 = max_sigma = 0.0
+    best = 0
+    eps = float(np.finfo(np.float32).eps)
+    for i in range(256):
+        p_i = float(hist[i]) * scale
+        mu1 *= q1
+        q1 += p_i
+        q2 = 1.0 - q1
+        if min(q1, q2) < eps or max(q1, q2) > 1.0 - eps:
+            continue
+        mu1 = (mu1 + i * p_i) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma, best = sigma, i
+    return float(best), np.where(img > best, 255, 0).astype(np.uint8)

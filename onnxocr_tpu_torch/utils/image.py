@@ -1,15 +1,18 @@
 """Host image helpers. Counterpart of onnxocr_tpu/utils/image.py: the
 reference's host crops (`get_rotate_crop_image`, `get_minarea_rect_crop`),
-`resize_img`, and the min-area quad of a poly box. The cv2 calls there are
+`resize_img`, the min-area quad of a poly box and `base64_to_cv2`. The cv2 calls there are
 the cv2-exact numpy twins of utils/cv_ops.py here.
 """
 from __future__ import annotations
+
+import base64
+from typing import Optional
 
 import numpy as np
 
 from ..ops import geometry
 from ..ops.warp import perspective_transform
-from . import cv_ops
+from . import cv_ops, imcodec
 
 
 def get_rotate_crop_image(img: np.ndarray, points: np.ndarray) -> np.ndarray:
@@ -62,3 +65,9 @@ def resize_img(img: np.ndarray, input_size: int = 600) -> np.ndarray:
     img = np.asarray(img)
     im_scale = float(input_size) / max(img.shape[:2])
     return cv_ops.resize_linear(img, None, fx=im_scale, fy=im_scale)
+
+
+def base64_to_cv2(b64str: str) -> Optional[np.ndarray]:
+    """Base64 text of an encoded image → (H, W, 3) uint8 BGR, or None, as
+    cv2.imdecode(..., IMREAD_COLOR) reads it (utils/imcodec.imdecode)."""
+    return imcodec.imdecode(base64.b64decode(b64str.encode("utf8")))

@@ -10,8 +10,11 @@ palettes, RLE8 and RLE4, 16-bit 5-5-5 and 5-6-5, 24- and 32-bit with or
 without bit-field masks, bottom-up and top-down, the OS/2 core header too),
 baseline TIFF (the first IFD: none, PackBits, LZW, Deflate; predictor 2;
 strips, tiles, planar; 1, 8, 16 bits; grey, RGB(A), palette; the
-Orientation tag) and Netpbm P1–P6 into (H, W, 3) uint8 BGR, and gives None
-where cv2 gives None: bytes of another format (WebP, JPEG 2000, ...),
+Orientation tag), Netpbm P1–P6 and WebP (lossy VP8, lossless VP8L, the
+VP8X container with alpha, which is dropped; an animation's first frame on
+its zeroed canvas, as cv2 5.0 returns it) into (H, W, 3) uint8 BGR, and
+gives None where cv2 gives None: bytes of another format (JPEG 2000, GIF,
+...),
 arithmetic-coded, 12-bit or lossless JPEGs, BMPs and TIFFs cv2 reads that
 this reader does not (other 16-bit masks, other compressions, CMYK, YCbCr,
 JPEG-in-TIFF), truncated or corrupt files, and sides longer than libpng or
@@ -23,7 +26,9 @@ applies the EXIF orientation (a JPEG's APP1, a PNG's eXIf chunk).
 
 The pixel work is C++ (`csrc/host/imcodec.cc`: PNG unfiltering, the JPEG
 decoder and encoder, written to compute what libjpeg-turbo computes at
-cv2's settings, TIFF's LZW and PackBits, Netpbm's ASCII numbers), built with g++ at first use into `build/host/` like the DB
+cv2's settings, TIFF's LZW and PackBits, Netpbm's ASCII numbers, the WebP
+decoder, written to compute what libwebp computes), built with g++ at
+first use into `build/host/` like the DB
 postprocess library (`ops/native.py`); zlib inflates PNG streams. There is
 no fallback: where the library cannot be built, every call raises.
 """
@@ -69,6 +74,10 @@ _SIGNATURES = {
     "ocr_pxm_samples": (ctypes.c_int, [              # buf, bytes, pos, n,
         _U8P, _LL, ctypes.POINTER(_LL), _LL, ctypes.c_int,  # single,
         ctypes.POINTER(ctypes.c_uint16)]),                  # out uint16
+    "ocr_webp_info": (ctypes.c_int, [_U8P, _LL, _IP, _IP]),  # buf, bytes, w, h
+    "ocr_webp_decode": (ctypes.c_int, [
+        _U8P, _LL, ctypes.c_int, ctypes.c_int,     # buf, bytes, h, w
+        _U8P]),                                    # out BGR
 }
 
 # Sizes are checked before anything is allocated. libpng and libjpeg refuse
@@ -800,6 +809,21 @@ def _check_size(fmt: str, w: int, h: int) -> None:
                          f"reads (validateInputImageSize)")
 
 
+def _webp(buf: bytes) -> np.ndarray:
+    data = np.frombuffer(buf, np.uint8)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    codec = lib()
+    if codec.ocr_webp_info(_ptr(data), data.size, ctypes.byref(w),
+                           ctypes.byref(h)) != 0:
+        raise _Unreadable("WebP: not a WebP cv2 reads")
+    _check_size("webp", w.value, h.value)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if codec.ocr_webp_decode(_ptr(data), data.size, h.value, w.value,
+                             _ptr(out)) != 0:
+        raise _Unreadable("WebP: not decoded")
+    return out
+
+
 def imdecode(buf) -> Optional[np.ndarray]:
     """Encoded image bytes → (H, W, 3) uint8 BGR, or None where
     `cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)` gives
@@ -820,6 +844,9 @@ def imdecode(buf) -> Optional[np.ndarray]:
         if len(buf) >= 3 and buf[:1] == b"P" and 49 <= buf[1] <= 54 and \
                 buf[2] in _SPACE:
             return _pxm(buf)
+        # cv2 asks libwebp whether the first 32 bytes are a WebP: a RIFF
+        # container, or a bare VP8 / VP8L stream
+        return _webp(buf)
     except (_Unreadable, struct.error, zlib.error, KeyError, IndexError):
         return None
     return None

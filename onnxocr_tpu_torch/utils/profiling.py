@@ -162,20 +162,24 @@ class ProgramCapture:
         return (time.perf_counter() - t0) / n * 1000.0
 
     def flops(self, name: str) -> Optional[float]:
-        """The FLOPs of one call of the captured program, counted by
-        torch.utils.flop_counter.FlopCounterMode: the matmuls and
-        convolutions that run as PyTorch operators (2 per multiply-add),
-        and nothing else — no elementwise work, and no hand-written kernel
-        (the CTC head's product is not counted). XLA's cost analysis, the
-        JAX package's count, counts every op. None when nothing was
-        captured under `name` or nothing was counted."""
+        """The FLOPs of one call of the captured program (2 a multiply-add):
+        the matmuls and convolutions that run as PyTorch operators, counted
+        by torch.utils.flop_counter.FlopCounterMode, plus the CTC head's
+        product (kernel 1, ops/kernels/ctc_head.py: 2·M·D·V, counted by
+        its wrapper through ops/kernels/build.counting_flops). Elementwise
+        work counts nothing, nor do kernels 2–5 (label-keyed sums and
+        minima, no product). XLA's cost analysis, the JAX package's count,
+        counts every op. None when nothing was captured under `name` or
+        nothing was counted."""
         from torch.utils.flop_counter import FlopCounterMode
+        from ..ops.kernels import build
         fn, args, _ = self._entry(name)
         if fn is None:
             return None
-        with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        with torch.inference_mode(), build.counting_flops() as head, \
+                FlopCounterMode(display=False) as fc:
             fn(*args)
-        return float(fc.get_total_flops()) or None
+        return float(fc.get_total_flops() + head[0]) or None
 
 
 CAPTURE = ProgramCapture()

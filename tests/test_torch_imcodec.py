@@ -566,13 +566,18 @@ def test_garbage_and_truncations_give_none():
 
 
 def test_formats_not_read_give_none():
-    """WebP: cv2 decodes it, the codec does not (ROADMAP lists it as not
-    ported) and says None. A palette BMP and cv2's own TIFF, once among
-    them, are read now, value-equal to cv2."""
+    """Formats once not read, value-equal to cv2 now: WebP (cv2's default
+    encoding), a palette BMP and cv2's own TIFF. A GIF, which cv2 5.0
+    reads and the codec does not (ROADMAP §3.2), gives None."""
     img = smooth_image(6, 20, 24)
     ok, buf = cv2.imencode(".webp", img)
     assert ok and cv2.imdecode(buf, cv2.IMREAD_COLOR) is not None
-    assert imcodec.imdecode(bytes(buf)) is None
+    assert_decodes_as_cv2(bytes(buf))
+    gif = io.BytesIO()
+    Image.fromarray(img[:, :, ::-1]).save(gif, "GIF")
+    assert cv2.imdecode(np.frombuffer(gif.getvalue(), np.uint8),
+                        cv2.IMREAD_COLOR) is not None
+    assert imcodec.imdecode(gif.getvalue()) is None
     ok, buf = cv2.imencode(".tiff", img)
     assert_decodes_as_cv2(bytes(buf))
     out = io.BytesIO()
@@ -1473,3 +1478,370 @@ def test_ascii_netpbm_with_comments_reads_in_bounded_time():
     assert want is not None and got is not None
     np.testing.assert_array_equal(got, want)
     assert took < 3.0
+
+
+# ----------------------------------------------------------------- WebP
+def _riff(chunks, extra=0):
+    """A RIFF/WEBP container of (fourcc, payload) chunks, each padded to an
+    even length; `extra` is added to the RIFF size."""
+    body = b"WEBP" + b"".join(
+        k + struct.pack("<I", len(v)) + v + b"\0" * (len(v) & 1)
+        for k, v in chunks)
+    return b"RIFF" + struct.pack("<I", len(body) + extra) + body
+
+
+def _webp_chunks(blob):
+    out, pos = [], 12
+    while pos + 8 <= len(blob):
+        n, = struct.unpack("<I", blob[pos + 4:pos + 8])
+        out.append((blob[pos:pos + 4], blob[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def _webp(img, quality):
+    ok, buf = cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, quality])
+    assert ok
+    return bytes(buf)
+
+
+def _vp8x(flags, w, h):
+    return bytes([flags, 0, 0, 0]) + struct.pack("<I", w - 1)[:3] + \
+        struct.pack("<I", h - 1)[:3]
+
+
+def _anmf(x, y, w, h, payload):
+    return b"".join(struct.pack("<I", v)[:3] for v in
+                    (x // 2, y // 2, w - 1, h - 1, 100)) + b"\0" + payload
+
+
+def _animation(frames, **kw):
+    out = io.BytesIO()
+    frames[0].save(out, "WEBP", save_all=True, append_images=frames[1:],
+                   duration=100, **kw)
+    return out.getvalue()
+
+
+def assert_answers_as_cv2(blob, pixels=True):
+    """cv2's answer for any bytes: an image of its shape (equal to cv2's
+    with `pixels`), None, or an error."""
+    try:
+        want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+    except cv2.error:
+        with pytest.raises(ValueError):
+            imcodec.imdecode(blob)
+        return "raised"
+    got = imcodec.imdecode(blob)
+    if want is None:
+        assert got is None
+        return "none"
+    assert got is not None and got.shape == want.shape
+    if pixels:
+        np.testing.assert_array_equal(got, want)
+    return "decoded"
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (17, 33), (480, 640)])
+@pytest.mark.parametrize("quality", [1, 50, 90, 100])
+def test_webp_lossy_matches_cv2(h, w, quality):
+    """VP8 (RFC 6386 key frames) through libwebp's fancy upsampler and
+    14-bit YUV -> BGR: value-equal to cv2 on a photo-like and a noisy
+    image (every intra mode, both loop filters, segments and partitions
+    as libwebp's encoder picks them)."""
+    for img in (smooth_image(h * 7 + quality, h, w),
+                np.random.default_rng(quality).integers(
+                    0, 256, (h, w, 3)).astype(np.uint8)):
+        blob = _webp(img, quality)
+        assert blob[12:16] == b"VP8 "
+        assert_decodes_as_cv2(blob)
+
+
+@pytest.mark.parametrize("colours", [None, 2, 4, 16, 256])
+def test_webp_lossless_matches_cv2(colours):
+    """VP8L (IMWRITE_WEBP_QUALITY 101): a noisy image, and images of at
+    most 2, 4, 16 and 256 colours, whose colour-indexing transform bundles
+    8, 4, 2 and 1 pixels a code; 67 x 129 and 300 x 200 (prefix-code
+    groups by the meta image, colour cache, LZ77 copies)."""
+    rng = np.random.default_rng(colours or 7)
+    for h, w in ((67, 129), (300, 200)):
+        if colours is None:
+            img = smooth_image(h + w, h, w)
+            img[::3, ::2] = rng.integers(0, 256, img[::3, ::2].shape)
+        else:
+            pal = rng.integers(0, 256, (colours, 3)).astype(np.uint8)
+            img = pal[rng.integers(0, colours, (h, w))]
+            img[h // 2:] = pal[np.arange(w) % colours][None]
+        blob = _webp(img, 101)
+        assert blob[12:16] == b"VP8L"
+        assert_decodes_as_cv2(blob)
+
+
+@pytest.mark.parametrize("quality", [50, 101])
+def test_webp_with_alpha_matches_cv2(quality):
+    """BGRA: lossy as VP8X + ALPH (the alpha plane VP8L-coded and
+    filtered) + VP8, lossless as VP8L with its alpha bit. cv2's
+    IMREAD_COLOR keeps the colour channels of the BGRA decode and drops
+    alpha (no compositing): the codec gives the same."""
+    rng = np.random.default_rng(quality)
+    for h, w in ((1, 1), (23, 37), (120, 160)):
+        alpha = rng.integers(0, 256, (h, w)).astype(np.uint8)
+        img = np.dstack([smooth_image(w, h, w), alpha])
+        blob = _webp(img, quality)
+        kinds = [k for k, _ in _webp_chunks(blob)]
+        assert kinds == ([b"VP8X", b"ALPH", b"VP8 "] if quality < 101
+                         else [b"VP8L"])
+        assert_decodes_as_cv2(blob)
+
+
+def test_webp_container_cases_answer_as_cv2():
+    """The container as libwebp parses it: ICCP / EXIF / unknown chunks
+    skipped, the alpha flag absent with an ALPH present, a raw ALPH of the
+    right and of too few bytes, a refused ALPH header, trailing bytes
+    inside and outside the RIFF size, a RIFF size too small, a VP8L
+    stream without its container (cv2 reads it), and a file under 32 bytes
+    (cv2 refuses it)."""
+    rng = np.random.default_rng(9)
+    img = smooth_image(9, 17, 33)
+    blob = _webp(np.dstack([img, rng.integers(0, 256, (17, 33)).astype(
+        np.uint8)]), 50)
+    (_, vp8x), (_, alph), (_, vp8) = _webp_chunks(blob)
+    no_flag = bytes([vp8x[0] & ~0x10]) + vp8x[1:]
+    lossless = _webp(img, 101)
+    cases = {
+        "extra-chunks": _riff([(b"VP8X", vp8x), (b"ICCP", b"abc"),
+                               (b"ALPH", alph), (b"VP8 ", vp8),
+                               (b"EXIF", b"xyzw")]),
+        "no-alpha-flag": _riff([(b"VP8X", no_flag), (b"ALPH", alph),
+                                (b"VP8 ", vp8)]),
+        "raw-alpha": _riff([(b"VP8X", vp8x),
+                            (b"ALPH", b"\0" + rng.bytes(17 * 33)),
+                            (b"VP8 ", vp8)]),
+        "raw-alpha-short": _riff([(b"VP8X", vp8x), (b"ALPH", b"\0" * 30),
+                                  (b"VP8 ", vp8)]),
+        "alpha-method-3": _riff([(b"VP8X", vp8x),
+                                 (b"ALPH", b"\3" + alph[1:]),
+                                 (b"VP8 ", vp8)]),
+        "alpha-bad-code": _riff([(b"VP8X", vp8x),
+                                 (b"ALPH", b"\1" + b"\xff" * 20),
+                                 (b"VP8 ", vp8)]),
+        "trailing-in-riff": _riff(_webp_chunks(lossless), 4) + b"\0" * 4,
+        "trailing-outside": lossless + b"junk",
+        "riff-too-small": _riff(_webp_chunks(lossless), -2),
+        "bare-vp8l": _webp_chunks(lossless)[0][1],
+        "short": _webp(img[:1, :2], 101)[20:],
+    }
+    answers = {k: assert_answers_as_cv2(v) for k, v in cases.items()}
+    assert answers["bare-vp8l"] == "decoded"
+    assert answers["short"] == "none" and len(cases["short"]) < 32
+    assert answers["alpha-bad-code"] == "none"
+
+
+def test_webp_animation_gives_its_first_frame_as_cv2():
+    """cv2 5.0's imdecode of an animated WebP is its first frame, drawn
+    at its offset on a zeroed canvas (the background colour unused) after
+    WebPDemux accepted the whole file: lossless and lossy (with alpha)
+    frames from PIL's encoder, a hand-built frame off the canvas origin,
+    and files the demuxer refuses (a frame past the canvas, no ANIM
+    chunk, a still image under the animation flag)."""
+    rng = np.random.default_rng(12)
+    frames = [Image.fromarray(smooth_image(i, 20, 30)) for i in range(3)]
+    rgba = [Image.fromarray(np.dstack([
+        smooth_image(5 + i, 20, 30), rng.integers(0, 256, (20, 30)).astype(
+            np.uint8)]), "RGBA") for i in range(2)]
+    lossless = _animation(frames, lossless=True)
+    payload = _webp_chunks(lossless)[2][1][16:]
+    anim = b"\0" * 6
+    cases = {
+        "lossless": lossless,
+        "lossy-alpha": _animation(rgba, quality=50),
+        "offset": _riff([(b"VP8X", _vp8x(2, 40, 30)), (b"ANIM", anim),
+                         (b"ANMF", _anmf(4, 6, 30, 20, payload))]),
+        "background": _riff([(b"VP8X", _vp8x(2, 40, 30)),
+                             (b"ANIM", b"\x10\x20\x30\x40\0\0"),
+                             (b"ANMF", _anmf(4, 6, 30, 20, payload))]),
+        "off-canvas": _riff([(b"VP8X", _vp8x(2, 32, 30)), (b"ANIM", anim),
+                             (b"ANMF", _anmf(4, 6, 30, 20, payload))]),
+        "no-anim-chunk": _riff([(b"VP8X", _vp8x(2, 40, 30)),
+                                (b"ANMF", _anmf(4, 6, 30, 20, payload))]),
+        "still-under-flag": _riff([(b"VP8X", _vp8x(2, 30, 20)),
+                                   (b"VP8L", payload[8:])]),
+    }
+    answers = {k: assert_answers_as_cv2(v) for k, v in cases.items()}
+    assert answers == {"lossless": "decoded", "lossy-alpha": "decoded",
+                       "offset": "decoded", "background": "decoded",
+                       "off-canvas": "none", "no-anim-chunk": "none",
+                       "still-under-flag": "none"}
+    got = imcodec.imdecode(cases["offset"])
+    np.testing.assert_array_equal(got[6:26, 4:34],
+                                  np.asarray(frames[0])[:, :, ::-1])
+    assert not got[:6].any() and not got[:, :4].any()
+
+
+def _webp_seeds():
+    rng = np.random.default_rng(21)
+    img = rng.integers(0, 256, (23, 37, 3)).astype(np.uint8)
+    smooth = smooth_image(21, 40, 50)
+    alpha = np.dstack([img, rng.integers(0, 256, (23, 37)).astype(np.uint8)])
+    pal = rng.integers(0, 256, (5, 3)).astype(np.uint8)[
+        rng.integers(0, 5, (30, 30))]
+    frames = [Image.fromarray(smooth_image(30 + i, 20, 30)) for i in range(2)]
+    return [_webp(img, 10), _webp(img, 75), _webp(img, 101),
+            _webp(smooth, 50), _webp(smooth, 101), _webp(alpha, 50),
+            _webp(alpha, 101), _webp(pal, 101),
+            _animation(frames, quality=60)]
+
+
+def test_webp_truncations_and_flips_answer_as_cv2():
+    """Every seed (lossy, lossless, alpha, palette, animation) cut at 25
+    offsets, and 40 seeded mutants of each with 1-3 bits flipped: each
+    gives cv2's verdict, an image of its shape, None, or an error where
+    cv2 raises (a flipped canvas side past 2^20). The pixels of a corrupt
+    file are not held: libwebp's garbage differs between its builds."""
+    rng = np.random.default_rng(22)
+    counts = {"decoded": 0, "none": 0, "raised": 0}
+    for blob in _webp_seeds():
+        for cut in np.linspace(1, len(blob) - 1, 25).astype(int):
+            counts[assert_answers_as_cv2(blob[:cut], pixels=False)] += 1
+        for _ in range(40):
+            b = bytearray(blob)
+            for _ in range(rng.integers(1, 4)):
+                b[rng.integers(len(b))] ^= 1 << int(rng.integers(8))
+            counts[assert_answers_as_cv2(bytes(b), pixels=False)] += 1
+    print(counts)
+    assert counts["decoded"] > 100 and counts["none"] > 100, counts
+
+
+def test_webp_partitions_led_by_ff_answer_as_cv2():
+    """A VP8 partition whose first byte is 0xFF (and up to two more bytes
+    overwritten) breaks the boolean decoder's invariant; how far libwebp
+    then reads, and so whether it meets the end of the data, follows its
+    7-byte loads. Each such file gives cv2's verdict and shape."""
+    rng = np.random.default_rng(24)
+    seeds = []
+    for q in (5, 75):
+        for h, w in ((23, 37), (64, 80)):
+            seeds.append(_webp(rng.integers(0, 256, (h, w, 3)).astype(
+                np.uint8), q))
+            seeds.append(_webp(smooth_image(int(rng.integers(99)), h, w),
+                               q))
+    counts = {"decoded": 0, "none": 0, "raised": 0}
+    for blob in seeds:
+        assert blob[12:16] == b"VP8 "
+        first = int.from_bytes(blob[20:23], "little") >> 5
+        for off in (30, 30 + first):        # the modes', the tokens'
+            for _ in range(30):
+                b = bytearray(blob)
+                b[off] = 0xFF
+                for _ in range(int(rng.integers(0, 3))):
+                    j = off + int(rng.integers(0, 8))
+                    if j < len(b):
+                        b[j] = int(rng.integers(0, 256))
+                counts[assert_answers_as_cv2(bytes(b), pixels=False)] += 1
+    print(counts)
+    assert counts["decoded"] > 50 and counts["none"] > 50, counts
+
+
+def test_webp_oversize_header_is_refused_before_allocation():
+    """Sides are read from the headers first: an animation canvas of
+    2^24 x 2 px or of more than 2^30 px raises as cv2 raises (its
+    validateInputImageSize), at once and without allocating it."""
+    import time
+    payload = _webp_chunks(_webp(smooth_image(1, 2, 2), 101))[0][1]
+    for w, h in ((1 << 24, 2), (40000, 30000)):
+        blob = _riff([(b"VP8X", _vp8x(2, w, h)), (b"ANIM", b"\0" * 6),
+                      (b"ANMF", _anmf(0, 0, 2, 2, b"VP8L" + struct.pack(
+                          "<I", len(payload)) + payload +
+                          b"\0" * (len(payload) & 1)))])
+        with pytest.raises(cv2.error):
+            cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+        t0 = time.perf_counter()
+        with pytest.raises(ValueError, match="larger than"):
+            imcodec.imdecode(blob)
+        assert time.perf_counter() - t0 < 0.5
+
+
+def test_webp_mutants_never_crash(tmp_path):
+    """Seeded mutants (bytes overwritten, inserted or cut, as for the
+    other formats) of every WebP seed decode to an image, None or a
+    ValueError in a process whose codec library is built with
+    AddressSanitizer: no read or write outside a buffer."""
+    import pickle
+    import subprocess
+    import sys
+    repo = Path(__file__).resolve().parents[1]
+    rng = np.random.default_rng(23)
+    mutants = [_mutant(blob, rng) for blob in _webp_seeds()
+               for _ in range(60)]
+    with open(tmp_path / "mutants.pkl", "wb") as f:
+        pickle.dump(mutants, f)
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    flags = ["-std=c++17", "-shared", "-fPIC", "-O1", "-g"]
+    asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                          capture_output=True, text=True).stdout.strip()
+    if os.path.isabs(asan) and os.path.exists(asan):
+        flags += ["-fsanitize=address", "-fno-omit-frame-pointer"]
+        env.update(LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0")
+    lib = tmp_path / "libimcodec.so"
+    subprocess.run(["g++", *flags, "-o", str(lib), str(imcodec.SOURCE)],
+                   check=True, timeout=300)
+    proc = subprocess.run(
+        [sys.executable, "-c", _DECODE_MUTANTS, str(lib),
+         str(tmp_path / "mutants.pkl")], env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    counts = eval(proc.stdout.strip().splitlines()[-1])
+    assert sum(counts.values()) == len(mutants)
+    assert counts["decoded"] and counts["none"], counts
+
+
+def _vp8l_constant(w, h, argb):
+    """A VP8L stream of w x h pixels all `argb`: no transform, five simple
+    one-symbol prefix codes, so every pixel takes no bits."""
+    bits = [(0x2F, 8), (w - 1, 14), (h - 1, 14), (1, 1), (0, 3),
+            (0, 1), (0, 1), (0, 1)]          # no transform, cache, meta
+    for sym in ((argb >> 8) & 0xFF, (argb >> 16) & 0xFF, argb & 0xFF,
+                argb >> 24, 0):
+        bits += [(1, 1), (0, 1), (1, 1), (sym, 8)]
+    acc = n = 0
+    for v, k in bits:
+        acc |= v << n
+        n += k
+    return acc.to_bytes((n + 7) // 8, "little")
+
+
+def test_webp_decodes_within_output_plus_32mb(tmp_path):
+    """Decoded in a subprocess, the peak RSS rises by less than the
+    output plus 32 MB: a seeded 4096 x 4096 lossy file (macroblock rows
+    filtered in a cache of 24 rows, converted as they are final) and a
+    16383 x 4096 lossless one (pixels in a ring of 2^21, transformed row
+    by row); a decoder that keeps whole YUV planes or every ARGB pixel
+    needs 24 MB or 256 MB more. Both equal cv2's decode."""
+    import hashlib
+    import subprocess
+    import sys
+    rng = np.random.default_rng(4096)
+    small = cv2.GaussianBlur(rng.integers(0, 256, (256, 256, 3)).astype(
+        np.uint8), (5, 5), 0)
+    big = cv2.resize(small, (4096, 4096), interpolation=cv2.INTER_LINEAR)
+    big[::7, ::5] ^= 0x55
+    stream = _vp8l_constant(16383, 4096, 0xFF336699)
+    blobs = {"lossy": _webp(big, 80),
+             "lossless": _riff([(b"VP8L", stream)])}
+    del big
+    repo = Path(__file__).resolve().parents[1]
+    for name, blob in blobs.items():
+        path = tmp_path / f"{name}.webp"
+        path.write_bytes(blob)
+        proc = subprocess.run(
+            ["/bin/sh", "-c", '"$@"', "sh", sys.executable, "-c",
+             _PEAK_RSS + _DIGEST, str(path)], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=str(repo)), capture_output=True,
+            text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        first, digest = proc.stdout.strip().splitlines()
+        shape, rise, out = first.rsplit(" ", 2)
+        print(f"{name}: {shape} peak RSS rise {int(rise) / 2**20:.1f} MB, "
+              f"output {int(out) / 2**20:.1f} MB")
+        assert int(rise) < int(out) + 32 * 2**20
+        want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+        assert digest == hashlib.sha256(want.tobytes()).hexdigest()

@@ -1,7 +1,8 @@
 """Import rules of the PyTorch port, checked on the syntax tree: no module
 of onnxocr_tpu_torch, and none of chip_smoke.py, ab_torch_kernels.py,
-ab_warp.py and ab_mesh.py, imports jax, the onnxocr_tpu package, cv2, PIL,
-fitz, fontTools or matplotlib (the machine with the GPU has none of
+ab_warp.py, ab_mesh.py and ab_batcher.py, imports jax, the onnxocr_tpu
+package or its onnxocr shim (which imports onnxocr_tpu, and so jax), cv2,
+PIL, fitz, fontTools or matplotlib (the machine with the GPU has none of
 them)."""
 import ast
 from pathlib import Path
@@ -9,11 +10,11 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "onnxocr_tpu", "cv2", "PIL", "fitz",
+FORBIDDEN = ("jax", "jaxlib", "onnxocr_tpu", "onnxocr", "cv2", "PIL", "fitz",
              "fontTools", "matplotlib")
 FILES = sorted((ROOT / "onnxocr_tpu_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "ab_torch_kernels.py",
-                             "ab_warp.py", "ab_mesh.py")]
+                             "ab_warp.py", "ab_mesh.py", "ab_batcher.py")]
 
 
 def _imported(path: Path):

@@ -126,6 +126,19 @@ def _tiff():
     return out.getvalue()
 
 
+def _webp(quality=80, alpha=False):
+    """cv2's WebP of a seeded smooth page (lossy, or lossless at 101; with
+    alpha, a VP8X file or a VP8L one with its alpha bit)."""
+    rng = np.random.default_rng(3)
+    img = cv2.GaussianBlur(rng.integers(0, 255, (48, 64, 3)).astype(
+        np.uint8), (5, 5), 0)
+    if alpha:
+        img = np.dstack([img, rng.integers(0, 256, (48, 64)).astype(
+            np.uint8)])
+    ok, buf = cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, quality])
+    return bytes(buf)
+
+
 def _ppm():
     """A binary P6 of a seeded smooth page."""
     rng = np.random.default_rng(2)
@@ -255,6 +268,11 @@ CASES = {
         data={"return_image": "true"}), None),
     "v2_netpbm_return_image": ("POST", "/api/v2/ocr", dict(
         files=[_file("a.ppm", _ppm(), "image/x-portable-pixmap")],
+        data={"return_image": "true"}), None),
+    "v1_webp_alpha": ("POST", "/ocr", dict(json_body={
+        "image": base64.b64encode(_webp(50, alpha=True)).decode()}), None),
+    "v2_webp_lossless_return_image": ("POST", "/api/v2/ocr", dict(
+        files=[_file("a.webp", _webp(101), "image/webp")],
         data={"return_image": "true"}), None),
     "health": ("GET", "/health", {}, None),
     "healthz": ("GET", "/api/v2/healthz", {}, None),

@@ -183,7 +183,22 @@
    phase_reached "done", no watchdog, all 12 corpus images, no trimmed
    corpus and a value above 0; the bench runs' kernel launches a page of
    their timed rounds come back through BENCH_LAUNCHES_OUT;
-18. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+18. runs phase EV, the corpus and eval tools (`phase_ev`): decodes the
+   five codec samples of onnxocr_tpu_torch/assets/samples/ (GIF, PAM, PFM,
+   Sun raster, HDR) against the shape and sha256 of cv2's decode recorded
+   in codec_samples.json; with a stand-in dictionary of the renderer's
+   characters and the seeded classifier, renders the corpus with
+   `python -m onnxocr_tpu_torch.tools.make_test_corpus --out` (every page
+   and gt.json), runs eval_corpus and eval_heldout --json on the card in
+   this process between LAUNCHES reads (every summary key, gt_lines > 0;
+   kernel 1's launches a page), holds the card's rows and lines on two
+   corpus pages against the CPU's (texts equal, boxes within 2 px, scores
+   within 2e-3), logs the held-out summary with evalgate into a temporary
+   ledger, runs eval_e2e --pages 2 on the card (each tool run as a
+   subprocess cut at EV_RUN_SECONDS), and replays one seed of
+   tests/goldens_torch.json at device='cpu'; the phase must end within
+   EV_SECONDS;
+19. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
@@ -197,7 +212,10 @@
    {...}, "profiling": {...}, "card": ...} (phases M and PR),
    {"synthetic_training": {...}, "card": ...} (phase SY), {"bench":
    {...}} (phase BE: the three JSON lines, kernels 1–3's launches a page,
-   the WebP decodes), {"kernels": [...]} and, last, {"ok": true, "device": {...}}; the run's seconds on a line
+   the WebP decodes), {"eval": {...}, "card": ...} (phase EV: the tools'
+   summaries, seconds a tool, pages/s, kernel 1's launches a page, the
+   gate line, the codec samples' decodes), {"kernels": [...]} and, last,
+   {"ok": true, "device": {...}}; the run's seconds on a line
    before them.
 
 Any failure raises and exits non-zero without the "ok" line. The
@@ -3588,6 +3606,217 @@ def phase_be(tmp):
             "run_seconds": seconds, "webp": webp, "seconds": total}
 
 
+# phase EV: each tool run as a subprocess is cut at EV_RUN_SECONDS and the
+# phase must end within EV_SECONDS (on an NVIDIA H100 80GB HBM3 at 700 W:
+# 2.0–12.2 s a tool, 38.3–42.6 s the phase)
+EV_RUN_SECONDS = 30
+EV_SECONDS = 90
+EV_CORPUS_PAGES = ("card.jpg", "ticket.jpg")
+EV_SUMMARY_KEYS = {
+    "eval_corpus": ("model", "gt_lines", "det_recall@iou0.3",
+                    "line_recall@0.5", "char_accuracy", "exact_match"),
+    "eval_heldout": ("model", "gt_lines", "line_recall@0.5",
+                     "char_accuracy", "exact_match", "subtotals"),
+}
+
+
+def _ev_tool(module, argv, env, cwd):
+    """`python -m module argv` with env, cut at EV_RUN_SECONDS → (stdout
+    lines, seconds); a non-zero exit fails the phase."""
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=cwd,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=EV_RUN_SECONDS)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"phase EV {module}: cut at its limit")
+    assert proc.returncode == 0, \
+        f"phase EV {module}: rc {proc.returncode}\n{stderr[-3000:]}"
+    return stdout.strip().splitlines(), time.perf_counter() - t
+
+
+def _ev_main(module, argv):
+    """module.main(argv) in this process (its kernel launches counted by
+    the caller) → (its last printed line as JSON, seconds)."""
+    import contextlib
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        module.main(argv)
+    seconds = time.perf_counter() - t
+    return json.loads(out.getvalue().strip().splitlines()[-1]), seconds
+
+
+def phase_ev(tmp):
+    """Phase EV: the codec's five new samples against cv2's recorded
+    decodes; the corpus and eval tools on the card with a stand-in
+    dictionary of the renderer's characters and the seeded classifier
+    (make_test_corpus renders the corpus; eval_corpus and eval_heldout run
+    in this process, counted; their per-line predictions on two corpus
+    pages held against the same tool on the CPU; evalgate logs into a
+    temporary ledger; eval_e2e on 2 pages); one seed of
+    tests/goldens_torch.json replayed at device='cpu'. → (the {"eval":
+    ...} summary, {"EV": launches})."""
+    import hashlib
+    import shutil
+    from pathlib import Path
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.service import engine as engine_mod
+    from onnxocr_tpu_torch.tools import (eval_corpus, eval_heldout,
+                                         make_goldens, make_test_corpus)
+    from onnxocr_tpu_torch.utils import imcodec
+    t_phase = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    samples = repo / "onnxocr_tpu_torch" / "assets" / "samples"
+    codec = {}
+    for name, want in json.loads(
+            (samples / "codec_samples.json").read_text()).items():
+        t = time.perf_counter()
+        img = imcodec.imdecode((samples / name).read_bytes())
+        ms = (time.perf_counter() - t) * 1e3
+        assert img is not None, f"{name}: not decoded"
+        assert list(img.shape) == want["shape"], (name, img.shape)
+        assert hashlib.sha256(img.tobytes()).hexdigest() == \
+            want["sha256"], f"{name}: pixels differ from cv2's"
+        codec[name] = {"shape": list(img.shape), "decode_ms": ms}
+        print(f"phase EV {name}: {img.shape} equal to cv2's decode "
+              f"({ms:.2f} ms)")
+
+    assets = os.path.join(tmp, "ev_assets")
+    make_goldens.standin_dict(os.path.join(assets, "ppocrv5",
+                                           "ppocrv5_dict.txt"))
+    extra = {"ONNXOCR_TPU_ASSETS": assets,
+             "ONNXOCR_TPU_ALLOW_UNTRAINED": "1"}
+    env = dict(os.environ, **extra)
+    saved = {k: os.environ.get(k) for k in extra}
+    os.environ.update(extra)
+    try:
+        out = os.path.join(tmp, "ev_corpus")
+        lines, corpus_s = _ev_tool("onnxocr_tpu_torch.tools.make_test_corpus",
+                                   ["--out", out], env, str(repo))
+        want = [n + ".jpg" for n, *_ in make_test_corpus.PAGES]
+        with open(os.path.join(out, "gt.json")) as f:
+            rendered = json.load(f)
+        assert sorted(rendered) == sorted(want), sorted(rendered)
+        for name, shape, *_ in make_test_corpus.PAGES:
+            page = imcodec.imdecode(Path(out, name + ".jpg").read_bytes())
+            assert page.shape == shape + (3,), (name, page.shape)
+        print(f"phase EV make_test_corpus ({corpus_s:.1f} s): "
+              f"{len(want)} pages, {sum(map(len, rendered.values()))} "
+              f"lines and gt.json under --out")
+
+        summaries, seconds, pages_run, per_tool = {}, {}, {}, {}
+        launches = {}
+        for name, module in (("eval_corpus", eval_corpus),
+                             ("eval_heldout", eval_heldout)):
+            torch.cuda.synchronize()
+            build.LAUNCHES.clear()
+            payload, seconds[name] = _ev_main(module, ["--json"])
+            torch.cuda.synchronize()
+            per_tool[name] = dict(build.LAUNCHES)
+            for k, v in per_tool[name].items():
+                launches[k] = launches.get(k, 0) + v
+            summary = payload["summary"]
+            missing = [k for k in EV_SUMMARY_KEYS[name] if k not in summary]
+            assert not missing and summary["gt_lines"] > 0, (name, summary)
+            summaries[name], pages_run[name] = payload, len(
+                payload["per_image"])
+            print(f"phase EV {name} ({seconds[name]:.1f} s, "
+                  f"{pages_run[name]} pages): {json.dumps(summary)}; "
+                  f"launches {per_tool[name]}")
+        assert launches.get("ctc_head_reduce", 0) > 0
+
+        # the card's per-line predictions against the tool on the CPU
+        two = os.path.join(tmp, "ev_two")
+        os.makedirs(two)
+        src = Path(eval_corpus.CORPUS)
+        gt = json.loads((src / "gt.json").read_text())
+        for name in EV_CORPUS_PAGES:
+            shutil.copy(src / name, two)
+        with open(os.path.join(two, "gt.json"), "w") as f:
+            json.dump({n: gt[n] for n in EV_CORPUS_PAGES}, f)
+        corpus_dir, eval_corpus.CORPUS = eval_corpus.CORPUS, two
+        try:
+            cpu_payload, _ = _ev_main(eval_corpus,
+                                      ["--json", "--device", "cpu"])
+        finally:
+            eval_corpus.CORPUS = corpus_dir
+        for name in EV_CORPUS_PAGES:
+            assert cpu_payload["per_image"][name] == \
+                summaries["eval_corpus"]["per_image"][name], name
+        held = {}
+        for device in ("cuda", "cpu"):
+            m = engine_mod.EngineManager(concurrency=1, device=device)
+            model = m.get_model("PP-OCRv5")
+            held[device] = {n: model.ocr(imcodec.imdecode(
+                (src / n).read_bytes()))[0] for n in EV_CORPUS_PAGES}
+        box_off = max(_close_results(held["cuda"][n], held["cpu"][n],
+                                     f"phase EV {n}")
+                      for n in EV_CORPUS_PAGES)
+        print(f"phase EV eval_corpus on {', '.join(EV_CORPUS_PAGES)}: the "
+              f"card's rows equal the CPU's; lines agree (boxes within "
+              f"{box_off:.2f} px)")
+
+        side = os.path.join(tmp, "ev_heldout.json")
+        with open(side, "w") as f:
+            json.dump(summaries["eval_heldout"], f)
+        ledger = os.path.join(tmp, "ev_gates.jsonl")
+        lines, seconds["evalgate"] = _ev_tool(
+            "onnxocr_tpu_torch.tools.evalgate",
+            ["log", "--name", "phase_ev", "--from-json", side,
+             "--ledger", ledger, "--decision", "pending"], env, str(repo))
+        with open(ledger) as f:
+            gate = json.loads(f.read().strip().splitlines()[-1])
+        assert gate["summary"]["gt_lines"] == \
+            summaries["eval_heldout"]["summary"]["gt_lines"] > 0, gate
+        print(f"phase EV evalgate log ({seconds['evalgate']:.1f} s): "
+              f"{json.dumps(gate)}")
+
+        lines, seconds["eval_e2e"] = _ev_tool(
+            "onnxocr_tpu_torch.tools.eval_e2e", ["--pages", "2"], env,
+            str(repo))
+        e2e = [line for line in lines if line.startswith(
+            ("det recall", "char accuracy", "box-height"))]
+        assert len([l for l in lines if l.startswith("page ")]) == 2 and \
+            len(e2e) >= 2, lines
+        print(f"phase EV eval_e2e --pages 2 ({seconds['eval_e2e']:.1f} s): "
+              + "; ".join(e2e))
+
+        goldens = json.loads(Path(make_goldens.GOLDEN_PATH).read_text(
+            encoding="utf-8"))
+        t = time.perf_counter()
+        bad = make_goldens.replay(goldens, "100", device="cpu")
+        seconds["goldens"] = time.perf_counter() - t
+        assert not bad, bad
+        print(f"phase EV goldens seed 100 at device='cpu' "
+              f"({seconds['goldens']:.1f} s): "
+              f"{len(goldens['pages']['100']['results'])} lines reproduce")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    total = time.perf_counter() - t_phase
+    print(f"phase EV {total:.1f} s")
+    assert total <= EV_SECONDS, f"phase EV took {total:.1f} s"
+    heads = {name: per_tool[name].get("ctc_head_reduce", 0) /
+             pages_run[name] for name in per_tool}
+    return {"codec_samples": codec,
+            "summaries": {k: v["summary"] for k, v in summaries.items()},
+            "seconds": dict(seconds, make_test_corpus=corpus_s),
+            "pages_per_s_with_setup": {k: pages_run[k] / seconds[k]
+                                       for k in pages_run},
+            "ctc_head_launches_per_page": heads,
+            "launches": per_tool, "gate": gate, "eval_e2e": e2e,
+            "phase_seconds": total}, {"EV": launches}
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -3787,6 +4016,8 @@ def main() -> int:
         synthetic, sy_runs = phase_sy(pages, tmp)
         runs.update(sy_runs)
         bench_summary = phase_be(tmp)
+        eval_summary, ev_runs = phase_ev(tmp)
+        runs.update(ev_runs)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -3815,6 +4046,7 @@ def main() -> int:
                       "card": smi}))
     print(json.dumps({"synthetic_training": synthetic, "card": smi}))
     print(json.dumps({"bench": bench_summary, "card": smi}))
+    print(json.dumps({"eval": eval_summary, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 
 Own copy of the flag table of onnxocr_tpu/config.py (the reference kwargs
 surface of ONNXPaddleOcr, plus the engine's `tpu_*` knobs). Every flag of
-the JAX package's table is in `DEFAULTS`, or in `INERT_FLAGS` (read by no
+the JAX package's table is in `DEFAULTS`, or in `INERT_DEFAULTS` (read by no
 path of either package), and every value the JAX package runs, the port
 runs. Unknown keys are accepted and stored, as in the reference.
 Every default is the JAX package's (tests/test_torch_onecall.py
@@ -166,23 +166,38 @@ DEFAULTS = {
 
 # The reference's kwargs surface that no path of either package reads (the
 # EAST / SAST / PSE / FCE / SR / e2e / multi-process groups, the Paddle
-# inference engine's settings and output dirs): accepted and stored when
-# passed, as by the JAX package, and read by nothing.
-INERT_FLAGS = frozenset((
-    "use_gpu", "use_xpu", "use_npu", "ir_optim", "use_tensorrt",
-    "min_subgraph_size", "precision", "gpu_mem", "gpu_id", "image_dir",
-    "page_num", "det_algorithm", "max_batch_size",
-    "det_east_score_thresh", "det_east_cover_thresh", "det_east_nms_thresh",
-    "det_sast_score_thresh", "det_sast_nms_thresh", "det_pse_thresh",
-    "det_pse_box_thresh", "det_pse_min_area", "det_pse_scale", "scales",
-    "alpha", "beta", "fourier_degree", "rec_image_inverse", "rec_batch_num",
-    "max_text_length", "vis_font_path", "e2e_algorithm", "e2e_model_dir",
-    "e2e_limit_side_len", "e2e_limit_type", "e2e_pgnet_score_thresh",
-    "e2e_char_dict_path", "e2e_pgnet_valid_set", "e2e_pgnet_mode",
-    "enable_mkldnn", "cpu_threads", "use_pdserving", "warmup",
-    "sr_model_dir", "sr_image_shape", "sr_batch_num", "draw_img_save_dir",
-    "use_mp", "total_process_num", "process_id", "benchmark",
-    "save_log_path", "show_log", "use_onnx"))
+# inference engine's settings and output dirs) with the JAX package's
+# defaults: accepted and stored when passed, as by the JAX package, and
+# read by nothing but the reference-layout parser (`onnxocr/utils.
+# infer_args`). The two output dirs are this package's, as
+# crop_res_save_dir is.
+INERT_DEFAULTS = {
+    "use_gpu": True, "use_xpu": False, "use_npu": False, "ir_optim": True,
+    "use_tensorrt": False, "min_subgraph_size": 15, "precision": "fp32",
+    "gpu_mem": 500, "gpu_id": 0, "image_dir": None, "page_num": 0,
+    "det_algorithm": "DB", "max_batch_size": 10,
+    "det_east_score_thresh": 0.8, "det_east_cover_thresh": 0.1,
+    "det_east_nms_thresh": 0.2, "det_sast_score_thresh": 0.5,
+    "det_sast_nms_thresh": 0.2, "det_pse_thresh": 0.0,
+    "det_pse_box_thresh": 0.85, "det_pse_min_area": 16.0,
+    "det_pse_scale": 1, "scales": [8, 16, 32], "alpha": 1.0, "beta": 1.0,
+    "fourier_degree": 5, "rec_image_inverse": True, "rec_batch_num": 6,
+    "max_text_length": 25, "vis_font_path": find_asset("fonts/simfang.ttf"),
+    "e2e_algorithm": "PGNet", "e2e_model_dir": None,
+    "e2e_limit_side_len": 768.0, "e2e_limit_type": "max",
+    "e2e_pgnet_score_thresh": 0.5,
+    "e2e_char_dict_path": find_asset("ic15_dict.txt"),
+    "e2e_pgnet_valid_set": "totaltext", "e2e_pgnet_mode": "fast",
+    "enable_mkldnn": False, "cpu_threads": 10, "use_pdserving": False,
+    "warmup": False, "sr_model_dir": None, "sr_image_shape": "3, 32, 128",
+    "sr_batch_num": 1,
+    "draw_img_save_dir": str(_REPO / "onnxocr_tpu_torch" /
+                             "inference_results"),
+    "use_mp": False, "total_process_num": 1, "process_id": 0,
+    "benchmark": False,
+    "save_log_path": str(_REPO / "onnxocr_tpu_torch" / "log_output"),
+    "show_log": True, "use_onnx": False,
+}
 
 # flags whose every value gives the same results, with the reason
 LAYOUT_ONLY = {

@@ -30,16 +30,24 @@
 //   YCbCr, h2v2 downsampling, "islow" forward DCT, reciprocal
 //   quantization and the standard Huffman tables.
 // * WebP decoder (lossy, lossless, alpha, an animation's first frame): see
-//   its section at the end.
+//   its section.
+// * GIF decoder (cv2 5.0's GifDecoder: the block walk, LZW, the first frame
+//   on the logical screen) and Radiance HDR decoder (rgbe.c's header and
+//   RLE scanlines, cv2's float -> 8-bit conversion), and PFM's header
+//   words: see their sections at the end.
 //
 // Built at first use by ops/native.py: g++ -std=c++17 -shared -fPIC -O2
 
 #include <algorithm>
+#include <cctype>
+#include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <string>
 #include <vector>
 
 namespace {
@@ -3894,6 +3902,444 @@ int ocr_webp_decode(const uint8_t* buf, long long n, int h, int w,
                           out + size_t(f.y) * stride + size_t(f.x) * 3, stride)
              ? 0
              : -1;
+} catch (...) {
+  return -1;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------- GIF
+// cv2 5.0's GifDecoder at IMREAD_COLOR: the file's block structure is
+// walked to its trailer first (a truncated file, or a byte that starts no
+// block, gives None); then the first frame is decoded onto the logical
+// screen. The screen starts as the global table's background colour, or
+// black without a global table; pixels of the transparent index keep it.
+// An index indexes the global table overwritten by the frame's local one
+// and must lie inside the larger of the two; with neither table, index i
+// is grey i but 1, which is white (cv2's default table). The LZW stream
+// must give the frame's pixels and no more, with codes of 3 to 12 bits.
+namespace {
+namespace gf {
+
+// Bytes read past the end read as 0 and set `bad`, which every loop checks.
+struct Reader {
+  const uint8_t* b;
+  size_t n, pos;
+  bool bad = false;
+  int byte() {
+    if (pos >= n) {
+      bad = true;
+      return 0;
+    }
+    return b[pos++];
+  }
+  int word() {
+    int lo = byte();
+    return lo | (byte() << 8);
+  }
+  void skip(size_t k) {
+    if (k > n - std::min(pos, n)) {
+      bad = true;
+      pos = n;
+      return;
+    }
+    pos += k;
+  }
+  void skip_blocks() {  // data sub-blocks up to their terminator
+    for (int len = byte(); len && !bad; len = byte()) skip(size_t(len));
+  }
+};
+
+// An extension block after its label. An application extension other than
+// NETSCAPE2.0 is skipped to its first zero byte, counting from the block
+// size byte when that is not 11, and one of block size 3 fails (cv2's
+// getFrameCount_); the others are skipped by their sub-blocks.
+void skip_extension(Reader& r, int label) {
+  if (label == 0xFF) {
+    int len = r.byte();
+    if (len == 3) r.bad = true;
+    if (len == 11) {
+      char id[11];
+      for (char& c : id) c = char(r.byte());
+      if (!std::memcmp(id, "NETSCAPE2.0", 11)) {
+        r.skip_blocks();
+        return;
+      }
+    }
+    while (len && !r.bad) len = r.byte();
+    return;
+  }
+  r.skip_blocks();
+}
+
+struct Screen {
+  int w = 0, h = 0, bg = 0, gct_size = 0;
+  uint8_t gct[256 * 3] = {};
+  size_t body = 0;  // first byte after the global table
+};
+
+// The header and the global table; then every block up to the trailer, as
+// cv2's readHeader / getFrameCount_ walk them. → false where cv2 fails.
+bool read_screen(Reader& r, Screen& s) {
+  if (r.n < 6 ||
+      (std::memcmp(r.b, "GIF87a", 6) && std::memcmp(r.b, "GIF89a", 6)))
+    return false;
+  r.pos = 6;
+  s.w = r.word();
+  s.h = r.word();
+  const int flags = r.byte();
+  s.bg = r.byte();
+  r.skip(1);
+  if (r.bad || s.w <= 0 || s.h <= 0) return false;
+  if (flags & 0x80) {
+    s.gct_size = 1 << ((flags & 7) + 1);
+    for (int i = 0; i < 3 * s.gct_size; ++i) s.gct[i] = uint8_t(r.byte());
+    if (s.bg >= s.gct_size) return false;
+  }
+  s.body = r.pos;
+  for (int type = r.byte(); !r.bad && type != 0x3B; type = r.byte()) {
+    if (type == 0x21) {
+      skip_extension(r, r.byte());
+    } else if (type == 0x2C) {
+      r.skip(8);
+      const int f = r.byte();
+      if (f & 0x80) r.skip(3 * (size_t(1) << ((f & 7) + 1)));
+      r.skip(1);
+      r.skip_blocks();
+    } else {
+      return false;
+    }
+  }
+  return !r.bad;
+}
+
+// GIF's LZW into idx (n indices), as cv2's lzwDecode reads it: a byte at a
+// time when the bits in hand do not make a code, every code those bits make
+// decoded at once. An end-of-information code resets the code size and the
+// table and decoding goes on. Before the frame is full a code must be in
+// the table and its string must fit; once it is full, codes are counted
+// and not checked, and reading another byte after one of them fails. →
+// false where cv2 refuses the stream.
+bool lzw(Reader& r, int min_size, uint8_t* idx, size_t n) {
+  if (min_size < 2 || min_size > 11) return false;
+  const int clear = 1 << min_size, eoi = clear + 1;
+  std::vector<uint16_t> prefix(4096);
+  std::vector<uint8_t> suffix(4096), first(4096), stack(4097);
+  for (int c = 0; c < clear; ++c) suffix[c] = first[c] = uint8_t(c);
+  int size = min_size + 1, next = eoi + 1, prev = -1;
+  uint32_t bits = 0;
+  int nbits = 0;
+  size_t out = 0;
+  for (int len = r.byte(); len && !r.bad;) {
+    if (out > n) return false;
+    if (nbits < size) {
+      bits |= uint32_t(r.byte()) << nbits;
+      nbits += 8;
+      --len;
+    }
+    while (nbits >= size) {
+      const int code = int(bits & ((1u << size) - 1));
+      bits >>= size;
+      nbits -= size;
+      if (code == clear || code == eoi) {
+        size = min_size + 1;
+        next = eoi + 1;
+        prev = -1;
+        if (code == eoi) break;
+        continue;
+      }
+      if (out >= n) {  // past the frame: counted, not checked
+        ++out;
+        continue;
+      }
+      if (code > next || (code == next && prev < 0)) return false;
+      int c = code, top = 0;
+      if (code == next) {  // KwKwK: the previous string and its first
+        stack[top++] = first[prev];
+        c = prev;
+      }
+      while (c >= clear) {
+        stack[top++] = suffix[c];
+        c = prefix[c];
+      }
+      stack[top++] = uint8_t(c);
+      if (size_t(top) > n - out) return false;
+      while (top) idx[out++] = stack[--top];
+      if (prev >= 0 && next < 4096) {
+        prefix[next] = uint16_t(prev);
+        suffix[next] = uint8_t(c);
+        first[next] = first[prev];
+        if (++next == (1 << size) && size < 12) ++size;
+      }
+      prev = code;
+    }
+    if (!len) len = r.byte();
+  }
+  return !r.bad && out >= n;
+}
+
+// The first frame onto the (s.h x s.w) screen, BGR. → false where cv2
+// gives None.
+bool first_frame(Reader& r, const Screen& s, uint8_t* out) {
+  r.pos = s.body;
+  bool has_transparent = false;
+  int transparent = 0, disposal = 0;
+  int type = r.byte();
+  for (; type == 0x21 && !r.bad; type = r.byte()) {
+    const int label = r.byte();
+    if (label != 0xF9) {
+      skip_extension(r, label);
+      continue;
+    }
+    if (r.byte() != 4) return false;
+    const int f = r.byte();
+    r.skip(2);
+    transparent = r.byte();
+    disposal = (f >> 2) & 7;
+    has_transparent = f & 1;
+    r.skip_blocks();
+  }
+  if (r.bad || type != 0x2C || disposal > 3) return false;
+  const int left = r.word(), top = r.word(), w = r.word(), h = r.word();
+  if (r.bad || w <= 0 || h <= 0 || left + w > s.w || top + h > s.h)
+    return false;
+  const size_t stride = size_t(s.w) * 3;
+  uint8_t bg[3] = {0, 0, 0};
+  if (s.gct_size)
+    for (int k = 0; k < 3; ++k) bg[k] = s.gct[s.bg * 3 + 2 - k];
+  for (size_t i = 0; i < size_t(s.w) * s.h; ++i)
+    std::memcpy(out + i * 3, bg, 3);
+  uint8_t table[256 * 3];
+  int limit = s.gct_size;
+  if (s.gct_size) {
+    std::memcpy(table, s.gct, sizeof table);
+  } else {
+    for (int i = 0; i < 256; ++i)
+      std::memset(table + 3 * i, i == 1 ? 255 : i, 3);
+  }
+  const int flags = r.byte();
+  if (flags & 0x80) {
+    const int lct = 1 << ((flags & 7) + 1);
+    for (int i = 0; i < 3 * lct; ++i) table[i] = uint8_t(r.byte());
+    limit = std::max(limit, lct);
+  }
+  if (r.bad) return false;
+  if (!limit) limit = 256;
+  std::vector<uint8_t> idx(size_t(w) * h);
+  if (!lzw(r, r.byte(), idx.data(), idx.size())) return false;
+  std::vector<int> rows(h);
+  if (flags & 0x40) {  // interlaced: 0, 8, ..; 4, 12, ..; 2, 6, ..; 1, 3, ..
+    int k = 0;
+    for (int pass = 0; pass < 4; ++pass)
+      for (int y = (pass ? 8 >> pass : 0); y < h; y += (pass ? 16 >> pass : 8))
+        rows[k++] = y;
+  } else {
+    for (int y = 0; y < h; ++y) rows[y] = y;
+  }
+  for (int k = 0; k < h; ++k) {
+    const uint8_t* src = idx.data() + size_t(k) * w;
+    uint8_t* dst = out + size_t(top + rows[k]) * stride + size_t(left) * 3;
+    for (int x = 0; x < w; ++x, dst += 3) {
+      const int v = src[x];
+      if (has_transparent && v == transparent) continue;
+      if (v >= limit) return false;
+      dst[0] = table[3 * v + 2];
+      dst[1] = table[3 * v + 1];
+      dst[2] = table[3 * v];
+    }
+  }
+  return true;
+}
+
+}  // namespace gf
+
+// ----------------------------------------------------------- Radiance HDR
+// cv2 5.0's HdrDecoder (Greg Ward's rgbe.c, read through a temporary file)
+// at IMREAD_COLOR: the header lines as fgets reads them into a 128-byte
+// buffer, FORMAT=32-bit_rle_rgbe, a blank line, "-Y h +X w"; flat RGBE
+// pixels, or new-style RLE scanlines when 8 <= w <= 32767 (a scanline
+// that does not start 2 2 turns the rest of the image flat); each pixel
+// r, g, b times 2^(e - 136) in float, then convertTo(CV_8U, 255): the
+// product rounded to nearest even and saturated, where cvRound's overflow
+// (|v| >= 2^31, NaN) gives INT_MIN and so 0.
+namespace hd {
+
+bool fgets128(const uint8_t* b, size_t n, size_t& pos, char* line) {
+  if (pos >= n) return false;
+  int k = 0;
+  while (k < 127 && pos < n) {
+    const char c = char(b[pos++]);
+    line[k++] = c;
+    if (c == '\n') break;
+  }
+  line[k] = 0;
+  return true;
+}
+
+bool header(const uint8_t* b, size_t n, size_t& pos, int* w, int* h) {
+  char line[128];
+  pos = 0;
+  if (!fgets128(b, n, pos, line)) return false;
+  for (;;) {
+    if (line[0] == 0 || line[0] == '\n') return false;
+    if (std::strcmp(line, "FORMAT=32-bit_rle_rgbe\n") == 0) break;
+    if (!fgets128(b, n, pos, line)) return false;
+  }
+  if (!fgets128(b, n, pos, line) || std::strcmp(line, "\n") != 0) return false;
+  if (!fgets128(b, n, pos, line)) return false;
+  int hh = 0, ww = 0;
+  if (std::sscanf(line, "-Y %d +X %d", &hh, &ww) < 2) return false;
+  *w = ww;
+  *h = hh;
+  return true;
+}
+
+inline uint8_t to_u8(float v) {
+  const float t = v * 255.0f;
+  if (!(t > -2147483648.0f && t < 2147483648.0f)) return 0;
+  const float r = std::nearbyint(t);
+  return uint8_t(r < 0.0f ? 0.0f : (r > 255.0f ? 255.0f : r));
+}
+
+inline void put(const uint8_t* rgbe, uint8_t* bgr) {
+  if (!rgbe[3]) {
+    bgr[0] = bgr[1] = bgr[2] = 0;
+    return;
+  }
+  const float f = float(std::ldexp(1.0, int(rgbe[3]) - (128 + 8)));
+  bgr[0] = to_u8(float(rgbe[2]) * f);
+  bgr[1] = to_u8(float(rgbe[1]) * f);
+  bgr[2] = to_u8(float(rgbe[0]) * f);
+}
+
+bool flat(const uint8_t* b, size_t n, size_t& pos, uint8_t* out, size_t count) {
+  if (count > (n - pos) / 4) return false;
+  for (size_t i = 0; i < count; ++i, pos += 4, out += 3) put(b + pos, out);
+  return true;
+}
+
+bool pixels(const uint8_t* b, size_t n, size_t pos, int w, int h,
+            uint8_t* out) {
+  if (w < 8 || w > 0x7fff) return flat(b, n, pos, out, size_t(w) * h);
+  std::vector<uint8_t> line(size_t(w) * 4);
+  for (int y = 0; y < h; ++y) {
+    if (n - pos < 4) return false;
+    const uint8_t* px = b + pos;
+    pos += 4;
+    if (px[0] != 2 || px[1] != 2 || (px[2] & 0x80)) {
+      put(px, out);
+      return flat(b, n, pos, out + 3, size_t(w) * (h - y) - 1);
+    }
+    if (((int(px[2]) << 8) | px[3]) != w) return false;
+    for (int c = 0; c < 4; ++c) {
+      uint8_t* p = line.data() + size_t(c) * w;
+      uint8_t* end = p + w;
+      while (p < end) {
+        if (n - pos < 2) return false;
+        int count = b[pos];
+        const uint8_t v = b[pos + 1];
+        pos += 2;
+        if (count > 128) {
+          count -= 128;
+          if (count > end - p) return false;
+          std::memset(p, v, size_t(count));
+          p += count;
+        } else {
+          if (count == 0 || count > end - p) return false;
+          *p++ = v;
+          if (--count > 0) {
+            if (n - pos < size_t(count)) return false;
+            std::memcpy(p, b + pos, size_t(count));
+            p += count;
+            pos += size_t(count);
+          }
+        }
+      }
+    }
+    for (int x = 0; x < w; ++x, out += 3) {
+      const uint8_t q[4] = {line[x], line[x + w], line[x + 2 * size_t(w)],
+                            line[x + 3 * size_t(w)]};
+      put(q, out);
+    }
+  }
+  return true;
+}
+
+}  // namespace hd
+}  // namespace
+
+extern "C" {
+
+// The header of a PFM as cv2 5.0's PFMDecoder reads it: "P", "F" or "f", a
+// line feed, then three words, each up to the next white-space byte (a
+// byte >= 128 fails), read by atoi, atoi and atof. → 0 with the offset of
+// the samples in pos, or -1 where cv2 gives None.
+int ocr_pfm_header(const uint8_t* buf, long long n, int* w, int* h,
+                   double* scale, long long* pos) try {
+  if (n < 3 || buf[0] != 'P' || (buf[1] != 'f' && buf[1] != 'F') ||
+      buf[2] != '\n')
+    return -1;
+  long long p = 3;
+  std::string words[3];
+  for (auto& word : words) {
+    for (int i = 0; i < 2048; ++i) {
+      if (p >= n || buf[p] >= 128) return -1;
+      const char c = char(buf[p++]);
+      if (std::isspace(static_cast<unsigned char>(c))) break;
+      word.push_back(c);
+    }
+  }
+  *w = std::atoi(words[0].c_str());
+  *h = std::atoi(words[1].c_str());
+  *scale = std::atof(words[2].c_str());
+  *pos = p;
+  return 0;
+} catch (...) {
+  return -1;
+}
+
+// The logical screen of a GIF cv2 reads (every block walked to the
+// trailer) into w, h. → 0, or -1 where cv2 gives None.
+int ocr_gif_info(const uint8_t* buf, long long n, int* w, int* h) try {
+  gf::Reader r{buf, size_t(n), 0};
+  gf::Screen s;
+  if (!gf::read_screen(r, s)) return -1;
+  *w = s.w;
+  *h = s.h;
+  return 0;
+} catch (...) {
+  return -1;
+}
+
+// The first frame of the GIF ocr_gif_info sized (h x w) on its screen, into
+// out (h * w * 3 BGR). → 0, or -1 where cv2 gives None.
+int ocr_gif_decode(const uint8_t* buf, long long n, int h, int w,
+                   uint8_t* out) try {
+  gf::Reader r{buf, size_t(n), 0};
+  gf::Screen s;
+  if (!gf::read_screen(r, s) || s.w != w || s.h != h) return -1;
+  return gf::first_frame(r, s, out) ? 0 : -1;
+} catch (...) {
+  return -1;
+}
+
+// The size of a Radiance HDR cv2 reads into w, h and the offset of its
+// pixels into pos. → 0, or -1 where cv2 gives None.
+int ocr_hdr_info(const uint8_t* buf, long long n, int* w, int* h,
+                 long long* pos) try {
+  size_t p = 0;
+  if (!hd::header(buf, size_t(n), p, w, h)) return -1;
+  *pos = (long long)p;
+  return 0;
+} catch (...) {
+  return -1;
+}
+
+// The (h x w) pixels of a Radiance HDR from pos into out (h * w * 3 BGR).
+// → 0, or -1 where cv2 gives None.
+int ocr_hdr_decode(const uint8_t* buf, long long n, long long pos, int h,
+                   int w, uint8_t* out) try {
+  return hd::pixels(buf, size_t(n), size_t(pos), w, h, out) ? 0 : -1;
 } catch (...) {
   return -1;
 }

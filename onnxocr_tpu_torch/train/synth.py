@@ -21,7 +21,7 @@ harvests it, so both differ from machine to machine.
 from __future__ import annotations
 
 import string
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -164,7 +164,8 @@ class TextRenderer:
                  char_to_idx: Optional[Dict[str, int]] = None,
                  seed: int = 0, ascii_bias: float = 0.5,
                  structured_frac: float = 0.0, lowres_frac: float = 0.0,
-                 photo_frac: float = 0.0, dotmatrix_frac: float = 0.0):
+                 photo_frac: float = 0.0, dotmatrix_frac: float = 0.0,
+                 fonts: Optional[Sequence[str]] = None):
         if charset is None:
             charset = ("".join(char_to_idx) if char_to_idx is not None
                        else DEFAULT_CHARSET)
@@ -183,7 +184,7 @@ class TextRenderer:
         self._font_core: Dict[Tuple[str, int], list] = {}
         core = set(DEFAULT_CHARSET)
         covered = set()
-        for path in FONTS:
+        for path in (FONTS if fonts is None else fonts):
             cps = _font_coverage(path)
             chars = [c for c in pool if ord(c) in cps or c == " "]
             if not chars:

@@ -10,27 +10,37 @@ palettes, RLE8 and RLE4, 16-bit 5-5-5 and 5-6-5, 24- and 32-bit with or
 without bit-field masks, bottom-up and top-down, the OS/2 core header too),
 baseline TIFF (the first IFD: none, PackBits, LZW, Deflate; predictor 2;
 strips, tiles, planar; 1, 8, 16 bits; grey, RGB(A), palette; the
-Orientation tag), Netpbm P1–P6 and WebP (lossy VP8, lossless VP8L, the
-VP8X container with alpha, which is dropped; an animation's first frame on
-its zeroed canvas, as cv2 5.0 returns it) into (H, W, 3) uint8 BGR, and
-gives None where cv2 gives None: bytes of another format (JPEG 2000, GIF,
-...),
+Orientation tag), Netpbm P1–P6, PAM (P7: BLACKANDWHITE, GRAYSCALE, RGB and
+their _ALPHA forms cv2 knows, 8 and 16 bits), PFM (either byte order,
+bottom-up rows), GIF (LZW, global and local tables, interlace; an
+animation's first frame on the logical screen, transparency kept as the
+background shows through), Sun raster (depths 1, 8, 24, 32, the colour
+map) and Radiance HDR (flat and RLE RGBE) and WebP (lossy VP8, lossless
+VP8L, the VP8X container with alpha, which is dropped; an animation's first
+frame on its zeroed canvas, as cv2 5.0 returns it) into (H, W, 3) uint8
+BGR — a grey PFM ("Pf") into (H, W), as cv2 gives it — and gives None
+where cv2 gives None: bytes of another format (JPEG 2000, AVIF, ...),
 arithmetic-coded, 12-bit or lossless JPEGs, BMPs and TIFFs cv2 reads that
 this reader does not (other 16-bit masks, other compressions, CMYK, YCbCr,
-JPEG-in-TIFF), truncated or corrupt files, and sides longer than libpng or
+JPEG-in-TIFF), the Sun raster types cv2 5.0 refuses itself (byte-encoded,
+RGB-format), truncated or corrupt files, and sides longer than libpng or
 libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
 PIL's `Image.open(...).convert('RGB')`: the stored orientation, and
 Adobe's inverted CMYK through Pillow's cmyk2rgb. As IMREAD_COLOR does, it
-drops alpha, replicates grey, reduces 16-bit samples to their high byte and
-applies the EXIF orientation (a JPEG's APP1, a PNG's eXIf chunk).
+drops alpha, replicates grey, reduces 16-bit samples to their high byte,
+converts float samples by cvRound and saturation, and applies the EXIF
+orientation (a JPEG's APP1, a PNG's eXIf chunk).
 
 The pixel work is C++ (`csrc/host/imcodec.cc`: PNG unfiltering, the JPEG
 decoder and encoder, written to compute what libjpeg-turbo computes at
-cv2's settings, TIFF's LZW and PackBits, Netpbm's ASCII numbers, the WebP
-decoder, written to compute what libwebp computes), built with g++ at
-first use into `build/host/` like the DB
-postprocess library (`ops/native.py`); zlib inflates PNG streams. There is
-no fallback: where the library cannot be built, every call raises.
+cv2's settings, TIFF's LZW and PackBits, Netpbm's ASCII numbers and PFM's
+header words, the GIF decoder and the Radiance HDR decoder, written to
+compute what cv2 5.0's own decoders compute, the WebP decoder, written to
+compute what libwebp computes), built with g++ at first use into
+`build/host/` like the DB postprocess library (`ops/native.py`); zlib
+inflates PNG streams, and numpy lays out the samples of the uncompressed
+formats (BMP, TIFF strips, Netpbm, PAM, PFM, Sun raster). There is no
+fallback: where the library cannot be built, every call raises.
 """
 from __future__ import annotations
 
@@ -78,6 +88,18 @@ _SIGNATURES = {
     "ocr_webp_decode": (ctypes.c_int, [
         _U8P, _LL, ctypes.c_int, ctypes.c_int,     # buf, bytes, h, w
         _U8P]),                                    # out BGR
+    "ocr_gif_info": (ctypes.c_int, [_U8P, _LL, _IP, _IP]),   # buf, bytes, w, h
+    "ocr_gif_decode": (ctypes.c_int, [
+        _U8P, _LL, ctypes.c_int, ctypes.c_int,     # buf, bytes, h, w
+        _U8P]),                                    # out BGR
+    "ocr_pfm_header": (ctypes.c_int, [               # buf, bytes, w, h,
+        _U8P, _LL, _IP, _IP, ctypes.POINTER(ctypes.c_double),  # scale,
+        ctypes.POINTER(_LL)]),                                  # pos
+    "ocr_hdr_info": (ctypes.c_int, [                 # buf, bytes, w, h, pos
+        _U8P, _LL, _IP, _IP, ctypes.POINTER(_LL)]),
+    "ocr_hdr_decode": (ctypes.c_int, [
+        _U8P, _LL, _LL, ctypes.c_int, ctypes.c_int,  # buf, bytes, pos, h, w
+        _U8P]),                                      # out BGR
 }
 
 # Sizes are checked before anything is allocated. libpng and libjpeg refuse
@@ -809,6 +831,249 @@ def _check_size(fmt: str, w: int, h: int) -> None:
                          f"reads (validateInputImageSize)")
 
 
+def _check_positive(w: int, h: int) -> None:
+    """cv2's validateInputImageSize asserts a positive size: it raises."""
+    if w <= 0 or h <= 0:
+        raise ValueError(f"a {w} x {h} image (cv2.imdecode asserts a "
+                         f"positive size)")
+    _check_size("", w, h)
+
+
+def _gif(buf: bytes) -> np.ndarray:
+    """cv2's GifDecoder: the first frame on the logical screen (C++)."""
+    data = np.frombuffer(buf, np.uint8)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    codec = lib()
+    if codec.ocr_gif_info(_ptr(data), data.size, ctypes.byref(w),
+                          ctypes.byref(h)) != 0:
+        raise _Unreadable("GIF: not a GIF cv2 reads")
+    _check_size("gif", w.value, h.value)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if codec.ocr_gif_decode(_ptr(data), data.size, h.value, w.value,
+                            _ptr(out)) != 0:
+        raise _Unreadable("GIF: first frame not decoded")
+    return out
+
+
+# cv2's PAM tuple types (grfmt_pam.cpp `formats`) → the channels each needs
+_PAM_TUPLTYPES = {b"": None, b"BLACKANDWHITE": 1, b"GRAYSCALE": 1,
+                  b"GRAYSCALE_ALPHA": 2, b"RGB": 3, b"RGB_ALPHA": 4}
+_PAM_FIELDS = (b"ENDHDR", b"HEIGHT", b"WIDTH", b"DEPTH", b"MAXVAL",
+               b"TUPLTYPE")
+
+
+def _pam_line(buf: bytes, pos: int):
+    """One header line as cv2's ReadPAMHeaderLine reads it → (field or
+    None for a comment, value, next position)."""
+    def get(i):
+        if i >= len(buf):
+            raise _Unreadable("PAM: short header")
+        return buf[i]
+    c = get(pos)
+    while c in _SPACE:
+        pos += 1
+        c = get(pos)
+    if c == 35:                                       # '#'
+        while c not in (10, 13):
+            pos += 1
+            c = get(pos)
+        return None, b"", pos + 1
+    start = pos
+    while pos - start < 8 and c not in _SPACE:
+        pos += 1
+        c = get(pos)
+    if c not in _SPACE:
+        raise _Unreadable("PAM: identifier too long")
+    field = buf[start:pos].split(b"\0", 1)[0]       # C strings
+    if field not in _PAM_FIELDS:
+        raise _Unreadable("PAM: unknown field")
+    pos += 1
+    if c in (10, 13):
+        return field, b"", pos
+    c = get(pos)
+    while c in _SPACE:
+        pos += 1
+        c = get(pos)
+    start = pos
+    while pos - start < 255 and c not in (10, 13):
+        pos += 1
+        c = get(pos)
+    if c not in (10, 13):
+        raise _Unreadable("PAM: value too long")
+    return field, buf[start:pos].rstrip(_SPACE).split(b"\0", 1)[0], pos + 1
+
+
+def _pam_int(value: bytes) -> int:
+    """cv2's ParseInt: an optional '-' and digits, nothing else."""
+    neg = value[:1] == b"-"
+    digits = value[1:] if neg else value
+    if (neg and not digits[:1].isdigit()) or (digits and not digits.isdigit()):
+        raise _Unreadable("PAM: not a number")
+    v = int(digits or b"0")
+    if v >= 0x7FFFFFFF:
+        raise _Unreadable("PAM: number too large")
+    return -v if neg else v
+
+
+def _pam(buf: bytes) -> np.ndarray:
+    """cv2's PAMDecoder at IMREAD_COLOR. Samples are taken as they are (no
+    maxval scaling; 16-bit ones big-endian, their high byte). Three
+    channels are copied in file order; one is replicated; MAXVAL 1 reads
+    each row's first bytes as packed bits, 1 white (cv2's FillColorRow1);
+    GRAYSCALE_ALPHA and RGB_ALPHA convert only the first ceil(w / depth)
+    pixels of a row (the bound of cv2's basic_conversion is the width in
+    samples), RGB_ALPHA to BGR. cv2 leaves the rest of such a row
+    unwritten; here it is 0."""
+    if buf[2] not in (10, 13):
+        raise _Unreadable("PAM: bad magic")
+    pos, seen, tupl = 3, {}, None
+    while True:
+        field, value, pos = _pam_line(buf, pos)
+        if field is None:
+            continue
+        if field == b"ENDHDR":
+            break
+        if field == b"TUPLTYPE":
+            if value not in _PAM_TUPLTYPES:
+                raise _Unreadable("PAM: unknown TUPLTYPE")
+            tupl = value
+            continue
+        if field in seen:
+            raise _Unreadable("PAM: repeated field")
+        seen[field] = _pam_int(value)
+        if field == b"MAXVAL" and seen[field] > 65535:
+            raise _Unreadable("PAM: MAXVAL > 65535")
+    if len(seen) != 4:
+        raise _Unreadable("PAM: missing field")
+    w, h = seen[b"WIDTH"], seen[b"HEIGHT"]
+    ch, maxval = seen[b"DEPTH"], seen[b"MAXVAL"]
+    if tupl in (None, b""):
+        if ch == 1 and maxval < 256:
+            tupl = b"BLACKANDWHITE" if maxval == 1 else b"GRAYSCALE"
+        elif ch == 3 and maxval < 256:
+            tupl = b"RGB"
+        else:
+            raise _Unreadable("PAM: no TUPLTYPE for this DEPTH and MAXVAL")
+    if ch != _PAM_TUPLTYPES[tupl] or not 1 <= ch <= 512:
+        raise _Unreadable("PAM: DEPTH does not fit the TUPLTYPE")
+    _check_positive(w, h)
+    size = 2 if maxval > 255 else 1
+    row = w * ch * size
+    if pos + row * h > len(buf):
+        raise _Unreadable("PAM: short data")
+    rows = np.frombuffer(buf, np.uint8, row * h, pos).reshape(h, row)
+    if maxval == 1:
+        bits = np.unpackbits(rows[:, :(w + 7) // 8], axis=1)[:, :w]
+        return np.repeat((bits * np.uint8(255))[:, :, None], 3, axis=2)
+    px = rows.view(">u2").astype(np.uint16) >> 8 if size == 2 else rows
+    px = px.astype(np.uint8).reshape(h, w, ch)
+    if ch == 3:
+        return np.ascontiguousarray(px)
+    out = np.zeros((h, w, 3), np.uint8)
+    n = -(-w // ch)
+    first = px.reshape(h, w * ch)[:, :n * ch].reshape(h, n, ch)
+    out[:, :n] = first[:, :, 2::-1] if ch == 4 else first[:, :, :1]
+    return out
+
+
+def _pfm(buf: bytes) -> np.ndarray:
+    """cv2's PFMDecoder at IMREAD_COLOR: rows bottom-up, little-endian for
+    a negative scale, divided by |scale| in float, then convertTo(CV_8U)
+    (nearest even, saturated; NaN and |v| >= 2^31 give 0). "PF" gives BGR;
+    "Pf" gives an (H, W) image, as cv2 does."""
+    data = np.frombuffer(buf, np.uint8)
+    w, h = ctypes.c_int(), ctypes.c_int()
+    scale, pos = ctypes.c_double(), _LL()
+    if lib().ocr_pfm_header(_ptr(data), data.size, ctypes.byref(w),
+                            ctypes.byref(h), ctypes.byref(scale),
+                            ctypes.byref(pos)) != 0:
+        raise _Unreadable("PFM: bad header")
+    w, h, scale, pos = w.value, h.value, scale.value, pos.value
+    _check_positive(w, h)
+    ch = 3 if buf[1] == 70 else 1                    # 'F'
+    if pos + w * h * ch * 4 > len(buf):
+        raise _Unreadable("PFM: short data")
+    if not abs(scale) > 0:
+        raise _Unreadable("PFM: zero scale")
+    v = np.frombuffer(buf, "<f4" if scale < 0 else ">f4", w * h * ch, pos)
+    v = v.astype(np.float32).reshape(h, w, ch)[::-1]
+    if ch == 3:
+        v = v[:, :, ::-1]
+    v = v * np.float32(1.0 / abs(scale))
+    out = _float_to_u8(v)
+    return np.ascontiguousarray(out[:, :, 0] if ch == 1 else out)
+
+
+def _float_to_u8(v: np.ndarray) -> np.ndarray:
+    """cv2's float32 → uint8 convertTo: cvRound (nearest even; NaN and
+    |v| >= 2^31 give INT_MIN) then saturation."""
+    with np.errstate(invalid="ignore"):
+        r = np.rint(v)
+        return np.clip(np.where(np.abs(r) < np.float32(2 ** 31), r, 0), 0,
+                       255).astype(np.uint8)
+
+
+_SUN_MAGIC = b"\x59\xa6\x6a\x95"
+
+
+def _sun(buf: bytes) -> np.ndarray:
+    """cv2's SunRasterDecoder: the old and standard types (0, 1) at depths
+    1, 8 (a grey ramp, or the colour map: at most 2^depth entries, planes
+    R, G, B, missing entries black), 24 (B, G, R) and 32 (X, B, G, R); rows
+    padded to 16 bits. cv2 5.0 reads no other type: byte-encoded (RLE, 2)
+    and RGB-format (3) rasters give None, as there."""
+    if len(buf) < 32:
+        raise _Unreadable("Sun raster: short header")
+    _, w, h, depth, _, kind, maptype, maplen = struct.unpack(">8i", buf[:32])
+    if w <= 0 or h <= 0 or depth not in (1, 8, 24, 32) or kind not in (0, 1):
+        raise _Unreadable("Sun raster: not a layout cv2 reads")
+    entries = 1 << depth if depth <= 8 else 0
+    if maptype == 1 and 0 < maplen <= entries * 3:
+        if 32 + maplen > len(buf):
+            raise _Unreadable("Sun raster: short colour map")
+        n = maplen // 3
+        cmap = np.frombuffer(buf, np.uint8, 3 * n, 32).reshape(3, n)
+        palette = np.zeros((entries, 3), np.uint8)
+        palette[:n] = cmap[::-1].T
+    elif maptype == 0 and maplen == 0:
+        palette = None if depth > 8 else np.repeat(
+            (np.arange(entries) * 255 // (entries - 1)).astype(
+                np.uint8)[:, None], 3, axis=1)
+    else:
+        raise _Unreadable("Sun raster: colour map cv2 does not read")
+    _check_size("sun", w, h)
+    pitch = ((w * depth + 7) // 8 + 1) & ~1
+    pos = 32 + maplen
+    if pos + pitch * h > len(buf):
+        raise _Unreadable("Sun raster: short data")
+    rows = np.frombuffer(buf, np.uint8, pitch * h, pos).reshape(h, pitch)
+    if depth == 1:
+        return palette[np.unpackbits(rows, axis=1)[:, :w]]
+    if depth == 8:
+        return palette[rows[:, :w]]
+    return np.ascontiguousarray(rows[:, :w * 3].reshape(h, w, 3) if
+                                depth == 24 else
+                                rows[:, :w * 4].reshape(h, w, 4)[:, :, 1:])
+
+
+def _hdr(buf: bytes) -> np.ndarray:
+    """cv2's HdrDecoder (rgbe.c) at IMREAD_COLOR, in C++."""
+    data = np.frombuffer(buf, np.uint8)
+    w, h, pos = ctypes.c_int(), ctypes.c_int(), _LL()
+    codec = lib()
+    if codec.ocr_hdr_info(_ptr(data), data.size, ctypes.byref(w),
+                          ctypes.byref(h), ctypes.byref(pos)) != 0:
+        raise _Unreadable("HDR: bad header")
+    if w.value <= 0 or h.value <= 0:
+        raise _Unreadable("HDR: no pixels")
+    _check_size("hdr", w.value, h.value)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if codec.ocr_hdr_decode(_ptr(data), data.size, pos.value, h.value,
+                            w.value, _ptr(out)) != 0:
+        raise _Unreadable("HDR: bad pixel data")
+    return out
+
+
 def _webp(buf: bytes) -> np.ndarray:
     data = np.frombuffer(buf, np.uint8)
     h, w = ctypes.c_int(), ctypes.c_int()
@@ -825,10 +1090,11 @@ def _webp(buf: bytes) -> np.ndarray:
 
 
 def imdecode(buf) -> Optional[np.ndarray]:
-    """Encoded image bytes → (H, W, 3) uint8 BGR, or None where
-    `cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)` gives
-    None. Raises ValueError where cv2 raises: an empty buffer, an image of
-    more than MAX_SIDE px a side or MAX_PIXELS px in all."""
+    """Encoded image bytes → (H, W, 3) uint8 BGR ((H, W) for a grey PFM,
+    as cv2 gives it), or None where `cv2.imdecode(np.frombuffer(buf,
+    np.uint8), cv2.IMREAD_COLOR)` gives None. Raises ValueError where cv2
+    raises: an empty buffer, an image of more than MAX_SIDE px a side or
+    MAX_PIXELS px in all, a PAM, PFM or GIF of a side <= 0."""
     buf = bytes(buf)
     if not buf:
         raise ValueError("an empty buffer (cv2.imdecode asserts !buf.empty())")
@@ -844,6 +1110,17 @@ def imdecode(buf) -> Optional[np.ndarray]:
         if len(buf) >= 3 and buf[:1] == b"P" and 49 <= buf[1] <= 54 and \
                 buf[2] in _SPACE:
             return _pxm(buf)
+        if len(buf) >= 3 and buf[:1] == b"P" and buf[2] in _SPACE:
+            if buf[1] == 55:                                      # '7'
+                return _pam(buf)
+            if buf[1] in (70, 102):                               # 'F', 'f'
+                return _pfm(buf)
+        if buf[:3] == b"GIF":
+            return _gif(buf)
+        if buf[:4] == _SUN_MAGIC:
+            return _sun(buf)
+        if buf[:6] == b"#?RGBE" or buf[:10] == b"#?RADIANCE":
+            return _hdr(buf)
         # cv2 asks libwebp whether the first 32 bytes are a WebP: a RIFF
         # container, or a bare VP8 / VP8L stream
         return _webp(buf)

@@ -585,14 +585,15 @@ def test_flag_table_is_honest(tmp_path):
     read by neither package or as layout-only, with its reason; no inert
     flag is read by the port; bfloat16 runs (no value is refused): the
     native stages it names compute in bfloat16 and a page goes through."""
-    named = set(config.DEFAULTS) | config.INERT_FLAGS | set(config.LAYOUT_ONLY)
+    named = set(config.DEFAULTS) | set(config.INERT_DEFAULTS) | \
+        set(config.LAYOUT_ONLY)
     assert set(jconfig.DEFAULTS) <= named, set(jconfig.DEFAULTS) - named
-    assert not config.INERT_FLAGS & set(config.DEFAULTS)
+    assert not set(config.INERT_DEFAULTS) & set(config.DEFAULTS)
     assert all(config.LAYOUT_ONLY.values())
     root = config.ASSETS.parent.parent / "onnxocr_tpu_torch"
     src = "".join(p.read_text() for p in root.rglob("*.py")
                   if p.name != "config.py")
-    for flag in config.INERT_FLAGS:
+    for flag in config.INERT_DEFAULTS:
         assert f"args.{flag}" not in src and \
             f'(args, "{flag}"' not in src, flag
     assert config.DEFAULTS["tpu_backend"] == "auto"

@@ -13,8 +13,7 @@ hand-built ones, the OS/2 core header too), RLE8 and RLE4 built by hand
 around them), 16 bits (5-5-5, 5-6-5 bit fields) and 32 bits with bit-field
 masks (cv2 applies them from a 56-byte header on, scaling in float32), and
 seeded BMPs of every kind, truncated and corrupted too. Bytes cv2 gives
-None for (garbage, every truncation) give None. Formats the codec does not
-read (WebP, TIFF) give None where cv2 decodes them. Hostile uploads of a
+None for (garbage, every truncation) give None. Hostile uploads of a
 few hundred
 bytes (over-subscribed or refused Huffman tables, sides and pixel counts
 past libpng's, libjpeg's and cv2's limits) answer as cv2 does (None, or
@@ -29,7 +28,14 @@ and Netpbm P1–P6 (ASCII with comments, binary, 16-bit, truncated) decode
 value-equal to cv2; hostile TIFF headers give None or cv2's ValueError,
 and their seeded mutants decode without a fault under AddressSanitizer. A
 4096 x 4096 16-bit RGBA Deflate TIFF decodes within its output plus 64 MB
-of peak RSS, and a 24 MB ASCII P2 with a comment on every line in 3 s. `imencode_jpeg` writes cv2's bytes
+of peak RSS, and a 24 MB ASCII P2 with a comment on every line in 3 s.
+GIF (cv2's, PIL's static, interlaced and animated files with transparency
+and disposal, hand-built layouts and LZW streams), PAM (every tuple type at
+8 and 16 bits), PFM (both byte orders, grey and colour, special values),
+Sun raster (depths 1, 8, 24, 32, colour maps; the types cv2 refuses) and
+Radiance HDR (flat, RLE, mixed) answer as cv2 does, truncated and mutated
+files too, and the five committed samples decode to cv2's recorded
+hashes. `imencode_jpeg` writes cv2's bytes
 at quality 85 and 95 (so its decoded values equal those of cv2's encoding:
 0 differ). `cv_ops.polylines2` equals `cv2.polylines(img, [pts], True,
 (255, 0, 0), 2)` on seeded quads, clipped ones included, and `draw_ocr`
@@ -567,17 +573,14 @@ def test_garbage_and_truncations_give_none():
 
 def test_formats_not_read_give_none():
     """Formats once not read, value-equal to cv2 now: WebP (cv2's default
-    encoding), a palette BMP and cv2's own TIFF. A GIF, which cv2 5.0
-    reads and the codec does not (ROADMAP §3.2), gives None."""
+    encoding), a GIF (PIL's), a palette BMP and cv2's own TIFF."""
     img = smooth_image(6, 20, 24)
     ok, buf = cv2.imencode(".webp", img)
     assert ok and cv2.imdecode(buf, cv2.IMREAD_COLOR) is not None
     assert_decodes_as_cv2(bytes(buf))
     gif = io.BytesIO()
     Image.fromarray(img[:, :, ::-1]).save(gif, "GIF")
-    assert cv2.imdecode(np.frombuffer(gif.getvalue(), np.uint8),
-                        cv2.IMREAD_COLOR) is not None
-    assert imcodec.imdecode(gif.getvalue()) is None
+    assert_decodes_as_cv2(gif.getvalue())
     ok, buf = cv2.imencode(".tiff", img)
     assert_decodes_as_cv2(bytes(buf))
     out = io.BytesIO()
@@ -1845,3 +1848,485 @@ def test_webp_decodes_within_output_plus_32mb(tmp_path):
         assert int(rise) < int(out) + 32 * 2**20
         want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
         assert digest == hashlib.sha256(want.tobytes()).hexdigest()
+
+
+# ------------------------------------- GIF, PAM, PFM, Sun raster, HDR
+def _sub_blocks(data):
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def _lzw_pack(codes, min_size):
+    """Codes at the widths a standard GIF decoder reads them."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    size, nxt, first, acc, nbits, out = min_size + 1, eoi + 1, True, 0, 0, []
+    for c in codes:
+        acc |= c << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+        if c == clear:
+            size, nxt, first = min_size + 1, eoi + 1, True
+        elif c != eoi and first:
+            first = False
+        elif c != eoi and nxt < 4096:
+            nxt += 1
+            if nxt == 1 << size and size < 12:
+                size += 1
+    return bytes(out + ([acc & 255] if nbits else []))
+
+
+def _gif_frame(x, y, w, h, idx, min_size=8, lct=None, interlace=False):
+    flags = 0x40 if interlace else 0
+    if lct is not None:
+        flags |= 0x80 | max(0, (len(lct) // 3 - 1).bit_length() - 1)
+    if interlace:
+        order = [*range(0, h, 8), *range(4, h, 8), *range(2, h, 4),
+                 *range(1, h, 2)]
+        idx = b"".join(idx[r * w:(r + 1) * w] for r in order)
+    clear = 1 << min_size
+    codes = [clear, *idx, clear + 1]
+    # a clear code before the table fills keeps every code a literal
+    for k in range(len(codes) - 1, 0, -(4000 - clear)):
+        if 0 < k < len(codes) - 1:
+            codes.insert(k, clear)
+    return (b"\x2c" + struct.pack("<4H", x, y, w, h) + bytes([flags]) +
+            (lct or b"") + bytes([min_size]) +
+            _sub_blocks(_lzw_pack(codes, min_size)))
+
+
+def _gce(disposal=0, transparent=None):
+    return b"\x21\xf9\x04" + bytes([(disposal << 2) | (
+        transparent is not None)]) + b"\x0a\x00" + bytes(
+        [transparent or 0]) + b"\0"
+
+
+def _gif(w, h, gct, bg, blocks):
+    flags = 0x80 | 0x70 | max(0, (len(gct) // 3 - 1).bit_length() - 1) \
+        if gct else 0
+    return (b"GIF89a" + struct.pack("<2H", w, h) + bytes([flags, bg, 0]) +
+            (gct or b"") + b"".join(blocks) + b"\x3b")
+
+
+def _gif_cases():
+    rng = np.random.default_rng(31)
+    img = smooth_image(31, 23, 37)
+    gct = rng.integers(0, 256, 768).astype(np.uint8).tobytes()
+    idx = rng.integers(0, 256, 23 * 37).astype(np.uint8).tobytes()
+    small = rng.integers(0, 16, 6 * 9).astype(np.uint8).tobytes()
+    lct = rng.integers(0, 256, 12).astype(np.uint8).tobytes()
+    pil = {}
+    rgb = Image.fromarray(img[:, :, ::-1])
+    for name, kw in {"pil-static": {}, "pil-interlaced": {"interlace": True},
+                     "pil-transparent": {"transparency": 3}}.items():
+        out = io.BytesIO()
+        rgb.quantize(64).save(out, "GIF", **kw)
+        pil[name] = out.getvalue()
+    frames = [rgb.quantize(32), Image.fromarray(
+        smooth_image(32, 23, 37)[:, :, ::-1]).quantize(32)]
+    for disposal in (1, 2):
+        out = io.BytesIO()
+        frames[0].save(out, "GIF", save_all=True, append_images=frames[1:],
+                       transparency=0, disposal=disposal, duration=40,
+                       loop=0)
+        pil[f"pil-animated-disposal{disposal}"] = out.getvalue()
+    return {
+        "cv2": bytes(cv2.imencode(".gif", img)[1]),
+        **pil,
+        "interlaced-11-rows": _gif(9, 11, gct, 5, [_gif_frame(
+            0, 0, 9, 11, idx[:99], interlace=True)]),
+        "offset-frame-on-background": _gif(40, 30, gct, 17, [_gif_frame(
+            3, 4, 37, 23, idx)]),
+        "transparent-index": _gif(12, 8, gct, 9, [_gce(0, 7), _gif_frame(
+            2, 1, 9, 6, small, 4)]),
+        "transparent-is-background": _gif(12, 8, gct, 7, [_gce(2, 7),
+                                                        _gif_frame(
+            2, 1, 9, 6, small, 4)]),
+        "local-table": _gif(12, 8, gct, 1, [_gif_frame(
+            0, 0, 9, 6, bytes(v % 4 for v in small), 2, lct=lct)]),
+        "local-table-past-its-end": _gif(12, 8, gct[:48], 1, [_gif_frame(
+            0, 0, 9, 6, small, 4, lct=lct)]),
+        "no-table": _gif(9, 6, None, 0, [_gif_frame(0, 0, 9, 6, small, 4)]),
+        "index-past-the-table": _gif(9, 6, gct[:24], 0, [_gif_frame(
+            0, 0, 9, 6, small, 4)]),
+        "two-frames": _gif(12, 8, gct, 3, [
+            _gce(1, 2), _gif_frame(0, 0, 9, 6, small, 4), _gce(0),
+            _gif_frame(3, 2, 9, 6, small[::-1], 4)]),
+        "extensions": _gif(9, 6, gct, 0, [
+            b"\x21\xfe\x03abc\0", b"\x21\xff\x0bNETSCAPE2.0\x03\x01\0\0\0",
+            b"\x21\xff\x0bXMP DataXMP\x05hello\0", b"\x21\x01\x0c" +
+            bytes(12) + b"\0", _gif_frame(0, 0, 9, 6, small, 4)]),
+        "application-unknown": _gif(9, 6, gct, 0, [
+            b"\x21\xff\x0bABCDEFGHIJK\x03\x01\0\0\0",
+            _gif_frame(0, 0, 9, 6, small, 4)]),
+        "application-block-size-3": _gif(9, 6, gct, 0, [
+            b"\x21\xff\x03abc\0", _gif_frame(0, 0, 9, 6, small, 4)]),
+        "disposal-4": _gif(9, 6, gct, 0, [b"\x21\xf9\x04\x10\0\0\0\0",
+                                          _gif_frame(0, 0, 9, 6, small, 4)]),
+        "frame-off-screen": _gif(9, 6, gct, 0, [_gif_frame(
+            1, 0, 9, 6, small, 4)]),
+        "background-past-table": _gif(9, 6, gct[:48], 16, [_gif_frame(
+            0, 0, 9, 6, small, 4)]),
+        "no-trailer": _gif(9, 6, gct, 0, [_gif_frame(
+            0, 0, 9, 6, small, 4)])[:-1],
+        "min-code-size-12": _gif(9, 6, gct, 0, [_gif_frame(
+            0, 0, 9, 6, small, 4)]).replace(b"\x00\x04", b"\x00\x0c", 1),
+        "GIF88a": b"GIF88a" + _gif(9, 6, gct, 0, [_gif_frame(
+            0, 0, 9, 6, small, 4)])[6:],
+    }
+
+
+_GIF_VERDICTS = {"disposal-4": "none", "frame-off-screen": "none",
+                 "background-past-table": "none", "no-trailer": "none",
+                 "min-code-size-12": "none", "GIF88a": "none",
+                 "index-past-the-table": "none",
+                 "application-unknown": "none",
+                 "application-block-size-3": "none"}
+
+
+@pytest.mark.parametrize("case", sorted(_gif_cases()))
+def test_gif_matches_cv2(case):
+    """cv2 5.0's GIF reading: the first frame on the logical screen, which
+    starts as the global background colour (black without a global
+    table); transparent pixels keep it; a local table overwrites the
+    global one's first entries; with no table, index i is grey i but 1,
+    which is white; interlaced rows; and the files cv2 refuses (a disposal
+    past 3, a frame off the screen, a background or an index past the
+    tables, no trailer, a code size past 12, an unknown version, an
+    application extension skipped to a zero byte that is not its end or
+    of block size 3)."""
+    blob = _gif_cases()[case]
+    assert assert_answers_as_cv2(blob) == _GIF_VERDICTS.get(case, "decoded")
+
+
+def test_gif_lzw_streams_answer_as_cv2():
+    """Seeded LZW streams at code sizes 2 to 11 — clear and end codes
+    anywhere, table codes, KwKwK, codes past the table, frames short of
+    their pixels or with codes past their last one, data after the end
+    code — each get cv2's verdict and pixels (cv2's lzwDecode: a byte at
+    a time, an end code resets and goes on, codes past the frame are
+    counted unchecked and a further byte fails)."""
+    rng = np.random.default_rng(33)
+    gct = rng.integers(0, 256, 768).astype(np.uint8).tobytes()
+    verdicts = {"decoded": 0, "none": 0}
+    for _ in range(400):
+        size = int(rng.choice([2, 3, 4, 8, 11]))
+        w, h = int(rng.integers(1, 9)), int(rng.integers(1, 5))
+        clear = 1 << size
+        codes = [clear] if rng.random() < 0.9 else []
+        nxt, out, prev = clear + 2, 0, None
+        while out < w * h + int(rng.integers(-2, 4)) and len(codes) < 200:
+            r = rng.random()
+            if r < 0.08:
+                codes.append(clear + (r < 0.05))
+                nxt, prev = clear + 2, None
+                continue
+            if r < 0.12:
+                c = int(rng.integers(0, min(nxt + 3, 4096)))
+            elif r < 0.5 and prev is not None:
+                c = int(rng.integers(clear + 2, nxt + 1))
+            else:
+                c = int(rng.integers(0, min(clear, 16)))
+            if c in (clear, clear + 1):
+                continue
+            codes.append(c)
+            if c > nxt or (c == nxt and prev is None):
+                break
+            out += 1 if c < clear else 2
+            nxt += prev is not None and nxt < 4096
+            prev = c
+        if rng.random() < 0.6:
+            codes.append(clear + 1)
+        if rng.random() < 0.3:
+            codes += [int(v) for v in rng.integers(0, clear, 2)]
+        data = _lzw_pack(codes, size)
+        frame = (b"\x2c" + struct.pack("<4H", 0, 0, w, h) +
+                 bytes([0x40 * (rng.random() < 0.3), size]) +
+                 _sub_blocks(data))
+        verdicts[assert_answers_as_cv2(_gif(w, h, gct, 0, [frame]))] += 1
+    assert verdicts["decoded"] > 100 and verdicts["none"] > 50, verdicts
+
+
+def _pam(w, h, depth, maxval, tupl, data, header=None):
+    tupl = "" if tupl is None else f"TUPLTYPE {tupl}\n"
+    return (header or (f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {depth}\nMAXVAL "
+                       f"{maxval}\n{tupl}ENDHDR\n").encode()) + data
+
+
+@pytest.mark.parametrize("tupl,depth", [
+    ("BLACKANDWHITE", 1), ("GRAYSCALE", 1), ("RGB", 3),
+    ("GRAYSCALE_ALPHA", 2), ("RGB_ALPHA", 4), (None, 1), (None, 3), ("", 1)])
+@pytest.mark.parametrize("maxval", [1, 200, 255, 4095, 65535])
+def test_pam_matches_cv2(tupl, depth, maxval):
+    """cv2's PAMDecoder at IMREAD_COLOR: samples as they are (no maxval
+    scaling, 16-bit ones by their high byte), three channels in file order,
+    one replicated, MAXVAL 1 as packed bits of each row's first bytes. Above
+    MAXVAL 1 the _ALPHA forms convert the first ceil(w / depth) pixels of a
+    row (cv2 leaves the rest unwritten, so only those are held; the port's
+    rest is 0), RGB_ALPHA in BGR order. 16-bit files without a TUPLTYPE
+    give None, as in cv2."""
+    rng = np.random.default_rng(maxval + depth)
+    h, w = 5, 23
+    v = rng.integers(0, maxval + 1, (h, w, depth))
+    data = v.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    blob = _pam(w, h, depth, maxval, tupl, data)
+    if depth in (1, 3) or maxval == 1:
+        assert_answers_as_cv2(blob)
+        return
+    want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+    got = imcodec.imdecode(blob)
+    if want is None:
+        assert got is None
+        return
+    n = -(-w // depth)
+    assert got.shape == want.shape == (h, w, 3)
+    np.testing.assert_array_equal(got[:, :n], want[:, :n])
+    assert not got[:, n:].any()
+
+
+@pytest.mark.parametrize("case", [
+    "comment", "carriage-return", "leading-zero", "hex", "negative-maxval",
+    "maxval-65536", "repeated-width", "lowercase", "space-after-magic",
+    "no-endhdr-field", "tupltype-unknown", "tupltype-needs-depth",
+    "nul-in-identifier", "zero-width", "truncated"])
+def test_pam_headers_answer_as_cv2(case):
+    """Header lines as cv2's ReadPAMHeaderLine and ParseInt read them."""
+    px = bytes(range(12))
+    head = {
+        "comment": b"P7\n# a comment\nWIDTH 4\nHEIGHT 3\nDEPTH 1\n"
+                   b"MAXVAL 255\nENDHDR\n",
+        "carriage-return": b"P7\rWIDTH 4\rHEIGHT 3\rDEPTH 1\rMAXVAL 255\r"
+                           b"ENDHDR\r",
+        "leading-zero": b"P7\nWIDTH 004\nHEIGHT 3\nDEPTH 1\nMAXVAL 255\n"
+                        b"ENDHDR\n",
+        "hex": b"P7\nWIDTH 0x4\nHEIGHT 3\nDEPTH 1\nMAXVAL 255\nENDHDR\n",
+        "negative-maxval": b"P7\nWIDTH 4\nHEIGHT 3\nDEPTH 1\nMAXVAL -1\n"
+                           b"ENDHDR\n",
+        "maxval-65536": b"P7\nWIDTH 4\nHEIGHT 3\nDEPTH 1\nMAXVAL 65536\n"
+                        b"ENDHDR\n",
+        "repeated-width": b"P7\nWIDTH 4\nWIDTH 4\nHEIGHT 3\nDEPTH 1\n"
+                          b"MAXVAL 255\nENDHDR\n",
+        "lowercase": b"P7\nwidth 4\nHEIGHT 3\nDEPTH 1\nMAXVAL 255\nENDHDR\n",
+        "space-after-magic": b"P7 \nWIDTH 4\nHEIGHT 3\nDEPTH 1\nMAXVAL 255\n"
+                             b"ENDHDR\n",
+        "no-endhdr-field": b"P7\nWIDTH 4\nHEIGHT 3\nMAXVAL 255\nENDHDR\n",
+        "tupltype-unknown": b"P7\nWIDTH 4\nHEIGHT 3\nDEPTH 1\nMAXVAL 255\n"
+                            b"TUPLTYPE GREY\nENDHDR\n",
+        "tupltype-needs-depth": b"P7\nWIDTH 4\nHEIGHT 3\nDEPTH 1\n"
+                                b"MAXVAL 255\nTUPLTYPE RGB\nENDHDR\n",
+        "nul-in-identifier": b"P7\nWIDTH 4\nHEIGHT\x003\nDEPTH 1\n"
+                             b"MAXVAL 255\nENDHDR\n",
+        "zero-width": b"P7\nWIDTH 0\nHEIGHT 3\nDEPTH 1\nMAXVAL 255\n"
+                      b"ENDHDR\n",
+        "truncated": b"P7\nWIDTH 4\nHEIGHT 3\nDEPTH 1\nMAXVAL 255\nENDHDR\n",
+    }[case]
+    assert_answers_as_cv2(head + (px[:-1] if case == "truncated" else px))
+
+
+def _pfm(v, scale, grey=False):
+    h, w = v.shape[:2]
+    body = v[::-1].astype("<f4" if scale < 0 else ">f4").tobytes()
+    return (b"Pf" if grey else b"PF") + f"\n{w} {h}\n{scale}\n".encode() + \
+        body
+
+
+@pytest.mark.parametrize("grey", [False, True])
+@pytest.mark.parametrize("scale", [-1.0, 1.0, -0.25, 3.5])
+def test_pfm_matches_cv2(grey, scale):
+    """cv2's PFMDecoder: bottom-up rows, the scale's sign for the byte
+    order, samples divided by |scale| in float32, then convertTo(CV_8U) —
+    nearest even, saturated, NaN, infinities and |v| >= 2^31 to 0. A grey
+    "Pf" decodes to (H, W), as cv2 gives it."""
+    rng = np.random.default_rng(int(abs(scale) * 8) + grey)
+    v = (rng.standard_normal((7, 11, 1 if grey else 3)) * 150 + 120)
+    v = v.astype(np.float32)
+    v.flat[:9] = [np.nan, np.inf, -np.inf, 254.5, 255.5, 0.5, 1.5, 2.0 ** 31,
+                  2.0 ** 31 - 128]
+    blob = _pfm(v[:, :, 0] if grey else v, scale, grey)
+    assert assert_answers_as_cv2(blob) == "decoded"
+    assert imcodec.imdecode(blob).ndim == (2 if grey else 3)
+
+
+@pytest.mark.parametrize("case", [
+    "space-after-magic", "two-spaces", "scale-zero", "scale-text",
+    "byte-over-127", "zero-width", "truncated", "trailing-bytes"])
+def test_pfm_headers_answer_as_cv2(case):
+    """PFM headers as cv2 reads them (a word ends at one white-space byte;
+    atoi / atof; a zero scale fails; a side <= 0 raises)."""
+    body = np.arange(6, dtype="<f4").tobytes()
+    blob = {
+        "space-after-magic": b"Pf \n3 2\n-1\n" + body,
+        "two-spaces": b"Pf\n3  2\n-1\n" + body,
+        "scale-zero": b"Pf\n3 2\n0\n" + body,
+        "scale-text": b"Pf\n3 2\n-1.0e0x\n" + body,
+        "byte-over-127": b"Pf\n3 2\n-1\xff\n" + body,
+        "zero-width": b"Pf\n0 2\n-1\n" + body,
+        "truncated": b"Pf\n3 2\n-1\n" + body[:-1],
+        "trailing-bytes": b"Pf\n3 2\n-1\n" + body + b"tail",
+    }[case]
+    assert_answers_as_cv2(blob)
+
+
+def _ras(w, h, depth, kind, maptype, cmap, rows):
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(rows), kind,
+                       maptype, len(cmap)) + cmap + rows
+
+
+@pytest.mark.parametrize("depth", [1, 8, 24, 32])
+@pytest.mark.parametrize("colours", ["none", "map", "short-map", "grey-map"])
+@pytest.mark.parametrize("kind", [0, 1, 2, 3])
+def test_sun_raster_matches_cv2(depth, colours, kind):
+    """cv2's SunRasterDecoder: types old (0) and standard (1) at depths 1
+    and 8 (a grey ramp, or a colour map of up to 2^depth entries in R, G,
+    B planes, missing entries black), 24 (B, G, R) and 32 (X, B, G, R),
+    rows padded to 16 bits. cv2 5.0 reads no byte-encoded (2, RLE) or
+    RGB-format (3) raster, no colour map on 24 or 32 bits and none longer
+    than 2^depth entries: None."""
+    rng = np.random.default_rng(depth * 16 + kind)
+    w, h = 13, 5
+    pitch = ((w * depth + 7) // 8 + 1) & ~1
+    rows = rng.integers(0, 256, pitch * h).astype(np.uint8).tobytes()
+    n = {"none": 0, "map": 1 << min(depth, 8), "short-map": 3,
+         "grey-map": 1 << min(depth, 8)}[colours]
+    cmap = rng.integers(0, 256, (3, n)).astype(np.uint8)
+    if colours == "grey-map":
+        cmap[:] = cmap[0]
+    blob = _ras(w, h, depth, kind, int(n > 0), cmap.tobytes(), rows)
+    verdict = assert_answers_as_cv2(blob)
+    assert verdict == ("decoded" if kind < 2 and (
+        n == 0 or (depth <= 8 and n <= 1 << depth)) else "none")
+
+
+def _hdr(h, w, pixels, header=b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"):
+    return header + f"-Y {h} +X {w}\n".encode() + pixels
+
+
+@pytest.mark.parametrize("case", [
+    "cv2-rle", "cv2-rle-bright", "flat", "flat-narrow", "rle-then-flat",
+    "rgbe-magic", "gamma-line", "xyze", "plus-y", "run-too-long",
+    "wrong-scanline-width", "truncated"])
+def test_hdr_matches_cv2(case):
+    """cv2's HdrDecoder (rgbe.c): the header lines, flat pixels and
+    new-style RLE scanlines (flat where the width is under 8 or a
+    scanline does not start 2 2), r, g, b times 2^(e - 136) and
+    convertTo(CV_8U, 255) — so a pixel past 2^31 / 255 gives 0."""
+    rng = np.random.default_rng(41)
+    img = rng.random((6, 21, 3)).astype(np.float32)
+    img[:, :10] = img[0, 0]
+    px = rng.integers(0, 256, (6, 21, 4)).astype(np.uint8)
+    px[..., 3] = rng.integers(120, 140, (6, 21))
+    bright = (img * 1e9).astype(np.float32)
+    rle = bytes(cv2.imencode(".hdr", img)[1])
+    head = rle.index(b"+X 21\n") + 6
+    scan = _hdr(6, 21, rle[head:])
+    blob = {
+        "cv2-rle": rle,
+        "cv2-rle-bright": bytes(cv2.imencode(".hdr", bright)[1]),
+        "flat": _hdr(6, 21, px.tobytes()),
+        "flat-narrow": _hdr(6, 5, px[:, :5].tobytes()),
+        "rle-then-flat": _hdr(6, 21, rle[head:head + rle[head:].index(
+            b"\x02\x02\x00\x15", 4)] + px[1:].tobytes()),
+        "rgbe-magic": b"#?RGBE" + scan[10:],
+        "gamma-line": scan.replace(b"FORMAT", b"GAMMA=1.0\nFORMAT", 1),
+        "xyze": scan.replace(b"rgbe", b"xyze", 1),
+        "plus-y": scan.replace(b"-Y 6", b"+Y 6", 1),
+        "run-too-long": _hdr(1, 21, b"\x02\x02\x00\x15\xff\x01"),
+        "wrong-scanline-width": _hdr(6, 21, b"\x02\x02\x00\x16" +
+                                     rle[head + 4:]),
+        "truncated": rle[:-3],
+    }[case]
+    verdict = assert_answers_as_cv2(blob)
+    assert (verdict == "decoded") == (case in (
+        "cv2-rle", "cv2-rle-bright", "flat", "flat-narrow", "rle-then-flat",
+        "rgbe-magic", "gamma-line"))
+
+
+_SAMPLES = Path(__file__).resolve().parents[1] / "onnxocr_tpu_torch" / \
+    "assets" / "samples"
+
+
+def test_codec_samples_match_cv2():
+    """The five committed samples (an animated, interlaced GIF with
+    transparency, a 16-bit RGB PAM, a little-endian PFM, an 8-bit Sun
+    raster with a colour map, an RLE HDR) decode to cv2's decode here and
+    to the shape and sha256 recorded beside them, which the chip smoke
+    checks on a machine without cv2."""
+    import hashlib
+    import json
+    recorded = json.loads((_SAMPLES / "codec_samples.json").read_text())
+    assert sorted(Path(n).suffix for n in recorded) == [
+        ".gif", ".hdr", ".pam", ".pfm", ".ras"]
+    for name, want in recorded.items():
+        blob = (_SAMPLES / name).read_bytes()
+        assert_decodes_as_cv2(blob)
+        got = imcodec.imdecode(blob)
+        assert list(got.shape) == want["shape"]
+        assert hashlib.sha256(got.tobytes()).hexdigest() == want["sha256"]
+
+
+@pytest.mark.parametrize("name", [
+    "sample_anim.gif", "sample_rgb16.pam", "sample.pfm", "sample_cmap8.ras",
+    "sample_rle.hdr"])
+def test_new_formats_truncations_and_flips_answer_as_cv2(name):
+    """Each sample cut at 40 offsets, and 60 seeded mutants with 1-3
+    bytes overwritten or bits flipped: cv2's verdict (None for every
+    truncation but the HDR's and PFM's trailing bytes), and its pixels
+    where it decodes."""
+    blob = (_SAMPLES / name).read_bytes()
+    rng = np.random.default_rng(len(blob))
+    cuts = sorted(set(np.linspace(1, len(blob) - 1, 40).astype(int)))
+    verdicts = [assert_answers_as_cv2(blob[:k]) for k in cuts]
+    assert verdicts.count("none") >= len(cuts) - 2
+    for _ in range(60):
+        b = bytearray(blob)
+        for _ in range(int(rng.integers(1, 4))):
+            i = int(rng.integers(0, len(b)))
+            b[i] = int(rng.integers(0, 256)) if rng.random() < 0.5 else \
+                b[i] ^ (1 << int(rng.integers(0, 8)))
+        assert_answers_as_cv2(bytes(b))
+
+
+_DECODE_ANY_MUTANTS = _DECODE_MUTANTS.replace(
+    "img.ndim == 3 and img.shape[2] == 3", "img.ndim in (2, 3)")
+
+
+def test_new_format_mutants_never_crash(tmp_path):
+    """Seeded mutants of the five samples and of hand-built GIF, PAM, PFM,
+    Sun raster and HDR files decode to an image, None or a ValueError in
+    a build with AddressSanitizer (a fault ends the process)."""
+    import pickle
+    import subprocess
+    import sys
+    repo = Path(__file__).resolve().parents[1]
+    seeds = [(_SAMPLES / n).read_bytes() for n in sorted(
+        os.listdir(_SAMPLES)) if n.endswith((".gif", ".pam", ".pfm", ".ras",
+                                             ".hdr"))]
+    seeds += list(_gif_cases().values())[:8]
+    rng = np.random.default_rng(51)
+    seeds += [_hdr(2, 9, b"\x02\x02\x00\x09" + bytes([0x89, 5]) * 4),
+              _pfm(np.ones((3, 4), np.float32), -1.0, grey=True),
+              _ras(9, 3, 1, 1, 0, b"", bytes(12)),
+              _pam(5, 2, 2, 255, "GRAYSCALE_ALPHA", bytes(20))]
+    mutants = [_mutant(blob, rng) for blob in seeds for _ in range(40)]
+    with open(tmp_path / "mutants.pkl", "wb") as f:
+        pickle.dump(mutants, f)
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    flags = ["-std=c++17", "-shared", "-fPIC", "-O1", "-g"]
+    asan = subprocess.run(["g++", "-print-file-name=libasan.so"],
+                          capture_output=True, text=True).stdout.strip()
+    if os.path.isabs(asan) and os.path.exists(asan):
+        flags += ["-fsanitize=address", "-fno-omit-frame-pointer"]
+        env.update(LD_PRELOAD=asan, ASAN_OPTIONS="detect_leaks=0")
+    lib = tmp_path / "libimcodec.so"
+    subprocess.run(["g++", *flags, "-o", str(lib), str(imcodec.SOURCE)],
+                   check=True, timeout=300)
+    proc = subprocess.run(
+        [sys.executable, "-c", _DECODE_ANY_MUTANTS, str(lib),
+         str(tmp_path / "mutants.pkl")], env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    counts = eval(proc.stdout.strip().splitlines()[-1])
+    assert sum(counts.values()) == len(mutants)
+    assert counts["decoded"] and counts["none"], counts

@@ -40,3 +40,34 @@ def test_no_forbidden_imports(path):
     for name in _imported(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_walk_covers_the_reference_layout_subpackage():
+    """onnxocr_tpu_torch/onnxocr/ (the port's reference-layout shim) is
+    walked like every other module of the port."""
+    shim = ROOT / "onnxocr_tpu_torch" / "onnxocr"
+    walked = [p for p in FILES if p.parent == shim]
+    assert sorted(walked) == sorted(shim.glob("*.py")) and len(walked) == 15
+
+
+@pytest.mark.parametrize("source,caught", [
+    ("from . import operators", False),
+    ("from .utils import infer_args", False),
+    ("from ..onnxocr import utils", False),
+    ("from onnxocr_tpu_torch.onnxocr import utils", False),
+    ("import onnxocr_tpu_torch.onnxocr.utils", False),
+    ("import onnxocr", True),
+    ("import onnxocr.utils", True),
+    ("from onnxocr.utils import infer_args", True),
+    ("from onnxocr import utils", True),
+    ("__import__('onnxocr.utils')", True),
+])
+def test_walk_tells_the_port_shim_from_the_reference_shim(tmp_path, source,
+                                                          caught):
+    """A subpackage named onnxocr inside the port, reached relatively or by
+    its full name, is not the forbidden top-level onnxocr; a real import
+    of that is still caught."""
+    path = tmp_path / "module.py"
+    path.write_text(source + "\n")
+    tops = {name.split(".")[0] for name in _imported(path)}
+    assert bool(tops & set(FORBIDDEN)) == caught

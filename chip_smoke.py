@@ -184,9 +184,9 @@
    corpus and a value above 0; the bench runs' kernel launches a page of
    their timed rounds come back through BENCH_LAUNCHES_OUT;
 18. runs phase EV, the corpus and eval tools (`phase_ev`): decodes the
-   five codec samples of onnxocr_tpu_torch/assets/samples/ (GIF, PAM, PFM,
-   Sun raster, HDR) against the shape and sha256 of cv2's decode recorded
-   in codec_samples.json; with a stand-in dictionary of the renderer's
+   codec samples of onnxocr_tpu_torch/assets/samples/ (GIF, PAM, PFM,
+   Sun raster, HDR; the JPEG 2000 ones are phase DR's) against the shape
+   and sha256 of cv2's decode recorded in codec_samples.json; with a stand-in dictionary of the renderer's
    characters and the seeded classifier, renders the corpus with
    `python -m onnxocr_tpu_torch.tools.make_test_corpus --out` (every page
    and gt.json), runs eval_corpus and eval_heldout --json on the card in
@@ -198,7 +198,25 @@
    subprocess cut at EV_RUN_SECONDS), and replays one seed of
    tests/goldens_torch.json at device='cpu'; the phase must end within
    EV_SECONDS;
-19. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+19. runs phase DR, the last drivers (`phase_dr`): decodes the three JPEG 2000
+   samples (a reversible JP2; an irreversible tiled codestream with
+   precincts; an irreversible JP2 of the 1280 × 960 corpus page big_doc)
+   against cv2's recorded shape and sha256, timed beside the page's own
+   JPEG; then, with a
+   stand-in dictionary and the seeded classifier, as subprocesses on the
+   card: `python -m onnxocr_tpu_torch.tools.bench_det_variants --rounds 1
+   --max-images 4` (the three det wires' ms a page and boxes, each wire's
+   kernel launches a page through BENCH_LAUNCHES_OUT: kernel 1 on every
+   wire, kernels 2–3 on the device wire at the default
+   tpu_db_reduce='pallas2'), then together `tools.service_check` (its
+   server's seconds to readiness, SERVICE CHECK OK),
+   `onnxocr_tpu_torch.test_ocr` (its overlay under build/test_ocr/),
+   `tools.grow_rec --add-depth 1` on the committed rec checkpoint (max
+   |Δlogits| 0 on the card) and `onnxocr_tpu_torch.app_service --port 0`,
+   asked for GET /api/v2/healthz on the port its own log names; each run is cut at DR_RUN_SECONDS, must
+   exit 0 and print what its JAX counterpart prints, and the phase must
+   end within DR_SECONDS;
+20. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
@@ -214,7 +232,10 @@
    {...}} (phase BE: the three JSON lines, kernels 1–3's launches a page,
    the WebP decodes), {"eval": {...}, "card": ...} (phase EV: the tools'
    summaries, seconds a tool, pages/s, kernel 1's launches a page, the
-   gate line, the codec samples' decodes), {"kernels": [...]} and, last,
+   gate line, the codec samples' decodes), {"drivers": {...}, "card": ...}
+   (phase DR: the det wires' line and launches a page, the seconds to
+   readiness, each run's seconds, the JPEG 2000 decode ms),
+   {"kernels": [...]} and, last,
    {"ok": true, "device": {...}}; the run's seconds on a line
    before them.
 
@@ -3652,8 +3673,8 @@ def _ev_main(module, argv):
 
 
 def phase_ev(tmp):
-    """Phase EV: the codec's five new samples against cv2's recorded
-    decodes; the corpus and eval tools on the card with a stand-in
+    """Phase EV: the codec's GIF, PAM, PFM, Sun and HDR samples against
+    cv2's recorded decodes (the JPEG 2000 ones are phase DR's); the corpus and eval tools on the card with a stand-in
     dictionary of the renderer's characters and the seeded classifier
     (make_test_corpus renders the corpus; eval_corpus and eval_heldout run
     in this process, counted; their per-line predictions on two corpus
@@ -3676,6 +3697,8 @@ def phase_ev(tmp):
     codec = {}
     for name, want in json.loads(
             (samples / "codec_samples.json").read_text()).items():
+        if name in DR_SAMPLES:                 # phase DR decodes these
+            continue
         t = time.perf_counter()
         img = imcodec.imdecode((samples / name).read_bytes())
         ms = (time.perf_counter() - t) * 1e3
@@ -3817,6 +3840,229 @@ def phase_ev(tmp):
             "phase_seconds": total}, {"EV": launches}
 
 
+# phase DR: each driver run as a subprocess is cut at DR_RUN_SECONDS and
+# the phase must end within DR_SECONDS
+DR_RUN_SECONDS = 90
+DR_SECONDS = 150
+DR_SAMPLES = ("sample_rev.jp2", "sample_irr_tiles.j2k", "sample_page_irr.jp2")
+# the corpus page that sample_page_irr.jp2 encodes, decoded beside it
+DR_PAGE_JPEG = ("onnxocr_tpu", "test_images", "big_doc.jpg")
+DR_KERNELS = ("ctc_head_reduce", "label_moment_sums", "label_proj_extents",
+              "seg_sum_bands", "seg_min_bands")
+
+
+def _dr_start(argv, env, cwd, log=None):
+    """`python argv` in a session of its own (cut with every process it
+    starts); a server's output goes to the file `log`, which no pipe
+    holds back."""
+    out = subprocess.PIPE if log is None else open(log, "w")
+    try:
+        return subprocess.Popen([sys.executable, *argv], cwd=cwd, env=env,
+                                stdout=out, stderr=subprocess.STDOUT
+                                if log else subprocess.PIPE, text=True,
+                                start_new_session=True)
+    finally:
+        if log is not None:
+            out.close()
+
+
+def _dr_wait(label, proc, t0):
+    """→ (stdout lines, seconds since t0); a run past DR_RUN_SECONDS or a
+    non-zero exit fails the phase."""
+    try:
+        stdout, stderr = proc.communicate(
+            timeout=max(1.0, DR_RUN_SECONDS - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"phase DR {label}: cut at its limit")
+    assert proc.returncode == 0, \
+        f"phase DR {label}: rc {proc.returncode}\n{stderr[-3000:]}"
+    return stdout.strip().splitlines(), time.perf_counter() - t0
+
+
+def phase_dr(tmp):
+    """Phase DR: the JPEG 2000 samples against cv2's recorded decodes, the
+    page-sized one timed beside its JPEG, then the drivers as subprocesses
+    on the card: bench_det_variants alone, then service_check, test_ocr,
+    grow_rec and the app_service launcher together. → ({"drivers": ...},
+    {"DR": launches})."""
+    import hashlib
+    import re
+    import statistics
+    import urllib.request
+    from pathlib import Path
+    from onnxocr_tpu_torch.tools import make_goldens
+    from onnxocr_tpu_torch.utils import imcodec
+    t_phase = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    samples = repo / "onnxocr_tpu_torch" / "assets" / "samples"
+    recorded = json.loads((samples / "codec_samples.json").read_text())
+
+    def decode_ms(blob):
+        """→ (the image, median ms of 5 decodes after a first one)."""
+        imcodec.imdecode(blob)
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            img = imcodec.imdecode(blob)
+            times.append((time.perf_counter() - t) * 1e3)
+        return img, statistics.median(times)
+
+    jp2 = {}
+    for name in DR_SAMPLES:
+        blob = (samples / name).read_bytes()
+        img, ms = decode_ms(blob)
+        want = recorded[name]
+        assert img is not None and list(img.shape) == want["shape"], name
+        assert hashlib.sha256(img.tobytes()).hexdigest() == \
+            want["sha256"], f"{name}: pixels differ from cv2's"
+        jp2[name] = {"shape": list(img.shape), "bytes": len(blob),
+                     "decode_ms": ms}
+        print(f"phase DR {name}: {img.shape} equal to cv2's decode "
+              f"({ms:.3f} ms, median of 5)")
+    blob = repo.joinpath(*DR_PAGE_JPEG).read_bytes()
+    img, ms = decode_ms(blob)
+    page = jp2["sample_page_irr.jp2"]
+    assert list(img.shape) == page["shape"], img.shape
+    jpeg_page = {"name": DR_PAGE_JPEG[-1], "bytes": len(blob),
+                 "decode_ms": ms, "jp2_over_jpeg": page["decode_ms"] / ms}
+    print(f"phase DR {DR_PAGE_JPEG[-1]}: the same page as JPEG "
+          f"({len(blob)} bytes against {page['bytes']}) {ms:.3f} ms, median "
+          f"of 5; JPEG 2000 {jpeg_page['jp2_over_jpeg']:.2f}x its time")
+
+    assets = os.path.join(tmp, "dr_assets")
+    make_goldens.standin_dict(os.path.join(assets, "ppocrv5",
+                                           "ppocrv5_dict.txt"))
+    env = dict(os.environ, ONNXOCR_TPU_ASSETS=assets,
+               ONNXOCR_TPU_ALLOW_UNTRAINED="1")
+    cwd = str(repo)
+    seconds = {}
+
+    side = os.path.join(tmp, "dr_launches.json")
+    t = time.perf_counter()
+    lines, seconds["bench_det_variants"] = _dr_wait(
+        "bench_det_variants", _dr_start(
+            ["-m", "onnxocr_tpu_torch.tools.bench_det_variants", "--rounds",
+             "1", "--max-images", "4"], dict(env, BENCH_LAUNCHES_OUT=side),
+            cwd), t)
+    wires = json.loads(lines[-1])
+    assert wires["metric"] == "e2e_ms_per_page_by_det_wire" and \
+        wires["images"] == 4 and wires["rounds"] == 1, wires
+    assert set(wires["variants"]) == {"maps", "bitmap", "device"}, wires
+    assert all(v["median_ms"] > 0 and v["mean_boxes"] > 0
+               for v in wires["variants"].values()), wires
+    assert wires["device"]["count"] >= 1, wires
+    with open(side) as f:
+        per_page = json.load(f)["launches_per_page"]
+    per_page = {w: {k: per_page[w].get(k, 0) for k in DR_KERNELS}
+                for w in wires["variants"]}
+    # kernel 1 on every wire; the device wire's extraction at the default
+    # tpu_db_reduce='pallas2' takes the label-keyed pair (kernels 2-3)
+    assert all(per_page[w]["ctc_head_reduce"] > 0 for w in per_page)
+    assert per_page["device"]["label_moment_sums"] > 0 and \
+        per_page["device"]["label_proj_extents"] > 0, per_page
+    print(f"phase DR bench_det_variants ({seconds['bench_det_variants']:.1f}"
+          f" s): {json.dumps(wires)}; launches a page {per_page}")
+    launches = {k: round(sum(p[k] for p in per_page.values()) *
+                         wires["images"] * wires["rounds"])
+                for k in DR_KERNELS}
+
+    # four runs together: the service check, the smoke script, the
+    # growth, the launcher (the phase's time; the card is shared)
+    overlay = repo / "build" / "test_ocr" / "draw_ocr.jpg"
+    overlay.unlink(missing_ok=True)
+    grown = os.path.join(tmp, "dr_grown.npz")
+    app_log = os.path.join(tmp, "dr_app.log")
+    t = time.perf_counter()
+    procs = {
+        "service_check": _dr_start(
+            ["-m", "onnxocr_tpu_torch.tools.service_check"], env, cwd),
+        "test_ocr": _dr_start(["-m", "onnxocr_tpu_torch.test_ocr"], env,
+                              cwd),
+        "grow_rec": _dr_start(
+            ["-m", "onnxocr_tpu_torch.tools.grow_rec", "--src",
+             str(repo / "onnxocr_tpu" / "assets" / "ppocrv5" / "rec" /
+                 "native_params.npz"), "--out", grown, "--add-depth", "1"],
+            env, cwd),
+        # a port the system chooses, which only this child's log names
+        "app_service": _dr_start(
+            ["-m", "onnxocr_tpu_torch.app_service", "--port", "0"], env, cwd,
+            app_log),
+    }
+    try:
+        port = health = None
+        while health is None:
+            assert procs["app_service"].poll() is None, \
+                "phase DR app_service exited"
+            assert time.perf_counter() - t < DR_RUN_SECONDS, \
+                "phase DR app_service: no answer"
+            time.sleep(0.5)
+            if port is None:
+                m = re.search(r"serving on \S+:(\d+)$",
+                              Path(app_log).read_text(errors="replace"),
+                              re.M)
+                if m is None:
+                    continue
+                port = int(m.group(1))
+            try:
+                r = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/api/v2/healthz", timeout=3)
+                health = (r.status, json.loads(r.read()))
+            except Exception:
+                continue
+        seconds["app_service_healthz"] = time.perf_counter() - t
+        assert health[0] == 200, health
+        assert procs["app_service"].poll() is None, \
+            "phase DR app_service exited after its answer"
+        print(f"phase DR app_service --port 0: GET /api/v2/healthz on the "
+              f"port its log names ({port}) {health[0]} "
+              f"{json.dumps(health[1])} after "
+              f"{seconds['app_service_healthz']:.1f} s")
+        lines, seconds["test_ocr"] = _dr_wait("test_ocr", procs["test_ocr"],
+                                              t)
+        assert lines[0].startswith("total time: ") and \
+            lines[1].startswith("result: ") and \
+            lines[-1] == "saved build/test_ocr/draw_ocr.jpg", lines
+        assert imcodec.imdecode(overlay.read_bytes()) is not None
+        print(f"phase DR test_ocr ({seconds['test_ocr']:.1f} s): {lines[0]}"
+              f"; {lines[-1]}")
+        lines, seconds["grow_rec"] = _dr_wait("grow_rec", procs["grow_rec"],
+                                              t)
+        assert lines[0].startswith("donor: depth=") and \
+            lines[1].startswith("wrote ") and \
+            lines[2] == "function preservation max|Δlogits| = 0.000e+00", \
+            lines
+        print(f"phase DR grow_rec ({seconds['grow_rec']:.1f} s): "
+              + "; ".join(lines))
+        lines, seconds["service_check"] = _dr_wait(
+            "service_check", procs["service_check"], t)
+        assert lines[-1] == "SERVICE CHECK OK" and \
+            lines[0].startswith("ready after "), lines
+        ready_s = float(lines[0].split()[2])
+        assert any(l.startswith("v1 status 200") for l in lines) and \
+            any(l.startswith("v2 status 200") for l in lines) and \
+            "UI: 200" in lines, lines
+        print(f"phase DR service_check ({seconds['service_check']:.1f} s): "
+              f"ready after {ready_s} s; " + "; ".join(lines[1:3]))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGTERM)
+                try:
+                    proc.communicate(timeout=10)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.communicate()
+    total = time.perf_counter() - t_phase
+    print(f"phase DR {total:.1f} s")
+    assert total <= DR_SECONDS, f"phase DR took {total:.1f} s"
+    return {"det_wires": wires, "launches_per_page": per_page,
+            "service_ready_s": ready_s, "seconds": seconds,
+            "jpeg2000": jp2, "jpeg_page": jpeg_page,
+            "phase_seconds": total}, {"DR": launches}
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -3837,15 +4083,16 @@ def main() -> int:
     from onnxocr_tpu_torch.utils import font, imcodec
     from onnxocr_tpu_torch.utils.png import read_bgr
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         t0 = time.perf_counter()
         host = pool.submit(native.build)
         codec = pool.submit(native.build, imcodec.SOURCE, "libocrimcodec")
+        jp2 = pool.submit(native.build, imcodec.JP2_SOURCE, "libocrjp2")
         ttf = pool.submit(native.build, font.SOURCE, "libocrttf")
         print(f"kernels built in {build.build_all():.1f} s")
         print(f"host libraries {host.result().name}, {codec.result().name}, "
-              f"{ttf.result().name} built, {time.perf_counter() - t0:.1f} s "
-              f"from the start of the build")
+              f"{jp2.result().name}, {ttf.result().name} built, "
+              f"{time.perf_counter() - t0:.1f} s from the start of the build")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
             if "Used" in line:
@@ -4018,6 +4265,8 @@ def main() -> int:
         bench_summary = phase_be(tmp)
         eval_summary, ev_runs = phase_ev(tmp)
         runs.update(ev_runs)
+        drivers, dr_runs = phase_dr(tmp)
+        runs.update(dr_runs)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -4047,6 +4296,7 @@ def main() -> int:
     print(json.dumps({"synthetic_training": synthetic, "card": smi}))
     print(json.dumps({"bench": bench_summary, "card": smi}))
     print(json.dumps({"eval": eval_summary, "card": smi}))
+    print(json.dumps({"drivers": drivers, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

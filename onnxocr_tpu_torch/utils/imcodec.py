@@ -15,16 +15,21 @@ their _ALPHA forms cv2 knows, 8 and 16 bits), PFM (either byte order,
 bottom-up rows), GIF (LZW, global and local tables, interlace; an
 animation's first frame on the logical screen, transparency kept as the
 background shows through), Sun raster (depths 1, 8, 24, 32, the colour
-map) and Radiance HDR (flat and RLE RGBE) and WebP (lossy VP8, lossless
+map) and Radiance HDR (flat and RLE RGBE), WebP (lossy VP8, lossless
 VP8L, the VP8X container with alpha, which is dropped; an animation's first
-frame on its zeroed canvas, as cv2 5.0 returns it) into (H, W, 3) uint8
-BGR — a grey PFM ("Pf") into (H, W), as cv2 gives it — and gives None
-where cv2 gives None: bytes of another format (JPEG 2000, AVIF, ...),
-arithmetic-coded, 12-bit or lossless JPEGs, BMPs and TIFFs cv2 reads that
-this reader does not (other 16-bit masks, other compressions, CMYK, YCbCr,
-JPEG-in-TIFF), the Sun raster types cv2 5.0 refuses itself (byte-encoded,
-RGB-format), truncated or corrupt files, and sides longer than libpng or
-libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
+frame on its zeroed canvas, as cv2 5.0 returns it) and JPEG 2000 (the JP2
+box file with its colour, palette, component-mapping and channel-definition
+boxes, and the bare codestream; every Part 1 coding option; what cv2 5.0
+computes through OpenJPEG 2.5) into (H, W, 3) uint8 BGR — a grey PFM
+("Pf") into (H, W), as cv2 gives it — and gives None where cv2 gives
+None: bytes of another format (AVIF, ...), arithmetic-coded, 12-bit or
+lossless JPEGs, BMPs and TIFFs cv2 reads that this reader does not (other
+16-bit masks, other compressions, CMYK, YCbCr, JPEG-in-TIFF), the Sun
+raster types cv2 5.0 refuses itself (byte-encoded, RGB-format), the JPEG
+2000 files cv2 5.0 refuses (signed or subsampled components, a largest
+precision below 8, an image origin other than 0, too few components for
+the colour space, CMYK or e-sYCC), HTJ2K code-blocks, truncated or
+corrupt files, and sides longer than libpng or libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
 PIL's `Image.open(...).convert('RGB')`: the stored orientation, and
 Adobe's inverted CMYK through Pillow's cmyk2rgb. As IMREAD_COLOR does, it
 drops alpha, replicates grey, reduces 16-bit samples to their high byte,
@@ -36,7 +41,9 @@ decoder and encoder, written to compute what libjpeg-turbo computes at
 cv2's settings, TIFF's LZW and PackBits, Netpbm's ASCII numbers and PFM's
 header words, the GIF decoder and the Radiance HDR decoder, written to
 compute what cv2 5.0's own decoders compute, the WebP decoder, written to
-compute what libwebp computes), built with g++ at first use into
+compute what libwebp computes; the JPEG 2000 decoder is
+`csrc/host/jpeg2000.cc`, written to compute what OpenJPEG 2.5 computes
+and decoding one tile at a time), built with g++ at first use into
 `build/host/` like the DB postprocess library (`ops/native.py`); zlib
 inflates PNG streams, and numpy lays out the samples of the uncompressed
 formats (BMP, TIFF strips, Netpbm, PAM, PFM, Sun raster). There is no
@@ -56,8 +63,10 @@ import numpy as np
 from ..ops import native
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / "imcodec.cc"
+JP2_SOURCE = SOURCE.with_name("jpeg2000.cc")
 
 _LIB: Optional[ctypes.CDLL] = None
+_JP2_LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -102,6 +111,13 @@ _SIGNATURES = {
         _U8P]),                                      # out BGR
 }
 
+_JP2_SIGNATURES = {
+    "ocr_jp2_info": (ctypes.c_int, [_U8P, _LL, _IP, _IP]),  # buf, bytes, w, h
+    "ocr_jp2_decode": (ctypes.c_int, [
+        _U8P, _LL, ctypes.c_int, ctypes.c_int,     # buf, bytes, h, w
+        _U8P]),                                    # out BGR
+}
+
 # Sizes are checked before anything is allocated. libpng and libjpeg refuse
 # a longer side (PNG_USER_WIDTH_MAX / _HEIGHT_MAX, JPEG_MAX_DIMENSION): cv2
 # gives None. cv2's validateInputImageSize refuses a longer side or more
@@ -122,18 +138,31 @@ class _Unreadable(ValueError):
     """Bytes that cv2.imdecode would not decode either."""
 
 
+def _load(source: Path, stem: str, signatures) -> ctypes.CDLL:
+    loaded = ctypes.CDLL(str(native.build(source, stem)))
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(loaded, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return loaded
+
+
 def lib() -> ctypes.CDLL:
     """The loaded codec library, built first if needed."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            loaded = ctypes.CDLL(str(native.build(SOURCE, "libocrimcodec")))
-            for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(loaded, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
-            _LIB = loaded
+            _LIB = _load(SOURCE, "libocrimcodec", _SIGNATURES)
     return _LIB
+
+
+def jp2_lib() -> ctypes.CDLL:
+    """The loaded JPEG 2000 library, built first if needed."""
+    global _JP2_LIB
+    with _LOCK:
+        if _JP2_LIB is None:
+            _JP2_LIB = _load(JP2_SOURCE, "libocrjp2", _JP2_SIGNATURES)
+    return _JP2_LIB
 
 
 def _ptr(a: np.ndarray):
@@ -1089,9 +1118,30 @@ def _webp(buf: bytes) -> np.ndarray:
     return out
 
 
+JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+J2K_SIGNATURE = b"\xff\x4f\xff\x51"
+
+
+def _jp2(buf: bytes) -> np.ndarray:
+    """cv2's OpenJPEG decoder at IMREAD_COLOR (C++, tile by tile)."""
+    data = np.frombuffer(buf, np.uint8)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    codec = jp2_lib()
+    if codec.ocr_jp2_info(_ptr(data), data.size, ctypes.byref(w),
+                          ctypes.byref(h)) != 0:
+        raise _Unreadable("JPEG 2000: a header cv2 does not read")
+    _check_size("jp2", w.value, h.value)
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if codec.ocr_jp2_decode(_ptr(data), data.size, h.value, w.value,
+                            _ptr(out)) != 0:
+        raise _Unreadable("JPEG 2000: not decoded")
+    return out
+
+
 def imdecode(buf) -> Optional[np.ndarray]:
-    """Encoded image bytes → (H, W, 3) uint8 BGR ((H, W) for a grey PFM,
-    as cv2 gives it), or None where `cv2.imdecode(np.frombuffer(buf,
+    """Encoded image bytes of any format the module reads, JPEG 2000 (JP2
+    or a bare codestream) included → (H, W, 3) uint8 BGR ((H, W) for a grey
+    PFM, as cv2 gives it), or None where `cv2.imdecode(np.frombuffer(buf,
     np.uint8), cv2.IMREAD_COLOR)` gives None. Raises ValueError where cv2
     raises: an empty buffer, an image of more than MAX_SIDE px a side or
     MAX_PIXELS px in all, a PAM, PFM or GIF of a side <= 0."""
@@ -1121,6 +1171,8 @@ def imdecode(buf) -> Optional[np.ndarray]:
             return _sun(buf)
         if buf[:6] == b"#?RGBE" or buf[:10] == b"#?RADIANCE":
             return _hdr(buf)
+        if buf[:12] == JP2_SIGNATURE or buf[:4] == J2K_SIGNATURE:
+            return _jp2(buf)
         # cv2 asks libwebp whether the first 32 bytes are a WebP: a RIFF
         # container, or a bare VP8 / VP8L stream
         return _webp(buf)

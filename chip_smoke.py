@@ -5,7 +5,9 @@
 1. requires CUDA and prints the card's name and power limit (nvidia-smi);
 2. builds the hand-written kernels from onnxocr_tpu_torch/csrc into
    build/kernels/ (one nvcc per source, started together) and, at the same
-   time, the host C++ library of the DB postprocess into build/host/;
+   time, the host C++ libraries into build/host/ (the DB postprocess, the
+   image codec, JPEG 2000, the TrueType rasteriser, the auto-hinter and
+   Agg of the held-out page generator);
 3. holds each of the five kernels against its plain PyTorch version on the
    card at the shapes every path gives it — the CTC head (three TF32
    tensor-core passes over split operands) against the float32 plain
@@ -183,22 +185,37 @@
    phase_reached "done", no watchdog, all 12 corpus images, no trimmed
    corpus and a value above 0; the bench runs' kernel launches a page of
    their timed rounds come back through BENCH_LAUNCHES_OUT;
-18. runs phase EV, the corpus and eval tools (`phase_ev`): decodes the
+18. runs phase HS, the held-out page generator (`phase_hs`): decodes the
+   two arithmetic-coded JPEG samples (sample_arith.jpg, SOF9;
+   sample_arith_prog.jpg, SOF10: the corpus page big_doc) against cv2's
+   recorded shape and sha256, timed beside the page as a baseline Huffman
+   JPEG at the same quality; runs `python -m
+   onnxocr_tpu_torch.tools.make_heldout_synth --outdir` as a subprocess
+   (cut at HS_RUN_SECONDS), holds its 24 pages value for value against
+   onnxocr_tpu/test_images_heldout/ and its gt.json byte for byte, then,
+   with a stand-in dictionary and the seeded classifier, runs
+   eval_heldout --json over the written pages on the card in this process
+   between LAUNCHES reads (kernel 1 once a page; this is the run phase EV
+   reports; the written pages equal the committed ones, so their summary
+   is the committed pages'); the phase must end within HS_SECONDS;
+19. runs phase EV, the corpus and eval tools (`phase_ev`): decodes the
    codec samples of onnxocr_tpu_torch/assets/samples/ (GIF, PAM, PFM,
-   Sun raster, HDR; the JPEG 2000 ones are phase DR's) against the shape
+   Sun raster, HDR; the JPEG 2000 ones are phase DR's, the arithmetic
+   JPEGs phase HS's) against the shape
    and sha256 of cv2's decode recorded in codec_samples.json; with a stand-in dictionary of the renderer's
    characters and the seeded classifier, renders the corpus with
    `python -m onnxocr_tpu_torch.tools.make_test_corpus --out` (every page
-   and gt.json), runs eval_corpus and eval_heldout --json on the card in
-   this process between LAUNCHES reads (every summary key, gt_lines > 0;
-   kernel 1's launches a page), holds the card's rows and lines on two
+   and gt.json), runs eval_corpus --json on the card in this process
+   between LAUNCHES reads and takes phase HS's eval_heldout run (every
+   summary key, gt_lines > 0; kernel 1's launches a page), holds the
+   card's rows and lines on two
    corpus pages against the CPU's (texts equal, boxes within 2 px, scores
    within 2e-3), logs the held-out summary with evalgate into a temporary
    ledger, runs eval_e2e --pages 2 on the card (each tool run as a
    subprocess cut at EV_RUN_SECONDS), and replays one seed of
    tests/goldens_torch.json at device='cpu'; the phase must end within
    EV_SECONDS;
-19. runs phase DR, the last drivers (`phase_dr`): decodes the three JPEG 2000
+20. runs phase DR, the last drivers (`phase_dr`): decodes the three JPEG 2000
    samples (a reversible JP2; an irreversible tiled codestream with
    precincts; an irreversible JP2 of the 1280 × 960 corpus page big_doc)
    against cv2's recorded shape and sha256, timed beside the page's own
@@ -216,7 +233,7 @@
    asked for GET /api/v2/healthz on the port its own log names; each run is cut at DR_RUN_SECONDS, must
    exit 0 and print what its JAX counterpart prints, and the phase must
    end within DR_SECONDS;
-20. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+21. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
@@ -230,7 +247,10 @@
    {...}, "profiling": {...}, "card": ...} (phases M and PR),
    {"synthetic_training": {...}, "card": ...} (phase SY), {"bench":
    {...}} (phase BE: the three JSON lines, kernels 1–3's launches a page,
-   the WebP decodes), {"eval": {...}, "card": ...} (phase EV: the tools'
+   the WebP decodes), {"heldout_synth": {...}, "card": ...} (phase HS: the
+   arithmetic decodes and their Huffman twin's, the generator's seconds,
+   eval_heldout's seconds and kernel 1's launches a page),
+   {"eval": {...}, "card": ...} (phase EV: the tools'
    summaries, seconds a tool, pages/s, kernel 1's launches a page, the
    gate line, the codec samples' decodes), {"drivers": {...}, "card": ...}
    (phase DR: the det wires' line and launches a page, the seconds to
@@ -3672,24 +3692,26 @@ def _ev_main(module, argv):
     return json.loads(out.getvalue().strip().splitlines()[-1]), seconds
 
 
-def phase_ev(tmp):
+def phase_ev(tmp, heldout):
     """Phase EV: the codec's GIF, PAM, PFM, Sun and HDR samples against
-    cv2's recorded decodes (the JPEG 2000 ones are phase DR's); the corpus and eval tools on the card with a stand-in
-    dictionary of the renderer's characters and the seeded classifier
-    (make_test_corpus renders the corpus; eval_corpus and eval_heldout run
-    in this process, counted; their per-line predictions on two corpus
-    pages held against the same tool on the CPU; evalgate logs into a
-    temporary ledger; eval_e2e on 2 pages); one seed of
-    tests/goldens_torch.json replayed at device='cpu'. → (the {"eval":
-    ...} summary, {"EV": launches})."""
+    cv2's recorded decodes (the JPEG 2000 ones are phase DR's, the
+    arithmetic-coded JPEGs phase HS's); the corpus and eval tools on the
+    card with a stand-in dictionary of the renderer's characters and the
+    seeded classifier (make_test_corpus renders the corpus; eval_corpus
+    runs in this process, counted, and its per-line predictions on two
+    corpus pages are held against the same tool on the CPU; eval_heldout
+    is phase HS's run, `heldout` = (its payload, seconds, launches);
+    evalgate logs its summary into a temporary ledger; eval_e2e on 2
+    pages); one seed of tests/goldens_torch.json replayed at
+    device='cpu'. → (the {"eval": ...} summary, {"EV": launches})."""
     import hashlib
     import shutil
     from pathlib import Path
     import torch
     from onnxocr_tpu_torch.ops.kernels import build
     from onnxocr_tpu_torch.service import engine as engine_mod
-    from onnxocr_tpu_torch.tools import (eval_corpus, eval_heldout,
-                                         make_goldens, make_test_corpus)
+    from onnxocr_tpu_torch.tools import (eval_corpus, make_goldens,
+                                         make_test_corpus)
     from onnxocr_tpu_torch.utils import imcodec
     t_phase = time.perf_counter()
     repo = Path(__file__).resolve().parent
@@ -3697,7 +3719,7 @@ def phase_ev(tmp):
     codec = {}
     for name, want in json.loads(
             (samples / "codec_samples.json").read_text()).items():
-        if name in DR_SAMPLES:                 # phase DR decodes these
+        if name in DR_SAMPLES or name in HS_SAMPLES:  # phases DR and HS
             continue
         t = time.perf_counter()
         img = imcodec.imdecode((samples / name).read_bytes())
@@ -3736,14 +3758,17 @@ def phase_ev(tmp):
         summaries, seconds, pages_run, per_tool = {}, {}, {}, {}
         launches = {}
         for name, module in (("eval_corpus", eval_corpus),
-                             ("eval_heldout", eval_heldout)):
-            torch.cuda.synchronize()
-            build.LAUNCHES.clear()
-            payload, seconds[name] = _ev_main(module, ["--json"])
-            torch.cuda.synchronize()
-            per_tool[name] = dict(build.LAUNCHES)
-            for k, v in per_tool[name].items():
-                launches[k] = launches.get(k, 0) + v
+                             ("eval_heldout", None)):
+            if module is None:   # phase HS ran it over the pages it wrote
+                payload, seconds[name], per_tool[name] = heldout
+            else:
+                torch.cuda.synchronize()
+                build.LAUNCHES.clear()
+                payload, seconds[name] = _ev_main(module, ["--json"])
+                torch.cuda.synchronize()
+                per_tool[name] = dict(build.LAUNCHES)
+                for k, v in per_tool[name].items():
+                    launches[k] = launches.get(k, 0) + v
             summary = payload["summary"]
             missing = [k for k in EV_SUMMARY_KEYS[name] if k not in summary]
             assert not missing and summary["gt_lines"] > 0, (name, summary)
@@ -3753,6 +3778,7 @@ def phase_ev(tmp):
                   f"{pages_run[name]} pages): {json.dumps(summary)}; "
                   f"launches {per_tool[name]}")
         assert launches.get("ctc_head_reduce", 0) > 0
+        assert per_tool["eval_heldout"].get("ctc_head_reduce", 0) > 0
 
         # the card's per-line predictions against the tool on the CPU
         two = os.path.join(tmp, "ev_two")
@@ -3840,6 +3866,157 @@ def phase_ev(tmp):
             "phase_seconds": total}, {"EV": launches}
 
 
+def decode_ms(blob):
+    """The codec's decode of `blob` on the host → (the image, median ms of
+    5 decodes after a first one)."""
+    import statistics
+    from onnxocr_tpu_torch.utils import imcodec
+    imcodec.imdecode(blob)
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        img = imcodec.imdecode(blob)
+        times.append((time.perf_counter() - t) * 1e3)
+    return img, statistics.median(times)
+
+
+# phase HS: the generator runs as a subprocess cut at HS_RUN_SECONDS and
+# the phase must end within HS_SECONDS
+HS_RUN_SECONDS = 60
+HS_SECONDS = 45
+HS_SAMPLES = ("sample_arith.jpg", "sample_arith_prog.jpg")
+# the arithmetic samples' quality: their Huffman twin is written at it
+HS_QUALITY = 75
+
+
+def phase_hs(tmp):
+    """Phase HS: the arithmetic-coded JPEG samples (SOF9, SOF10) against
+    cv2's recorded decodes, timed beside the same page as a baseline
+    Huffman JPEG at their quality; the held-out page generator
+    (`python -m onnxocr_tpu_torch.tools.make_heldout_synth --outdir`) as a
+    subprocess on the host, its 24 pages held value for value against the
+    committed onnxocr_tpu/test_images_heldout/ pages and its gt.json byte
+    for byte; then eval_heldout over the written pages on the card in this
+    process (counted: kernel 1 once a page). The pages equal the committed
+    ones value for value, so eval_heldout over those would read the same
+    pixels and give the same summary: it is not run a second time. →
+    ({"heldout_synth": ...}, {"HS": launches}, (eval_heldout's payload,
+    seconds, launches))."""
+    import hashlib
+    from pathlib import Path
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.tools import eval_heldout, make_goldens
+    from onnxocr_tpu_torch.utils import imcodec
+    t_phase = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    samples = repo / "onnxocr_tpu_torch" / "assets" / "samples"
+    recorded = json.loads((samples / "codec_samples.json").read_text())
+    arith = {}
+    for name in HS_SAMPLES:
+        blob = (samples / name).read_bytes()
+        assert (b"\xff\xc9" if name == HS_SAMPLES[0] else b"\xff\xca") \
+            in blob, name
+        img, ms = decode_ms(blob)
+        want = recorded[name]
+        assert img is not None and list(img.shape) == want["shape"], name
+        assert hashlib.sha256(img.tobytes()).hexdigest() == \
+            want["sha256"], f"{name}: pixels differ from cv2's"
+        arith[name] = {"shape": list(img.shape), "bytes": len(blob),
+                       "decode_ms": ms}
+    twin = imcodec.imencode_jpeg(img, HS_QUALITY)
+    timg, twin_ms = decode_ms(twin)
+    assert timg.shape == img.shape
+    for name, rec in arith.items():
+        rec["over_huffman"] = rec["decode_ms"] / twin_ms
+        print(f"phase HS {name}: {tuple(rec['shape'])} equal to cv2's "
+              f"decode, {rec['decode_ms']:.3f} ms (median of 5), "
+              f"{rec['over_huffman']:.2f}x the page's baseline Huffman "
+              f"JPEG at quality {HS_QUALITY} ({twin_ms:.3f} ms, "
+              f"{len(twin)} bytes against {rec['bytes']})")
+
+    out = os.path.join(tmp, "hs_pages")
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "onnxocr_tpu_torch.tools.make_heldout_synth",
+         "--outdir", out], cwd=str(repo), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=HS_RUN_SECONDS)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("phase HS make_heldout_synth: cut at its limit")
+    gen_s = time.perf_counter() - t
+    assert proc.returncode == 0, \
+        f"phase HS make_heldout_synth: rc {proc.returncode}\n{stderr[-3000:]}"
+    committed = repo / "onnxocr_tpu" / "test_images_heldout"
+    gt_bytes = (committed / "gt.json").read_bytes()
+    assert Path(out, "gt.json").read_bytes() == gt_bytes, "gt.json differs"
+    gt = json.loads(gt_bytes)
+    lines = stdout.strip().splitlines()
+    assert lines[-1] == "pages=%d lines=%d -> %s" % (
+        len(gt), sum(map(len, gt.values())), out), lines[-1]
+    names = sorted(p.name for p in committed.glob("synth_*.png"))
+    assert len(names) == 24 and names == sorted(gt), names
+    diffs = {}
+    for name in names:
+        got = imcodec.imdecode(Path(out, name).read_bytes())
+        want = imcodec.imdecode((committed / name).read_bytes())
+        n = int((got != want).sum()) if got.shape == want.shape else -1
+        if n:
+            diffs[name] = {"values": n, "max": int(np.abs(
+                got.astype(int) - want).max()) if n > 0 else None}
+    for name, d in diffs.items():
+        print(f"phase HS {name}: {d['values']} values differ from the "
+              f"committed page (max {d['max']})")
+    assert not diffs, f"phase HS: {len(diffs)} pages differ"
+    print(f"phase HS make_heldout_synth ({gen_s:.1f} s): {len(names)} "
+          f"pages equal to the committed pages value for value, gt.json "
+          f"byte for byte")
+
+    assets = os.path.join(tmp, "hs_assets")
+    make_goldens.standin_dict(os.path.join(assets, "ppocrv5",
+                                           "ppocrv5_dict.txt"))
+    extra = {"ONNXOCR_TPU_ASSETS": assets,
+             "ONNXOCR_TPU_ALLOW_UNTRAINED": "1"}
+    saved = {k: os.environ.get(k) for k in extra}
+    os.environ.update(extra)
+    synth_dir = eval_heldout.SYNTH_DIR
+    try:
+        eval_heldout.SYNTH_DIR = out
+        torch.cuda.synchronize()
+        build.LAUNCHES.clear()
+        payload, eval_s = _ev_main(eval_heldout, ["--json"])
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        pages_run = len(payload["per_image"])
+        assert pages_run == len(names), pages_run
+        assert launches.get("ctc_head_reduce", 0) == pages_run, launches
+    finally:
+        eval_heldout.SYNTH_DIR = synth_dir
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"phase HS eval_heldout over the written pages ({eval_s:.1f} s, "
+          f"{pages_run} pages): {json.dumps(payload['summary'])}; launches "
+          f"{launches}")
+    total = time.perf_counter() - t_phase
+    print(f"phase HS {total:.1f} s")
+    assert total <= HS_SECONDS, f"phase HS took {total:.1f} s"
+    return {"arith_samples": arith,
+            "huffman_twin": {"bytes": len(twin), "decode_ms": twin_ms},
+            "generator_seconds": gen_s, "pages": len(names),
+            "lines": sum(map(len, gt.values())),
+            "eval_heldout_seconds": eval_s,
+            "ctc_head_launches_per_page":
+                launches.get("ctc_head_reduce", 0) / pages_run,
+            "phase_seconds": total}, {"HS": launches}, (
+                payload, eval_s, launches)
+
+
 # phase DR: each driver run as a subprocess is cut at DR_RUN_SECONDS and
 # the phase must end within DR_SECONDS
 DR_RUN_SECONDS = 90
@@ -3889,7 +4066,6 @@ def phase_dr(tmp):
     {"DR": launches})."""
     import hashlib
     import re
-    import statistics
     import urllib.request
     from pathlib import Path
     from onnxocr_tpu_torch.tools import make_goldens
@@ -3898,16 +4074,6 @@ def phase_dr(tmp):
     repo = Path(__file__).resolve().parent
     samples = repo / "onnxocr_tpu_torch" / "assets" / "samples"
     recorded = json.loads((samples / "codec_samples.json").read_text())
-
-    def decode_ms(blob):
-        """→ (the image, median ms of 5 decodes after a first one)."""
-        imcodec.imdecode(blob)
-        times = []
-        for _ in range(5):
-            t = time.perf_counter()
-            img = imcodec.imdecode(blob)
-            times.append((time.perf_counter() - t) * 1e3)
-        return img, statistics.median(times)
 
     jp2 = {}
     for name in DR_SAMPLES:
@@ -4080,18 +4246,22 @@ def main() -> int:
     from onnxocr_tpu_torch import ONNXPaddleOcr, config
     from onnxocr_tpu_torch.ops import native
     from onnxocr_tpu_torch.ops.kernels import build
-    from onnxocr_tpu_torch.utils import font, imcodec
+    from onnxocr_tpu_torch.utils import font, ft2font, imcodec, mpl_page
     from onnxocr_tpu_torch.utils.png import read_bgr
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         t0 = time.perf_counter()
         host = pool.submit(native.build)
         codec = pool.submit(native.build, imcodec.SOURCE, "libocrimcodec")
         jp2 = pool.submit(native.build, imcodec.JP2_SOURCE, "libocrjp2")
         ttf = pool.submit(native.build, font.SOURCE, "libocrttf")
+        autohint = pool.submit(native.build, ft2font.SOURCE,
+                               "libocrautohint")
+        agg = pool.submit(native.build, mpl_page.SOURCE, "libocragg")
         print(f"kernels built in {build.build_all():.1f} s")
         print(f"host libraries {host.result().name}, {codec.result().name}, "
-              f"{jp2.result().name}, {ttf.result().name} built, "
+              f"{jp2.result().name}, {ttf.result().name}, "
+              f"{autohint.result().name}, {agg.result().name} built, "
               f"{time.perf_counter() - t0:.1f} s from the start of the build")
     for name in build.SOURCES:
         for line in build.build_log(name).splitlines():
@@ -4263,7 +4433,9 @@ def main() -> int:
         synthetic, sy_runs = phase_sy(pages, tmp)
         runs.update(sy_runs)
         bench_summary = phase_be(tmp)
-        eval_summary, ev_runs = phase_ev(tmp)
+        heldout_synth, hs_runs, heldout = phase_hs(tmp)
+        runs.update(hs_runs)
+        eval_summary, ev_runs = phase_ev(tmp, heldout)
         runs.update(ev_runs)
         drivers, dr_runs = phase_dr(tmp)
         runs.update(dr_runs)
@@ -4295,6 +4467,7 @@ def main() -> int:
                       "card": smi}))
     print(json.dumps({"synthetic_training": synthetic, "card": smi}))
     print(json.dumps({"bench": bench_summary, "card": smi}))
+    print(json.dumps({"heldout_synth": heldout_synth, "card": smi}))
     print(json.dumps({"eval": eval_summary, "card": smi}))
     print(json.dumps({"drivers": drivers, "card": smi}))
     print(json.dumps({"kernels": kernels}))

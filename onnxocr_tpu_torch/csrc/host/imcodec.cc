@@ -5,12 +5,14 @@
 // * PNG: unfiltering (None, Sub, Up, Average, Paeth) and Adam7
 //   de-interlacing of the inflated stream (zlib inflates in Python); every
 //   bit depth, 16-bit samples reduced to their high byte as cv2 does.
-// * JPEG decoder: baseline and progressive Huffman, 8-bit, 1, 3 or 4
+// * JPEG decoder: baseline and progressive, Huffman or arithmetic
+//   coding (the QM decoder of jdarith.c, with DAC conditioning), 8-bit, 1, 3 or 4
 //   components (4: CMYK, or YCCK under an Adobe transform 2, both to CMYK
 //   as libjpeg converts them), any integral sampling factors, restart
 //   intervals. It
 //   computes what libjpeg-turbo computes at cv2's settings: the integer
-//   "islow" IDCT, "fancy" triangular chroma upsampling (h2v1, h1v2, h2v2;
+//   "islow" IDCT (as its AVX2 code computes it, which wraps and saturates
+//   a corrupt file's coefficients), "fancy" triangular chroma upsampling (h2v1, h1v2, h2v2;
 //   replication otherwise) and the fixed-point YCbCr -> BGR tables. Its
 //   Huffman tables are checked as libjpeg checks them, before use. A
 //   baseline frame whose first scan holds every component streams as
@@ -311,6 +313,132 @@ struct Bits {
   }
 };
 
+// ---- arithmetic decoding (ITU T.81 Annexes D, F and G as libjpeg's
+// jdarith.c lays them out)
+// Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed 0.5 estimate
+// of the sign and refinement bits.
+const uint16_t kQe[114][4] = {  // Qe, NMPS, NLPS, SWITCH
+    {0x5a1d, 1, 1, 1},    {0x2586, 2, 14, 0},   {0x1114, 3, 16, 0},
+    {0x080b, 4, 18, 0},   {0x03d8, 5, 20, 0},   {0x01da, 6, 23, 0},
+    {0x00e5, 7, 25, 0},   {0x006f, 8, 28, 0},   {0x0036, 9, 30, 0},
+    {0x001a, 10, 33, 0},  {0x000d, 11, 35, 0},  {0x0006, 12, 9, 0},
+    {0x0003, 13, 10, 0},  {0x0001, 13, 12, 0},  {0x5a7f, 15, 15, 1},
+    {0x3f25, 16, 36, 0},  {0x2cf2, 17, 38, 0},  {0x207c, 18, 39, 0},
+    {0x17b9, 19, 40, 0},  {0x1182, 20, 42, 0},  {0x0cef, 21, 43, 0},
+    {0x09a1, 22, 45, 0},  {0x072f, 23, 46, 0},  {0x055c, 24, 48, 0},
+    {0x0406, 25, 49, 0},  {0x0303, 26, 51, 0},  {0x0240, 27, 52, 0},
+    {0x01b1, 28, 54, 0},  {0x0144, 29, 56, 0},  {0x00f5, 30, 57, 0},
+    {0x00b7, 31, 59, 0},  {0x008a, 32, 60, 0},  {0x0068, 33, 62, 0},
+    {0x004e, 34, 63, 0},  {0x003b, 35, 32, 0},  {0x002c, 9, 33, 0},
+    {0x5ae1, 37, 37, 1},  {0x484c, 38, 64, 0},  {0x3a0d, 39, 65, 0},
+    {0x2ef1, 40, 67, 0},  {0x261f, 41, 68, 0},  {0x1f33, 42, 69, 0},
+    {0x19a8, 43, 70, 0},  {0x1518, 44, 72, 0},  {0x1177, 45, 73, 0},
+    {0x0e74, 46, 74, 0},  {0x0bfb, 47, 75, 0},  {0x09f8, 48, 77, 0},
+    {0x0861, 49, 78, 0},  {0x0706, 50, 79, 0},  {0x05cd, 51, 48, 0},
+    {0x04de, 52, 50, 0},  {0x040f, 53, 50, 0},  {0x0363, 54, 51, 0},
+    {0x02d4, 55, 52, 0},  {0x025c, 56, 53, 0},  {0x01f8, 57, 54, 0},
+    {0x01a4, 58, 55, 0},  {0x0160, 59, 56, 0},  {0x0125, 60, 57, 0},
+    {0x00f6, 61, 58, 0},  {0x00cb, 62, 59, 0},  {0x00ab, 63, 61, 0},
+    {0x008f, 32, 61, 0},  {0x5b12, 65, 65, 1},  {0x4d04, 66, 80, 0},
+    {0x412c, 67, 81, 0},  {0x37d8, 68, 82, 0},  {0x2fe8, 69, 83, 0},
+    {0x293c, 70, 84, 0},  {0x2379, 71, 86, 0},  {0x1edf, 72, 87, 0},
+    {0x1aa9, 73, 87, 0},  {0x174e, 74, 72, 0},  {0x1424, 75, 72, 0},
+    {0x119c, 76, 74, 0},  {0x0f6b, 77, 74, 0},  {0x0d51, 78, 75, 0},
+    {0x0bb6, 79, 77, 0},  {0x0a40, 48, 77, 0},  {0x5832, 81, 80, 1},
+    {0x4d1c, 82, 88, 0},  {0x438e, 83, 89, 0},  {0x3bdd, 84, 90, 0},
+    {0x34ee, 85, 91, 0},  {0x2eae, 86, 92, 0},  {0x299a, 87, 93, 0},
+    {0x2516, 71, 86, 0},  {0x5570, 89, 88, 1},  {0x4ca9, 90, 95, 0},
+    {0x44d9, 91, 96, 0},  {0x3e22, 92, 97, 0},  {0x3824, 93, 99, 0},
+    {0x32b4, 94, 99, 0},  {0x2e17, 86, 93, 0},  {0x56a8, 96, 95, 1},
+    {0x4f46, 97, 101, 0}, {0x47e5, 98, 102, 0}, {0x41cf, 99, 103, 0},
+    {0x3c3d, 100, 104, 0}, {0x375e, 93, 99, 0}, {0x5231, 102, 105, 0},
+    {0x4c0f, 103, 106, 0}, {0x4639, 104, 107, 0}, {0x415e, 99, 103, 0},
+    {0x5627, 106, 105, 1}, {0x50e7, 107, 108, 0}, {0x4b85, 103, 109, 0},
+    {0x5597, 109, 110, 0}, {0x504f, 107, 111, 0}, {0x5a10, 111, 110, 1},
+    {0x5522, 109, 112, 0}, {0x59eb, 111, 112, 1}, {0x5a1d, 113, 113, 0}};
+
+// The QM decoder's registers and its byte source: the compressed data up
+// to the next marker, then zeros (a marker ends an arithmetic segment
+// legally); `ct` -1 is libjpeg's error state, in which the rest of the
+// segment decodes nothing.
+struct Arith {
+  const uint8_t* data;
+  size_t size, pos;
+  bool at_marker = false;   // pos is on the 0xFF of the marker reached
+  bool truncated = false;   // the buffer ended inside entropy data
+  bool short_data = false;  // (the Huffman reader's; never set here)
+  int64_t c = 0, a = 0;
+  int ct = -16;
+
+  void align() {  // a restart: two new bytes fill C
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+  int byte() {
+    if (at_marker) return 0;
+    if (pos >= size) {
+      truncated = true;
+      return 0;
+    }
+    int d = data[pos];
+    if (d != 0xFF) {
+      ++pos;
+      return d;
+    }
+    size_t p = pos + 1;
+    while (p < size && data[p] == 0xFF) ++p;
+    if (p >= size) {
+      truncated = true;
+      return 0;
+    }
+    if (data[p] == 0) {  // a stuffed zero
+      pos = p + 1;
+      return 0xFF;
+    }
+    pos = p - 1;  // a marker: zeros from here on
+    at_marker = true;
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;  // two initial bytes read
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const uint16_t* e = kQe[sv & 0x7F];
+    int64_t qe = e[0];
+    int nm = e[1], nl = e[2] | (e[3] << 7);
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
@@ -321,6 +449,7 @@ struct Jpeg {
   size_t pos = 2;
   int width = 0, height = 0, ncomp = 0;
   bool progressive = false, have_frame = false;
+  bool arith = false;  // SOF9 / SOF10: arithmetic coding
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   int restart = 0;
@@ -328,7 +457,27 @@ struct Jpeg {
   uint16_t qt[4][64] = {};
   bool qt_present[4] = {false, false, false, false};
   Huff dc[4], ac[4];
+  // the arithmetic conditioning (DAC; libjpeg's defaults L 0, U 1, Kx 5)
+  // and statistics of its 16 tables
+  uint8_t dc_l[16], dc_u[16], ac_k[16];
+  uint8_t dc_stats[16][64], ac_stats[16][256];
+  int dc_context[4] = {0, 0, 0, 0};
   Comp comp[4];
+  // libjpeg's progression status for block smoothing: the Al of the last
+  // scan of each of a component's zigzag coefficients 0-9 (-1 before any),
+  // their values before its last scan, the scans read, and the last iMCU
+  // row decoded with the data it needed (master->last_good_iMCU_row)
+  int coef_bits[4][10], prev_bits[4][10];
+  int scans = 0;
+  int last_good_row = 0;
+
+  Jpeg() {
+    std::fill(dc_l, dc_l + 16, 0);
+    std::fill(dc_u, dc_u + 16, 1);
+    std::fill(ac_k, ac_k + 16, 5);
+    std::fill(&coef_bits[0][0], &coef_bits[0][0] + 40, -1);
+    std::fill(&prev_bits[0][0], &prev_bits[0][0] + 40, 0);
+  }
   bool done = false;
   // streaming: the first scan of a baseline frame holds every component;
   // `on_row(k)` takes each decoded MCU row k (the coefficients in each
@@ -342,10 +491,13 @@ struct Jpeg {
   // the next marker code at or after pos (skipping stray bytes and fill),
   // pos moved past it; -1 at the end of the buffer
   int next_marker() {
-    while (pos < size && data[pos] != 0xFF) ++pos;
-    while (pos < size && data[pos] == 0xFF) ++pos;
-    if (pos >= size) return -1;
-    return data[pos++];
+    for (;;) {
+      while (pos < size && data[pos] != 0xFF) ++pos;
+      while (pos < size && data[pos] == 0xFF) ++pos;
+      if (pos >= size) return -1;
+      if (data[pos] != 0) return data[pos++];
+      ++pos;  // a stuffed zero (FF 00) left by a scan: skipped
+    }
   }
 
   bool read_sof(size_t p, size_t n, int marker) {
@@ -356,8 +508,9 @@ struct Jpeg {
     ncomp = data[p + 5];
     if (width == 0 || height == 0) return false;
     if (ncomp != 1 && ncomp != 3 && ncomp != 4) return false;
-    if (n < 6 + 3u * ncomp) return false;
-    progressive = marker == 0xC2;
+    if (n != 6 + 3u * ncomp) return false;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arith = marker == 0xC9 || marker == 0xCA;
     for (int i = 0; i < ncomp; ++i) {
       Comp& c = comp[i];
       c.id = data[p + 6 + 3 * i];
@@ -418,16 +571,34 @@ struct Jpeg {
     return true;
   }
 
+  // DAC: conditioning of arithmetic tables (libjpeg's get_dac)
+  bool read_dac(size_t p, size_t n) {
+    if (n & 1) return false;
+    for (size_t e = p + n; p < e; p += 2) {
+      int index = data[p], val = data[p + 1];
+      if (index >= 32) return false;
+      if (index >= 16) {
+        ac_k[index - 16] = static_cast<uint8_t>(val);
+      } else {
+        dc_l[index] = static_cast<uint8_t>(val & 15);
+        dc_u[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_l[index] > dc_u[index]) return false;
+      }
+    }
+    return true;
+  }
+
   int16_t* block(Comp& c, int by, int bx) {
     if (streaming) by %= c.srows;  // the one MCU row held
     return &c.coef[(static_cast<size_t>(by) * c.abw + bx) * 64];
   }
 
   // whether a scan can decode with table `no`: one a DHT gave and
-  // jdhuff.c accepts, or else the standard table 0 or 1
-  static bool usable(Huff* tables, int no, bool is_dc) {
+  // jdhuff.c accepts, or else in a sequential frame the standard table 0
+  // or 1 (jinit_huff_decoder's std_huff_tables; jdphuff.c has none)
+  bool usable(Huff* tables, int no, bool is_dc) {
     Huff& t = tables[no];
-    if (!t.defined && no <= 1) {
+    if (!t.defined && no <= 1 && !progressive) {
       const uint8_t* bits = is_dc ? (no ? kDcChromaBits : kDcLumaBits)
                                   : (no ? kAcChromaBits : kAcLumaBits);
       const uint8_t* vals = is_dc ? kDcVals
@@ -445,18 +616,77 @@ struct Jpeg {
       bool dcband = ss == 0;
       if (dcband ? se != 0 : (ss > se || se > 63 || ns != 1)) return false;
       if ((ah != 0 && al != ah - 1) || al > 13) return false;
+      // jdphuff.c / jdarith.c's start_pass: the progression status
+      for (int i = 0; i < ns; ++i) {
+        int* bits = coef_bits[sc[i] - comp];
+        int* prev = prev_bits[sc[i] - comp];
+        for (int k = std::min(ss, 1); k <= std::min(std::max(se, 9), 9); ++k)
+          prev[k] = scans > 1 ? bits[k] : 0;
+        for (int k = ss; k <= std::min(se, 9); ++k) bits[k] = al;
+      }
     }
     for (int i = 0; i < ns; ++i) {
       if (!qt_present[sc[i]->tq]) return false;
-      bool need_dc = !progressive || ss == 0;
-      bool need_ac = !progressive ? true : ss > 0;
-      if (progressive && ss == 0 && ah != 0) need_dc = false;
-      if (need_dc && !usable(dc, sc[i]->td, true)) return false;
-      if (need_ac && !usable(ac, sc[i]->ta, false)) return false;
       sc[i]->dc_pred = 0;
+      if (arith) continue;
+      // jdhuff.c / jdphuff.c's start_pass: only the tables the scan reads
+      // are checked (a DC refinement scan reads none)
+      bool need_dc = !progressive || (ss == 0 && ah == 0);
+      bool need_ac = !progressive || ss > 0;
+      if (need_dc && (sc[i]->td > 3 || !usable(dc, sc[i]->td, true)))
+        return false;
+      if (need_ac && (sc[i]->ta > 3 || !usable(ac, sc[i]->ta, false)))
+        return false;
+    }
+    if (arith) {
+      // jdarith.c's start_pass and process_restart: statistics and DC
+      // predictions start afresh with the scan and at each restart
+      auto reset = [&]() {
+        for (int i = 0; i < ns; ++i) {
+          if (!progressive || (ss == 0 && ah == 0)) {
+            std::memset(dc_stats[sc[i]->td], 0, 64);
+            sc[i]->dc_pred = 0;
+            dc_context[i] = 0;
+          }
+          if (!progressive || ss)
+            std::memset(ac_stats[sc[i]->ta], 0, 256);
+        }
+      };
+      reset();
+      Arith ar{data, size, pos};
+      uint8_t fixed_bin = 113;
+      bool ok = scan_units(ar, sc, ns, [&](int my, int mx) {
+        if (ar.ct != -1)
+          decode_mcu_arith(ar, sc, ns, my, mx, ss, se, ah, al, fixed_bin);
+      }, reset, false);
+      if (!ok) return false;
+      // the marker reader goes on past the bytes the decoder left
+      pos = ar.pos;
+      return true;
     }
     Bits br{data, size, pos};
     int eobrun = 0;
+    bool ok = scan_units(br, sc, ns, [&](int my, int mx) {
+      decode_mcu(br, sc, ns, my, mx, ss, se, ah, al, eobrun);
+    }, [&]() {
+      eobrun = 0;
+      for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
+    }, true);
+    if (!ok) return false;
+    // continue the marker loop at the marker that ended the data
+    pos = br.pos;
+    return true;
+  }
+
+  // The MCUs of a scan in order, with the restart intervals: `decode(my,
+  // mx)` reads one, `reset()` restarts the entropy state. A Huffman reader
+  // (`halts`) skips the MCUs after its data ran out until a restart marker
+  // is read (one that a restart leaves unread keeps it out of data, and
+  // the first MCU after it decodes from zeros unless it already was); the
+  // arithmetic reader decodes them from zeros.
+  template <class Reader, class Decode, class Reset>
+  bool scan_units(Reader& rd, Comp** sc, int ns, Decode decode, Reset reset,
+                  bool halts) {
     long long total;
     int mw;
     if (ns == 1) {
@@ -466,58 +696,225 @@ struct Jpeg {
       mw = mcux;
       total = static_cast<long long>(mcux) * mcuy;
     }
-    bool halted = false;  // out of data until the next restart
+    int rst_next = 0;     // the number of the next restart marker
     const int rows_units = ns == 1 ? sc[0]->bh : mcuy;
+    const int unit_rows = ns == 1 ? sc[0]->v : 1;  // units an iMCU row
     for (long long m = 0; m < total; ++m) {
       if (streaming && m % mw == 0) {  // a new MCU row: clear its blocks
         for (int i = 0; i < ns; ++i)
           std::fill(sc[i]->coef.begin(), sc[i]->coef.end(), 0);
       }
       if (restart && m > 0 && m % restart == 0) {
-        br.align();
-        // the expected restart marker, or resynchronise on the next one
-        if (!br.at_marker) {
-          size_t p = br.pos;
-          while (p + 1 < size && !(data[p] == 0xFF && data[p + 1] != 0 &&
-                                   data[p + 1] != 0xFF))
-            ++p;
-          br.pos = p;
-          br.at_marker = true;
-          if (p + 1 >= size) return false;
+        rd.align();
+        // libjpeg's read_restart_marker: the expected RSTn, or else
+        // jpeg_resync_to_restart's choice among the markers that follow
+        if (!rd.at_marker && !scan_to_marker(rd)) return false;
+        for (;;) {
+          size_t p = rd.pos;
+          while (p < size && data[p] == 0xFF) ++p;
+          if (p >= size) return false;
+          int mk = data[p];
+          int action = 1;
+          if (mk != 0xD0 + rst_next) {
+            if (mk < 0xC0) {
+              action = 2;  // not a valid marker
+            } else if (mk < 0xD0 || mk > 0xD7) {
+              action = 3;  // a marker other than a restart
+            } else if (mk == 0xD0 + ((rst_next + 1) & 7) ||
+                       mk == 0xD0 + ((rst_next + 2) & 7)) {
+              action = 3;  // one of the next two restarts
+            } else if (mk == 0xD0 + ((rst_next - 1) & 7) ||
+                       mk == 0xD0 + ((rst_next - 2) & 7)) {
+              action = 2;  // a prior restart
+            }
+          }
+          if (action == 1) {  // swallowed; the data goes on after it
+            rd.pos = p + 1;
+            rd.at_marker = false;
+            rd.short_data = false;
+          } else if (action == 2) {  // scan to the next marker, decide again
+            rd.pos = p + 1;
+            if (!scan_to_marker(rd)) return false;
+            continue;
+          }  // else left unread: the segment is empty
+          break;
         }
-        size_t p = br.pos;
-        while (p < size && data[p] == 0xFF) ++p;
-        if (p >= size) return false;
-        int mk = data[p];
-        if (mk >= 0xD0 && mk <= 0xD7) {
-          br.pos = p + 1;
-          br.at_marker = false;
-          halted = false;
-        } else {
-          halted = true;
-        }
-        br.short_data = false;
-        eobrun = 0;
-        for (int i = 0; i < ns; ++i) sc[i]->dc_pred = 0;
+        rst_next = (rst_next + 1) & 7;
+        reset();
       }
       int my = static_cast<int>(m / mw), mx = static_cast<int>(m % mw);
+      bool skip = halts && rd.short_data;
       if (streaming && mx == mw - 1) {
         // after this MCU the row is complete (a skipped one stays zero)
-        if (!(halted || br.short_data))
-          decode_mcu(br, sc, ns, my, mx, ss, se, ah, al, eobrun);
-        if (br.truncated) return false;
+        if (!skip) decode(my, mx);
+        if (rd.truncated) return false;
         if (!on_row(my)) return false;
         continue;
       }
-      if (halted || br.short_data) continue;
-      decode_mcu(br, sc, ns, my, mx, ss, se, ah, al, eobrun);
-      if (br.truncated) return false;
+      if (skip) continue;
+      last_good_row = my / unit_rows;  // an MCU the data reaches
+      decode(my, mx);
+      if (rd.truncated) return false;
     }
-    if (br.truncated) return false;
+    if (rd.truncated) return false;
     if (streaming && (rows_units <= 0 || !on_end())) return false;
-    // continue the marker loop at the marker that ended the data
-    pos = br.pos;
     return true;
+  }
+
+  // libjpeg's next_marker from rd.pos: past bytes other than 0xFF and
+  // stuffed zeros to the 0xFF of the next marker; false at the end
+  template <class Reader>
+  bool scan_to_marker(Reader& rd) {
+    size_t p = rd.pos;
+    for (;;) {
+      while (p < size && data[p] != 0xFF) ++p;
+      size_t q = p;
+      while (q < size && data[q] == 0xFF) ++q;
+      if (q >= size) return false;
+      if (data[q] != 0) break;
+      p = q + 1;
+    }
+    rd.pos = p;
+    rd.at_marker = true;
+    return true;
+  }
+
+  // jdarith.c's decode of the magnitude and sign of a nonzero value after
+  // its category bin `st` (Figures F.21-F.24); 0 on a magnitude overflow
+  // (the decoder then stops, ct -1)
+  static bool arith_value(Arith& ar, uint8_t* st, uint8_t* mag_stats,
+                          int sign, int* out) {
+    int m = ar.decode(st);
+    if (m) {
+      if (ar.decode(st)) {
+        m <<= 1;
+        st = mag_stats;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          st += 1;
+        }
+      }
+    }
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    *out = sign ? -v : v;
+    return true;
+  }
+
+  // the blocks of MCU (my, mx) of an arithmetic-coded scan (jdarith.c's
+  // decode_mcu, decode_mcu_DC_first / _DC_refine / _AC_first / _AC_refine)
+  void decode_mcu_arith(Arith& ar, Comp** sc, int ns, int my, int mx, int ss,
+                        int se, int ah, int al, uint8_t& fixed_bin) {
+    for (int i = 0; i < ns; ++i) {
+      Comp& c = *sc[i];
+      int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
+      for (int yy = 0; yy < nv; ++yy) {
+        for (int xx = 0; xx < nh; ++xx) {
+          int by = ns == 1 ? my : my * c.v + yy;
+          int bx = ns == 1 ? mx : mx * c.h + xx;
+          int16_t* b = block(c, by, bx);
+          if (!progressive || (ss == 0 && ah == 0)) {
+            // DC (Figure F.19; the DC statistics of Table F.4)
+            uint8_t* dcs = dc_stats[c.td];
+            uint8_t* st = dcs + dc_context[i];
+            if (ar.decode(st) == 0) {
+              dc_context[i] = 0;
+            } else {
+              int sign = ar.decode(st + 1);
+              st += 2 + sign;
+              int m = ar.decode(st);
+              if (m != 0) {
+                st = dcs + 20;
+                while (ar.decode(st)) {
+                  if ((m <<= 1) == 0x8000) {
+                    ar.ct = -1;
+                    return;
+                  }
+                  st += 1;
+                }
+              }
+              if (m < static_cast<int>((1L << dc_l[c.td]) >> 1))
+                dc_context[i] = 0;
+              else if (m > static_cast<int>((1L << dc_u[c.td]) >> 1))
+                dc_context[i] = 12 + sign * 4;
+              else
+                dc_context[i] = 4 + sign * 4;
+              int v = m;
+              st += 14;
+              while (m >>= 1)
+                if (ar.decode(st)) v |= m;
+              v += 1;
+              if (sign) v = -v;
+              c.dc_pred = progressive ? c.dc_pred + v
+                                      : (c.dc_pred + v) & 0xffff;
+            }
+            b[0] = static_cast<int16_t>(
+                progressive ? static_cast<uint32_t>(c.dc_pred) << al
+                            : static_cast<uint32_t>(c.dc_pred));
+            if (progressive) continue;
+          } else if (ss == 0) {  // DC refinement: the next bit
+            if (ar.decode(&fixed_bin)) b[0] = static_cast<int16_t>(b[0] | (1 << al));
+            continue;
+          }
+          uint8_t* acs = ac_stats[c.ta];
+          int kx = ac_k[c.ta];
+          if (!progressive || ah == 0) {  // AC (Figure F.20)
+            int k0 = progressive ? ss : 1, k1 = progressive ? se : 63;
+            for (int k = k0; k <= k1; ++k) {
+              uint8_t* st = acs + 3 * (k - 1);
+              if (ar.decode(st)) break;  // EOB
+              while (ar.decode(st + 1) == 0) {
+                st += 3;
+                ++k;
+                if (k > k1) {
+                  ar.ct = -1;  // spectral overflow
+                  return;
+                }
+              }
+              int sign = ar.decode(&fixed_bin), v;
+              if (!arith_value(ar, st + 2, acs + (k <= kx ? 189 : 217), sign,
+                               &v))
+                return;
+              b[kNatural[k]] = static_cast<int16_t>(
+                  static_cast<uint32_t>(v) << (progressive ? al : 0));
+            }
+          } else {  // AC refinement (Section G.1.3.3)
+            int p1 = 1 << al, m1 = -1 * (1 << al);
+            int kex = se;
+            for (; kex > 0; --kex)
+              if (b[kNatural[kex]]) break;
+            for (int k = ss; k <= se; ++k) {
+              uint8_t* st = acs + 3 * (k - 1);
+              if (k > kex && ar.decode(st)) break;  // EOB
+              for (;;) {
+                int16_t* co = b + kNatural[k];
+                if (*co) {
+                  if (ar.decode(st + 2))
+                    *co = static_cast<int16_t>(*co < 0 ? *co + m1 : *co + p1);
+                  break;
+                }
+                if (ar.decode(st + 1)) {
+                  *co = static_cast<int16_t>(ar.decode(&fixed_bin) ? m1 : p1);
+                  break;
+                }
+                st += 3;
+                ++k;
+                if (k > se) {
+                  ar.ct = -1;
+                  return;
+                }
+              }
+            }
+          }
+        }
+      }
+    }
   }
 
   // the blocks of MCU (my, mx) of the scan (one block when ns is 1)
@@ -624,10 +1021,113 @@ struct Jpeg {
     }
   }
 
+  // jdcoefct.c's smoothing_ok: block smoothing runs on a progressive
+  // frame whose every component has had a DC scan and whose coefficients
+  // 1-9 are not all complete, unless a quantiser it divides by is zero
+  bool smoothing() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (int ci = 0; ci < ncomp; ++ci) {
+      const uint16_t* q = qt[comp[ci].tq];
+      for (int k : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (q[k] == 0) return false;
+      if (coef_bits[ci][0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful |= coef_bits[ci][k] != 0;
+    }
+    return useful;
+  }
+
+  // libjpeg-turbo's decompress_smooth_data for block (by, bx) of component
+  // ci: its coefficients into ws, those of 1-9 that are zero and not
+  // complete estimated from the DC values of the 5 x 5 blocks around it
+  // (the DC too, where no AC scan of the component arrived). The rows
+  // around it follow libjpeg's bounds, which in a short last iMCU row count
+  // that row's blocks as if every row were as short.
+  void smooth_block(int ci, int by, int bx, int16_t* ws) {
+    Comp& c = comp[ci];
+    std::memcpy(ws, block(c, by, bx), 64 * sizeof(int16_t));
+    const int r = by / c.v, b = by % c.v;
+    int brows = c.v;
+    if (r == mcuy - 1 && c.bh % c.v) brows = c.bh % c.v;
+    const long long q = static_cast<long long>(r) * brows + b,
+                    qrows = static_cast<long long>(brows) * mcuy;
+    const int up1 = q > 0 ? by - 1 : by, up2 = q > 1 ? by - 2 : up1;
+    const int dn1 = q < qrows - 1 ? by + 1 : by,
+              dn2 = q < qrows - 2 ? by + 2 : dn1;
+    const int rows[5] = {up2, up1, by, dn1, dn2};
+    int d[26];  // d[1] .. d[25]: libjpeg's DC01 .. DC25
+    for (int i = 0; i < 5; ++i)
+      for (int k = 0; k < 5; ++k)
+        d[1 + 5 * i + k] =
+            block(c, rows[i], std::min(std::max(bx + k - 2, 0), c.bw - 1))[0];
+    // the row is past the last one decoded: the bits before the
+    // component's last scan, all -1 when there was only one scan
+    static const int kNone[10] = {-1, -1, -1, -1, -1, -1, -1, -1, -1, -1};
+    const int* bits = r <= last_good_row ? coef_bits[ci]
+                      : scans > 1       ? prev_bits[ci]
+                                        : kNone;
+    bool change_dc = true;
+    for (int k = 1; k < 10; ++k) change_dc &= bits[k] == -1;
+    const uint16_t* qv = qt[c.tq];
+    const int64_t q00 = qv[0];
+    // num * q00 / (qk * 256), rounded half away from zero
+    auto predict = [&](int64_t num, int64_t qk) {
+      num *= q00;
+      return ((qk << 7) + (num < 0 ? -num : num)) / (qk << 8);
+    };
+    // coefficient k (zigzag; natural position pos) from num, below 2^Al
+    auto estimate = [&](int k, int pos, int64_t num) {
+      const int al = bits[k];
+      if (al == 0 || ws[pos] != 0) return;
+      int64_t pred = predict(num, qv[pos]);
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      ws[pos] = static_cast<int16_t>(num < 0 ? -pred : pred);
+    };
+    if (change_dc) {
+      estimate(1, 1, -d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] -
+                         13 * d[9] + 3 * d[10] - 3 * d[11] + 38 * d[12] -
+                         38 * d[14] + 3 * d[15] - 3 * d[16] + 13 * d[17] -
+                         13 * d[19] + 3 * d[20] - d[21] - d[22] + d[24] +
+                         d[25]);
+      estimate(2, 8, -d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] +
+                         13 * d[7] + 38 * d[8] + 13 * d[9] - d[10] + d[16] -
+                         13 * d[17] - 38 * d[18] - 13 * d[19] + d[20] +
+                         d[21] + 3 * d[22] + 3 * d[23] + 3 * d[24] + d[25]);
+      estimate(3, 16, d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] -
+                          14 * d[13] - 5 * d[14] + 2 * d[17] + 7 * d[18] +
+                          2 * d[19] + d[23]);
+      estimate(4, 9, -d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] +
+                         9 * d[19] + d[21] - d[25]);
+      estimate(5, 2, 2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] -
+                         14 * d[13] + 7 * d[14] + d[15] + 2 * d[17] -
+                         5 * d[18] + 2 * d[19]);
+      estimate(6, 3, d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19]);
+      estimate(7, 10, d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19]);
+      estimate(8, 17, d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19]);
+      estimate(9, 24, d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19]);
+      const int64_t num =
+          -2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] - 6 * d[6] +
+          6 * d[7] + 42 * d[8] + 6 * d[9] - 6 * d[10] - 8 * d[11] +
+          42 * d[12] + 152 * d[13] + 42 * d[14] - 8 * d[15] - 6 * d[16] +
+          6 * d[17] + 42 * d[18] + 6 * d[19] - 6 * d[20] - 2 * d[21] -
+          6 * d[22] - 8 * d[23] - 6 * d[24] - 2 * d[25];
+      const int64_t pred = predict(num, q00);
+      ws[0] = static_cast<int16_t>(num < 0 ? -pred : pred);
+    } else {
+      estimate(1, 1, -7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15]);
+      estimate(2, 8, -7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23]);
+      estimate(3, 16, -d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23]);
+      estimate(4, 9, d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] - d[20] +
+                         d[22] - d[24] + d[4] - d[6] + 10 * d[7] -
+                         10 * d[9]);
+      estimate(5, 2, -d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15]);
+    }
+  }
+
   bool read_sos(size_t p, size_t n) {
     if (!have_frame || n < 1) return false;
     int ns = data[p];
-    if (ns < 1 || ns > 4 || n < 4 + 2u * ns) return false;
+    if (ns < 1 || ns > 4 || n != 4 + 2u * ns) return false;
     int ids[4];
     int blocks = 0;
     for (int i = 0; i < ns; ++i) {
@@ -639,7 +1139,6 @@ struct Jpeg {
       ids[i] = k;
       comp[k].td = data[p + 2 + 2 * i] >> 4;
       comp[k].ta = data[p + 2 + 2 * i] & 15;
-      if (comp[k].td > 3 || comp[k].ta > 3) return false;
       blocks += comp[k].h * comp[k].v;
     }
     if (ns > 1 && blocks > 10) return false;
@@ -664,6 +1163,7 @@ struct Jpeg {
     int ss = data[q], se = data[q + 1], ah = data[q + 2] >> 4,
         al = data[q + 2] & 15;
     pos = p + n;
+    ++scans;
     return read_scan(ids, ns, ss, se, ah, al);
   }
 
@@ -676,25 +1176,38 @@ struct Jpeg {
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
       if (pos + 2 > size) return false;
       size_t n = u16(pos);
-      if (n < 2 || pos + n > size) return false;
+      if (pos + n > size) return false;
+      if (n < 2) {
+        // libjpeg skips an APPn or COM segment of a bogus length from
+        // after its length bytes; any other segment is refused
+        if (!((m >= 0xE0 && m <= 0xEF) || m == 0xFE)) return false;
+        pos += 2;
+        continue;
+      }
       size_t p = pos + 2;
       n -= 2;
       pos = p + n;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
         if (!read_sof(p, n, m)) return false;
-      } else if ((m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
-                  m != 0xCC) || m == 0xCC) {
-        return false;  // lossless, hierarchical, arithmetic coding
+      } else if (m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
+                 m != 0xCC) {
+        return false;  // lossless, hierarchical
+      } else if (m == 0xCC) {
+        if (!read_dac(p, n)) return false;
       } else if (m == 0xC4) {
         if (!read_dht(p, n)) return false;
       } else if (m == 0xDB) {
         if (!read_dqt(p, n)) return false;
       } else if (m == 0xDD) {
-        if (n < 2) return false;
+        if (n != 2) return false;
         restart = u16(p);
       } else if (m == 0xDA) {
         if (!read_sos(p, n)) return false;
         done = true;
+        // a single-scan frame is whole once its rows are out: cv2 keeps
+        // the image whatever follows (libjpeg reads on only in
+        // jpeg_finish_decompress, whose failure cv2 ignores)
+        if (streaming) return true;
       } else if (m == 0xE0) {
         if (n >= 14 && std::memcmp(data + p, "JFIF\0", 5) == 0) jfif = true;
       } else if (m == 0xEE) {
@@ -704,6 +1217,8 @@ struct Jpeg {
         }
       } else if (m == 0xDC) {
         return false;  // DNL is not read
+      } else if (m == 0xD8 || (m < 0xE0 && m != 0xDD) || (m > 0xEF && m != 0xFE)) {
+        return false;  // libjpeg's read_markers: a second SOI, an unknown marker
       }
     }
   }
@@ -724,106 +1239,97 @@ inline uint8_t idct_limit(int64_t x) {
   return static_cast<uint8_t>(clamp255(v + 128));
 }
 
+// One 8-point pass of libjpeg-turbo's AVX2 jsimd_idct_islow (the SIMD
+// path cv2's libjpeg-turbo takes on x86-64): jidctint.c's arithmetic with
+// the products paired as vpmaddwd pairs them, the sums in0 + in4,
+// in0 - in4, in3 + in7 and in1 + in5 in 16-bit lanes (vpaddw wraps), the
+// 32-bit sums wrapping (vpaddd), each output descaled by `shift` and
+// saturated to int16 (vpackssdw). For a valid file every step stays in
+// range and this is jidctint.c's result; a corrupt one's garbage
+// coefficients wrap and saturate here as they do in cv2. A vector whose
+// inputs 1-7 are zero gives in0 << 13 descaled, as the full pass does.
+inline int32_t wrap16(int32_t v) { return static_cast<int16_t>(v); }
+inline int32_t add32(int32_t a, int32_t b) {  // vpaddd: wraps
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+inline int32_t sub32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+inline int16_t sat16(int32_t v) {
+  return static_cast<int16_t>(v < -32768 ? -32768 : v > 32767 ? 32767 : v);
+}
+
+inline void idct_pass(const int16_t* in, int step, int16_t* out, int out_step,
+                      int shift) {
+  const int32_t x0 = in[0], x1 = in[step], x2 = in[2 * step],
+                x3 = in[3 * step], x4 = in[4 * step], x5 = in[5 * step],
+                x6 = in[6 * step], x7 = in[7 * step];
+  const int32_t round = 1 << (shift - 1);
+  if (!(x1 | x2 | x3 | x4 | x5 | x6 | x7)) {
+    const int16_t v = sat16((x0 * 8192 + round) >> shift);
+    for (int k = 0; k < 8; ++k) out[k * out_step] = v;
+    return;
+  }
+  // even part (vpmaddwd pairs fit in 32 bits)
+  const int32_t tmp3 = x2 * int32_t(F0541 + F0765) + x6 * int32_t(F0541);
+  const int32_t tmp2 = x2 * int32_t(F0541) + x6 * int32_t(F0541 - F1847);
+  const int32_t tmp0 = wrap16(x0 + x4) * 8192;
+  const int32_t tmp1 = wrap16(x0 - x4) * 8192;
+  const int32_t t10 = add32(tmp0, tmp3), t13 = sub32(tmp0, tmp3),
+                t11 = add32(tmp1, tmp2), t12 = sub32(tmp1, tmp2);
+  // odd part
+  const int32_t z3 = wrap16(x7 + x3), z4 = wrap16(x5 + x1);
+  const int32_t z3s = z3 * int32_t(F1175 - F1961) + z4 * int32_t(F1175);
+  const int32_t z4s = z3 * int32_t(F1175) + z4 * int32_t(F1175 - F0390);
+  const int32_t o0 =
+      add32(x7 * int32_t(F0298 - F0899) + x1 * int32_t(-F0899), z3s);
+  const int32_t o1 =
+      add32(x5 * int32_t(F2053 - F2562) + x3 * int32_t(-F2562), z4s);
+  const int32_t o3 =
+      add32(x7 * int32_t(-F0899) + x1 * int32_t(F1501 - F0899), z4s);
+  const int32_t o2 =
+      add32(x5 * int32_t(-F2562) + x3 * int32_t(F3072 - F2562), z3s);
+  auto put = [&](int k, int32_t v) {
+    out[k * out_step] = sat16(add32(v, round) >> shift);
+  };
+  put(0, add32(t10, o3));
+  put(7, sub32(t10, o3));
+  put(1, add32(t11, o2));
+  put(6, sub32(t11, o2));
+  put(2, add32(t12, o1));
+  put(5, sub32(t12, o1));
+  put(3, add32(t13, o0));
+  put(4, sub32(t13, o0));
+}
+
+// The islow inverse DCT of one block as cv2's libjpeg-turbo computes it
+// (see idct_pass): coefficients dequantised in 16 bits (vpmullw), columns
+// (a block whose rows 1-7 are all zero takes row 0's DC << 2 in 16 bits
+// down each column), then rows, the result saturated to int8 and offset
+// by 128.
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
                 int out_stride) {
-  int ws[64];
-  for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* w = ws + c;
-    if (!(ip[8] | ip[16] | ip[24] | ip[32] | ip[40] | ip[48] | ip[56])) {
-      const int dc = ip[0] * qp[0] * 4;  // AC terms all zero
-      for (int k = 0; k < 64; k += 8) w[k] = dc;
-      continue;
+  int16_t dq[64], ws[64], res[8];
+  int ac = 0;
+  for (int k = 0; k < 64; ++k) {
+    dq[k] = static_cast<int16_t>(int32_t(in[k]) * int32_t(q[k]));
+    if (k >= 8) ac |= in[k];
+  }
+  if (!ac) {
+    for (int c = 0; c < 8; ++c) {
+      const int16_t dc = static_cast<int16_t>(int32_t(dq[c]) * 4);
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
     }
-    int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * (-F1847);
-    int64_t tmp3 = z1 + z2 * F0765;
-    z2 = ip[0] * qp[0];
-    z3 = ip[32] * qp[32];
-    int64_t tmp0 = (z2 + z3) * 8192, tmp1 = (z2 - z3) * 8192;
-    int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2,
-            t12 = tmp1 - tmp2;
-    tmp0 = ip[56] * qp[56];
-    tmp1 = ip[40] * qp[40];
-    tmp2 = ip[24] * qp[24];
-    tmp3 = ip[8] * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    w[0] = static_cast<int>(descale(t10 + tmp3, 11));
-    w[56] = static_cast<int>(descale(t10 - tmp3, 11));
-    w[8] = static_cast<int>(descale(t11 + tmp2, 11));
-    w[48] = static_cast<int>(descale(t11 - tmp2, 11));
-    w[16] = static_cast<int>(descale(t12 + tmp1, 11));
-    w[40] = static_cast<int>(descale(t12 - tmp1, 11));
-    w[24] = static_cast<int>(descale(t13 + tmp0, 11));
-    w[32] = static_cast<int>(descale(t13 - tmp0, 11));
+  } else {
+    for (int c = 0; c < 8; ++c) idct_pass(dq + c, 8, ws + c, 8, 11);
   }
   for (int r = 0; r < 8; ++r) {
-    const int* w = ws + 8 * r;
+    idct_pass(ws + 8 * r, 1, res, 1, 18);
     uint8_t* o = out + r * out_stride;
-    if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
-      const uint8_t dc = idct_limit(descale(w[0], 5));
-      std::memset(o, dc, 8);
-      continue;
+    for (int c = 0; c < 8; ++c) {
+      const int v = res[c] < -128 ? -128 : res[c] > 127 ? 127 : res[c];
+      o[c] = static_cast<uint8_t>(v + 128);
     }
-    int64_t z2 = w[2], z3 = w[6];
-    int64_t z1 = (z2 + z3) * F0541;
-    int64_t tmp2 = z1 + z3 * (-F1847);
-    int64_t tmp3 = z1 + z2 * F0765;
-    int64_t tmp0 = (static_cast<int64_t>(w[0]) + w[4]) * 8192;
-    int64_t tmp1 = (static_cast<int64_t>(w[0]) - w[4]) * 8192;
-    int64_t t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2,
-            t12 = tmp1 - tmp2;
-    tmp0 = w[7];
-    tmp1 = w[5];
-    tmp2 = w[3];
-    tmp3 = w[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    int64_t z4 = tmp1 + tmp3;
-    int64_t z5 = (z3 + z4) * F1175;
-    tmp0 *= F0298;
-    tmp1 *= F2053;
-    tmp2 *= F3072;
-    tmp3 *= F1501;
-    z1 *= -F0899;
-    z2 *= -F2562;
-    z3 *= -F1961;
-    z4 *= -F0390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    o[0] = idct_limit(descale(t10 + tmp3, 18));
-    o[7] = idct_limit(descale(t10 - tmp3, 18));
-    o[1] = idct_limit(descale(t11 + tmp2, 18));
-    o[6] = idct_limit(descale(t11 - tmp2, 18));
-    o[2] = idct_limit(descale(t12 + tmp1, 18));
-    o[5] = idct_limit(descale(t12 - tmp1, 18));
-    o[3] = idct_limit(descale(t13 + tmp0, 18));
-    o[4] = idct_limit(descale(t13 - tmp0, 18));
   }
 }
 
@@ -1263,9 +1769,21 @@ int ocr_jpeg_size(const uint8_t* buf, long long n, int* h, int* w) {
     if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
     if (j.pos + 2 > j.size) return -1;
     size_t len = j.u16(j.pos);
-    if (len < 2 || j.pos + len > j.size) return -1;
+    if (j.pos + len > j.size) return -1;
+    if (len < 2) {  // an APPn or COM of a bogus length is skipped (parse())
+      if (!((m >= 0xE0 && m <= 0xEF) || m == 0xFE)) return -1;
+      len = 2;
+    }
     if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+      // what get_sof and initial_setup refuse while cv2 reads the header
       if (len < 8) return -1;
+      const int nc = buf[j.pos + 7];
+      if (nc < 1 || nc > 10 || len != 8 + 3u * nc) return -1;
+      for (int i = 0; i < nc; ++i) {
+        const int hv = buf[j.pos + 9 + 3 * i];
+        if ((hv >> 4) < 1 || (hv >> 4) > 4 || (hv & 15) < 1 || (hv & 15) > 4)
+          return -1;
+      }
       *h = j.u16(j.pos + 3);
       *w = j.u16(j.pos + 5);
       return 0;
@@ -1305,9 +1823,11 @@ struct Rows {
   std::vector<uint8_t> ring[4], up[4], px;
   std::vector<int> sums;
   std::function<void(int, const uint8_t*, int)> sink;  // (y, W * nc, nc)
+  bool smooth = false;  // libjpeg's block smoothing (a buffered frame)
 
   Rows(Jpeg& jp, std::function<void(int, const uint8_t*, int)> s)
       : j(jp), W(jp.width), H(jp.height), nc(jp.ncomp), sink(std::move(s)) {
+    smooth = j.buffered && j.smoothing();
     const bool single = nc == 1;
     units = single ? j.comp[0].bh : j.mcuy;
     out_rows = single ? 8 : 8 * j.vmax;
@@ -1349,9 +1869,16 @@ struct Rows {
       for (int lb = 0; lb < brows; ++lb) {
         const int by = k * brows + lb;
         if (by >= c.bh) break;
-        for (int bx = 0; bx < c.bw; ++bx)
-          idct_islow(j.block(c, by, bx), q,
-                     base + static_cast<size_t>(lb) * 8 * ps + bx * 8, ps);
+        int16_t ws[64];
+        for (int bx = 0; bx < c.bw; ++bx) {
+          const int16_t* coef = j.block(c, by, bx);
+          if (smooth) {
+            j.smooth_block(ci, by, bx, ws);
+            coef = ws;
+          }
+          idct_islow(coef, q, base + static_cast<size_t>(lb) * 8 * ps + bx * 8,
+                     ps);
+        }
       }
     }
   }

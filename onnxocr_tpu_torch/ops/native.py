@@ -55,7 +55,10 @@ _SIGNATURES = {
 
 
 def target(source: Path = SOURCE, stem: str = "libocrhost") -> Path:
-    digest = hashlib.sha1(source.read_bytes() +
+    # the headers beside a source (the shared font reader) are part of it
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(source.parent.glob("*.h")))
+    digest = hashlib.sha1(source.read_bytes() + headers +
                           " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{stem}-{digest}.so"
 

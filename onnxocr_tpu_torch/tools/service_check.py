@@ -24,31 +24,16 @@ import base64
 import json
 import os
 import re
-import struct
 import subprocess
 import sys
 import time
 import urllib.request
-import zlib
 
 from .. import bench
+from ..utils import imcodec
 
 OUT_DIR = bench.REPO / "build" / "service_check"
 READY_SECONDS = 480
-
-
-def png_bytes(bgr) -> bytes:
-    """An 8-bit RGB PNG of a BGR image (unfiltered rows, zlib)."""
-    h, w = bgr.shape[:2]
-    rows = bgr[:, :, ::-1].reshape(h, w * 3)
-    raw = b"".join(b"\x00" + row.tobytes() for row in rows)
-
-    def chunk(kind, body):
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(
-            ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
-    return (b"\x89PNG\r\n\x1a\n" +
-            chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)) +
-            chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def server_env(device: str) -> dict:
@@ -110,7 +95,7 @@ def main(argv=None) -> int:
         from .eval_e2e import render_page
         page, truths = render_page(100)
         img_path = OUT_DIR / "tests_page.png"
-        img_path.write_bytes(png_bytes(page))
+        img_path.write_bytes(imcodec.imencode_png(page))
         blob = img_path.read_bytes()
 
         # v1

@@ -1,11 +1,12 @@
 """The image codec of the service and the crop writer, for a machine without
-cv2 or PIL: counterparts of `cv2.imdecode(buf, cv2.IMREAD_COLOR)` and of
-`cv2.imencode('.jpg', img, [cv2.IMWRITE_JPEG_QUALITY, q])`.
+cv2 or PIL: counterparts of `cv2.imdecode(buf, cv2.IMREAD_COLOR)`, of
+`cv2.imencode('.jpg', img, [cv2.IMWRITE_JPEG_QUALITY, q])` and of the pixels
+`cv2.imwrite` writes to a PNG (`imencode_png`).
 
 `imdecode` reads PNG (every colour type and bit depth, Adam7 interlace),
-JPEG (baseline and progressive Huffman, 8-bit, 1, 3 or 4 (CMYK, YCCK)
-components, any integral sampling factors, restart intervals, the EXIF
-orientation; a baseline file streams row by row), BMP (1-, 4- and 8-bit
+JPEG (baseline and progressive, Huffman or arithmetic coding, 8-bit, 1,
+3 or 4 (CMYK, YCCK) components, any integral sampling factors, restart
+intervals, the EXIF orientation; a sequential file streams row by row), BMP (1-, 4- and 8-bit
 palettes, RLE8 and RLE4, 16-bit 5-5-5 and 5-6-5, 24- and 32-bit with or
 without bit-field masks, bottom-up and top-down, the OS/2 core header too),
 baseline TIFF (the first IFD: none, PackBits, LZW, Deflate; predictor 2;
@@ -22,8 +23,8 @@ box file with its colour, palette, component-mapping and channel-definition
 boxes, and the bare codestream; every Part 1 coding option; what cv2 5.0
 computes through OpenJPEG 2.5) into (H, W, 3) uint8 BGR — a grey PFM
 ("Pf") into (H, W), as cv2 gives it — and gives None where cv2 gives
-None: bytes of another format (AVIF, ...), arithmetic-coded, 12-bit or
-lossless JPEGs, BMPs and TIFFs cv2 reads that this reader does not (other
+None: bytes of another format (AVIF, ...), 12-bit, lossless or
+hierarchical JPEGs, BMPs and TIFFs cv2 reads that this reader does not (other
 16-bit masks, other compressions, CMYK, YCbCr, JPEG-in-TIFF), the Sun
 raster types cv2 5.0 refuses itself (byte-encoded, RGB-format), the JPEG
 2000 files cv2 5.0 refuses (signed or subsampled components, a largest
@@ -1208,3 +1209,34 @@ def imencode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
             raise MemoryError("JPEG encoder: out of memory")
         cap = -n
     raise RuntimeError("JPEG encoder: output buffer sized wrongly")
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data +
+            struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def imencode_png(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 BGR → an 8-bit RGB PNG of the pixels
+    `cv2.imwrite(path, img)` writes for a .png path (the channels back in
+    RGB order): cv2's Sub filter on every row, zlib at level 1 with the
+    RLE strategy, IDAT chunks of 8192 bytes. The pixels decode equal to
+    cv2's file; the compressed bytes may differ."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise TypeError(f"uint8 images only, got {img.dtype}")
+    if img.ndim != 3 or img.shape[2] != 3 or not img.shape[0] or \
+            not img.shape[1]:
+        raise ValueError(f"expected a (H, W, 3) image, got {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.ascontiguousarray(img[:, :, ::-1]).reshape(h, w * 3)
+    sub = rows.copy()
+    sub[:, 3:] = rows[:, 3:] - rows[:, :-3]  # uint8 wraps mod 256
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1).tobytes()
+    co = zlib.compressobj(1, zlib.DEFLATED, 15, 9, zlib.Z_RLE)
+    z = co.compress(raw) + co.flush()
+    out = [b"\x89PNG\r\n\x1a\n",
+           _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))]
+    out += [_png_chunk(b"IDAT", z[i:i + 8192]) for i in range(0, len(z), 8192)]
+    out.append(_png_chunk(b"IEND", b""))
+    return b"".join(out)

@@ -14,7 +14,19 @@ Pillow 12's C code (libImaging) computes, on (H, W, 3) uint8 RGB arrays and
 * `transform_affine`: `Image.transform(size, AFFINE, coeffs, resample)` —
   BILINEAR through the generic transform (pixel centres, edge clamp,
   truncated, outside → 0), NEAREST through libImaging's scale path, its 16.16
-  fixed-point path or its float path, as it picks them.
+  fixed-point path or its float path, as it picks them;
+* `rotate`: `Image.rotate(angle, expand=False, fillcolor=...)` — the
+  reverse matrix Pillow builds around the centre, rounded to 15 places,
+  through `transform_affine` at NEAREST;
+* `gaussian_blur`: `Image.filter(ImageFilter.GaussianBlur(radius))` —
+  libImaging's three passes of the extended box blur in each direction,
+  the box radius computed in single precision, 8.24 fixed-point weights,
+  8-bit rounding after each pass.
+
+The held-out page generator's JPEG round trip (`Image.save(..., 'JPEG',
+quality=q)` then `np.asarray(Image.open(...))`) is `utils/imcodec.py`'s
+`imencode_jpeg` (libjpeg-turbo's encoder at Pillow's settings) and
+`jpeg_pil_rgb`.
 """
 from __future__ import annotations
 
@@ -174,11 +186,11 @@ def _steps(start: float, step: float, n: int) -> np.ndarray:
 
 
 def transform_affine(img: np.ndarray, size: Tuple[int, int], coeffs,
-                     resample: str = "nearest") -> np.ndarray:
+                     resample: str = "nearest", fillcolor=None) -> np.ndarray:
     """`Image.fromarray(img).transform(size, Image.AFFINE, coeffs,
-    resample)` (fill 0 outside the source) for (H, W, 3) RGB or (H, W) 'L'
-    uint8; input (x, y) = (a x + b y + c, d x + e y + f) at output pixel
-    centres."""
+    resample, fillcolor=fillcolor)` for (H, W, 3) RGB or (H, W) 'L' uint8
+    (outside the source: 0, or `fillcolor`); input (x, y) = (a x + b y + c,
+    d x + e y + f) at output pixel centres."""
     w, h = int(size[0]), int(size[1])
     a = [float(v) for v in coeffs[:6]]
     img = np.asarray(img)
@@ -186,6 +198,10 @@ def transform_affine(img: np.ndarray, size: Tuple[int, int], coeffs,
     src = img[:, :, None] if squeeze else img
     ih, iw, nb = src.shape
     out = np.zeros((h, w, nb), np.uint8)
+    fill = np.zeros(nb, np.uint8)
+    if fillcolor is not None:
+        fill[:] = fillcolor
+        out[...] = fill
     if w <= 0 or h <= 0:
         return out[:, :, 0] if squeeze else out
     ys, xs = np.mgrid[0:h, 0:w]
@@ -208,7 +224,7 @@ def transform_affine(img: np.ndarray, size: Tuple[int, int], coeffs,
         v2 = np.where(has2[:, :, None], v2, v1)
         v = v1 + (v2 - v1) * dy
         vals = _coord(v)
-        out = np.where(inside[:, :, None], vals, 0).astype(np.uint8)
+        out = np.where(inside[:, :, None], vals, fill).astype(np.uint8)
     elif a[1] == 0 and a[3] == 0:
         # ImagingScaleAffine
         xin = _coord(_steps(a[2] + a[0] * 0.5, a[0], w))
@@ -245,3 +261,101 @@ def transform_affine(img: np.ndarray, size: Tuple[int, int], coeffs,
             ok = (xi >= 0) & (xi < iw) & (yi >= 0) & (yi < ih)
             out[y, ok] = src[yi[ok], xi[ok]]
     return out[:, :, 0] if squeeze else out
+
+
+def rotate(img: np.ndarray, angle: float, fillcolor=(255, 255, 255)
+           ) -> np.ndarray:
+    """`Image.fromarray(img).rotate(angle, expand=False,
+    fillcolor=fillcolor)` (NEAREST) for (H, W, 3) RGB uint8, at an angle
+    that is not a multiple of 90 degrees (Pillow transposes there)."""
+    angle = angle % 360.0
+    if angle % 90.0 == 0:
+        raise ValueError(f"{angle}: a multiple of 90 degrees")
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    cx, cy = w / 2, h / 2
+    theta = -math.radians(angle)
+    m = [round(math.cos(theta), 15), round(math.sin(theta), 15), 0.0,
+         round(-math.sin(theta), 15), round(math.cos(theta), 15), 0.0]
+    x, y = -cx, -cy
+    m[2], m[5] = m[0] * x + m[1] * y + m[2], m[3] * x + m[4] * y + m[5]
+    m[2] += cx
+    m[5] += cy
+    return transform_affine(img, (w, h), m, "nearest", fillcolor=fillcolor)
+
+
+BLUR_PASSES = 3  # ImageFilter.GaussianBlur's box blurs in each direction
+
+
+def _box_radius(radius: float) -> np.float32:
+    """libImaging's _gaussian_blur_radius, in single precision."""
+    f = np.float32
+    r = f(radius)
+    sigma2 = f(r * r / f(BLUR_PASSES))
+    big_l = f(math.sqrt(12.0 * float(sigma2) + 1.0))
+    small_l = f(math.floor((float(big_l) - 1.0) / 2.0))
+    a = f((f(2) * small_l + f(1)) * (small_l * (small_l + f(1)) -
+                                     f(3) * sigma2))
+    a = f(a / (f(6) * (sigma2 - (small_l + f(1)) * (small_l + f(1)))))
+    return f(small_l + a)
+
+
+def _box_blur_rows(img: np.ndarray, radius_f: np.float32) -> np.ndarray:
+    """ImagingHorizontalBoxBlur: every row of (H, W, C) uint8 at once."""
+    radius = int(radius_f)
+    ww = int(np.float32(np.float32(1 << 24) /
+                        (radius_f * np.float32(2) + np.float32(1))))
+    fw = ((1 << 24) - (radius * 2 + 1) * ww) // 2
+    w = img.shape[1]
+    lastx = w - 1
+    edge_a = min(radius + 1, w)
+    edge_b = max(w - radius - 1, 0)
+    line = img.astype(np.uint64)
+    mask = np.uint64(0xFFFFFFFF)
+    acc = line[:, 0] * np.uint64(radius + 1)
+    for x in range(edge_a - 1):
+        acc = acc + line[:, x]
+    acc = acc + line[:, lastx] * np.uint64(radius - edge_a + 1)
+    out = np.empty_like(img)
+    ww64, fw64 = np.uint64(ww), np.uint64(fw)
+
+    def step(x, sub, add, left, right):
+        nonlocal acc
+        acc = (acc + line[:, add] - line[:, sub]) & mask
+        bulk = (acc * ww64 + (line[:, left] + line[:, right]) * fw64) & mask
+        out[:, x] = ((bulk + np.uint64(1 << 23)) >> np.uint64(24)).astype(
+            np.uint8)
+
+    if edge_a <= edge_b:
+        for x in range(0, edge_a):
+            step(x, 0, x + radius, 0, x + radius + 1)
+        for x in range(edge_a, edge_b):
+            step(x, x - radius - 1, x + radius, x - radius - 1, x + radius + 1)
+        for x in range(edge_b, lastx + 1):
+            step(x, x - radius - 1, lastx, x - radius - 1, lastx)
+    else:
+        for x in range(0, edge_b):
+            step(x, 0, x + radius, 0, lastx)
+        for x in range(edge_b, edge_a):
+            step(x, 0, lastx, 0, lastx)
+        for x in range(edge_a, lastx + 1):
+            step(x, x - radius - 1, lastx, x - radius - 1, lastx)
+    return out
+
+
+def gaussian_blur(img: np.ndarray, radius: float) -> np.ndarray:
+    """`Image.fromarray(img).filter(ImageFilter.GaussianBlur(radius))` for
+    (H, W, 3) RGB uint8."""
+    img = np.asarray(img)
+    if radius == 0:
+        return img.copy()
+    r = _box_radius(radius)
+    out = img
+    if r != 0:
+        for _ in range(BLUR_PASSES):
+            out = _box_blur_rows(out, r)
+        t = np.ascontiguousarray(out.transpose(1, 0, 2))
+        for _ in range(BLUR_PASSES):
+            t = _box_blur_rows(t, r)
+        out = np.ascontiguousarray(t.transpose(1, 0, 2))
+    return out

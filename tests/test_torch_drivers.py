@@ -40,7 +40,7 @@ from onnxocr_tpu_torch import app_service, test_ocr, webui
 from onnxocr_tpu_torch.service import http as http_mod
 from onnxocr_tpu_torch.tools import (bench_det_variants, grow_rec,
                                      make_goldens, make_support,
-                                     service_check)
+                                     service_check, time_imdecode)
 from onnxocr_tpu_torch.utils import imcodec, params_io
 
 REPO = Path(__file__).resolve().parents[1]
@@ -245,7 +245,7 @@ def test_launchers_serve_the_reference_ports(module, argv, port,
 
 @pytest.mark.parametrize("entry", [
     "bench_det_variants", "service_check", "make_support", "grow_rec",
-    "test_ocr", "webui"])
+    "test_ocr", "webui", "time_imdecode"])
 def test_drivers_exit_without_cuda(entry, monkeypatch):
     from onnxocr_tpu_torch.service.settings import settings
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -258,7 +258,25 @@ def test_drivers_exit_without_cuda(entry, monkeypatch):
         "grow_rec": lambda: grow_rec.main(["--src", "a", "--out", "b"]),
         "test_ocr": lambda: test_ocr.main([]),
         "webui": lambda: webui.main([]),
+        "time_imdecode": lambda: time_imdecode.main(["a.jpg"]),
     }
     with pytest.raises(SystemExit) as e:
         mains[entry]()
     assert e.value.code not in (0, None)
+
+
+def test_time_imdecode_times_each_root(capsys):
+    """One JSON line: a run a root in the order given, each file's shape
+    (the decoded image's) and its median and minimum milliseconds."""
+    samples = REPO / "onnxocr_tpu_torch" / "assets" / "samples"
+    files = [str(samples / "sample_arith.jpg"), str(samples / "sample_anim.gif")]
+    time_imdecode.main(files + ["--roots", str(REPO), str(REPO),
+                                "--rounds", "2", "--device", "cpu"])
+    runs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["runs"]
+    assert [r["root"] for r in runs] == [str(REPO)] * 2
+    for run in runs:
+        assert list(run["files"]) == files
+        for path, rec in run["files"].items():
+            assert rec["shape"] == list(imcodec.imdecode(
+                Path(path).read_bytes()).shape)
+            assert 0 < rec["ms_min"] <= rec["ms_median"]

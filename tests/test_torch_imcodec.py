@@ -2248,18 +2248,20 @@ _SAMPLES = Path(__file__).resolve().parents[1] / "onnxocr_tpu_torch" / \
 
 
 def test_codec_samples_match_cv2():
-    """The eight committed samples (an animated, interlaced GIF with
+    """The ten committed samples (an animated, interlaced GIF with
     transparency, a 16-bit RGB PAM, a little-endian PFM, an 8-bit Sun
     raster with a colour map, an RLE HDR, a reversible JP2, an
-    irreversible tiled JPEG 2000 codestream and an irreversible JP2 of a
-    1280 x 960 corpus page) decode to cv2's decode here and to the shape
+    irreversible tiled JPEG 2000 codestream, an irreversible JP2 of a
+    1280 x 960 corpus page and that page as sequential and progressive
+    arithmetic-coded JPEGs) decode to cv2's decode here and to the shape
     and sha256 recorded beside them, which the chip smoke checks on a
     machine without cv2."""
     import hashlib
     import json
     recorded = json.loads((_SAMPLES / "codec_samples.json").read_text())
     assert sorted(Path(n).suffix for n in recorded) == [
-        ".gif", ".hdr", ".j2k", ".jp2", ".jp2", ".pam", ".pfm", ".ras"]
+        ".gif", ".hdr", ".j2k", ".jp2", ".jp2", ".jpg", ".jpg", ".pam",
+        ".pfm", ".ras"]
     for name, want in recorded.items():
         blob = (_SAMPLES / name).read_bytes()
         assert_decodes_as_cv2(blob)

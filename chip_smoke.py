@@ -6,7 +6,7 @@
 2. builds the hand-written kernels from onnxocr_tpu_torch/csrc into
    build/kernels/ (one nvcc per source, started together) and, at the same
    time, the host C++ libraries into build/host/ (the DB postprocess, the
-   image codec, JPEG 2000, the TrueType rasteriser, the auto-hinter and
+   image codec, JPEG 2000, TIFF, the TrueType rasteriser, the auto-hinter and
    Agg of the held-out page generator);
 3. holds each of the five kernels against its plain PyTorch version on the
    card at the shapes every path gives it — the CTC head (three TF32
@@ -165,9 +165,9 @@
    (`phase_sy`): with a stand-in dictionary of real characters (every
    code point of U+0020–U+2BFF a DejaVu face covers, padded to 18383
    lines), tools/train_synthetic.main in one subprocess trains the SVTR
-   at full width (40 steps of 32 × 48 × 320 at --replay 1, the same
+   at full width (20 steps of 32 × 48 × 320 at --replay 1, the same
    under torch.profiler for the busy share alone, and at --replay 4),
-   the DBNet (20 steps of 8 × 320², hard
+   the DBNet (12 steps of 8 × 320², hard
    and table pages) and the CRNN (10 steps); each run's losses must be
    finite and fall (last 5 steps' mean below the first 5's); prints the
    renderer's host ms a call by style, ms a step, steps/s and the card's
@@ -179,7 +179,8 @@
    lossless with alpha) with the port's codec against the shape and
    sha256 of cv2's decode recorded beside them, then, as subprocesses on
    the card, `python -m onnxocr_tpu_torch.bench` with BENCH_PIPELINE=
-   onecall and staged and `python -m onnxocr_tpu_torch.tools.bench_service`
+   onecall and staged (3 timed rounds each) and `python -m
+   onnxocr_tpu_torch.tools.bench_service`
    (BE_RUNS: budgets that bound each run; the phase must end within
    BE_SECONDS); each must exit 0 and print its JSON line with
    phase_reached "done", no watchdog, all 12 corpus images, no trimmed
@@ -233,7 +234,19 @@
    asked for GET /api/v2/healthz on the port its own log names; each run is cut at DR_RUN_SECONDS, must
    exit 0 and print what its JAX counterpart prints, and the phase must
    end within DR_SECONDS;
-21. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
+21. runs phase TF, the scanned-document uploads (`phase_tf`): decodes the
+   five samples (the corpus page big_doc as CCITT Group 4 and as YCbCr
+   JPEG-in-TIFF, ticket.jpg as a CMYK LZW TIFF and as a T.4 2D TIFF with
+   FillOrder 2, card.jpg as a lossless JPEG) against cv2's recorded shape
+   and sha256, each timed beside big_doc.jpg's own decode; then the
+   port's service at its defaults answers the Group 4 and JPEG-in-TIFF
+   pages as image/tiff multipart uploads to /api/v2/ocr and the lossless
+   JPEG as a v1 base64 request, each once unmeasured and once between
+   LAUNCHES reads (the CTC head exactly once a request), its rows held
+   against the CPU port's on the same decoded image (texts equal, boxes
+   within 2 px, scores within 2e-3); the phase must end within
+   TF_SECONDS;
+22. prints {"warp": [...]}, {"batch": {...}} (pages/s with and without the
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
@@ -254,7 +267,9 @@
    summaries, seconds a tool, pages/s, kernel 1's launches a page, the
    gate line, the codec samples' decodes), {"drivers": {...}, "card": ...}
    (phase DR: the det wires' line and launches a page, the seconds to
-   readiness, each run's seconds, the JPEG 2000 decode ms),
+   readiness, each run's seconds, the JPEG 2000 decode ms), {"tiff":
+   {...}, "card": ...} (phase TF: each sample's decode ms beside the
+   page's JPEG, each upload's request ms, lines and launches),
    {"kernels": [...]} and, last,
    {"ok": true, "device": {...}}; the run's seconds on a line
    before them.
@@ -266,6 +281,7 @@ space = the heads' 18385 and 6625 classes) are written to a temporary
 directory, so texts are placeholder strings, identical between runs that
 decode the same indices.
 """
+import contextlib
 import io
 import json
 import os
@@ -1430,17 +1446,31 @@ class _Client:
         self.conn.close()
 
 
-def _request_of(kind, name, blobs):
-    """The request of `kind` ('v1_png', 'v1_jpeg', 'v2_png') for a page →
+def _request_of(form, blob, filename="page.png", ctype="image/png"):
+    """An OCR request of one image: form 'v1' is base64 JSON to /ocr,
+    'v2' a multipart upload of `filename` as `ctype` to /api/v2/ocr →
     (method, path, body, content type)."""
     import base64
-    if kind.startswith("v1"):
-        fmt = kind[3:]
+    if form == "v1":
         return ("POST", "/ocr", json.dumps({"image": base64.b64encode(
-            blobs[fmt][name]).decode()}).encode(), "application/json")
-    body, ctype = _multipart([("file", f"{name}.png", blobs["png"][name],
-                               "image/png")])
-    return "POST", "/api/v2/ocr", body, ctype
+            blob).decode()}).encode(), "application/json")
+    body, multipart = _multipart([("file", filename, blob, ctype)])
+    return "POST", "/api/v2/ocr", body, multipart
+
+
+def _ocr_call(port, req, what):
+    """One OCR request on a fresh connection → (results, ms); it must be
+    answered 200 with JSON."""
+    c = _Client(port)
+    try:
+        t = time.perf_counter()
+        status, ctype, body = c.request(*req)
+        ms = (time.perf_counter() - t) * 1e3
+    finally:
+        c.close()
+    assert status == 200 and ctype == "application/json", \
+        (what, status, body[:200])
+    return json.loads(body)["results"], ms
 
 
 def _as_lines(results):
@@ -1449,33 +1479,28 @@ def _as_lines(results):
             for r in results]
 
 
-def _serve_mode(label, env, pages, blobs, cpu_ref, threads=8):
-    """One engine mode behind the port's HTTP server on 127.0.0.1 (in
-    this process, on the card): readiness, every page as v1 PNG, v1 JPEG
-    and v2 multipart from `threads` clients (one unmeasured round, then
-    SERVE_COUNTED_ROUNDS counted rounds between LAUNCHES reads), a serial
-    pass of SERVE_SERIAL requests a page, one
-    return_image and one multi-file text/zip request. → (summary,
-    launches of the counted rounds)."""
+# the engine modes' variables, cleared for every served phase
+SERVICE_ENV = ("PIPELINE_MODE", "WAVE_BATCH", "WARMUP_SRC_BUCKETS")
+
+
+@contextlib.contextmanager
+def _service(label, env, deadline=300):
+    """The port's HTTP server (service.http.serve of routes.build_app)
+    on 127.0.0.1 in a thread of this process, over a fresh engine manager
+    built from the environment with SERVICE_ENV cleared and `env` set →
+    yields (port, the engine manager, seconds to readiness) once
+    /api/v2/readyz answers 200 (a failed warm-up raises); on exit the
+    server stops, the manager is closed and reset, and the environment is
+    put back."""
     import asyncio
     import threading
-    import zipfile
-    from concurrent.futures import ThreadPoolExecutor
-    import torch
-    from onnxocr_tpu_torch.ops.kernels import build
     from onnxocr_tpu_torch.service import engine as engine_mod
     from onnxocr_tpu_torch.service.http import serve
     from onnxocr_tpu_torch.service.routes import build_app
-    from onnxocr_tpu_torch.utils import imcodec
-
-    saved = {k: os.environ.get(k) for k in
-             ("PIPELINE_MODE", "WAVE_BATCH", "WARMUP_SRC_BUCKETS")}
+    saved = {k: os.environ.get(k) for k in (*SERVICE_ENV, *env)}
     for k in saved:
         os.environ.pop(k, None)
     os.environ.update(env)
-    if "WAVE_BATCH" in env:
-        h, w = pages[PAGES[0]].shape[:2]
-        os.environ["WARMUP_SRC_BUCKETS"] = f"{h}x{w}"
     engine_mod.reset_engine_manager()
     em = engine_mod.get_engine_manager()
     port = _free_port()
@@ -1495,7 +1520,7 @@ def _serve_mode(label, env, pages, blobs, cpu_ref, threads=8):
     server.start()
     try:
         ready_s = None
-        while time.perf_counter() - t0 < 300:
+        while time.perf_counter() - t0 < deadline:
             try:
                 c = _Client(port)
                 status, _, _ = c.request("GET", "/api/v2/readyz")
@@ -1506,11 +1531,42 @@ def _serve_mode(label, env, pages, blobs, cpu_ref, threads=8):
             except OSError:
                 pass
             if em.warmup_error is not None:
-                raise RuntimeError(f"path S {label}: warm-up failed: "
+                raise RuntimeError(f"{label}: warm-up failed: "
                                    f"{em.warmup_error!r}")
             time.sleep(0.05)
-        assert ready_s is not None, f"path S {label}: never ready"
+        assert ready_s is not None, f"{label}: never ready"
         assert em.warmup_error is None
+        yield port, em, ready_s
+    finally:
+        loop.call_soon_threadsafe(lambda: task["t"].cancel())
+        server.join(timeout=30)
+        assert not server.is_alive(), f"{label}: server still runs"
+        em.close()
+        engine_mod.reset_engine_manager()
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def _serve_mode(label, env, pages, blobs, cpu_ref, threads=8):
+    """One engine mode behind the port's HTTP server on 127.0.0.1 (in
+    this process, on the card): readiness, every page as v1 PNG, v1 JPEG
+    and v2 multipart from `threads` clients (one unmeasured round, then
+    SERVE_COUNTED_ROUNDS counted rounds between LAUNCHES reads), a serial
+    pass of SERVE_SERIAL requests a page, one
+    return_image and one multi-file text/zip request. → (summary,
+    launches of the counted rounds)."""
+    import zipfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.utils import imcodec
+    served = dict(env)
+    if "WAVE_BATCH" in env:
+        h, w = pages[PAGES[0]].shape[:2]
+        served["WARMUP_SRC_BUCKETS"] = f"{h}x{w}"
+    with _service(f"path S {label}", served) as (port, em, ready_s):
         model = em.get_model()
         kinds = ("v1_png", "v1_jpeg", "v2_png")
         round_ = [(k, n) for n in SERVE_PAGES for k in kinds] * 4
@@ -1518,16 +1574,8 @@ def _serve_mode(label, env, pages, blobs, cpu_ref, threads=8):
 
         def call(client_req):
             k, n = client_req
-            c = _Client(port)
-            try:
-                t = time.perf_counter()
-                status, ctype, body = c.request(*_request_of(k, n, blobs))
-                ms = (time.perf_counter() - t) * 1e3
-            finally:
-                c.close()
-            assert status == 200 and ctype == "application/json", \
-                (label, k, n, status, body[:200])
-            return json.loads(body)["results"], ms
+            return _ocr_call(port, _request_of(k[:2], blobs[k[3:]][n],
+                                               f"{n}.png"), (label, k, n))
 
         with ThreadPoolExecutor(threads) as pool:
             list(pool.map(call, round_))                 # unmeasured
@@ -1614,16 +1662,6 @@ def _serve_mode(label, env, pages, blobs, cpu_ref, threads=8):
               f"request); every response agrees with the CPU port (boxes "
               f"within {worst:.2e}); preview and zip answered")
         return summary, launches
-    finally:
-        loop.call_soon_threadsafe(lambda: task["t"].cancel())
-        server.join(timeout=30)
-        assert not server.is_alive(), f"path S {label}: server still runs"
-        em.close()
-        engine_mod.reset_engine_manager()
-        for k, v in saved.items():
-            os.environ.pop(k, None)
-            if v is not None:
-                os.environ[k] = v
 
 
 def phase_s(pages, tmp):
@@ -3429,10 +3467,10 @@ def phase_sy(pages, tmp):
     """Phase SY, the synthetic-data renderer and the training CLI on the
     card: with the stand-in dictionary of real characters under an
     ONNXOCR_TPU_ASSETS root, the CLI (one subprocess) trains the full-width
-    SVTR (dim 192, depth 2, vocab 18385) for 40 steps of 32 × 48 × 320 at
+    SVTR (dim 192, depth 2, vocab 18385) for 20 steps of 32 × 48 × 320 at
     --replay 1, again at --replay 1 under torch.profiler (the card's busy
     share; its steps/s are not used) and at --replay 4, the MobileNetV3
-    DBNet for 20 steps of 8 × 320² and the CRNN for 10 steps; every loss
+    DBNet for 12 steps of 8 × 320² and the CRNN for 10 steps; every loss
     must be finite and the last 5 steps' mean below the first 5 steps'.
     The written rec and det checkpoints are then served by
     ONNXPaddleOcr(det_model_dir=..., rec_model_dir=...) on a held-out page
@@ -3450,7 +3488,7 @@ def phase_sy(pages, tmp):
     n_chars = sy_standin_dict(dict_path)
     out = os.path.join(tmp, "sy")
     common = ["--structured-frac", "0.5"]
-    rec_args = ["rec", "--steps", "40", "--batch", "32", "--width", "320",
+    rec_args = ["rec", "--steps", "20", "--batch", "32", "--width", "320",
                 "--lowres-frac", "0.2", "--photo-frac", "0.2",
                 "--dotmatrix-frac", "0.1"] + common
     runs = [
@@ -3466,7 +3504,7 @@ def phase_sy(pages, tmp):
             "--replay", "4", "--out", os.path.join(out, "rec4",
                                                    "native_params.npz")]},
         {"name": "det", "profile": False, "argv": [
-            "det", "--steps", "20", "--batch", "8", "--size", "320",
+            "det", "--steps", "12", "--batch", "8", "--size", "320",
             "--hard-frac", "0.3", "--table-frac", "0.2", "--out",
             os.path.join(out, "det", "native_params.npz")]},
         {"name": "crnn", "profile": False, "argv": [
@@ -3565,12 +3603,14 @@ def phase_sy(pages, tmp):
 
 
 # phase BE: each run's environment; BENCH_BUDGET_S bounds it (the phase
-# must end within BE_SECONDS)
+# must end within BE_SECONDS); the two pipeline benches time 3 rounds
 BE_RUNS = (
     ("B", "onnxocr_tpu_torch.bench",
-     {"BENCH_PIPELINE": "onecall", "BENCH_BUDGET_S": "100"}),
+     {"BENCH_PIPELINE": "onecall", "BENCH_BUDGET_S": "80",
+      "BENCH_ROUNDS": "3"}),
     ("Q", "onnxocr_tpu_torch.bench",
-     {"BENCH_PIPELINE": "staged", "BENCH_BUDGET_S": "100"}),
+     {"BENCH_PIPELINE": "staged", "BENCH_BUDGET_S": "60",
+      "BENCH_ROUNDS": "3"}),
     ("S", "onnxocr_tpu_torch.tools.bench_service",
      {"BENCH_BUDGET_S": "60"}),
 )
@@ -3719,7 +3759,7 @@ def phase_ev(tmp, heldout):
     codec = {}
     for name, want in json.loads(
             (samples / "codec_samples.json").read_text()).items():
-        if name in DR_SAMPLES or name in HS_SAMPLES:  # phases DR and HS
+        if name in DR_SAMPLES + HS_SAMPLES + TF_SAMPLES:  # DR, HS, TF
             continue
         t = time.perf_counter()
         img = imcodec.imdecode((samples / name).read_bytes())
@@ -4229,6 +4269,113 @@ def phase_dr(tmp):
             "phase_seconds": total}, {"DR": launches}
 
 
+# phase TF: the scanned-document samples through the codec, then three of
+# them uploaded to the service on the card; the phase must end within
+# TF_SECONDS
+TF_SECONDS = 45
+TF_SAMPLES = ("sample_page_g4.tif", "sample_page_jpeg.tif",
+              "sample_cmyk_lzw.tif", "sample_g3_2d_fill2.tif",
+              "sample_lossless.jpg")
+# each upload: (sample, request form, its content type)
+TF_UPLOADS = (("sample_page_g4.tif", "v2", "image/tiff"),
+              ("sample_page_jpeg.tif", "v2", "image/tiff"),
+              ("sample_lossless.jpg", "v1", "image/jpeg"))
+
+
+def phase_tf(tmp):
+    """Phase TF: the scanned-document samples (the corpus page big_doc,
+    1280 × 960, as CCITT Group 4 and as YCbCr JPEG-in-TIFF; ticket.jpg as
+    a CMYK LZW TIFF and as a T.4 2D TIFF with FillOrder 2; card.jpg as a
+    lossless JPEG) against cv2's recorded shape and sha256, each decode
+    timed (median of 5) beside big_doc.jpg's own; then the port's HTTP
+    service at its defaults (staged path C behind both batchers, the v5
+    weights, a stand-in dictionary, the seeded classifier, as phase S
+    serves it) answers the Group 4 and JPEG-in-TIFF pages as image/tiff
+    multipart uploads to /api/v2/ocr and the lossless JPEG as a v1 base64
+    request: each once unmeasured, then once between LAUNCHES reads (the
+    CTC head exactly once a request) and held against the CPU port's
+    ocr() of the same decoded image (texts equal, boxes within 2 px,
+    scores within 2e-3). → ({"tiff": ...}, {"TF": launches})."""
+    import hashlib
+    from pathlib import Path
+    import torch
+    from onnxocr_tpu_torch import ONNXPaddleOcr
+    from onnxocr_tpu_torch.ops.kernels import build
+    from onnxocr_tpu_torch.service.settings import settings
+    t_phase = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    samples = repo / "onnxocr_tpu_torch" / "assets" / "samples"
+    recorded = json.loads((samples / "codec_samples.json").read_text())
+    decoded, blobs, images = {}, {}, {}
+    for name in TF_SAMPLES:
+        blob = (samples / name).read_bytes()
+        img, ms = decode_ms(blob)
+        want = recorded[name]
+        assert img is not None and list(img.shape) == want["shape"], name
+        assert hashlib.sha256(img.tobytes()).hexdigest() == \
+            want["sha256"], f"{name}: pixels differ from cv2's"
+        decoded[name] = {"shape": list(img.shape), "bytes": len(blob),
+                         "decode_ms": ms}
+        blobs[name], images[name] = blob, img
+        print(f"phase TF {name}: {img.shape} equal to cv2's decode "
+              f"({len(blob)} bytes, {ms:.3f} ms, median of 5)")
+    blob = repo.joinpath(*DR_PAGE_JPEG).read_bytes()
+    img, ms = decode_ms(blob)
+    assert list(img.shape) == decoded["sample_page_g4.tif"]["shape"]
+    jpeg_page = {"name": DR_PAGE_JPEG[-1], "bytes": len(blob),
+                 "decode_ms": ms}
+    for name in TF_SAMPLES[:2]:
+        jpeg_page[f"{name}_over_jpeg"] = decoded[name]["decode_ms"] / ms
+    print(f"phase TF {DR_PAGE_JPEG[-1]}: the same page as a JPEG "
+          f"({len(blob)} bytes) {ms:.3f} ms, median of 5")
+
+    root = os.path.join(tmp, "tf_assets")
+    os.makedirs(os.path.join(root, "ppocrv5"), exist_ok=True)
+    with open(os.path.join(root, "ppocrv5", "ppocrv5_dict.txt"), "w") as f:
+        f.write("".join(f"<{i}>\n" for i in range(18383)))
+    settings.RESULTS_DIR = os.path.join(tmp, "tf_results")
+    settings.DEVICE = "cuda"
+    env = {"ONNXOCR_TPU_ASSETS": root, "ONNXOCR_TPU_ALLOW_UNTRAINED": "1"}
+    uploads, launches = {}, {}
+    cpu = None
+    try:
+        with _service("phase TF", env, TF_SECONDS) as (port, em, ready_s):
+            cpu = ONNXPaddleOcr(device="cpu",
+                                **em._get_model_kwargs(em.default_model))
+            for name, form, ctype in TF_UPLOADS:
+                req = _request_of(form, blobs[name], name, ctype)
+                _ocr_call(port, req, name)              # unmeasured
+                torch.cuda.synchronize()
+                build.LAUNCHES.clear()
+                results, ms = _ocr_call(port, req, name)
+                got = dict(build.LAUNCHES)
+                for k, n in got.items():
+                    launches[k] = launches.get(k, 0) + n
+                lines = _as_lines(results)
+                worst = _close_results(lines, cpu.ocr(images[name])[0],
+                                       f"phase TF {name}")
+                assert lines, f"phase TF {name}: no text found"
+                assert got.get("ctc_head_reduce", 0) == 1, \
+                    f"phase TF {name}: CTC head launches {got}"
+                uploads[name] = {"form": form, "content_type": ctype,
+                                 "request_ms": ms, "lines": len(lines),
+                                 "launches": got,
+                                 "max_box_diff_vs_cpu": worst}
+                print(f"phase TF {name} as a {form} upload ({ctype}): 200 "
+                      f"in {ms:.1f} ms, {len(lines)} lines equal to the CPU "
+                      f"port's (boxes within {worst:.2e}), launches {got}")
+    finally:
+        if cpu is not None:
+            cpu.close()
+    total = time.perf_counter() - t_phase
+    print(f"phase TF {total:.1f} s (service ready in {ready_s:.1f} s)")
+    assert total <= TF_SECONDS, f"phase TF took {total:.1f} s"
+    return {"decode": decoded, "jpeg_page": jpeg_page, "uploads": uploads,
+            "ready_s": ready_s, "ctc_head_launches_per_request":
+                launches.get("ctc_head_reduce", 0) / len(TF_UPLOADS),
+            "seconds": total}, {"TF": launches}
+
+
 def main() -> int:
     import torch
     start = time.perf_counter()
@@ -4249,18 +4396,20 @@ def main() -> int:
     from onnxocr_tpu_torch.utils import font, ft2font, imcodec, mpl_page
     from onnxocr_tpu_torch.utils.png import read_bgr
 
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         t0 = time.perf_counter()
         host = pool.submit(native.build)
         codec = pool.submit(native.build, imcodec.SOURCE, "libocrimcodec")
         jp2 = pool.submit(native.build, imcodec.JP2_SOURCE, "libocrjp2")
+        tiff = pool.submit(native.build, imcodec.TIFF_SOURCE, "libocrtiff")
         ttf = pool.submit(native.build, font.SOURCE, "libocrttf")
         autohint = pool.submit(native.build, ft2font.SOURCE,
                                "libocrautohint")
         agg = pool.submit(native.build, mpl_page.SOURCE, "libocragg")
         print(f"kernels built in {build.build_all():.1f} s")
         print(f"host libraries {host.result().name}, {codec.result().name}, "
-              f"{jp2.result().name}, {ttf.result().name}, "
+              f"{jp2.result().name}, {tiff.result().name}, "
+              f"{ttf.result().name}, "
               f"{autohint.result().name}, {agg.result().name} built, "
               f"{time.perf_counter() - t0:.1f} s from the start of the build")
     for name in build.SOURCES:
@@ -4439,6 +4588,8 @@ def main() -> int:
         runs.update(ev_runs)
         drivers, dr_runs = phase_dr(tmp)
         runs.update(dr_runs)
+        scanned, tf_runs = phase_tf(tmp)
+        runs.update(tf_runs)
         assert not scored, "path C'o: the overflow branch was not taken"
         for name, res in found["A2"].items():
             same_result(res, found["A"][name])
@@ -4470,6 +4621,7 @@ def main() -> int:
     print(json.dumps({"heldout_synth": heldout_synth, "card": smi}))
     print(json.dumps({"eval": eval_summary, "card": smi}))
     print(json.dumps({"drivers": drivers, "card": smi}))
+    print(json.dumps({"tiff": scanned, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -175,6 +175,8 @@ const uint8_t kAcChromaVals[162] = {
 struct Huff {
   bool defined = false;  // a DHT segment (or the standard table) gave it
   bool present = false;  // defined and accepted
+  int maxval = 0;        // its largest value (a DC category up to 16 is
+                         // accepted here; lossy scans refuse 16)
   uint8_t vals[256];
   int maxcode[18];
   int valptr[17];
@@ -186,16 +188,16 @@ struct Huff {
 // A decoding table from a DHT segment's counts and values, left absent
 // (present false) where libjpeg's jdhuff.c refuses it: a code that does
 // not fit its length (the all-ones code included) or a DC category above
-// 15. Each code is checked before it is entered, so the lookahead tables
-// are never written out of range.
+// 16 (above 15 in a lossy scan: `usable`). Each code is checked before it
+// is entered, so the lookahead tables are never written out of range.
 void build_huff(Huff& t, const uint8_t* bits, const uint8_t* vals, int n,
                 bool is_dc) {
   t.defined = true;
   t.present = false;
   if (n > 256) return;
-  if (is_dc)
-    for (int i = 0; i < n; ++i)
-      if (vals[i] > 15) return;
+  t.maxval = 0;
+  for (int i = 0; i < n; ++i) t.maxval = std::max<int>(t.maxval, vals[i]);
+  if (is_dc && t.maxval > 16) return;
   std::memcpy(t.vals, vals, n);
   std::memset(t.fast_len, 0, sizeof(t.fast_len));
   int code = 0, k = 0;
@@ -450,6 +452,11 @@ struct Jpeg {
   int width = 0, height = 0, ncomp = 0;
   bool progressive = false, have_frame = false;
   bool arith = false;  // SOF9 / SOF10: arithmetic coding
+  // SOF3: lossless (Huffman, one scan of every component): the samples
+  // of each component after undifferencing, before the point transform
+  bool lossless = false;
+  int precision = 8, point_transform = 0;
+  std::vector<uint16_t> planes[4];
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   int restart = 0;
@@ -485,6 +492,14 @@ struct Jpeg {
   bool streaming = false, buffered = false;
   std::function<bool(int)> on_row;
   std::function<bool()> on_end;
+  // JPEG-in-TIFF: libtiff's checks of the frame before the first scan
+  // (false: the strip is refused), the colour space it imposes (-1: the
+  // file's own, as libjpeg guesses it; 0: none; 1: YCbCr -> RGB), and
+  // whether decoding of entropy data began (a failure after that keeps the
+  // rows already out)
+  std::function<bool()> on_frame;
+  int force_convert = -1;
+  bool started = false;
 
   int u16(size_t p) const { return (data[p] << 8) | data[p + 1]; }
 
@@ -502,7 +517,12 @@ struct Jpeg {
 
   bool read_sof(size_t p, size_t n, int marker) {
     if (have_frame || n < 6) return false;
-    if (data[p] != 8) return false;  // 12-bit samples are not read
+    lossless = marker == 0xC3;
+    precision = data[p];
+    // 12-bit lossy samples are not read; lossless ones only up to 8 bits,
+    // as libjpeg-turbo's 8-bit interface reads them
+    if (lossless ? precision < 2 || precision > 8 : precision != 8)
+      return false;
     height = u16(p + 1);
     width = u16(p + 3);
     ncomp = data[p + 5];
@@ -521,15 +541,16 @@ struct Jpeg {
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
-    mcux = (width + 8 * hmax - 1) / (8 * hmax);
-    mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+    const int unit = lossless ? 1 : 8;  // a lossless data unit: 1 sample
+    mcux = (width + unit * hmax - 1) / (unit * hmax);
+    mcuy = (height + unit * vmax - 1) / (unit * vmax);
     for (int i = 0; i < ncomp; ++i) {
       Comp& c = comp[i];
       if (hmax % c.h || vmax % c.v) return false;
       c.dw = (width * c.h + hmax - 1) / hmax;
       c.dh = (height * c.v + vmax - 1) / vmax;
-      c.bw = (c.dw + 7) / 8;
-      c.bh = (c.dh + 7) / 8;
+      c.bw = (c.dw + unit - 1) / unit;
+      c.bh = (c.dh + unit - 1) / unit;
       c.abw = mcux * c.h;
       c.abh = mcuy * c.v;
     }
@@ -605,7 +626,7 @@ struct Jpeg {
                                   : (no ? kAcChromaVals : kAcLumaVals);
       build_huff(t, bits, vals, is_dc ? 12 : 162, is_dc);
     }
-    return t.present;
+    return t.present && !(is_dc && !lossless && t.maxval > 15);
   }
 
   // one scan; pos is past the SOS header
@@ -699,47 +720,14 @@ struct Jpeg {
     int rst_next = 0;     // the number of the next restart marker
     const int rows_units = ns == 1 ? sc[0]->bh : mcuy;
     const int unit_rows = ns == 1 ? sc[0]->v : 1;  // units an iMCU row
+    started = true;
     for (long long m = 0; m < total; ++m) {
       if (streaming && m % mw == 0) {  // a new MCU row: clear its blocks
         for (int i = 0; i < ns; ++i)
           std::fill(sc[i]->coef.begin(), sc[i]->coef.end(), 0);
       }
       if (restart && m > 0 && m % restart == 0) {
-        rd.align();
-        // libjpeg's read_restart_marker: the expected RSTn, or else
-        // jpeg_resync_to_restart's choice among the markers that follow
-        if (!rd.at_marker && !scan_to_marker(rd)) return false;
-        for (;;) {
-          size_t p = rd.pos;
-          while (p < size && data[p] == 0xFF) ++p;
-          if (p >= size) return false;
-          int mk = data[p];
-          int action = 1;
-          if (mk != 0xD0 + rst_next) {
-            if (mk < 0xC0) {
-              action = 2;  // not a valid marker
-            } else if (mk < 0xD0 || mk > 0xD7) {
-              action = 3;  // a marker other than a restart
-            } else if (mk == 0xD0 + ((rst_next + 1) & 7) ||
-                       mk == 0xD0 + ((rst_next + 2) & 7)) {
-              action = 3;  // one of the next two restarts
-            } else if (mk == 0xD0 + ((rst_next - 1) & 7) ||
-                       mk == 0xD0 + ((rst_next - 2) & 7)) {
-              action = 2;  // a prior restart
-            }
-          }
-          if (action == 1) {  // swallowed; the data goes on after it
-            rd.pos = p + 1;
-            rd.at_marker = false;
-            rd.short_data = false;
-          } else if (action == 2) {  // scan to the next marker, decide again
-            rd.pos = p + 1;
-            if (!scan_to_marker(rd)) return false;
-            continue;
-          }  // else left unread: the segment is empty
-          break;
-        }
-        rst_next = (rst_next + 1) & 7;
+        if (!restart_marker(rd, rst_next)) return false;
         reset();
       }
       int my = static_cast<int>(m / mw), mx = static_cast<int>(m % mw);
@@ -759,6 +747,153 @@ struct Jpeg {
     if (rd.truncated) return false;
     if (streaming && (rows_units <= 0 || !on_end())) return false;
     return true;
+  }
+
+  // A restart: the reader's bits dropped, then libjpeg's
+  // read_restart_marker: the expected RSTn, or else jpeg_resync_to_restart's
+  // choice among the markers that follow; false where none follows.
+  template <class Reader>
+  bool restart_marker(Reader& rd, int& rst_next) {
+    rd.align();
+    if (!rd.at_marker && !scan_to_marker(rd)) return false;
+    for (;;) {
+      size_t p = rd.pos;
+      while (p < size && data[p] == 0xFF) ++p;
+      if (p >= size) return false;
+      int mk = data[p];
+      int action = 1;
+      if (mk != 0xD0 + rst_next) {
+        if (mk < 0xC0) {
+          action = 2;  // not a valid marker
+        } else if (mk < 0xD0 || mk > 0xD7) {
+          action = 3;  // a marker other than a restart
+        } else if (mk == 0xD0 + ((rst_next + 1) & 7) ||
+                   mk == 0xD0 + ((rst_next + 2) & 7)) {
+          action = 3;  // one of the next two restarts
+        } else if (mk == 0xD0 + ((rst_next - 1) & 7) ||
+                   mk == 0xD0 + ((rst_next - 2) & 7)) {
+          action = 2;  // a prior restart
+        }
+      }
+      if (action == 1) {  // swallowed; the data goes on after it
+        rd.pos = p + 1;
+        rd.at_marker = false;
+        rd.short_data = false;
+      } else if (action == 2) {  // scan to the next marker, decide again
+        rd.pos = p + 1;
+        if (!scan_to_marker(rd)) return false;
+        continue;
+      }  // else left unread: the segment is empty
+      break;
+    }
+    rst_next = (rst_next + 1) & 7;
+    return true;
+  }
+
+  // The scan of a lossless frame (jdlhuff.c, jddiffct.c, jdpred.c): each
+  // MCU row's sample differences (category 16 is 32768), none once the
+  // data ran out (they stay 0), then each component row undifferenced —
+  // the first row of the scan and of each restart interval from
+  // 2^(P - Pt - 1) and its left neighbour, the others' first column from
+  // the row above and the rest by predictor `ps` — modulo 2^16.
+  bool read_lossless(const int* ids, int ns, int ps, int se, int ah, int al) {
+    if (ns != ncomp || ps < 1 || ps > 7 || se != 0 || ah != 0 ||
+        al >= precision)
+      return false;
+    Comp* sc[4];
+    for (int i = 0; i < ns; ++i) {
+      sc[i] = &comp[ids[i]];
+      if (sc[i]->td > 3 || !usable(dc, sc[i]->td, true)) return false;
+    }
+    const int mw = ns == 1 ? sc[0]->dw : mcux;
+    const int mh = ns == 1 ? sc[0]->dh : mcuy;
+    if (restart % mw) return false;  // libjpeg's JERR_BAD_RESTART
+    point_transform = al;
+    std::vector<int> diff[4];
+    bool first[4];
+    for (int i = 0; i < ns; ++i) {
+      Comp& c = *sc[i];
+      const int rows = ns == 1 ? 1 : c.v;
+      diff[i].assign(static_cast<size_t>(rows) * (ns == 1 ? c.dw : c.abw),
+                     0);
+      planes[ids[i]].assign(static_cast<size_t>(c.dw) * c.dh, 0);
+      first[i] = true;
+    }
+    started = true;
+    Bits br{data, size, pos};
+    int rst_next = 0, rows_to_go = restart ? restart / mw : 0;
+    for (int my = 0; my < mh; ++my) {
+      if (restart && rows_to_go == 0) {
+        if (!restart_marker(br, rst_next)) return false;
+        for (int i = 0; i < ns; ++i) first[i] = true;
+        rows_to_go = restart / mw;
+      }
+      for (int i = 0; i < ns; ++i) std::fill(diff[i].begin(), diff[i].end(), 0);
+      if (!br.short_data) {
+        for (int mx = 0; mx < mw; ++mx) {
+          for (int i = 0; i < ns; ++i) {
+            const Comp& c = *sc[i];
+            const int nv = ns == 1 ? 1 : c.v, nh = ns == 1 ? 1 : c.h;
+            const size_t stride = ns == 1 ? c.dw : c.abw;
+            for (int yy = 0; yy < nv; ++yy)
+              for (int xx = 0; xx < nh; ++xx) {
+                const int s = br.decode(dc[c.td]);
+                diff[i][yy * stride + static_cast<size_t>(mx) * nh + xx] =
+                    s == 16 ? 32768 : s ? extend(br.get(s), s) : 0;
+              }
+          }
+          if (br.truncated) return false;
+        }
+      }
+      if (restart) --rows_to_go;
+      for (int i = 0; i < ns; ++i) {
+        const Comp& c = *sc[i];
+        const int nv = ns == 1 ? 1 : c.v;
+        const size_t stride = ns == 1 ? c.dw : c.abw;
+        for (int yy = 0; yy < nv; ++yy) {
+          const int row = my * nv + yy;
+          if (row >= c.dh) break;
+          undifference(ids[i], row, &diff[i][yy * stride], first[i], ps);
+          first[i] = false;
+        }
+      }
+    }
+    pos = br.pos;
+    return true;
+  }
+
+  void undifference(int ci, int row, const int* d, bool first, int ps) {
+    const int w = comp[ci].dw;
+    uint16_t* out = &planes[ci][static_cast<size_t>(row) * w];
+    if (first) {
+      int ra = (d[0] + (1 << (precision - point_transform - 1))) & 0xFFFF;
+      out[0] = static_cast<uint16_t>(ra);
+      for (int x = 1; x < w; ++x) {
+        ra = (d[x] + ra) & 0xFFFF;
+        out[x] = static_cast<uint16_t>(ra);
+      }
+      return;
+    }
+    const uint16_t* prev = out - w;
+    int rb = prev[0];
+    int ra = (d[0] + rb) & 0xFFFF;
+    out[0] = static_cast<uint16_t>(ra);
+    for (int x = 1; x < w; ++x) {
+      const int rc = rb;
+      rb = prev[x];
+      int p;
+      switch (ps) {
+        case 1: p = ra; break;
+        case 2: p = rb; break;
+        case 3: p = rc; break;
+        case 4: p = ra + rb - rc; break;
+        case 5: p = ra + ((rb - rc) >> 1); break;
+        case 6: p = rb + ((ra - rc) >> 1); break;
+        default: p = (ra + rb) >> 1; break;
+      }
+      ra = (d[x] + p) & 0xFFFF;
+      out[x] = static_cast<uint16_t>(ra);
+    }
   }
 
   // libjpeg's next_marker from rd.pos: past bytes other than 0xFF and
@@ -1131,17 +1266,31 @@ struct Jpeg {
     int ids[4];
     int blocks = 0;
     for (int i = 0; i < ns; ++i) {
+      // libjpeg-turbo's get_sos: the first component of that ID whose
+      // index is not below the scan position (it tests cur_comp_info[ci],
+      // the scan's slot of the component's index, for being still empty)
       int cid = data[p + 1 + 2 * i];
       int k = -1;
-      for (int j = 0; j < ncomp; ++j)
+      for (int j = i; j < ncomp && k < 0; ++j)
         if (comp[j].id == cid) k = j;
       if (k < 0) return false;
+      // a component twice in one scan: cv2 gives None
+      for (int e = 0; e < i; ++e)
+        if (ids[e] == k) return false;
       ids[i] = k;
       comp[k].td = data[p + 2 + 2 * i] >> 4;
       comp[k].ta = data[p + 2 + 2 * i] & 15;
       blocks += comp[k].h * comp[k].v;
     }
     if (ns > 1 && blocks > 10) return false;
+    if (scans == 0 && on_frame && !on_frame()) return false;
+    if (lossless) {
+      size_t q = p + 1 + 2 * ns;
+      pos = p + n;
+      if (scans++) return false;  // a component a scan is not read here
+      return read_lossless(ids, ns, data[q], data[q + 1], data[q + 2] >> 4,
+                           data[q + 2] & 15);
+    }
     if (streaming) return false;  // a single-scan frame has one scan
     if (!buffered) {
       if (!progressive && ns == ncomp && on_row) {
@@ -1187,11 +1336,11 @@ struct Jpeg {
       size_t p = pos + 2;
       n -= 2;
       pos = p + n;
-      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC3 || m == 0xC9 ||
+          m == 0xCA) {
         if (!read_sof(p, n, m)) return false;
-      } else if (m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xC8 &&
-                 m != 0xCC) {
-        return false;  // lossless, hierarchical
+      } else if (m >= 0xC5 && m <= 0xCF && m != 0xC8 && m != 0xCC) {
+        return false;  // hierarchical, arithmetic lossless
       } else if (m == 0xCC) {
         if (!read_dac(p, n)) return false;
       } else if (m == 0xC4) {
@@ -1207,7 +1356,7 @@ struct Jpeg {
         // a single-scan frame is whole once its rows are out: cv2 keeps
         // the image whatever follows (libjpeg reads on only in
         // jpeg_finish_decompress, whose failure cv2 ignores)
-        if (streaming) return true;
+        if (streaming || lossless) return true;
       } else if (m == 0xE0) {
         if (n >= 14 && std::memcmp(data + p, "JFIF\0", 5) == 0) jfif = true;
       } else if (m == 0xEE) {
@@ -1219,6 +1368,37 @@ struct Jpeg {
         return false;  // DNL is not read
       } else if (m == 0xD8 || (m < 0xE0 && m != 0xDD) || (m > 0xEF && m != 0xFE)) {
         return false;  // libjpeg's read_markers: a second SOI, an unknown marker
+      }
+    }
+  }
+
+  // A tables-only stream (TIFF's JPEGTables): SOI, DQT / DHT / DRI and
+  // APPn / COM segments, EOI. False where jpeg_read_header(FALSE) would
+  // not return JPEG_HEADER_TABLES_ONLY (libtiff's "Bogus JPEGTables").
+  bool parse_tables() {
+    if (size < 4 || data[0] != 0xFF || data[1] != 0xD8) return false;
+    for (;;) {
+      int m = next_marker();
+      if (m < 0) return false;
+      if (m == 0xD9) return true;
+      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+      if (pos + 2 > size) return false;
+      size_t n = u16(pos);
+      if (n < 2 || pos + n > size) return false;
+      size_t p = pos + 2;
+      n -= 2;
+      pos = p + n;
+      if (m == 0xC4) {
+        if (!read_dht(p, n)) return false;
+      } else if (m == 0xDB) {
+        if (!read_dqt(p, n)) return false;
+      } else if (m == 0xDD) {
+        if (n != 2) return false;
+        restart = u16(p);
+      } else if (m == 0xCC) {
+        if (!read_dac(p, n)) return false;
+      } else if (!((m >= 0xE0 && m <= 0xEF) || m == 0xFE)) {
+        return false;
       }
     }
   }
@@ -1810,6 +1990,34 @@ struct YccTables {
   }
 };
 
+// One output row from its components' upsampled rows: as they are, or
+// YCbCr -> RGB (3 components), YCCK -> CMYK (4), as libjpeg converts.
+void convert_row(const uint8_t* const* up, int W, int nc, bool convert,
+                 uint8_t* px) {
+  static const YccTables t;
+  uint8_t* o = px;
+  for (int x = 0; x < W; ++x, o += nc) {
+    if (!convert) {
+      for (int ci = 0; ci < nc; ++ci) o[ci] = up[ci][x];
+      continue;
+    }
+    int yy = up[0][x], cb = up[1][x], cr = up[2][x];
+    int r = yy + t.cr_r[cr];
+    int g = yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16);
+    int b = yy + t.cb_b[cb];
+    if (nc == 3) {
+      o[0] = static_cast<uint8_t>(clamp255(r));
+      o[1] = static_cast<uint8_t>(clamp255(g));
+      o[2] = static_cast<uint8_t>(clamp255(b));
+    } else {  // ycck_cmyk_convert: inverted RGB, K passed through
+      o[0] = static_cast<uint8_t>(clamp255(255 - r));
+      o[1] = static_cast<uint8_t>(clamp255(255 - g));
+      o[2] = static_cast<uint8_t>(clamp255(255 - b));
+      o[3] = up[3][x];
+    }
+  }
+}
+
 // MCU rows of samples to output rows: each unit (an MCU row; a block row
 // of a single-component frame) is transformed by the islow IDCT into a
 // ring of three units a component, and a unit's output rows are upsampled
@@ -1843,7 +2051,9 @@ struct Rows {
     sums.assign(widest + 2, 0);
     px.assign(static_cast<size_t>(W) * nc, 0);
     // jdapimin.c default_decompress_parms: which space the file is in
-    if (nc == 3) {
+    if (j.force_convert >= 0) {
+      convert = j.force_convert && nc == 3;
+    } else if (nc == 3) {
       if (j.jfif) convert = true;
       else if (j.adobe) convert = j.adobe_transform != 0;
       else convert = !(j.comp[0].id == 'R' && j.comp[1].id == 'G' &&
@@ -1885,7 +2095,6 @@ struct Rows {
 
   // the output rows of unit k, upsampled and converted, to the sink
   void emit(int k) {
-    static const YccTables t;
     const int y1 = std::min((k + 1) * out_rows, H);
     for (int y = k * out_rows; y < y1; ++y) {
       for (int ci = 0; ci < nc; ++ci) {
@@ -1893,27 +2102,9 @@ struct Rows {
         upsample_row([&](int r) { return row(ci, r); }, c, j.hmax / c.h,
                      j.vmax / c.v, W, y, sums.data(), up[ci].data());
       }
-      uint8_t* o = px.data();
-      for (int x = 0; x < W; ++x, o += nc) {
-        if (!convert) {
-          for (int ci = 0; ci < nc; ++ci) o[ci] = up[ci][x];
-          continue;
-        }
-        int yy = up[0][x], cb = up[1][x], cr = up[2][x];
-        int r = yy + t.cr_r[cr];
-        int g = yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16);
-        int b = yy + t.cb_b[cb];
-        if (nc == 3) {
-          o[0] = static_cast<uint8_t>(clamp255(r));
-          o[1] = static_cast<uint8_t>(clamp255(g));
-          o[2] = static_cast<uint8_t>(clamp255(b));
-        } else {  // ycck_cmyk_convert: inverted RGB, K passed through
-          o[0] = static_cast<uint8_t>(clamp255(255 - r));
-          o[1] = static_cast<uint8_t>(clamp255(255 - g));
-          o[2] = static_cast<uint8_t>(clamp255(255 - b));
-          o[3] = up[3][x];
-        }
-      }
+      const uint8_t* rows[4] = {up[0].data(), up[1].data(), up[2].data(),
+                                nc > 3 ? up[3].data() : nullptr};
+      convert_row(rows, W, nc, convert, px.data());
       sink(y, px.data(), nc);
     }
   }
@@ -1925,13 +2116,54 @@ struct Rows {
   }
 };
 
+// Whether libjpeg-turbo decodes a lossless frame into the output space
+// asked for (`colour`: cv2's BGR; else the file's own space): it converts
+// no colour space in lossless mode, and takes three components for RGB
+// unless a JFIF marker or an Adobe transform says YCbCr (its
+// default_decompress_parms; component IDs 1, 2, 3 mean RGB here), four for
+// CMYK unless Adobe's transform 2 says YCCK.
+bool lossless_space_ok(const Jpeg& j, bool colour) {
+  if (j.ncomp == 1) return !colour;
+  if (j.ncomp == 3)
+    return !j.jfif && !(j.adobe && j.adobe_transform != 0);
+  return !(j.adobe && j.adobe_transform == 2);
+}
+
+// The rows of a decoded lossless frame: each sample shifted left by the
+// point transform and cut to 8 bits (libjpeg-turbo's scaler into 8-bit
+// samples), components upsampled by replication (libjpeg gives no fancy
+// upsampling to 1-sample data units), no colour conversion.
+void emit_lossless(Jpeg& j,
+                   const std::function<void(int, const uint8_t*, int)>& sink) {
+  const int W = j.width, nc = j.ncomp;
+  std::vector<uint8_t> up[4], px(static_cast<size_t>(W) * nc);
+  for (int ci = 0; ci < nc; ++ci) up[ci].assign(W, 0);
+  const int pt = j.point_transform;
+  for (int y = 0; y < j.height; ++y) {
+    for (int ci = 0; ci < nc; ++ci) {
+      const Comp& c = j.comp[ci];
+      const int hs = j.hmax / c.h, vs = j.vmax / c.v;
+      const uint16_t* r =
+          &j.planes[ci][static_cast<size_t>(y / vs) * c.dw];
+      for (int x = 0; x < W; ++x)
+        up[ci][x] = static_cast<uint8_t>(r[x / hs] << pt);
+    }
+    const uint8_t* rows[4] = {up[0].data(), nc > 1 ? up[1].data() : nullptr,
+                              nc > 2 ? up[2].data() : nullptr,
+                              nc > 3 ? up[3].data() : nullptr};
+    convert_row(rows, W, nc, false, px.data());
+    sink(y, px.data(), nc);
+  }
+}
+
 // The components of a JPEG of the frame size h x w after libjpeg's colour
 // conversion to its default output space — grey (1), RGB (3, from YCbCr
 // unless the file says RGB) or CMYK (4, from YCCK under an Adobe transform
 // 2) — row by row to `sink(y, row, ncomp)` (w * ncomp samples). → ncomp,
 // or -1 (rows already sunk are then to be discarded).
 int decode_native(const uint8_t* buf, long long n, int h, int w,
-                  const std::function<void(int, const uint8_t*, int)>& sink) {
+                  const std::function<void(int, const uint8_t*, int)>& sink,
+                  bool colour = false) {
   Jpeg j;
   j.data = buf;
   j.size = static_cast<size_t>(n);
@@ -1951,7 +2183,10 @@ int decode_native(const uint8_t* buf, long long n, int h, int w,
     return true;
   };
   if (!j.parse() || j.height != h || j.width != w) return -1;
-  if (j.buffered) {
+  if (j.lossless) {
+    if (!lossless_space_ok(j, colour)) return -1;
+    emit_lossless(j, sink);
+  } else if (j.buffered) {
     Rows r(j, sink);
     for (int k = 0; k < r.units; ++k) r.push(k);
     r.emit(r.units - 1);
@@ -1961,6 +2196,74 @@ int decode_native(const uint8_t* buf, long long n, int h, int w,
     return -1;
   }
   return j.ncomp;
+}
+
+// One strip or tile of a JPEG-compressed TIFF as libtiff's tif_jpeg.c
+// decodes it: the JPEGTables stream read first (its tables kept), the
+// strip's own header checked as JPEGPreDecode checks it (components,
+// sampling factors of TIFF's YCbCrSubsampling, a frame no larger than the
+// segment unless a last strip is taller), the colour space libtiff sets
+// (YCbCr -> RGB, or none), a fake EOI where the data ends, and the rows
+// written into the strip buffer (out_rows rows of bpl bytes, no row's copy
+// longer than bpl) as they come. → 1, 0 where decoding failed after the first scan began (the rows
+// out are kept, as TIFFReadRGBA* keeps its buffer), -1 where libtiff
+// refuses the strip before decoding.
+int jpeg_tiff(const uint8_t* tables, long long tn, const uint8_t* buf,
+              long long n, int seg_w, int seg_h, int taller_ok, int ncomp,
+              int hs, int vs, int ycc, uint8_t* out, long long bpl,
+              int out_rows) {
+  std::vector<uint8_t> strip(buf, buf + n);
+  strip.push_back(0xFF);
+  strip.push_back(0xD9);
+  Jpeg j;
+  // libtiff's tables source ends in a fake EOI too
+  std::vector<uint8_t> tabs(tables, tables + std::max(0LL, tn));
+  tabs.push_back(0xFF);
+  tabs.push_back(0xD9);
+  if (tn > 0) {
+    j.data = tabs.data();
+    j.size = tabs.size();
+    if (!j.parse_tables()) return -1;
+  }
+  j.data = strip.data();
+  j.size = strip.size();
+  j.pos = 2;
+  j.force_convert = ycc ? 1 : 0;
+  j.on_frame = [&]() {
+    if (j.lossless || j.ncomp != ncomp || j.comp[0].h != hs ||
+        j.comp[0].v != vs)
+      return false;
+    for (int ci = 1; ci < j.ncomp; ++ci)
+      if (j.comp[ci].h != 1 || j.comp[ci].v != 1) return false;
+    if (j.width > seg_w || j.height > seg_h)
+      return j.width == seg_w && taller_ok;
+    return true;
+  };
+  auto sink = [&](int y, const uint8_t* px, int nc) {
+    if (y < out_rows)
+      std::memcpy(out + static_cast<size_t>(y) * bpl, px,
+                  std::min(static_cast<size_t>(j.width) * nc,
+                           static_cast<size_t>(bpl)));
+  };
+  std::unique_ptr<Rows> rows;
+  j.on_row = [&](int k) {
+    if (!rows) rows.reset(new Rows(j, sink));
+    rows->push(k);
+    return true;
+  };
+  j.on_end = [&]() {
+    if (!rows) return false;
+    rows->emit(rows->units - 1);
+    return true;
+  };
+  const bool ok = j.parse();
+  if (!ok) return j.started && !j.buffered ? 0 : -1;
+  if (j.buffered) {
+    Rows r(j, sink);
+    for (int k = 0; k < r.units; ++k) r.push(k);
+    r.emit(r.units - 1);
+  }
+  return 1;
 }
 
 // Netpbm's ASCII numbers as cv2's PxMDecoder reads them (ReadNumber, in
@@ -2039,7 +2342,7 @@ int ocr_jpeg_decode(const uint8_t* buf, long long n, int h, int w,
       }
     }
   };
-  return decode_native(buf, n, h, w, bgr) < 0 ? -1 : 0;
+  return decode_native(buf, n, h, w, bgr, true) < 0 ? -1 : 0;
 } catch (...) {  // out of memory
   return -1;
 }
@@ -2054,6 +2357,17 @@ int ocr_jpeg_decode_native(const uint8_t* buf, long long n, int h, int w,
     std::memcpy(out + static_cast<size_t>(y) * W * nc, px, W * nc);
   });
 } catch (...) {
+  return -1;
+}
+
+// One strip or tile of a JPEG-compressed TIFF: jpeg_tiff's answer.
+int ocr_jpeg_tiff(const uint8_t* tables, long long tn, const uint8_t* buf,
+                  long long n, int seg_w, int seg_h, int taller_ok, int ncomp,
+                  int hs, int vs, int ycc, uint8_t* out, long long bpl,
+                  int out_rows) try {
+  return jpeg_tiff(tables, tn, buf, n, seg_w, seg_h, taller_ok, ncomp, hs, vs,
+                   ycc, out, bpl, out_rows);
+} catch (...) {  // out of memory
   return -1;
 }
 

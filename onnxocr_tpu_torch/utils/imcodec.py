@@ -6,12 +6,17 @@ cv2 or PIL: counterparts of `cv2.imdecode(buf, cv2.IMREAD_COLOR)`, of
 `imdecode` reads PNG (every colour type and bit depth, Adam7 interlace),
 JPEG (baseline and progressive, Huffman or arithmetic coding, 8-bit, 1,
 3 or 4 (CMYK, YCCK) components, any integral sampling factors, restart
-intervals, the EXIF orientation; a sequential file streams row by row), BMP (1-, 4- and 8-bit
+intervals, the EXIF orientation; a sequential file streams row by row;
+lossless SOF3 at precisions 2-8, predictors 1-7, point transform and
+restarts, where libjpeg-turbo needs no colour conversion: three
+components as RGB, four as CMYK), BMP (1-, 4- and 8-bit
 palettes, RLE8 and RLE4, 16-bit 5-5-5 and 5-6-5, 24- and 32-bit with or
 without bit-field masks, bottom-up and top-down, the OS/2 core header too),
-baseline TIFF (the first IFD: none, PackBits, LZW, Deflate; predictor 2;
-strips, tiles, planar; 1, 8, 16 bits; grey, RGB(A), palette; the
-Orientation tag), Netpbm P1–P6, PAM (P7: BLACKANDWHITE, GRAYSCALE, RGB and
+TIFF and BigTIFF (the first IFD: none, PackBits, LZW, Deflate, CCITT
+modified Huffman, T.4 1D and 2D, T.6, JPEG with JPEGTables; predictor 2;
+FillOrder 2; strips, tiles, planar; 1, 8, 16 bits; grey, RGB(A), palette,
+CMYK, YCbCr (subsampled too), CIELab; the Orientation tag), Netpbm P1–P6,
+PAM (P7: BLACKANDWHITE, GRAYSCALE, RGB and
 their _ALPHA forms cv2 knows, 8 and 16 bits), PFM (either byte order,
 bottom-up rows), GIF (LZW, global and local tables, interlace; an
 animation's first frame on the logical screen, transparency kept as the
@@ -23,14 +28,20 @@ box file with its colour, palette, component-mapping and channel-definition
 boxes, and the bare codestream; every Part 1 coding option; what cv2 5.0
 computes through OpenJPEG 2.5) into (H, W, 3) uint8 BGR — a grey PFM
 ("Pf") into (H, W), as cv2 gives it — and gives None where cv2 gives
-None: bytes of another format (AVIF, ...), 12-bit, lossless or
-hierarchical JPEGs, BMPs and TIFFs cv2 reads that this reader does not (other
-16-bit masks, other compressions, CMYK, YCbCr, JPEG-in-TIFF), the Sun
-raster types cv2 5.0 refuses itself (byte-encoded, RGB-format), the JPEG
-2000 files cv2 5.0 refuses (signed or subsampled components, a largest
-precision below 8, an image origin other than 0, too few components for
-the colour space, CMYK or e-sYCC), HTJ2K code-blocks, truncated or
-corrupt files, and sides longer than libpng or libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
+None: bytes of another format (AVIF, ...), 12-bit, 16-bit lossless,
+arithmetic lossless or hierarchical JPEGs, lossless JPEGs libjpeg-turbo
+would have to convert (grey to BGR, YCbCr, YCCK), BMPs and TIFFs cv2 reads
+that this reader does not (other 16-bit masks, old-style JPEG, other
+compressions, a YCbCr JPEG stored planar), the TIFF layouts cv2 5.0
+refuses itself (uncompressed tiles that do not fill a whole number of KiB,
+YCbCr subsamplings with no put routine, planar CIELab, 16-bit CMYK), the
+Sun raster types cv2 5.0 refuses itself (byte-encoded, RGB-format), the
+JPEG 2000 files cv2 5.0 refuses (signed or subsampled components, a
+largest precision below 8, an image origin other than 0, too few
+components for the colour space, CMYK or e-sYCC), HTJ2K code-blocks,
+truncated or corrupt files (a corrupt CCITT or JPEG-in-TIFF strip
+decodes as libtiff's recovery leaves it, as cv2 returns it), and sides
+longer than libpng or libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
 PIL's `Image.open(...).convert('RGB')`: the stored orientation, and
 Adobe's inverted CMYK through Pillow's cmyk2rgb. As IMREAD_COLOR does, it
 drops alpha, replicates grey, reduces 16-bit samples to their high byte,
@@ -44,10 +55,12 @@ header words, the GIF decoder and the Radiance HDR decoder, written to
 compute what cv2 5.0's own decoders compute, the WebP decoder, written to
 compute what libwebp computes; the JPEG 2000 decoder is
 `csrc/host/jpeg2000.cc`, written to compute what OpenJPEG 2.5 computes
-and decoding one tile at a time), built with g++ at first use into
-`build/host/` like the DB postprocess library (`ops/native.py`); zlib
-inflates PNG streams, and numpy lays out the samples of the uncompressed
-formats (BMP, TIFF strips, Netpbm, PAM, PFM, Sun raster). There is no
+and decoding one tile at a time; TIFF's CCITT decoder and CIELab
+conversion are `csrc/host/tiff.cc`, libtiff 4.7's), built with g++ at
+first use into `build/host/` like the DB postprocess library
+(`ops/native.py`); zlib inflates PNG streams, and numpy lays out the
+samples of the uncompressed formats (BMP, TIFF strips, Netpbm, PAM, PFM,
+Sun raster) and converts TIFF's CMYK and YCbCr. There is no
 fallback: where the library cannot be built, every call raises.
 """
 from __future__ import annotations
@@ -65,9 +78,11 @@ from ..ops import native
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / "imcodec.cc"
 JP2_SOURCE = SOURCE.with_name("jpeg2000.cc")
+TIFF_SOURCE = SOURCE.with_name("tiff.cc")
 
 _LIB: Optional[ctypes.CDLL] = None
 _JP2_LIB: Optional[ctypes.CDLL] = None
+_TIFF_LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -87,6 +102,11 @@ _SIGNATURES = {
     "ocr_jpeg_encode": (_LL, [
         _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bgr, h, w, quality
         _U8P, _LL]),                                     # out, capacity
+    "ocr_jpeg_tiff": (ctypes.c_int, [
+        _U8P, _LL, _U8P, _LL,                      # tables, bytes, strip, bytes
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # segment w, h, taller ok
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,  # components, h, v sampling
+        ctypes.c_int, _U8P, _LL, ctypes.c_int]),   # YCbCr, out, row, rows
     "ocr_tiff_lzw": (_LL, [_U8P, _LL, _U8P, _LL]),   # in, bytes, out, need
     "ocr_tiff_packbits": (_LL, [_U8P, _LL, _U8P, _LL]),
     "ocr_pxm_header": (ctypes.c_int, [               # buf, bytes, pos, n,
@@ -110,6 +130,18 @@ _SIGNATURES = {
     "ocr_hdr_decode": (ctypes.c_int, [
         _U8P, _LL, _LL, ctypes.c_int, ctypes.c_int,  # buf, bytes, pos, h, w
         _U8P]),                                      # out BGR
+}
+
+_TIFF_SIGNATURES = {
+    "ocr_tiff_fax": (ctypes.c_int, [
+        _U8P, _LL, ctypes.c_int, ctypes.c_int,     # in, bytes, comp, T4Options
+        ctypes.c_int, ctypes.c_int, _LL,           # FillOrder 2, width, row
+        ctypes.c_int, _IP,                         # rows, codec mode
+        ctypes.POINTER(ctypes.c_uint32), _LL,      # run arrays, entries
+        _U8P]),                                    # out
+    "ocr_tiff_lab": (ctypes.c_int, [
+        ctypes.c_void_p, _LL, ctypes.c_int,        # samples, pixels, 16-bit
+        ctypes.c_float, ctypes.c_float, _U8P]),    # white point, out BGR
 }
 
 _JP2_SIGNATURES = {
@@ -428,9 +460,8 @@ def _bmp(buf: bytes) -> np.ndarray:
     rows = abs(h)
     _check_size("bmp", w, rows)
     if comp in (1, 2):
-        px = palette[_bmp_rle(buf, offset, w, rows, comp == 2)]
-    else:
-        px = _bmp_rows(buf, offset, w, rows, bits, palette, masks32)
+        return _bmp_rle(buf, offset, w, rows, comp == 2, palette, h > 0)
+    px = _bmp_rows(buf, offset, w, rows, bits, palette, masks32)
     return np.ascontiguousarray(px[::-1] if h > 0 else px)
 
 
@@ -471,15 +502,21 @@ def _bmp_rows(buf, offset, w, rows, bits, palette, masks32):
     return np.stack(out, -1).astype(np.uint8)
 
 
-def _bmp_rle(buf, offset, w, rows, rle4):
-    """RLE8 / RLE4 codes from `offset` → (rows, w) palette indices in file
-    order, as cv2 decodes them: a run or an absolute block past the row's
-    end, or codes running out before the last row, make the file
-    unreadable; end of line, end of bitmap and delta skip pixels with
-    palette entry 0 (a delta in RLE4 skips dx pixels only and an end of
-    bitmap in RLE4 ends the row only, as cv2 does); an end of line just
-    after a run that ended its row is no second line break in RLE8."""
-    idx = np.zeros((rows, w), np.uint8)
+def _bmp_rle(buf, offset, w, rows, rle4, palette, bottom_up):
+    """RLE8 / RLE4 codes from `offset` → (rows, w, 3) BGR, as cv2 decodes
+    them: a run or an absolute block past the row's end, or codes running
+    out before the last row, make the file unreadable; end of line, end of
+    bitmap and delta skip pixels, which keep palette entry 0 (a delta in
+    RLE4 skips dx pixels only and an end of bitmap in RLE4 ends the row
+    only, as cv2 does); an end of line just after a run that ended its row
+    is no second line break in RLE8. The runs are written into the output
+    in its final orientation: a decode holds the output and one block's
+    indices (a few bytes of codes can ask for 2^30 pixels)."""
+    out = np.empty((rows, w, 3), np.uint8)
+    out[:] = palette[0]
+
+    def row(y):                       # file row y → output row
+        return out[rows - 1 - y if bottom_up else y]
     x = y = 0
     pos = offset
     end = len(buf)
@@ -508,11 +545,11 @@ def _bmp_rle(buf, offset, w, rows, rle4):
             if x + n > w:
                 raise _Unreadable("BMP: RLE run past the row")
             if rle4:
-                idx[y, x:x + n] = np.resize(
-                    np.array([code >> 4, code & 15], np.uint8), n)
+                row(y)[x:x + n] = palette[np.resize(
+                    np.array([code >> 4, code & 15], np.uint8), n)]
                 x += n
                 continue
-            idx[y, x:x + n] = code
+            row(y)[x:x + n] = palette[code]
             prev = y
             fill(n)
             line_end_flag = y - prev
@@ -528,7 +565,7 @@ def _bmp_rle(buf, offset, w, rows, rle4):
             pos += size
             if rle4:
                 raw = np.stack([raw >> 4, raw & 15], -1).reshape(-1)
-            idx[y, x:x + code] = raw[:code]
+            row(y)[x:x + code] = palette[raw[:code]]
             x += code
             line_end_flag = 0
         else:                                    # end of line / bitmap, delta
@@ -550,47 +587,149 @@ def _bmp_rle(buf, offset, w, rows, rle4):
             line_end_flag = 0
             if y >= rows:
                 break
-    return idx
+    return out
 
 
 # ----------------------------------------------------------------- TIFF
-# the integer field types: BYTE, SHORT, LONG → struct code, bytes
-_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4)}
+# the integer field types: BYTE, SHORT, LONG, LONG8, IFD8 → struct code,
+# bytes
+_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 16: ("Q", 8),
+               18: ("Q", 8)}
+# none, CCITT RLE, T.4, T.6, LZW, JPEG, Deflate, PackBits, Deflate (old)
+_TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32773, 32946)
+_FAX = (2, 3, 4)
+# YCbCr subsamplings TIFFReadRGBA has a put routine for (tif_getimage.c)
+_YCBCR_CHUNKY = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+_BIT_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                        np.uint8)
+# libtiff's defaults: YCbCrCoefficients, ReferenceBlackWhite of YCbCr, and
+# the WhitePoint (D50, as TIFFGetFieldDefaulted computes it in float)
+_LUMA = tuple(np.float32(v) for v in (0.299, 0.587, 0.114))
+_REF_BW = tuple(np.float32(v) for v in (0, 255, 128, 255, 128, 255))
+_D50 = (np.float32(96.4250), np.float32(100.0), np.float32(82.4680))
+_WHITE = (_D50[0] / (_D50[0] + _D50[1] + _D50[2]),
+          _D50[1] / (_D50[0] + _D50[1] + _D50[2]))
 
 
 def _tiff_ifd(buf: bytes):
-    """The first IFD of a classic TIFF → (byte order, {tag: tuple of
-    values}) for the integer-typed tags."""
+    """The first IFD of a classic TIFF (magic 42: 12-byte entries, 4-byte
+    offsets) or a BigTIFF (magic 43: 20-byte entries, 8-byte offsets, the
+    LONG8 / IFD8 types) → (byte order, {tag: values}): a tuple of ints for
+    the integer-typed tags, of float32 for the RATIONAL ones (as libtiff
+    converts them), the bytes of JPEGTables."""
     order = {b"II": "<", b"MM": ">"}[buf[:2]]
-    magic, ifd = struct.unpack(order + "HI", buf[2:8])
-    if magic != 42:
-        raise _Unreadable("TIFF: not a classic TIFF")
-    count, = struct.unpack(order + "H", buf[ifd:ifd + 2])
+    magic, = struct.unpack(order + "H", buf[2:4])
+    if magic == 42:
+        ifd, = struct.unpack(order + "I", buf[4:8])
+        count_code, entry, inline, off_code = "H", 12, 4, "I"
+    elif magic == 43:
+        size, zero, ifd = struct.unpack(order + "HHQ", buf[4:16])
+        if size != 8 or zero:
+            raise _Unreadable("BigTIFF: bad header")
+        count_code, entry, inline, off_code = "Q", 20, 8, "Q"
+    else:
+        raise _Unreadable("TIFF: not a classic TIFF or a BigTIFF")
+    head = struct.calcsize(count_code)
+    count, = struct.unpack(order + count_code, buf[ifd:ifd + head])
+    if magic == 43 and count > 4096:
+        # libtiff's "Sanity check on directory count failed"
+        raise _Unreadable("BigTIFF: directory count past 4096")
     tags = {}
-    for e in range(ifd + 2, ifd + 2 + 12 * count, 12):
-        tag, typ, n, value = struct.unpack(order + "HHI4s", buf[e:e + 12])
-        if typ not in _TIFF_TYPES:
+    for e in range(ifd + head, ifd + head + entry * count, entry):
+        tag, typ = struct.unpack(order + "HH", buf[e:e + 4])
+        n, = struct.unpack(order + off_code, buf[e + 4:e + 4 + inline])
+        value = buf[e + 4 + inline:e + entry]
+        if len(value) < inline:
+            raise _Unreadable("TIFF: truncated directory")
+        if tag == 347 and typ in (1, 7):                 # JPEGTables
+            code, width = "B", 1
+        elif typ == 5:                                   # RATIONAL
+            code, width = "I", 8
+        elif typ in _TIFF_TYPES:
+            code, width = _TIFF_TYPES[typ]
+        else:
             continue
-        code, width = _TIFF_TYPES[typ]
         size = width * n
-        if size <= 4:
+        if size <= inline:
             data = value[:size]
         else:
-            off, = struct.unpack(order + "I", value)
+            off, = struct.unpack(order + off_code, value)
             if off + size > len(buf):
                 raise _Unreadable(f"TIFF: tag {tag} past the end")
             data = buf[off:off + size]
-        tags[tag] = struct.unpack(f"{order}{n}{code}", data)
+        if tag == 347 and typ in (1, 7):
+            tags[tag] = bytes(data)
+        elif typ == 5:
+            v = struct.unpack(f"{order}{2 * n}I", data)
+            tags[tag] = tuple(np.float32(v[k] / v[k + 1] if v[k + 1] else 0)
+                              for k in range(0, 2 * n, 2))
+        else:
+            tags[tag] = struct.unpack(f"{order}{n}{code}", data)
     return order, tags
 
 
-def _tiff_chunk(buf: bytes, off: int, n: int, need: int, comp: int
-                ) -> np.ndarray:
+def tiff_lib() -> ctypes.CDLL:
+    """The loaded TIFF library (CCITT fax, CIELab), built first if
+    needed."""
+    global _TIFF_LIB
+    with _LOCK:
+        if _TIFF_LIB is None:
+            _TIFF_LIB = _load(TIFF_SOURCE, "libocrtiff", _TIFF_SIGNATURES)
+    return _TIFF_LIB
+
+
+class _Chunk:
+    """How one strip or tile decodes: the compression and its parameters
+    that libtiff's codecs read."""
+
+    def __init__(self, comp, fill_lsb, t4opts=0, tables=b"", jpeg=None):
+        self.comp, self.fill_lsb, self.t4opts = comp, fill_lsb, t4opts
+        self.tables = np.frombuffer(tables, np.uint8)
+        self.jpeg = jpeg            # (ncomp, hs, vs, ycc) for compression 7
+        # what of the fax codec outlives a strip: its mode, which one strip
+        # can change for the next, and its run arrays (tiff.cc)
+        self.fax_mode = np.zeros(1, np.int32)
+        self.fax_runs = None
+
+
+def _tiff_chunk(buf: bytes, off: int, n: int, need: int, how: _Chunk, *,
+                width: int = 0, rows: int = 0, seg=None) -> np.ndarray:
     """One strip or tile decompressed to exactly `need` bytes, as libtiff
-    reads it (None, PackBits, LZW, Deflate)."""
-    if n < 0 or off + n > len(buf):
+    reads it (None, PackBits, LZW, Deflate, CCITT, JPEG). FillOrder 2
+    reverses each byte's bits first, except for CCITT and JPEG, whose
+    codecs take the data as it is (libtiff's TIFF_NOBITREV). A CCITT or
+    JPEG strip that fails while decoding keeps what it wrote into a zeroed
+    buffer, as TIFFReadRGBA* converts libtiff's strip buffer then."""
+    comp = how.comp
+    if n <= 0 or off + n > len(buf):
+        # 0: libtiff's "Invalid strip byte count" (TIFFFillStrip)
         raise _Unreadable("TIFF: strip or tile past the end of the data")
     raw = np.frombuffer(buf, np.uint8, n, off)
+    if comp in _FAX:
+        out = np.zeros(need, np.uint8)
+        src = np.ascontiguousarray(raw)
+        if how.fax_runs is None:
+            how.fax_runs = np.zeros(4 * ((width + 32) // 32 * 32) + 16,
+                                    np.uint32)
+        if tiff_lib().ocr_tiff_fax(
+                _ptr(src), n, comp, how.t4opts, how.fill_lsb, width,
+                need // max(rows, 1), rows, how.fax_mode.ctypes.data_as(_IP),
+                how.fax_runs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+                how.fax_runs.size, _ptr(out)) < 0:
+            raise _Unreadable("TIFF: CCITT layout libtiff refuses")
+        return out
+    if comp == 7:
+        seg_w, seg_h, taller_ok, bpl = seg
+        ncomp, hs, vs, ycc = how.jpeg
+        out = np.zeros(need, np.uint8)
+        src = np.ascontiguousarray(raw)
+        if lib().ocr_jpeg_tiff(_ptr(how.tables), how.tables.size, _ptr(src),
+                               n, seg_w, seg_h, taller_ok, ncomp, hs, vs,
+                               ycc, _ptr(out), bpl, need // bpl) < 0:
+            raise _Unreadable("TIFF: a JPEG strip libtiff refuses")
+        return out
+    if how.fill_lsb:
+        raw = _BIT_REVERSE[raw]
     if comp == 1:
         if n < need:
             raise _Unreadable("TIFF: short strip")
@@ -607,6 +746,290 @@ def _tiff_chunk(buf: bytes, off: int, n: int, need: int, comp: int
     if fn(_ptr(src), n, _ptr(out), need) != need:
         raise _Unreadable("TIFF: bad or short LZW / PackBits data")
     return out
+
+
+def _jpeg_sampling(buf: bytes, off: int, n: int):
+    """Component 0's sampling factors in the first strip's SOF of a YCbCr
+    JPEG-in-TIFF without YCbCrSubsampling (libtiff's
+    JPEGFixupTagsSubsampling), None where it finds none it takes."""
+    end = min(off + n, len(buf))
+    if buf[off:off + 2] != b"\xff\xd8":
+        return None
+    p = off + 2
+    while p + 4 <= end:
+        if buf[p] != 0xFF:
+            return None
+        while p < end and buf[p] == 0xFF:
+            p += 1
+        m = buf[p]
+        p += 1
+        if m in (0xD9, 0xDA) or p + 2 > end:
+            return None
+        length, = struct.unpack(">H", buf[p:p + 2])
+        if m in (0xC0, 0xC1, 0xC2, 0xC9, 0xCA):
+            if p + 11 + 6 > end or buf[p + 7] != 3:
+                return None
+            hv = [buf[p + 9 + 3 * i] for i in range(3)]
+            hs, vs = hv[0] >> 4, hv[0] & 15
+            if hs not in (1, 2, 4) or vs not in (1, 2, 4) or \
+                    hv[1] != 0x11 or hv[2] != 0x11:
+                return None
+            return hs, vs
+        p += length
+    return None
+
+
+def _ycbcr_tables(luma, ref):
+    """TIFFYCbCrToRGBInit's tables (tif_color.c) in its float32 and 16.16
+    fixed-point arithmetic → Y, Cr→R, Cb→B, Cr→G, Cb→G (int64 arrays of
+    256)."""
+    f32 = np.float32
+    lr, lg, lb = (f32(v) for v in luma)
+
+    def clamp(f, lo, hi):
+        return np.where(~(f >= lo), lo, np.where(f > hi, hi, f))
+
+    def fix(x):           # (int32_t)(x * 65536L + 0.5): float, then double
+        return int(float(f32(x) * f32(65536)) + 0.5)
+
+    f1 = f32(2) - f32(2) * lr
+    d1 = fix(clamp(f1, f32(0), f32(2)))
+    d2 = -fix(clamp(lr * f1 / lg, f32(0), f32(2)))
+    f3 = f32(2) - f32(2) * lb
+    d3 = fix(clamp(f3, f32(0), f32(2)))
+    d4 = -fix(clamp(lb * f3 / lg, f32(0), f32(2)))
+
+    def code2v(c, rb, rw, cr):
+        rb, rw = f32(rb), f32(rw)
+        den = rw - rb
+        den = den if den != 0 else f32(1)
+        v = (c - int(np.trunc(rb))).astype(np.float32) * f32(cr) / den
+        return np.trunc(clamp(v, f32(-4096), f32(4096))).astype(np.int64)
+
+    x = np.arange(-128, 128)
+    cr = code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127)
+    cb = code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127)
+    y = code2v(x + 128, ref[0], ref[1], 255)
+    return (y, (d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16, d2 * cr,
+            d4 * cb + 32768)
+
+
+def _ycbcr_unblock(chunk: np.ndarray, rows: int, cw: int, sh: int, sv: int
+                   ) -> np.ndarray:
+    """A strip or tile of subsampled YCbCr data units (sh · sv luma samples
+    then Cb, Cr) → (rows, cw · 3) Y, Cb, Cr per pixel, each pixel taking its
+    own luma and its unit's chroma, as tif_getimage.c's putcontig8bitYCbCr
+    routines read them."""
+    across = -(-cw // sh)
+    units = chunk.reshape(-1, across, sh * sv + 2)
+    yy, xx = np.arange(rows), np.arange(cw)
+    luma = units[(yy // sv)[:, None], (xx // sh)[None, :],
+                 ((yy % sv)[:, None] * sh + (xx % sh)[None, :])]
+    chroma = units[(yy // sv)[:, None], (xx // sh)[None, :], sh * sv:]
+    return np.concatenate([luma[:, :, None], chroma], axis=2).reshape(
+        rows, cw * 3)
+
+
+def _tiff(buf: bytes) -> np.ndarray:
+    """cv2's TiffDecoder at IMREAD_COLOR, which reads through libtiff's
+    TIFFReadRGBA*: the first IFD of a classic TIFF or a BigTIFF;
+    compression none, PackBits, LZW, Deflate, CCITT (2, 3, 4; `ocr_tiff_fax`
+    in csrc/host/tiff.cc) or JPEG (7, 8 bits a sample; the JPEG decoder
+    with the JPEGTables); FillOrder 2; predictor 2 (which libtiff undoes for LZW and
+    Deflate only); strips or tiles (uncompressed tiles only where a tile
+    fills a whole number of KiB: cv2 5.0's libtiff refuses the others with
+    "Invalid tile byte count"); chunky or planar samples; 1, 8 or 16 bits
+    (4 for a palette); grey (MinIsBlack, MinIsWhite), RGB with or without
+    alpha, palette, CMYK (InkSet 1), YCbCr (8-bit; subsampled in the
+    layouts libtiff has a put routine for; JPEG's through libjpeg's
+    conversion) and CIELab (chunky, 8 or 16 bits). As TIFFReadRGBA
+    converts them: 16-bit grey keeps its high byte and 16-bit colour (v +
+    128) / 257; an unassociated alpha is multiplied in ((c a + 127) / 255)
+    and dropped; a colour map whose entries all lie below 256 is taken as
+    8-bit, else its high bytes; CMYK by (255 − K)(255 − C) / 255; YCbCr
+    through TIFFYCbCrToRGB's fixed-point tables; CIELab through libtiff's
+    float XYZ → sRGB. The Orientation tag is applied as cv2 applies it."""
+    order, tags = _tiff_ifd(buf)
+
+    def one(tag, default=None):
+        v = tags.get(tag)
+        return v[0] if v else default
+    w, h = one(256, 0), one(257, 0)
+    if not w or not h:
+        raise _Unreadable("TIFF: no image size")
+    _check_size("tiff", w, h)
+    spp = one(277, 1)
+    bps_all = tags.get(258, (1,))
+    bps = bps_all[0]
+    comp, photo = one(259, 1), one(262)
+    planar, predictor = one(284, 1), one(317, 1)
+    fill_lsb = one(266, 1) == 2
+    if any(b != bps for b in bps_all) or bps not in (1, 4, 8, 16) or \
+            comp not in _TIFF_COMPRESSIONS or planar not in (1, 2) or \
+            predictor not in (1, 2) or (predictor == 2 and bps == 1) or \
+            one(339, 1) != 1 or not 1 <= spp <= 8 or \
+            (comp in _FAX and (bps != 1 or spp != 1)):
+        raise _Unreadable("TIFF: a layout TIFFReadRGBA does not take here")
+    extra = tags.get(338, ())
+    sub = (1, 1)
+    if photo in (0, 1):
+        colour = "grey"
+    elif photo == 2 and spp >= 3:
+        colour = "rgb"
+    elif photo == 3 and spp == 1 and bps <= 8 and 320 in tags:
+        colour = "palette"
+    elif photo == 5 and spp == 4 and bps == 8 and one(332, 1) == 1:
+        colour = "cmyk"
+    elif photo == 6 and spp == 3 and bps == 8:
+        colour = "ycbcr"
+        sub = tuple(tags.get(530, (2, 2))[:2])
+    elif photo == 8 and spp == 3 and bps in (8, 16) and planar == 1:
+        colour = "lab"
+    else:
+        raise _Unreadable(f"TIFF: photometric {photo} is not read")
+    if bps < 8 and (spp != 1 or predictor == 2 or
+                    (bps == 4 and photo != 3)):
+        # cv2's readHeader takes 4 bits for a palette only, 2 not at all
+        raise _Unreadable("TIFF: packed samples cv2 does not read")
+    tiled = 322 in tags
+    if tiled:
+        cw, ch = one(322, 0), one(323, 0)
+        offsets, counts = tags.get(324, ()), tags.get(325, ())
+    else:
+        cw, ch = w, min(one(278, h), h)      # 0: libtiff's "Bad value"
+        offsets, counts = tags.get(273, ()), tags.get(279, ())
+    if not cw or not ch or cw * ch * spp * max(1, bps // 8) >= 1 << 30:
+        # cv2: "TIFF tile size is too large: >= 1Gb"
+        raise _Unreadable("TIFF: empty or oversized strips or tiles")
+    across, down = -(-w // cw), -(-h // ch)
+    planes = spp if planar == 2 else 1
+    per = spp // planes                      # samples in one chunk
+    if min(len(offsets), len(counts)) < across * down * planes:
+        raise _Unreadable("TIFF: too few strip or tile offsets")
+    n_chunks = across * down * planes
+    if any(o + c > len(buf) for o, c in zip(offsets[:n_chunks],
+                                             counts[:n_chunks])):
+        # checked before the image is allocated
+        raise _Unreadable("TIFF: strip or tile past the end of the data")
+    how = _Chunk(comp, fill_lsb, one(292, 0), tags.get(347, b""))
+    blocked = None                    # subsampled YCbCr data units (sh, sv)
+    if comp == 7:
+        if bps != 8:
+            # JPEGPreDecode's "Improper JPEG data precision": the frame's
+            # 8 bits must be BitsPerSample
+            raise _Unreadable("TIFF: JPEG with BitsPerSample other than 8")
+        if colour == "ycbcr":
+            if planar != 1:
+                raise _Unreadable("TIFF: planar YCbCr JPEG is not read")
+            if 530 not in tags:
+                sub = _jpeg_sampling(buf, offsets[0], counts[0]) or (2, 2)
+            if sub[0] not in (1, 2, 4) or sub[1] not in (1, 2, 4):
+                raise _Unreadable("TIFF: YCbCr subsampling not read")
+            # libtiff sets JPEGCOLORMODE_RGB: libjpeg converts to RGB
+            how.jpeg = (3, sub[0], sub[1], 1)
+            colour = "rgb"
+        else:
+            how.jpeg = (per, 1, 1, 0)
+    elif colour == "ycbcr":
+        if planar == 1 and sub not in _YCBCR_CHUNKY or \
+                planar == 2 and sub != (1, 1):
+            raise _Unreadable("TIFF: a YCbCr subsampling with no put routine")
+        if sub != (1, 1):
+            blocked = sub
+    row_bytes = (cw * per * bps + 7) // 8
+
+    def chunk_bytes(rows):
+        if blocked:
+            sh, sv = blocked
+            return -(-rows // sv) * -(-cw // sh) * (sh * sv + 2)
+        return rows * row_bytes
+    if tiled and comp == 1 and chunk_bytes(ch) % 1024:
+        # cv2 5.0 refuses the others: its libtiff's "Invalid tile byte
+        # count ... Expected <tile size>, got <it rounded up to a KiB>"
+        raise _Unreadable("TIFF: an uncompressed tile cv2 does not read")
+    lut = conv = None
+    if photo == 3:
+        n = 1 << bps
+        cmap = np.asarray(tags[320], np.int64)
+        if cmap.size < 3 * n:
+            raise _Unreadable("TIFF: short colour map")
+        cmap = cmap[:3 * n].reshape(3, n)
+        if (cmap >= 256).any():
+            cmap = cmap >> 8
+        lut = np.ascontiguousarray(cmap[::-1].T.astype(np.uint8))   # BGR
+    elif colour == "grey":            # grey sample → its 8-bit value
+        v = np.arange(1 << bps, dtype=np.uint32)
+        if bps == 16:
+            v = v >> 8
+        elif bps < 8:                            # libtiff's x * 255 / range
+            v = v * 255 // ((1 << bps) - 1)
+        lut = (255 - v if photo == 0 else v).astype(np.uint8)[:, None]
+    elif colour == "rgb" and bps == 16:          # (v + 128) / 257
+        lut = ((np.arange(1 << 16, dtype=np.uint32) + 128) // 257).astype(
+            np.uint8)
+    elif colour == "ycbcr":
+        luma = tags.get(529, _LUMA)[:3]
+        ref = tags.get(532, _REF_BW)[:6]
+        if len(luma) < 3 or len(ref) < 6 or np.isnan(luma).any() or \
+                abs(luma[1]) < 1e-9 or not all(
+                    -0x7FFFFFFF + 128 < v < 0x7FFFFFFF for v in ref):
+            raise _Unreadable("TIFF: YCbCr coefficients libtiff refuses")
+        conv = _ycbcr_tables(luma, ref)
+    elif colour == "lab":
+        white = tags.get(318, _WHITE)
+        if len(white) < 2 or white[1] == 0:
+            raise _Unreadable("TIFF: invalid WhitePoint")
+        conv = (np.float32(white[0]), np.float32(white[1]))
+    alpha = colour == "rgb" and spp > 3 and extra[:1] == (2,)
+    # libtiff's put16bitbwtile steps a clipped tile's rows by the skew in
+    # bytes, not in samples: rows after the first of a tile cut by the
+    # right edge are read from there
+    skewed = tiled and bps == 16 and colour == "grey"
+    predicted = predictor == 2 and comp in (5, 8, 32946)
+    dtype = np.dtype(order + "u2") if bps == 16 else np.uint8
+    # converted strip by strip (tile by tile), a band of rows at a time,
+    # into the output, as TIFFReadRGBA* converts: only the output and each
+    # plane's decoded chunk grow with the image
+    band = max(1, (1 << 20) // (cw * spp))
+    out = np.empty((h, w, 3), np.uint8)
+    for ty in range(down):
+        for tx in range(across):
+            rows = ch if tiled else min(ch, h - ty * ch)
+            npix = min(cw, w - tx * cw)
+            seg = (cw, rows, int(not tiled and ty == down - 1),
+                   row_bytes)
+            chunks = []
+            for p in range(planes):
+                k = (p * down + ty) * across + tx
+                need = chunk_bytes(rows)
+                if blocked and not tiled:
+                    # gtStripContig reads a whole number of its scanlines,
+                    # a unit row's bytes / sv rounded down: the strip's
+                    # last bytes stay 0
+                    sh, sv = blocked
+                    need = min(need, -(-rows // sv) * sv * (
+                        chunk_bytes(sv) // sv))
+                chunk = _tiff_chunk(buf, offsets[k], counts[k], need, how,
+                                    width=cw, rows=rows, seg=seg)
+                if blocked:
+                    chunk = _ycbcr_unblock(np.concatenate([chunk, np.zeros(
+                        chunk_bytes(rows) - need, np.uint8)]), rows, cw,
+                        *blocked)
+                else:
+                    chunk = chunk.reshape(rows, row_bytes)
+                if skewed and npix < cw:
+                    chunk = _skew16(chunk, dtype, predicted, npix, per)
+                chunks.append(chunk)
+            y0, x0 = ty * ch, tx * cw
+            last = min(rows, h - y0)
+            for b0 in range(0, last, band):
+                b1 = min(b0 + band, last)
+                px = np.concatenate([_tiff_samples(
+                    c[b0:b1], bps, dtype, cw, 3 if blocked else per,
+                    predicted)[:, :npix] for c in chunks], axis=2)
+                out[y0 + b0:y0 + b1, x0:x0 + npix] = _tiff_bgr(
+                    px, colour, lut, alpha, conv)
+    return _oriented(out, one(274, 1))
 
 
 def _skew16(chunk: np.ndarray, dtype, predicted: bool, npix: int,
@@ -635,130 +1058,6 @@ def _skew16(chunk: np.ndarray, dtype, predicted: bool, npix: int,
     return out.astype(dtype).view(np.uint8).reshape(rows, row_bytes)
 
 
-def _tiff(buf: bytes) -> np.ndarray:
-    """cv2's TiffDecoder at IMREAD_COLOR, which reads through libtiff's
-    TIFFReadRGBA*: the first IFD; compression none, PackBits, LZW or
-    Deflate; predictor 2 (which libtiff undoes for LZW and Deflate only);
-    strips or tiles; chunky or planar samples; 1, 8 or 16 bits (4 for a
-    palette); grey (MinIsBlack, MinIsWhite), RGB with or without alpha and
-    palette images. As TIFFReadRGBA converts them: 16-bit grey keeps its
-    high byte and 16-bit colour (v + 128) / 257; an unassociated alpha is
-    multiplied in ((c a + 127) / 255) and dropped; a colour map whose
-    entries all lie below 256 is taken as 8-bit, else its high bytes. The
-    Orientation tag is applied as cv2 applies it."""
-    order, tags = _tiff_ifd(buf)
-
-    def one(tag, default=None):
-        v = tags.get(tag)
-        return v[0] if v else default
-    w, h = one(256, 0), one(257, 0)
-    if not w or not h:
-        raise _Unreadable("TIFF: no image size")
-    _check_size("tiff", w, h)
-    spp = one(277, 1)
-    bps_all = tags.get(258, (1,))
-    bps = bps_all[0]
-    comp, photo = one(259, 1), one(262)
-    planar, predictor = one(284, 1), one(317, 1)
-    if any(b != bps for b in bps_all) or bps not in (1, 4, 8, 16) or \
-            comp not in (1, 5, 8, 32773, 32946) or planar not in (1, 2) or \
-            predictor not in (1, 2) or (predictor == 2 and bps == 1) or \
-            one(339, 1) != 1 or not 1 <= spp <= 8 or one(266, 1) != 1:
-        raise _Unreadable("TIFF: a layout TIFFReadRGBA does not take here")
-    extra = tags.get(338, ())
-    if photo in (0, 1):
-        colour = 1
-    elif photo == 2 and spp >= 3:
-        colour = 3
-    elif photo == 3 and spp == 1 and bps <= 8 and 320 in tags:
-        colour = 1
-    else:
-        raise _Unreadable(f"TIFF: photometric {photo} is not read")
-    if bps < 8 and (spp != 1 or predictor == 2 or
-                    (bps == 4 and photo != 3)):
-        # cv2's readHeader takes 4 bits for a palette only, 2 not at all
-        raise _Unreadable("TIFF: packed samples cv2 does not read")
-    tiled = 322 in tags
-    if tiled:
-        cw, ch = one(322, 0), one(323, 0)
-        offsets, counts = tags.get(324, ()), tags.get(325, ())
-    else:
-        cw, ch = w, min(one(278, h), h)      # 0: libtiff's "Bad value"
-        offsets, counts = tags.get(273, ()), tags.get(279, ())
-    if not cw or not ch or cw * ch * spp * max(1, bps // 8) >= 1 << 30:
-        # cv2: "TIFF tile size is too large: >= 1Gb"
-        raise _Unreadable("TIFF: empty or oversized strips or tiles")
-    across, down = -(-w // cw), -(-h // ch)
-    planes = spp if planar == 2 else 1
-    per = spp // planes                      # samples in one chunk
-    if min(len(offsets), len(counts)) < across * down * planes:
-        raise _Unreadable("TIFF: too few strip or tile offsets")
-    n_chunks = across * down * planes
-    if any(o + c > len(buf) for o, c in zip(offsets[:n_chunks],
-                                             counts[:n_chunks])):
-        # checked before the image is allocated
-        raise _Unreadable("TIFF: strip or tile past the end of the data")
-    row_bytes = (cw * per * bps + 7) // 8
-    if tiled and comp == 1 and across * down * planes > 1:
-        # cv2 5.0 refuses uncompressed tiles of most layouts (its libtiff's
-        # "Invalid tile byte count") and reads others: not read here
-        raise _Unreadable("TIFF: uncompressed tiles are not read")
-    if photo == 3:
-        n = 1 << bps
-        cmap = np.asarray(tags[320], np.int64)
-        if cmap.size < 3 * n:
-            raise _Unreadable("TIFF: short colour map")
-        cmap = cmap[:3 * n].reshape(3, n)
-        if (cmap >= 256).any():
-            cmap = cmap >> 8
-        lut = np.ascontiguousarray(cmap[::-1].T.astype(np.uint8))   # BGR
-    elif colour == 1:                 # grey sample → its 8-bit value
-        v = np.arange(1 << bps, dtype=np.uint32)
-        if bps == 16:
-            v = v >> 8
-        elif bps < 8:                            # libtiff's x * 255 / range
-            v = v * 255 // ((1 << bps) - 1)
-        lut = (255 - v if photo == 0 else v).astype(np.uint8)[:, None]
-    else:                             # 16-bit colour: (v + 128) / 257
-        lut = ((np.arange(1 << 16, dtype=np.uint32) + 128) // 257).astype(
-            np.uint8) if bps == 16 else None
-    alpha = colour == 3 and spp > 3 and extra[:1] == (2,)
-    # libtiff's put16bitbwtile steps a clipped tile's rows by the skew in
-    # bytes, not in samples: rows after the first of a tile cut by the
-    # right edge are read from there
-    skewed = tiled and bps == 16 and colour == 1 and photo != 3
-    predicted = predictor == 2 and comp in (5, 8, 32946)
-    dtype = np.dtype(order + "u2") if bps == 16 else np.uint8
-    # converted strip by strip (tile by tile), a band of rows at a time,
-    # into the output, as TIFFReadRGBA* converts: only the output and each
-    # plane's decoded chunk grow with the image
-    band = max(1, (1 << 20) // (cw * spp))
-    out = np.empty((h, w, 3), np.uint8)
-    for ty in range(down):
-        for tx in range(across):
-            rows = ch if tiled else min(ch, h - ty * ch)
-            npix = min(cw, w - tx * cw)
-            chunks = []
-            for p in range(planes):
-                k = (p * down + ty) * across + tx
-                chunk = _tiff_chunk(buf, offsets[k], counts[k],
-                                    rows * row_bytes, comp).reshape(
-                    rows, row_bytes)
-                if skewed and npix < cw:
-                    chunk = _skew16(chunk, dtype, predicted, npix, per)
-                chunks.append(chunk)
-            y0, x0 = ty * ch, tx * cw
-            last = min(rows, h - y0)
-            for b0 in range(0, last, band):
-                b1 = min(b0 + band, last)
-                px = np.concatenate([_tiff_samples(
-                    c[b0:b1], bps, dtype, cw, per, predicted)[:, :npix]
-                    for c in chunks], axis=2)
-                out[y0 + b0:y0 + b1, x0:x0 + npix] = _tiff_bgr(
-                    px, colour, lut, alpha)
-    return _oriented(out, one(274, 1))
-
-
 def _tiff_samples(rows: np.ndarray, bps: int, dtype, cw: int, per: int,
                   predicted: bool) -> np.ndarray:
     """Decoded rows of a strip or tile → (rows, cw, per) samples, the
@@ -774,14 +1073,36 @@ def _tiff_samples(rows: np.ndarray, bps: int, dtype, cw: int, per: int,
     return np.cumsum(px, axis=1, dtype=px.dtype) if predicted else px
 
 
-def _tiff_bgr(px: np.ndarray, colour: int, lut, alpha: bool) -> np.ndarray:
+def _tiff_bgr(px: np.ndarray, colour: str, lut, alpha: bool, conv
+              ) -> np.ndarray:
     """(rows, n, spp) samples → (rows, n, 3) BGR as TIFFReadRGBA gives
     them: grey and palette through `lut`, 16-bit colour through `lut`
     too; an unassociated alpha multiplied in ((c a + 127) / 255, in
-    uint16, which holds 255 · 255 + 127) and dropped."""
-    if colour == 1:
+    uint16, which holds 255 · 255 + 127) and dropped; CMYK, YCbCr (`conv`:
+    its tables) and CIELab (`conv`: the white point) converted."""
+    if colour in ("grey", "palette"):
         return lut[px[:, :, 0]] if lut.shape[1] == 3 else \
             np.broadcast_to(lut[px[:, :, 0]], px.shape[:2] + (3,))
+    if colour == "cmyk":              # putRGBcontig8bitCMYKtile
+        k = 255 - px[:, :, 3:4].astype(np.uint16)
+        return (k * (255 - px[:, :, 2::-1].astype(np.uint16)) // 255
+                ).astype(np.uint8)
+    if colour == "ycbcr":             # TIFFYCbCrtoRGB
+        y_tab, cr_r, cb_b, cr_g, cb_g = conv
+        y = y_tab[px[:, :, 0]]
+        cb, cr = px[:, :, 1], px[:, :, 2]
+        bgr = np.stack([y + cb_b[cb], y + ((cb_g[cb] + cr_g[cr]) >> 16),
+                        y + cr_r[cr]], -1)
+        return np.clip(bgr, 0, 255).astype(np.uint8)
+    if colour == "lab":
+        src = np.ascontiguousarray(px)
+        out = np.empty(px.shape[:2] + (3,), np.uint8)
+        if tiff_lib().ocr_tiff_lab(src.ctypes.data_as(ctypes.c_void_p),
+                                   px.shape[0] * px.shape[1],
+                                   int(px.dtype == np.uint16), conv[0],
+                                   conv[1], _ptr(out)) != 0:
+            raise _Unreadable("TIFF: invalid WhitePoint")
+        return out
     rgb = px[:, :, 2::-1]
     if lut is not None:
         rgb = lut[rgb]
@@ -1156,7 +1477,7 @@ def imdecode(buf) -> Optional[np.ndarray]:
             return _png(buf)
         if buf[:2] == b"BM":
             return _bmp(buf)
-        if buf[:4] in (b"II*\0", b"MM\0*"):
+        if buf[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
             return _tiff(buf)
         if len(buf) >= 3 and buf[:1] == b"P" and 49 <= buf[1] <= 54 and \
                 buf[2] in _SPACE:

@@ -1266,9 +1266,11 @@ def test_tiff_hostile_headers_answer_as_cv2(case):
 
 def test_tiff_not_read_gives_none():
     """What cv2 refuses gives None here too (4-bit grey: "should be
-    palette"; 2 bits of any kind); what the reader leaves unread (ROADMAP §3) gives None where
-    cv2 decodes: CMYK, FillOrder 2, uncompressed tiled files of more than
-    one tile (cv2 5.0 reads some of those layouts and refuses most)."""
+    palette"; 2 bits of any kind). The files this reader once left unread
+    while cv2 decodes them — CMYK, FillOrder 2, uncompressed tiles of more
+    than one tile (cv2 5.0 reads those whose tile fills a whole number of
+    KiB) — are value-equal to cv2 now; tests/test_torch_tiff.py holds
+    the rest of those layouts."""
     img = smooth_image(4, 32, 32)[:, :, ::-1].copy()
     for photo, bps in ((1, 2), (1, 4), (3, 2)):
         blob = write_tiff(img[:, :, :1] >> (8 - bps), photo, bps,
@@ -1282,9 +1284,7 @@ def test_tiff_not_read_gives_none():
     for blob in (cmyk, out.getvalue(),
                  write_tiff(np.dstack([img, img[:, :, :1]]), 2, 8,
                             tile=(16, 16), extra=[1])):
-        assert cv2.imdecode(np.frombuffer(blob, np.uint8),
-                            cv2.IMREAD_COLOR) is not None
-        assert imcodec.imdecode(blob) is None
+        assert_decodes_as_cv2(blob)
 
 
 # --------------------------------------------------------------- Netpbm
@@ -1453,6 +1453,48 @@ _DIGEST = """
 import hashlib
 print(hashlib.sha256(img.tobytes()).hexdigest())
 """
+
+
+@pytest.mark.parametrize("rle4", [False, True])
+def test_bmp_rle_decodes_into_the_output_within_64mb(tmp_path, rle4):
+    """A hostile 8192 x 8192 RLE8 / RLE4 BMP of a few KB (runs and
+    absolute blocks, a delta, the end of bitmap) decoded in a subprocess:
+    the peak RSS rises by less than the output's 192 MB plus 64 MB, as the
+    runs are written into the output in its final orientation (an index
+    plane, its palette lookup and the bottom-up flip rose by 384 MB on the
+    same file). The pixels equal cv2's."""
+    import hashlib
+    import subprocess
+    import sys
+    n = 8192
+    codes = bytearray()
+    for k in range(40):
+        block = b"\x12\x34\x50\x00" if rle4 else bytes([1, 2, 3, 4, 5, 0])
+        codes += bytes([200, k % 16 * 17]) + b"\x00\x05" + block + \
+            b"\x00\x00"                                 # run, block, EOL
+    codes += b"\x00\x02\x10\x20" + bytes([90, 7])
+    if rle4:              # an end of bitmap ends a row only: every EOL
+        codes += b"\x00\x00" * (n - 40)
+    codes += b"\x00\x01"
+    pal = _palette(256 if not rle4 else 16, 9)
+    blob = bmp_file(n, n, 4 if rle4 else 8, comp=2 if rle4 else 1,
+                    pixels=bytes(codes), palette=pal)
+    path = tmp_path / "big.bmp"
+    path.write_bytes(blob)
+    repo = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(["/bin/sh", "-c", '"$@"', "sh", sys.executable,
+                           "-c", _PEAK_RSS + _DIGEST, str(path)],
+                          cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    first, digest = proc.stdout.strip().splitlines()
+    shape, rise, out = first.rsplit(" ", 2)
+    assert shape == f"({n}, {n}, 3)"
+    print(f"peak RSS rise {int(rise) / 2**20:.1f} MB, output "
+          f"{int(out) / 2**20:.1f} MB, file {len(blob)} bytes")
+    assert int(rise) < int(out) + 64 * 2**20
+    want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+    assert digest == hashlib.sha256(want.tobytes()).hexdigest()
 
 
 def test_ascii_netpbm_with_comments_reads_in_bounded_time():
@@ -2248,20 +2290,22 @@ _SAMPLES = Path(__file__).resolve().parents[1] / "onnxocr_tpu_torch" / \
 
 
 def test_codec_samples_match_cv2():
-    """The ten committed samples (an animated, interlaced GIF with
+    """The fifteen committed samples (an animated, interlaced GIF with
     transparency, a 16-bit RGB PAM, a little-endian PFM, an 8-bit Sun
     raster with a colour map, an RLE HDR, a reversible JP2, an
     irreversible tiled JPEG 2000 codestream, an irreversible JP2 of a
     1280 x 960 corpus page and that page as sequential and progressive
-    arithmetic-coded JPEGs) decode to cv2's decode here and to the shape
-    and sha256 recorded beside them, which the chip smoke checks on a
-    machine without cv2."""
+    arithmetic-coded JPEGs, as Group 4 and as JPEG-in-TIFF; a CMYK LZW
+    TIFF, a T.4 2D TIFF with FillOrder 2 and a lossless JPEG of small
+    corpus pages) decode to cv2's decode here and to the shape and sha256
+    recorded beside them, which the chip smoke checks on a machine
+    without cv2."""
     import hashlib
     import json
     recorded = json.loads((_SAMPLES / "codec_samples.json").read_text())
     assert sorted(Path(n).suffix for n in recorded) == [
-        ".gif", ".hdr", ".j2k", ".jp2", ".jp2", ".jpg", ".jpg", ".pam",
-        ".pfm", ".ras"]
+        ".gif", ".hdr", ".j2k", ".jp2", ".jp2", ".jpg", ".jpg", ".jpg",
+        ".pam", ".pfm", ".ras", ".tif", ".tif", ".tif", ".tif"]
     for name, want in recorded.items():
         blob = (_SAMPLES / name).read_bytes()
         assert_decodes_as_cv2(blob)

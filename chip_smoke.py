@@ -235,13 +235,16 @@
    exit 0 and print what its JAX counterpart prints, and the phase must
    end within DR_SECONDS;
 21. runs phase TF, the scanned-document uploads (`phase_tf`): decodes the
-   five samples (the corpus page big_doc as CCITT Group 4 and as YCbCr
-   JPEG-in-TIFF, ticket.jpg as a CMYK LZW TIFF and as a T.4 2D TIFF with
-   FillOrder 2, card.jpg as a lossless JPEG) against cv2's recorded shape
-   and sha256, each timed beside big_doc.jpg's own decode; then the
-   port's service at its defaults answers the Group 4 and JPEG-in-TIFF
-   pages as image/tiff multipart uploads to /api/v2/ocr and the lossless
-   JPEG as a v1 base64 request, each once unmeasured and once between
+   eight samples (the corpus page big_doc as CCITT Group 4, as YCbCr
+   JPEG-in-TIFF and as planar YCbCr JPEG-in-TIFF, ticket.jpg as a CMYK
+   LZW TIFF, as a T.4 2D TIFF with FillOrder 2 and as a damaged LZW TIFF,
+   card.jpg as a lossless JPEG in one scan and in a scan a component)
+   against cv2's recorded shape and sha256, each timed beside
+   big_doc.jpg's own decode; then the port's service at its defaults
+   answers the Group 4, JPEG-in-TIFF and planar JPEG-in-TIFF pages and the
+   damaged ticket as image/tiff multipart uploads to /api/v2/ocr and the
+   two lossless JPEGs as v1 base64 requests, each once unmeasured and once
+   between
    LAUNCHES reads (the CTC head exactly once a request), its rows held
    against the CPU port's on the same decoded image (texts equal, boxes
    within 2 px, scores within 2e-3); the phase must end within
@@ -4275,24 +4278,34 @@ def phase_dr(tmp):
 TF_SECONDS = 45
 TF_SAMPLES = ("sample_page_g4.tif", "sample_page_jpeg.tif",
               "sample_cmyk_lzw.tif", "sample_g3_2d_fill2.tif",
-              "sample_lossless.jpg")
+              "sample_lossless.jpg", "sample_page_jpeg_planar.tif",
+              "sample_lossless_scans.jpg", "sample_ticket_damaged.tif")
+# the samples of the corpus page big_doc, timed against its JPEG
+TF_PAGES = ("sample_page_g4.tif", "sample_page_jpeg.tif",
+            "sample_page_jpeg_planar.tif")
 # each upload: (sample, request form, its content type)
 TF_UPLOADS = (("sample_page_g4.tif", "v2", "image/tiff"),
               ("sample_page_jpeg.tif", "v2", "image/tiff"),
-              ("sample_lossless.jpg", "v1", "image/jpeg"))
+              ("sample_lossless.jpg", "v1", "image/jpeg"),
+              ("sample_page_jpeg_planar.tif", "v2", "image/tiff"),
+              ("sample_ticket_damaged.tif", "v2", "image/tiff"),
+              ("sample_lossless_scans.jpg", "v1", "image/jpeg"))
 
 
 def phase_tf(tmp):
     """Phase TF: the scanned-document samples (the corpus page big_doc,
-    1280 × 960, as CCITT Group 4 and as YCbCr JPEG-in-TIFF; ticket.jpg as
-    a CMYK LZW TIFF and as a T.4 2D TIFF with FillOrder 2; card.jpg as a
-    lossless JPEG) against cv2's recorded shape and sha256, each decode
-    timed (median of 5) beside big_doc.jpg's own; then the port's HTTP
-    service at its defaults (staged path C behind both batchers, the v5
-    weights, a stand-in dictionary, the seeded classifier, as phase S
-    serves it) answers the Group 4 and JPEG-in-TIFF pages as image/tiff
-    multipart uploads to /api/v2/ocr and the lossless JPEG as a v1 base64
-    request: each once unmeasured, then once between LAUNCHES reads (the
+    1280 × 960, as CCITT Group 4, as YCbCr JPEG-in-TIFF and as planar
+    YCbCr JPEG-in-TIFF; ticket.jpg as a CMYK LZW TIFF, as a T.4 2D TIFF
+    with FillOrder 2 and as an LZW TIFF with a corrupt strip and a short
+    last strip; card.jpg as a lossless JPEG in one scan and in a scan a
+    component) against cv2's recorded shape and sha256, each decode timed
+    (median of 5) beside big_doc.jpg's own; then the port's HTTP service
+    at its defaults (staged path C behind both batchers, the v5 weights, a
+    stand-in dictionary, the seeded classifier, as phase S serves it)
+    answers the three TIFF pages and the damaged ticket as image/tiff
+    multipart uploads to /api/v2/ocr and the two lossless JPEGs as v1
+    base64 requests: each once unmeasured, then once between LAUNCHES
+    reads (the
     CTC head exactly once a request) and held against the CPU port's
     ocr() of the same decoded image (texts equal, boxes within 2 px,
     scores within 2e-3). → ({"tiff": ...}, {"TF": launches})."""
@@ -4324,7 +4337,7 @@ def phase_tf(tmp):
     assert list(img.shape) == decoded["sample_page_g4.tif"]["shape"]
     jpeg_page = {"name": DR_PAGE_JPEG[-1], "bytes": len(blob),
                  "decode_ms": ms}
-    for name in TF_SAMPLES[:2]:
+    for name in TF_PAGES:
         jpeg_page[f"{name}_over_jpeg"] = decoded[name]["decode_ms"] / ms
     print(f"phase TF {DR_PAGE_JPEG[-1]}: the same page as a JPEG "
           f"({len(blob)} bytes) {ms:.3f} ms, median of 5")

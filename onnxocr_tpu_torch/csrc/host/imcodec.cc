@@ -452,10 +452,16 @@ struct Jpeg {
   int width = 0, height = 0, ncomp = 0;
   bool progressive = false, have_frame = false;
   bool arith = false;  // SOF9 / SOF10: arithmetic coding
-  // SOF3: lossless (Huffman, one scan of every component): the samples
-  // of each component after undifferencing, before the point transform
-  bool lossless = false;
+  // SOF3: lossless (Huffman): the samples of each component after
+  // undifferencing, before the point transform of the scan that wrote
+  // them (comp_pt). A frame whose first scan leaves out a component is
+  // read scan by scan to its EOI (libjpeg's has_multiple_scans), each
+  // scan writing the planes it names; one that any scan left out is
+  // refused, as libjpeg's read of the unwritten rows of its full-image
+  // buffer is (JERR_BAD_VIRTUAL_ACCESS).
+  bool lossless = false, multiscan = false;
   int precision = 8, point_transform = 0;
+  int comp_pt[4] = {0, 0, 0, 0};
   std::vector<uint16_t> planes[4];
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
@@ -790,15 +796,17 @@ struct Jpeg {
     return true;
   }
 
-  // The scan of a lossless frame (jdlhuff.c, jddiffct.c, jdpred.c): each
-  // MCU row's sample differences (category 16 is 32768), none once the
-  // data ran out (they stay 0), then each component row undifferenced —
-  // the first row of the scan and of each restart interval from
-  // 2^(P - Pt - 1) and its left neighbour, the others' first column from
-  // the row above and the rest by predictor `ps` — modulo 2^16.
+  // A scan of a lossless frame (jdlhuff.c, jddiffct.c, jdpred.c), of any
+  // of its components: each MCU row's sample differences (category 16 is
+  // 32768), none once the data ran out (they stay 0), then each component
+  // row undifferenced — the first row of the scan and of each restart
+  // interval from 2^(P - Pt - 1) and its left neighbour, the others'
+  // first column from the row above and the rest by predictor `ps` —
+  // modulo 2^16. A scan of one component has MCUs of one sample, so its
+  // restart interval counts that component's rows; a component a later
+  // scan names again is written again.
   bool read_lossless(const int* ids, int ns, int ps, int se, int ah, int al) {
-    if (ns != ncomp || ps < 1 || ps > 7 || se != 0 || ah != 0 ||
-        al >= precision)
+    if (ps < 1 || ps > 7 || se != 0 || ah != 0 || al >= precision)
       return false;
     Comp* sc[4];
     for (int i = 0; i < ns; ++i) {
@@ -817,6 +825,7 @@ struct Jpeg {
       diff[i].assign(static_cast<size_t>(rows) * (ns == 1 ? c.dw : c.abw),
                      0);
       planes[ids[i]].assign(static_cast<size_t>(c.dw) * c.dh, 0);
+      comp_pt[ids[i]] = al;
       first[i] = true;
     }
     started = true;
@@ -1287,7 +1296,7 @@ struct Jpeg {
     if (lossless) {
       size_t q = p + 1 + 2 * ns;
       pos = p + n;
-      if (scans++) return false;  // a component a scan is not read here
+      if (scans++ == 0) multiscan = ns < ncomp;
       return read_lossless(ids, ns, data[q], data[q + 1], data[q + 2] >> 4,
                            data[q + 2] & 15);
     }
@@ -1321,7 +1330,12 @@ struct Jpeg {
     for (;;) {
       int m = next_marker();
       if (m < 0) return false;  // no EOI
-      if (m == 0xD9) return have_frame && done;
+      if (m == 0xD9) {
+        if (multiscan)
+          for (int i = 0; i < ncomp; ++i)
+            if (planes[i].empty()) return false;
+        return have_frame && done;
+      }
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
       if (pos + 2 > size) return false;
       size_t n = u16(pos);
@@ -1356,7 +1370,7 @@ struct Jpeg {
         // a single-scan frame is whole once its rows are out: cv2 keeps
         // the image whatever follows (libjpeg reads on only in
         // jpeg_finish_decompress, whose failure cv2 ignores)
-        if (streaming || lossless) return true;
+        if (streaming || (lossless && !multiscan)) return true;
       } else if (m == 0xE0) {
         if (n >= 14 && std::memcmp(data + p, "JFIF\0", 5) == 0) jfif = true;
       } else if (m == 0xEE) {
@@ -2138,7 +2152,6 @@ void emit_lossless(Jpeg& j,
   const int W = j.width, nc = j.ncomp;
   std::vector<uint8_t> up[4], px(static_cast<size_t>(W) * nc);
   for (int ci = 0; ci < nc; ++ci) up[ci].assign(W, 0);
-  const int pt = j.point_transform;
   for (int y = 0; y < j.height; ++y) {
     for (int ci = 0; ci < nc; ++ci) {
       const Comp& c = j.comp[ci];
@@ -2146,7 +2159,7 @@ void emit_lossless(Jpeg& j,
       const uint16_t* r =
           &j.planes[ci][static_cast<size_t>(y / vs) * c.dw];
       for (int x = 0; x < W; ++x)
-        up[ci][x] = static_cast<uint8_t>(r[x / hs] << pt);
+        up[ci][x] = static_cast<uint8_t>(r[x / hs] << j.comp_pt[ci]);
     }
     const uint8_t* rows[4] = {up[0].data(), nc > 1 ? up[1].data() : nullptr,
                               nc > 2 ? up[2].data() : nullptr,
@@ -2216,14 +2229,26 @@ int jpeg_tiff(const uint8_t* tables, long long tn, const uint8_t* buf,
   strip.push_back(0xFF);
   strip.push_back(0xD9);
   Jpeg j;
-  // libtiff's tables source ends in a fake EOI too
+  // libtiff's tables source ends in a fake EOI too, which it hands libjpeg
+  // again at each read past the end: a segment that runs past the tables
+  // reads FF D9 pairs to its length (up to 64 KiB), tried only where the
+  // tables do not parse without them
   std::vector<uint8_t> tabs(tables, tables + std::max(0LL, tn));
   tabs.push_back(0xFF);
   tabs.push_back(0xD9);
   if (tn > 0) {
     j.data = tabs.data();
     j.size = tabs.size();
-    if (!j.parse_tables()) return -1;
+    if (!j.parse_tables()) {
+      j = Jpeg();
+      for (int k = 0; k < 32768; ++k) {
+        tabs.push_back(0xFF);
+        tabs.push_back(0xD9);
+      }
+      j.data = tabs.data();
+      j.size = tabs.size();
+      if (!j.parse_tables()) return -1;
+    }
   }
   j.data = strip.data();
   j.size = strip.size();
@@ -2371,79 +2396,156 @@ int ocr_jpeg_tiff(const uint8_t* tables, long long tn, const uint8_t* buf,
   return -1;
 }
 
-// TIFF LZW (libtiff's tif_lzw.c, MSB-first codes): the strip or tile
-// `in` (n bytes) into out, exactly `need` bytes. Codes start at 9 bits and
-// widen one code early (at 511, 1023, 2047), up to 12; 256 clears the
-// table, 257 ends the data; data past `need` is ignored, as libtiff stops
-// there. → need, or -1 where libtiff fails: a code past the next free one
-// (its "Corrupted LZW table"), or codes that end before `need` bytes.
+// TIFF LZW as libtiff 4.7's LZWDecode reads a strip or tile: `in` (n
+// bytes, MSB-first codes) into out (`need` bytes, zeroed by the caller).
+// Codes start at 9 bits and widen one code early (at 511, 1023, 2047), up
+// to 12; 256 clears the table and 257 ends the data. The data must start
+// with a clear (the table starts with no free entry), and the table takes
+// entries up to 5118, past which any code but a clear is refused. Data
+// past `need` is ignored, as libtiff stops there. → need, or -1 where
+// libtiff fails, with the bytes decoded before the fault left in out: a
+// code past the next free one ("Using code not yet in table"), data that
+// ends before an end code ("not terminated with EOI code") or an end code
+// before `need` bytes ("Not enough data").
 long long ocr_tiff_lzw(const uint8_t* in, long long n, uint8_t* out,
                        long long need) try {
-  const int kClear = 256, kEoi = 257, kSize = 4096 + 1024;
-  std::vector<int> prefix(kSize, -1), length(kSize, 1);
-  std::vector<uint8_t> suffix(kSize), first(kSize);
-  for (int c = 0; c < 256; ++c) suffix[c] = first[c] = uint8_t(c);
+  const int kClear = 256, kEoi = 257, kFirst = 258, kSize = 4095 + 1024;
+  struct Entry {
+    int next, length;
+    uint8_t value, firstchar;
+  };
+  std::vector<Entry> tab(kSize);
+  for (int c = 0; c < 256; ++c) tab[c] = {-1, 1, uint8_t(c), uint8_t(c)};
+  tab[kClear] = tab[kEoi] = {-1, 0, 0, 0};
   long long bitpos = 0, total_bits = n * 8, op = 0;
-  int nbits = 9, next = 258, old = -1;
-  auto read_code = [&]() {
-    if (bitpos + nbits > total_bits) return kEoi;  // out of data
+  int nbits = 9, free_ent = -1, old = 0;
+  int maxcode = (1 << nbits) - 2;  // the last entry before widening
+  auto read_code = [&](int& code) {
+    if (bitpos + nbits > total_bits) return false;
     int v = 0;
     for (int k = 0; k < nbits; ++k, ++bitpos)
       v = (v << 1) | ((in[bitpos >> 3] >> (7 - (bitpos & 7))) & 1);
-    return v;
+    code = v;
+    return true;
+  };
+  auto add = [&](uint8_t value) {  // a new entry: old's string + value
+    Entry& e = tab[free_ent];
+    e = {old, tab[old].length + 1, value, tab[old].firstchar};
+    if (++free_ent > maxcode) {
+      nbits = std::min(nbits + 1, 12);
+      maxcode = (1 << nbits) - 2;
+      if (free_ent >= kSize) free_ent = -1;
+    }
   };
   auto emit = [&](int code) {  // the string of `code`, clipped to need
-    int len = length[code];
-    long long end = op + len;
+    long long end = op + tab[code].length;
     int c = code;
-    for (long long k = end - 1; k >= op; --k, c = prefix[c])
-      if (k < need) out[k] = suffix[c];
+    for (long long k = end - 1; k >= op; --k, c = tab[c].next)
+      if (k < need) out[k] = tab[c].value;
     op = std::min(end, need);
   };
   while (op < need) {
-    int code = read_code();
-    if (code == kEoi) break;
+    int code;
+    if (!read_code(code)) return -1;
+    if (code == kEoi) return -1;
     if (code == kClear) {
+      free_ent = kFirst;
       nbits = 9;
-      next = 258;
-      code = read_code();
-      if (code == kEoi) break;
-      if (code > kClear) return -1;
-      emit(code);
+      maxcode = (1 << nbits) - 2;
+      do {
+        if (!read_code(code)) return -1;
+      } while (code == kClear);
+      if (code == kEoi || code > kEoi) return -1;
+      out[op++] = uint8_t(code);
       old = code;
       continue;
     }
-    if (old < 0 || code > next || next >= kSize) return -1;
-    if (code < next) {
-      emit(code);
-      prefix[next] = old;
-      suffix[next] = first[code];
-    } else {  // the KwKwK case: the code being defined
-      prefix[next] = old;
-      suffix[next] = first[old];
-      length[next] = length[old] + 1;
-      first[next] = first[old];
-      emit(next);
-      ++next;
-      old = code;
-      if (next + 1 > (1 << nbits) - 1 && nbits < 12) ++nbits;
-      continue;
+    if (code < 256) {
+      if (free_ent < 0) return -1;
+      add(uint8_t(code));
+    } else {
+      if (free_ent < 0 || code > free_ent) return -1;
+      add(code == free_ent ? tab[old].firstchar : tab[code].firstchar);
     }
-    length[next] = length[old] + 1;
-    first[next] = first[old];
-    ++next;
     old = code;
-    if (next + 1 > (1 << nbits) - 1 && nbits < 12) ++nbits;
+    emit(code);
   }
-  return op < need ? -1 : need;
+  return need;
 } catch (...) {
   return -1;
 }
 
-// TIFF PackBits (libtiff's tif_packbits.c) into out, exactly `need` bytes:
-// runs cut at `need` (libtiff's "discarding bytes to avoid buffer
-// overrun"). → need, or -1 when the codes end before (its "Not enough
-// data").
+// Old-style TIFF LZW as libtiff 4.7's LZWDecodeCompat reads a strip: codes
+// LSB-first, widening at 511, 1023, 2047 (no early change), up to 12
+// bits; the data must start with a clear. Each code adds an entry without
+// checking it against the next free one, so a code past the table names
+// an empty entry ("Wrong length of decoded string"). → need, or -1 where
+// libtiff fails, the bytes decoded before the fault left in out (zeroed
+// by the caller).
+long long ocr_tiff_lzw_compat(const uint8_t* in, long long n, uint8_t* out,
+                              long long need) try {
+  const int kClear = 256, kEoi = 257, kFirst = 258, kSize = 4095 + 1024;
+  struct Entry {
+    int next, length;
+    uint8_t value, firstchar;
+  };
+  std::vector<Entry> tab(kSize, Entry{-1, 0, 0, 0});
+  for (int c = 0; c < 256; ++c) tab[c] = {-1, 1, uint8_t(c), uint8_t(c)};
+  long long bitpos = 0, total_bits = n * 8, op = 0;
+  int nbits = 9, free_ent = -1, old = 0, maxcode = (1 << 9) - 2;
+  auto read_code = [&]() {
+    if (bitpos + nbits > total_bits) return kEoi;  // "not terminated"
+    int v = 0;
+    for (int k = 0; k < nbits; ++k, ++bitpos)
+      v |= ((in[bitpos >> 3] >> (bitpos & 7)) & 1) << k;
+    return v;
+  };
+  while (op < need) {
+    int code = read_code();
+    if (code == kEoi) return -1;
+    if (code == kClear) {
+      do {
+        free_ent = kFirst;
+        std::fill(tab.begin() + kFirst, tab.end(), Entry{-1, 0, 0, 0});
+        nbits = 9;
+        maxcode = (1 << nbits) - 1;
+        code = read_code();
+      } while (code == kClear);
+      if (code == kEoi || code > kClear) return -1;
+      out[op++] = uint8_t(code);
+      old = code;
+      continue;
+    }
+    if (free_ent < 0 || free_ent >= kSize) return -1;  // corrupted table
+    Entry& e = tab[free_ent];
+    e = {old, tab[old].length + 1, 0, tab[old].firstchar};
+    e.value = code < free_ent ? tab[code].firstchar : e.firstchar;
+    if (++free_ent > maxcode) {
+      nbits = std::min(nbits + 1, 12);
+      maxcode = (1 << nbits) - 1;
+    }
+    old = code;
+    if (code < 256) {
+      out[op++] = uint8_t(code);
+      continue;
+    }
+    const int len = tab[code].length;
+    if (len == 0) return -1;  // wrong length of decoded string
+    long long end = op + len;
+    int c = code;
+    for (long long k = end - 1; k >= op && c >= 0; --k, c = tab[c].next)
+      if (k < need) out[k] = tab[c].value;
+    op = std::min(end, need);
+  }
+  return need;
+} catch (...) {
+  return -1;
+}
+
+// TIFF PackBits (tif_packbits.c): `in` into out (`need` bytes, zeroed by
+// the caller), a run clipped where it would pass `need`. → need, or -1
+// where the data end first ("Not enough data"), the runs decoded before
+// that left in out (a literal run the data cut short is dropped whole).
 long long ocr_tiff_packbits(const uint8_t* in, long long n, uint8_t* out,
                             long long need) {
   long long ip = 0, op = 0;

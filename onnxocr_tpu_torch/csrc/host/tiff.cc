@@ -18,8 +18,12 @@
 // * CIELab -> RGB (tif_color.c: TIFFCIELabToXYZ / TIFFCIELab16ToXYZ,
 //   TIFFXYZToRGB with the sRGB display of tif_getimage.c and the
 //   TIFFCIELabToRGBInit gamma tables), in libtiff's float arithmetic.
+// * Deflate (tif_zip.c's ZIPDecode): zlib's inflate into the strip's
+//   buffer, which keeps what zlib wrote before a fault, with libtiff's
+//   verdicts (a zlib error, data that end before the output is full).
 //
-// Built at first use by ops/native.py: g++ -std=c++17 -shared -fPIC -O2
+// Built at first use by ops/native.py: g++ -std=c++17 -shared -fPIC -O2,
+// linked with -lz
 
 // no fused multiply-add: libtiff's colour arithmetic rounds each product
 #pragma GCC optimize("fp-contract=off")
@@ -29,6 +33,8 @@
 #include <cstdint>
 #include <cstring>
 #include <vector>
+
+#include <zlib.h>
 
 namespace {
 
@@ -688,6 +694,35 @@ int ocr_tiff_lab(const void* px, long long n, int bits16, float wx, float wy,
   return 0;
 } catch (...) {
   return -1;
+}
+
+
+// One Deflate strip or tile (compression 8 or 32946) as libtiff's
+// ZIPDecode inflates it: `in` (n bytes) into out (`need` bytes, zeroed by
+// the caller). → need, or -1 where libtiff fails, with what zlib wrote
+// before the fault left in out. A fault fails the strip even with the
+// output full (zlib decodes on until it needs room); data that run out
+// fail it only when the output is short.
+long long ocr_tiff_inflate(const uint8_t* in, long long n, uint8_t* out,
+                           long long need) {
+  z_stream s{};
+  if (inflateInit(&s) != Z_OK) return -1;
+  s.next_in = const_cast<Bytef*>(in);
+  s.next_out = out;
+  int state = Z_OK;
+  do {
+    const uInt in_before = uInt(std::min<long long>(n, 0xFFFFFFFFu));
+    const uInt out_before = uInt(std::min<long long>(need, 0xFFFFFFFFu));
+    s.avail_in = in_before;
+    s.avail_out = out_before;
+    state = inflate(&s, Z_PARTIAL_FLUSH);
+    n -= in_before - s.avail_in;
+    need -= out_before - s.avail_out;
+  } while (state == Z_OK && need > 0);
+  inflateEnd(&s);
+  return (state == Z_OK || state == Z_STREAM_END) && need == 0
+             ? (long long)(s.next_out - out)
+             : -1;
 }
 
 }  // extern "C"

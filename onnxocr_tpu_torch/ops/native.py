@@ -25,6 +25,8 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "host" / "geometry.cc"
 BUILD_DIR = _PKG.parent / "build" / "host"
 CXX_FLAGS = ["-std=c++17", "-shared", "-fPIC", "-O2"]
+# what a source links beyond libm: the TIFF codec's Deflate is zlib's
+LINK = {"tiff.cc": ["-lz"]}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -58,8 +60,9 @@ def target(source: Path = SOURCE, stem: str = "libocrhost") -> Path:
     # the headers beside a source (the shared font reader) are part of it
     headers = b"".join(h.read_bytes()
                        for h in sorted(source.parent.glob("*.h")))
+    flags = CXX_FLAGS + LINK.get(source.name, [])
     digest = hashlib.sha1(source.read_bytes() + headers +
-                          " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+                          " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{stem}-{digest}.so"
 
 
@@ -73,7 +76,8 @@ def build(source: Path = SOURCE, stem: str = "libocrhost") -> Path:
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     try:
         proc = subprocess.run(
-            ["g++", *CXX_FLAGS, "-o", str(tmp), str(source), "-lm"],
+            ["g++", *CXX_FLAGS, "-o", str(tmp), str(source), "-lm",
+             *LINK.get(source.name, [])],
             capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
         raise RuntimeError(f"building {source.name} with g++ failed: {e}")

@@ -8,14 +8,23 @@ JPEG (baseline and progressive, Huffman or arithmetic coding, 8-bit, 1,
 3 or 4 (CMYK, YCCK) components, any integral sampling factors, restart
 intervals, the EXIF orientation; a sequential file streams row by row;
 lossless SOF3 at precisions 2-8, predictors 1-7, point transform and
-restarts, where libjpeg-turbo needs no colour conversion: three
-components as RGB, four as CMYK), BMP (1-, 4- and 8-bit
+restarts, in one interleaved scan or in several scans of any of the
+components, each with its own predictor, point transform and restarts
+(a component scanned twice keeps the later scan's samples), where
+libjpeg-turbo needs no colour conversion: three components as RGB, four
+as CMYK), BMP (1-, 4- and 8-bit
 palettes, RLE8 and RLE4, 16-bit 5-5-5 and 5-6-5, 24- and 32-bit with or
 without bit-field masks, bottom-up and top-down, the OS/2 core header too),
 TIFF and BigTIFF (the first IFD: none, PackBits, LZW, Deflate, CCITT
 modified Huffman, T.4 1D and 2D, T.6, JPEG with JPEGTables; predictor 2;
 FillOrder 2; strips, tiles, planar; 1, 8, 16 bits; grey, RGB(A), palette,
-CMYK, YCbCr (subsampled too), CIELab; the Orientation tag), Netpbm P1–P6,
+CMYK, YCbCr (subsampled too; a JPEG's planar at 1 x 1), CIELab; the
+Orientation tag; damaged files as libtiff 4.7 recovers them: a strip or
+tile whose codec fails keeps what it decoded before the fault and zeros
+after, with its predictor and byte swap left undone, and the next strip
+decodes on its own; old-style LZW; byte counts estimated where libtiff's
+directory reader estimates them, tags it ignores ignored, a compression
+scheme it has no codec for read as zeros), Netpbm P1–P6,
 PAM (P7: BLACKANDWHITE, GRAYSCALE, RGB and
 their _ALPHA forms cv2 knows, 8 and 16 bits), PFM (either byte order,
 bottom-up rows), GIF (LZW, global and local tables, interlace; an
@@ -30,18 +39,20 @@ computes through OpenJPEG 2.5) into (H, W, 3) uint8 BGR — a grey PFM
 ("Pf") into (H, W), as cv2 gives it — and gives None where cv2 gives
 None: bytes of another format (AVIF, ...), 12-bit, 16-bit lossless,
 arithmetic lossless or hierarchical JPEGs, lossless JPEGs libjpeg-turbo
-would have to convert (grey to BGR, YCbCr, YCCK), BMPs and TIFFs cv2 reads
-that this reader does not (other 16-bit masks, old-style JPEG, other
-compressions, a YCbCr JPEG stored planar), the TIFF layouts cv2 5.0
-refuses itself (uncompressed tiles that do not fill a whole number of KiB,
-YCbCr subsamplings with no put routine, planar CIELab, 16-bit CMYK), the
-Sun raster types cv2 5.0 refuses itself (byte-encoded, RGB-format), the
+would have to convert (grey to BGR, YCbCr, YCCK), or that leave a
+component unscanned, BMPs and TIFFs cv2 reads that this reader does not
+(other 16-bit masks, old-style JPEG, the other compressions libtiff
+has), the TIFF layouts cv2 5.0 refuses itself (an uncompressed tile whose
+byte count, rounded up to a KiB, is not the tile's size, YCbCr
+subsamplings with no put routine, planar CIELab, 16-bit CMYK, a strip
+buffer of RowsPerStrip rows past 1 GiB, a directory libtiff cannot read),
+the Sun raster types cv2 5.0 refuses itself (byte-encoded, RGB-format), the
 JPEG 2000 files cv2 5.0 refuses (signed or subsampled components, a
 largest precision below 8, an image origin other than 0, too few
 components for the colour space, CMYK or e-sYCC), HTJ2K code-blocks,
-truncated or corrupt files (a corrupt CCITT or JPEG-in-TIFF strip
-decodes as libtiff's recovery leaves it, as cv2 returns it), and sides
-longer than libpng or libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
+the truncated or corrupt files cv2 refuses (a TIFF's first-plane strip
+or tile past the end of the data among them), and sides longer than
+libpng or libjpeg reads. `jpeg_pil_rgb` is the PDF rasteriser's other JPEG reading,
 PIL's `Image.open(...).convert('RGB')`: the stored orientation, and
 Adobe's inverted CMYK through Pillow's cmyk2rgb. As IMREAD_COLOR does, it
 drops alpha, replicates grey, reduces 16-bit samples to their high byte,
@@ -55,10 +66,11 @@ header words, the GIF decoder and the Radiance HDR decoder, written to
 compute what cv2 5.0's own decoders compute, the WebP decoder, written to
 compute what libwebp computes; the JPEG 2000 decoder is
 `csrc/host/jpeg2000.cc`, written to compute what OpenJPEG 2.5 computes
-and decoding one tile at a time; TIFF's CCITT decoder and CIELab
-conversion are `csrc/host/tiff.cc`, libtiff 4.7's), built with g++ at
-first use into `build/host/` like the DB postprocess library
-(`ops/native.py`); zlib inflates PNG streams, and numpy lays out the
+and decoding one tile at a time; TIFF's CCITT decoder, Deflate strips
+(through zlib's inflate, linked with -lz) and CIELab conversion are
+`csrc/host/tiff.cc`, libtiff 4.7's), built with g++ at first use into
+`build/host/` like the DB postprocess library (`ops/native.py`); zlib
+inflates PNG streams, and numpy lays out the
 samples of the uncompressed formats (BMP, TIFF strips, Netpbm, PAM, PFM,
 Sun raster) and converts TIFF's CMYK and YCbCr. There is no
 fallback: where the library cannot be built, every call raises.
@@ -66,6 +78,7 @@ fallback: where the library cannot be built, every call raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import struct
 import threading
 import zlib
@@ -108,6 +121,7 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # components, h, v sampling
         ctypes.c_int, _U8P, _LL, ctypes.c_int]),   # YCbCr, out, row, rows
     "ocr_tiff_lzw": (_LL, [_U8P, _LL, _U8P, _LL]),   # in, bytes, out, need
+    "ocr_tiff_lzw_compat": (_LL, [_U8P, _LL, _U8P, _LL]),
     "ocr_tiff_packbits": (_LL, [_U8P, _LL, _U8P, _LL]),
     "ocr_pxm_header": (ctypes.c_int, [               # buf, bytes, pos, n,
         _U8P, _LL, ctypes.POINTER(_LL), _LL, _IP]),  # out int32
@@ -142,6 +156,7 @@ _TIFF_SIGNATURES = {
     "ocr_tiff_lab": (ctypes.c_int, [
         ctypes.c_void_p, _LL, ctypes.c_int,        # samples, pixels, 16-bit
         ctypes.c_float, ctypes.c_float, _U8P]),    # white point, out BGR
+    "ocr_tiff_inflate": (_LL, [_U8P, _LL, _U8P, _LL]),  # in, bytes, out, need
 }
 
 _JP2_SIGNATURES = {
@@ -591,12 +606,42 @@ def _bmp_rle(buf, offset, w, rows, rle4, palette, bottom_up):
 
 
 # ----------------------------------------------------------------- TIFF
-# the integer field types: BYTE, SHORT, LONG, LONG8, IFD8 → struct code,
-# bytes
-_TIFF_TYPES = {1: ("B", 1), 3: ("H", 2), 4: ("I", 4), 16: ("Q", 8),
-               18: ("Q", 8)}
+# TIFF's field types → struct code, bytes a value: BYTE, ASCII, SHORT,
+# LONG, RATIONAL, SBYTE, UNDEFINED, SSHORT, SLONG, SRATIONAL, FLOAT,
+# DOUBLE, IFD, LONG8, SLONG8, IFD8 (a rational is two LONGs or SLONGs)
+_TIFF_TYPES = {1: ("B", 1), 2: ("B", 1), 3: ("H", 2), 4: ("I", 4),
+               5: ("I", 8), 6: ("b", 1), 7: ("B", 1), 8: ("h", 2),
+               9: ("i", 4), 10: ("i", 8), 11: ("f", 4), 12: ("d", 8),
+               13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
+# the types libtiff's TIFFReadDirEntryShort (and its arrays, and the strip
+# arrays') and TIFFReadDirEntryLong convert, and the real ones
+_SHORT_TYPES = (1, 3, 4, 6, 8, 9, 16, 17)
+_LONG_TYPES = _SHORT_TYPES + (13, 18)
+_REAL_TYPES = _SHORT_TYPES + (5, 10, 11, 12)
+# how libtiff reads each tag the reader takes: one SHORT or LONG, one a
+# sample (all equal, a count of 1 or at least SamplesPerPixel), an array
+# of SHORTs, the strip arrays, an array of reals of a fixed count, the
+# JPEGTables bytes
+_TAG_KIND = {256: "long", 257: "long", 258: "persample", 259: "persample",
+             262: "short", 266: "short", 273: "strips", 274: "short",
+             277: "short", 278: "long", 279: "strips", 284: "short",
+             292: "long", 317: "short", 318: ("reals", 2), 320: "shorts",
+             322: "long", 323: "long", 324: "strips", 325: "strips",
+             332: "short", 338: "shorts", 339: "persample",
+             347: "bytes", 529: ("reals", 3), 530: ("shorts", 2),
+             532: ("reals", 6)}
+# tags TIFFReadDirectory cannot do without: one it cannot read fails the
+# directory ("goto bad"); any other is ignored with a warning
+_TAG_FATAL = {256, 257, 258, 259, 273, 277, 278, 279, 284, 322, 323, 324,
+              325, 338, 339}
 # none, CCITT RLE, T.4, T.6, LZW, JPEG, Deflate, PackBits, Deflate (old)
 _TIFF_COMPRESSIONS = (1, 2, 3, 4, 5, 7, 8, 32773, 32946)
+# the schemes libtiff 4.7 has a codec entry for (tif_codec.c), built into
+# cv2 or not; another number sets no codec, and every strip fails to
+# decode, leaving the zeroed buffer TIFFReadRGBA* converts
+_LIBTIFF_CODECS = _TIFF_COMPRESSIONS + (6, 32766, 32771, 32809, 32909,
+                                        34661, 34676, 34677, 34887, 34925,
+                                        50000, 50001, 50002)
 _FAX = (2, 3, 4)
 # YCbCr subsamplings TIFFReadRGBA has a put routine for (tif_getimage.c)
 _YCBCR_CHUNKY = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
@@ -613,10 +658,18 @@ _WHITE = (_D50[0] / (_D50[0] + _D50[1] + _D50[2]),
 
 def _tiff_ifd(buf: bytes):
     """The first IFD of a classic TIFF (magic 42: 12-byte entries, 4-byte
-    offsets) or a BigTIFF (magic 43: 20-byte entries, 8-byte offsets, the
-    LONG8 / IFD8 types) → (byte order, {tag: values}): a tuple of ints for
-    the integer-typed tags, of float32 for the RATIONAL ones (as libtiff
-    converts them), the bytes of JPEGTables."""
+    offsets) or a BigTIFF (magic 43: 20-byte entries, 8-byte offsets) →
+    (byte order, {tag: values}, entries, {tag: strip array}), the tags as
+    libtiff's TIFFReadDirectory reads them: the first of a repeated tag;
+    the type, count and range its readers take (a tag they refuse fails the
+    directory where libtiff cannot do without it, else it is dropped, as
+    libtiff ignores it with a warning); integers as a tuple of ints (one a
+    sample: its one value), reals as float32 (a RATIONAL as libtiff
+    converts it), JPEGTables as bytes. The entries are each entry's (tag,
+    type, count), for the strip byte count estimate. The strip and tile
+    arrays are left unread, each a function of the number of strips or
+    tiles: libtiff reads no more values than that
+    (TIFFReadDirEntryLong8ArrayWithLimit)."""
     order = {b"II": "<", b"MM": ">"}[buf[:2]]
     magic, = struct.unpack(order + "H", buf[2:4])
     if magic == 42:
@@ -634,38 +687,96 @@ def _tiff_ifd(buf: bytes):
     if magic == 43 and count > 4096:
         # libtiff's "Sanity check on directory count failed"
         raise _Unreadable("BigTIFF: directory count past 4096")
-    tags = {}
+    raw, entries, arrays = {}, [], {}
     for e in range(ifd + head, ifd + head + entry * count, entry):
         tag, typ = struct.unpack(order + "HH", buf[e:e + 4])
         n, = struct.unpack(order + off_code, buf[e + 4:e + 4 + inline])
         value = buf[e + 4 + inline:e + entry]
         if len(value) < inline:
             raise _Unreadable("TIFF: truncated directory")
-        if tag == 347 and typ in (1, 7):                 # JPEGTables
-            code, width = "B", 1
-        elif typ == 5:                                   # RATIONAL
-            code, width = "I", 8
-        elif typ in _TIFF_TYPES:
-            code, width = _TIFF_TYPES[typ]
-        else:
+        entries.append((tag, typ, n))
+        raw.setdefault(tag, (typ, n, value))
+    spp = 1
+    tags = {}
+    for tag in sorted(raw, key=lambda t: t != 277):   # SamplesPerPixel first
+        kind = _TAG_KIND.get(tag)
+        if kind is None:
             continue
-        size = width * n
-        if size <= inline:
-            data = value[:size]
-        else:
-            off, = struct.unpack(order + off_code, value)
-            if off + size > len(buf):
-                raise _Unreadable(f"TIFF: tag {tag} past the end")
-            data = buf[off:off + size]
-        if tag == 347 and typ in (1, 7):
-            tags[tag] = bytes(data)
-        elif typ == 5:
-            v = struct.unpack(f"{order}{2 * n}I", data)
-            tags[tag] = tuple(np.float32(v[k] / v[k + 1] if v[k + 1] else 0)
-                              for k in range(0, 2 * n, 2))
-        else:
-            tags[tag] = struct.unpack(f"{order}{n}{code}", data)
-    return order, tags
+        if kind == "strips":
+            arrays[tag] = functools.partial(
+                _tiff_field, buf, order, off_code, inline, kind, spp,
+                *raw[tag])
+            continue
+        try:
+            v = _tiff_field(buf, order, off_code, inline, kind, spp,
+                            *raw[tag])
+        except _Unreadable:
+            if tag in _TAG_FATAL:
+                raise
+            continue
+        tags[tag] = v
+        if tag == 277:
+            spp = v[0]
+    return order, tags, entries, arrays
+
+
+def _tiff_field(buf, order, off_code, inline, kind, spp, typ, n, value,
+                limit=None):
+    """One entry's values as libtiff's readers take them (see
+    _tiff_ifd), _Unreadable where they refuse it; at most `limit` of
+    them (a strip array's), from where all `n` would lie."""
+    fixed = kind[1] if isinstance(kind, tuple) else None
+    kind = kind[0] if isinstance(kind, tuple) else kind
+    if typ not in _TIFF_TYPES:
+        raise _Unreadable("TIFF: a type libtiff does not know")
+    code, width = _TIFF_TYPES[typ]
+    if kind == "bytes":
+        if typ not in (1, 7):
+            raise _Unreadable("TIFF: JPEGTables of another type")
+    elif kind in ("short", "persample", "shorts", "strips"):
+        if typ not in _SHORT_TYPES:
+            raise _Unreadable("TIFF: incompatible type")
+    elif kind == "long":
+        if typ not in _LONG_TYPES:
+            raise _Unreadable("TIFF: incompatible type")
+    elif typ not in _REAL_TYPES:
+        raise _Unreadable("TIFF: incompatible type")
+    if kind in ("short", "long") and n != 1 or \
+            kind == "persample" and n != 1 and n < spp or \
+            fixed is not None and n != fixed:
+        raise _Unreadable("TIFF: incorrect count")
+    stored = width * n
+    if limit is not None:
+        n = min(n, limit)
+        if not n:
+            return ()
+    size = width * n
+    if stored <= inline:
+        data = value[:size]
+    else:
+        off, = struct.unpack(order + off_code, value)
+        if off + size > len(buf):
+            raise _Unreadable("TIFF: a tag's values past the end")
+        data = buf[off:off + size]
+    if kind == "bytes":
+        return bytes(data)
+    if typ in (5, 10):
+        v = struct.unpack(f"{order}{2 * n}{code}", data)
+        return tuple(np.float32(v[k] / v[k + 1] if v[k + 1] else 0)
+                     for k in range(0, 2 * n, 2))
+    v = struct.unpack(f"{order}{n}{code}", data)
+    if kind == "reals":
+        return tuple(np.float32(x) for x in v)
+    top = 0xFFFF if kind in ("short", "persample", "shorts") else \
+        0xFFFFFFFF if kind == "long" else (1 << 64) - 1
+    if any(x < 0 or x > top for x in v):
+        raise _Unreadable("TIFF: a value out of the field's range")
+    if kind == "persample":
+        if n > 1 and any(x != v[0] for x in v[1:spp]):
+            # "Cannot handle different values per sample"
+            raise _Unreadable("TIFF: different values per sample")
+        return v[:1]
+    return v
 
 
 def tiff_lib() -> ctypes.CDLL:
@@ -690,23 +801,48 @@ class _Chunk:
         # can change for the next, and its run arrays (tiff.cc)
         self.fax_mode = np.zeros(1, np.int32)
         self.fax_runs = None
+        # LZW: whether the first strip read had old-style codes (its data
+        # starting 00 01), which switches libtiff's decoder for every
+        # later strip (LZWPreDecode)
+        self.lzw_compat = None
 
 
 def _tiff_chunk(buf: bytes, off: int, n: int, need: int, how: _Chunk, *,
-                width: int = 0, rows: int = 0, seg=None) -> np.ndarray:
+                width: int = 0, rows: int = 0, seg=None, plane: int = 0,
+                tiled: bool = False):
     """One strip or tile decompressed to exactly `need` bytes, as libtiff
-    reads it (None, PackBits, LZW, Deflate, CCITT, JPEG). FillOrder 2
-    reverses each byte's bits first, except for CCITT and JPEG, whose
-    codecs take the data as it is (libtiff's TIFF_NOBITREV). A CCITT or
-    JPEG strip that fails while decoding keeps what it wrote into a zeroed
-    buffer, as TIFFReadRGBA* converts libtiff's strip buffer then."""
+    reads it (None, PackBits, LZW, Deflate, CCITT, JPEG) into the zeroed
+    buffer of TIFFReadRGBA* → (bytes, whether the codec succeeded). A
+    codec that fails keeps what it wrote before the fault, and the rest
+    stays 0; libtiff then skips the strip's post-decoding (the predictor,
+    the byte swap of 16-bit samples) but converts the buffer all the same.
+    FillOrder 2 reverses each byte's bits first, except for CCITT and JPEG,
+    whose codecs take the data as it is (libtiff's TIFF_NOBITREV). A strip
+    or tile whose data cannot be read (a count of 0, data past the end)
+    fails the image in the first plane; in a later plane it reads as 0
+    (TIFFReadEncodedStrip / Tile clear the buffer), and a later plane's
+    uncompressed strip is read from its offset for `need` bytes whatever
+    its count (their shortcut for unmapped files)."""
     comp = how.comp
+    if plane and comp == 1 and not tiled:
+        raw = np.frombuffer(buf[off:off + need], np.uint8)
+        if how.fill_lsb:
+            raw = _BIT_REVERSE[raw]
+        if raw.size < need:
+            return np.concatenate([raw, np.zeros(need - raw.size, np.uint8)]
+                                  ), False
+        return raw, True
     if n <= 0 or off + n > len(buf):
         # 0: libtiff's "Invalid strip byte count" (TIFFFillStrip)
+        if plane:
+            return np.zeros(need, np.uint8), False
         raise _Unreadable("TIFF: strip or tile past the end of the data")
     raw = np.frombuffer(buf, np.uint8, n, off)
+    out = np.zeros(need, np.uint8)
+    if comp not in _LIBTIFF_CODECS:
+        # "Compression scheme ... strip decoding is not implemented"
+        return out, False
     if comp in _FAX:
-        out = np.zeros(need, np.uint8)
         src = np.ascontiguousarray(raw)
         if how.fax_runs is None:
             how.fax_runs = np.zeros(4 * ((width + 32) // 32 * 32) + 16,
@@ -717,35 +853,28 @@ def _tiff_chunk(buf: bytes, off: int, n: int, need: int, how: _Chunk, *,
                 how.fax_runs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
                 how.fax_runs.size, _ptr(out)) < 0:
             raise _Unreadable("TIFF: CCITT layout libtiff refuses")
-        return out
+        return out, True
     if comp == 7:
         seg_w, seg_h, taller_ok, bpl = seg
         ncomp, hs, vs, ycc = how.jpeg
-        out = np.zeros(need, np.uint8)
         src = np.ascontiguousarray(raw)
         if lib().ocr_jpeg_tiff(_ptr(how.tables), how.tables.size, _ptr(src),
                                n, seg_w, seg_h, taller_ok, ncomp, hs, vs,
                                ycc, _ptr(out), bpl, need // bpl) < 0:
             raise _Unreadable("TIFF: a JPEG strip libtiff refuses")
-        return out
+        return out, True
     if how.fill_lsb:
         raw = _BIT_REVERSE[raw]
     if comp == 1:
-        if n < need:
-            raise _Unreadable("TIFF: short strip")
-        return raw[:need]
-    if comp in (8, 32946):
-        inflater = zlib.decompressobj()
-        out = inflater.decompress(raw.tobytes(), need)
-        if len(out) < need:
-            raise _Unreadable("TIFF: short Deflate strip")
-        return np.frombuffer(out, np.uint8)
-    out = np.empty(need, np.uint8)
-    fn = lib().ocr_tiff_lzw if comp == 5 else lib().ocr_tiff_packbits
+        # DumpModeDecode copies nothing from a strip shorter than `need`
+        return (raw[:need], True) if n >= need else (out, False)
+    if comp == 5 and how.lzw_compat is None:
+        how.lzw_compat = n >= 2 and raw[0] == 0 and bool(raw[1] & 1)
+    fn = {5: lib().ocr_tiff_lzw_compat if how.lzw_compat else
+          lib().ocr_tiff_lzw, 32773: lib().ocr_tiff_packbits}.get(
+        comp) or tiff_lib().ocr_tiff_inflate
     src = np.ascontiguousarray(raw)
-    if fn(_ptr(src), n, _ptr(out), need) != need:
-        raise _Unreadable("TIFF: bad or short LZW / PackBits data")
-    return out
+    return out, fn(_ptr(src), n, _ptr(out), need) == need
 
 
 def _jpeg_sampling(buf: bytes, off: int, n: int):
@@ -830,26 +959,75 @@ def _ycbcr_unblock(chunk: np.ndarray, rows: int, cw: int, sh: int, sv: int
         rows, cw * 3)
 
 
+def _tiff_counts(buf, entries, comp, tiled, planes, h, offsets, counts,
+                 scanline, chunk_size):
+    """The strip or tile byte counts as TIFFReadDirectory leaves them: a
+    missing StripByteCounts, a single uncompressed strip whose count looks
+    bogus (0, past the end of the file, short of ImageLength's rows) and
+    uncompressed chunky strips or tiles (three or more) whose first two
+    counts differ are estimated (EstimateStripByteCounts): uncompressed
+    strips as ImageLength / strips a plane rows each, tiles as the tile
+    size, compressed ones as the file's bytes past the header and the
+    directory (a plane's share of them), the last cut at the end of the
+    file."""
+    n = len(offsets)
+    size = len(buf)
+    if counts is not None:
+        if not (
+                n == 1 and not tiled and offsets[0] and (
+                    counts[0] == 0 or comp == 1 and (
+                        counts[0] > size - offsets[0] or
+                        counts[0] < scanline * h)) or
+                planes == 1 and n > 2 and comp == 1 and
+                counts[0] != counts[1] and counts[0] and counts[1]):
+            return counts
+    if comp != 1:
+        big = buf[2:4] in (b"+\0", b"\0+")
+        space = (16 + 8 + 20 * len(entries) + 8) if big else \
+            (8 + 2 + 12 * len(entries) + 4)
+        for tag, typ, count in entries:
+            # TIFFDataWidth: 1 for type 0, nothing for the unknown ones
+            if typ and typ not in _TIFF_TYPES:
+                # "Cannot determine size of unknown tag type"
+                raise _Unreadable("TIFF: an entry of an unknown type")
+            data = (_TIFF_TYPES[typ][1] if typ else 1) * count
+            space += data if data > (8 if big else 4) else 0
+        space = size if size < space else size - space
+        counts = [space // planes] * n
+        last = offsets[-1]
+        if last + counts[-1] > size:
+            counts[-1] = size - last if last < size else 0
+        return tuple(counts)
+    if tiled:
+        return (chunk_size,) * n
+    return (scanline * (h // (n // planes)),) * n
+
+
 def _tiff(buf: bytes) -> np.ndarray:
     """cv2's TiffDecoder at IMREAD_COLOR, which reads through libtiff's
     TIFFReadRGBA*: the first IFD of a classic TIFF or a BigTIFF;
     compression none, PackBits, LZW, Deflate, CCITT (2, 3, 4; `ocr_tiff_fax`
     in csrc/host/tiff.cc) or JPEG (7, 8 bits a sample; the JPEG decoder
-    with the JPEGTables); FillOrder 2; predictor 2 (which libtiff undoes for LZW and
-    Deflate only); strips or tiles (uncompressed tiles only where a tile
-    fills a whole number of KiB: cv2 5.0's libtiff refuses the others with
-    "Invalid tile byte count"); chunky or planar samples; 1, 8 or 16 bits
-    (4 for a palette); grey (MinIsBlack, MinIsWhite), RGB with or without
-    alpha, palette, CMYK (InkSet 1), YCbCr (8-bit; subsampled in the
-    layouts libtiff has a put routine for; JPEG's through libjpeg's
-    conversion) and CIELab (chunky, 8 or 16 bits). As TIFFReadRGBA
+    with the JPEGTables), a scheme libtiff has no codec for as zeros;
+    FillOrder 2; predictor 2 (which libtiff undoes for LZW and Deflate
+    only); strips or tiles (an uncompressed tile where libtiff's raw
+    buffer, each count rounded up to a KiB, is the tile's size: cv2 5.0's
+    libtiff refuses the others with "Invalid tile byte count"); chunky or
+    planar samples; 1, 8 or 16 bits (4 for a palette); grey (MinIsBlack,
+    MinIsWhite), RGB with or without alpha, palette, CMYK (InkSet 1),
+    YCbCr (8-bit; subsampled in the layouts libtiff has a put routine for;
+    chunky JPEG's through libjpeg's conversion, planar JPEG's 1 x 1 planes
+    through TIFFYCbCrToRGB) and CIELab (chunky, 8 or 16 bits). The
+    directory as TIFFReadDirectory reads and repairs it (_tiff_ifd,
+    _tiff_counts); a damaged strip or tile as its codec leaves it
+    (_tiff_chunk), each converted on its own. As TIFFReadRGBA
     converts them: 16-bit grey keeps its high byte and 16-bit colour (v +
     128) / 257; an unassociated alpha is multiplied in ((c a + 127) / 255)
     and dropped; a colour map whose entries all lie below 256 is taken as
     8-bit, else its high bytes; CMYK by (255 − K)(255 − C) / 255; YCbCr
     through TIFFYCbCrToRGB's fixed-point tables; CIELab through libtiff's
     float XYZ → sRGB. The Orientation tag is applied as cv2 applies it."""
-    order, tags = _tiff_ifd(buf)
+    order, tags, entries, arrays = _tiff_ifd(buf)
 
     def one(tag, default=None):
         v = tags.get(tag)
@@ -857,33 +1035,45 @@ def _tiff(buf: bytes) -> np.ndarray:
     w, h = one(256, 0), one(257, 0)
     if not w or not h:
         raise _Unreadable("TIFF: no image size")
+    tiled = 322 in tags or 323 in tags
+    if (324 if tiled else 273) not in arrays:
+        # libtiff's MissingRequired "StripOffsets" fails the directory
+        # before cv2 looks at the size
+        raise _Unreadable("TIFF: no strip or tile offsets")
     _check_size("tiff", w, h)
-    spp = one(277, 1)
-    bps_all = tags.get(258, (1,))
-    bps = bps_all[0]
+    spp, bps = one(277, 1), one(258, 1)
     comp, photo = one(259, 1), one(262)
-    planar, predictor = one(284, 1), one(317, 1)
+    planar = one(284, 1)
+    # Predictor is a tag of the LZW and Deflate codecs only
+    predictor = one(317, 1) if comp in (5, 8, 32946) else 1
     fill_lsb = one(266, 1) == 2
-    if any(b != bps for b in bps_all) or bps not in (1, 4, 8, 16) or \
-            comp not in _TIFF_COMPRESSIONS or planar not in (1, 2) or \
+    extra = tags.get(338, ())
+    if bps not in (1, 4, 8, 16) or \
+            comp in _LIBTIFF_CODECS and comp not in _TIFF_COMPRESSIONS or \
+            planar not in (1, 2) or \
             predictor not in (1, 2) or (predictor == 2 and bps == 1) or \
             one(339, 1) != 1 or not 1 <= spp <= 8 or \
-            (comp in _FAX and (bps != 1 or spp != 1)):
+            (comp in _FAX and (bps != 1 or spp != 1)) or \
+            len(extra) > spp or any(e > 2 and e != 999 for e in extra):
+        # ExtraSamples past SamplesPerPixel or of an unknown kind fail
+        # libtiff's setExtraSamples
         raise _Unreadable("TIFF: a layout TIFFReadRGBA does not take here")
-    extra = tags.get(338, ())
+    colours = spp - len(extra)           # TIFFRGBAImageOK's colour channels
     sub = (1, 1)
     if photo in (0, 1):
         colour = "grey"
-    elif photo == 2 and spp >= 3:
+    elif photo == 2 and colours >= 3:
         colour = "rgb"
-    elif photo == 3 and spp == 1 and bps <= 8 and 320 in tags:
+    elif photo == 3 and bps <= 8 and 320 in tags and \
+            (spp == 1 or planar == 1):
         colour = "palette"
     elif photo == 5 and spp == 4 and bps == 8 and one(332, 1) == 1:
         colour = "cmyk"
     elif photo == 6 and spp == 3 and bps == 8:
         colour = "ycbcr"
         sub = tuple(tags.get(530, (2, 2))[:2])
-    elif photo == 8 and spp == 3 and bps in (8, 16) and planar == 1:
+    elif photo == 8 and spp == colours == 3 and bps in (8, 16) and \
+            planar == 1:
         colour = "lab"
     else:
         raise _Unreadable(f"TIFF: photometric {photo} is not read")
@@ -891,26 +1081,38 @@ def _tiff(buf: bytes) -> np.ndarray:
                     (bps == 4 and photo != 3)):
         # cv2's readHeader takes 4 bits for a palette only, 2 not at all
         raise _Unreadable("TIFF: packed samples cv2 does not read")
-    tiled = 322 in tags
     if tiled:
         cw, ch = one(322, 0), one(323, 0)
-        offsets, counts = tags.get(324, ()), tags.get(325, ())
+        tile_h = ch
+        offsets, counts = arrays.get(324), arrays.get(325)
     else:
-        cw, ch = w, min(one(278, h), h)      # 0: libtiff's "Bad value"
-        offsets, counts = tags.get(273, ()), tags.get(279, ())
+        rps = one(278, 0xFFFFFFFF)
+        # cv2 sizes its strip buffer by RowsPerStrip as the file gives it
+        tile_h = h if rps == 0xFFFFFFFF else rps
+        cw, ch = w, min(rps, h)              # 0: libtiff's "Bad value"
+        offsets, counts = arrays.get(273), arrays.get(279)
     if not cw or not ch or cw * ch * spp * max(1, bps // 8) >= 1 << 30:
         # cv2: "TIFF tile size is too large: >= 1Gb"
         raise _Unreadable("TIFF: empty or oversized strips or tiles")
     across, down = -(-w // cw), -(-h // ch)
     planes = spp if planar == 2 else 1
     per = spp // planes                      # samples in one chunk
-    if min(len(offsets), len(counts)) < across * down * planes:
-        raise _Unreadable("TIFF: too few strip or tile offsets")
-    n_chunks = across * down * planes
-    if any(o + c > len(buf) for o, c in zip(offsets[:n_chunks],
-                                             counts[:n_chunks])):
-        # checked before the image is allocated
-        raise _Unreadable("TIFF: strip or tile past the end of the data")
+    n_all = across * down * planes
+    if counts is None and n_all > planes:
+        # libtiff's MissingRequired "StripByteCounts": only one strip or
+        # tile (a plane) has its count estimated
+        raise _Unreadable("TIFF: no strip or tile byte counts")
+    # TIFFFetchStripThing: an array short of the strips is padded with 0,
+    # up to a million strips or tiles; past that it fails the directory
+    # (LIBTIFF_STRILE_ARRAY_MAX_RESIZE_COUNT), so the file bounds them
+    def padded(array):
+        v = array(n_all)
+        if len(v) < n_all and n_all > 1_000_000:
+            raise _Unreadable("TIFF: a short strip or tile array of more "
+                              "than a million strips or tiles")
+        return v + (0,) * (n_all - len(v))
+    offsets = padded(offsets)
+    counts = padded(counts) if counts else None
     how = _Chunk(comp, fill_lsb, one(292, 0), tags.get(347, b""))
     blocked = None                    # subsampled YCbCr data units (sh, sv)
     if comp == 7:
@@ -918,9 +1120,15 @@ def _tiff(buf: bytes) -> np.ndarray:
             # JPEGPreDecode's "Improper JPEG data precision": the frame's
             # 8 bits must be BitsPerSample
             raise _Unreadable("TIFF: JPEG with BitsPerSample other than 8")
-        if colour == "ycbcr":
-            if planar != 1:
-                raise _Unreadable("TIFF: planar YCbCr JPEG is not read")
+        if colour == "ycbcr" and planar == 2:
+            # JPEGCOLORMODE_RGB takes chunky data only: each plane's strips
+            # are one-component JPEGs, converted by TIFFYCbCrToRGB's tables
+            # (putseparate8bitYCbCr11tile, the one planar put routine)
+            if sub != (1, 1):
+                raise _Unreadable("TIFF: a YCbCr subsampling with no put "
+                                  "routine")
+            how.jpeg = (1, 1, 1, 0)
+        elif colour == "ycbcr":
             if 530 not in tags:
                 sub = _jpeg_sampling(buf, offsets[0], counts[0]) or (2, 2)
             if sub[0] not in (1, 2, 4) or sub[1] not in (1, 2, 4):
@@ -943,10 +1151,41 @@ def _tiff(buf: bytes) -> np.ndarray:
             sh, sv = blocked
             return -(-rows // sv) * -(-cw // sh) * (sh * sv + 2)
         return rows * row_bytes
-    if tiled and comp == 1 and chunk_bytes(ch) % 1024:
-        # cv2 5.0 refuses the others: its libtiff's "Invalid tile byte
-        # count ... Expected <tile size>, got <it rounded up to a KiB>"
-        raise _Unreadable("TIFF: an uncompressed tile cv2 does not read")
+    # the scanline libtiff sizes strips by (TIFFScanlineSize64)
+    scanline = chunk_bytes(blocked[1]) // blocked[1] if blocked else \
+        row_bytes
+    counts = _tiff_counts(buf, entries, comp, tiled, planes, h, offsets,
+                          counts, scanline, chunk_bytes(ch))
+    if cw > 1 << 24 or tile_h > 1 << 24 or cw * tile_h * 4 >= 1 << 30:
+        # cv2's RGBA buffer of a strip or tile: "buffer_size is too large:
+        # >= 1Gb"
+        raise _Unreadable("TIFF: a strip or tile buffer past 1 GiB")
+    n_chunks = across * down     # the first plane's: each must be read
+    if any(o + c > len(buf) for o, c in zip(offsets[:n_chunks],
+                                             counts[:n_chunks])):
+        # checked before the image is allocated
+        raise _Unreadable("TIFF: strip or tile past the end of the data")
+    if tiled and comp == 1:
+        # cv2 5.0's libtiff reads each tile through one raw buffer that
+        # grows to a count rounded up to a KiB and never shrinks, and
+        # refuses a first-plane tile unless that buffer is the tile's size:
+        # "Invalid tile byte count ... Expected <tile size>, got <the
+        # buffer's>". The planes of a tile after its first grow it too, as
+        # read off cv2: all of a colour image's, a grey or palette image's
+        # first and its alpha (TIFFRGBAImageBegin takes an unspecified
+        # first extra sample of four or more samples for alpha)
+        alpha_plane = extra[:1] in ((1,), (2,)) or \
+            extra[:1] == (0,) and spp > 3
+        read = min(planes, 1 + alpha_plane) \
+            if colour in ("grey", "palette") else planes
+        grown = 0
+        for k in range(n_chunks):
+            for p in range(read):
+                grown = max(grown,
+                            -(-counts[p * n_chunks + k] // 1024) * 1024)
+                if p == 0 and grown != chunk_bytes(ch):
+                    raise _Unreadable("TIFF: an uncompressed tile cv2 does "
+                                      "not read")
     lut = conv = None
     if photo == 3:
         n = 1 << bps
@@ -981,12 +1220,25 @@ def _tiff(buf: bytes) -> np.ndarray:
             raise _Unreadable("TIFF: invalid WhitePoint")
         conv = (np.float32(white[0]), np.float32(white[1]))
     alpha = colour == "rgb" and spp > 3 and extra[:1] == (2,)
-    # libtiff's put16bitbwtile steps a clipped tile's rows by the skew in
-    # bytes, not in samples: rows after the first of a tile cut by the
-    # right edge are read from there
-    skewed = tiled and bps == 16 and colour == "grey"
+    # planar grey of two samples or more goes through the RGB put routines
+    # (gtStripSeparate / gtTileSeparate): its first plane as R, G and B as
+    # stored (MinIsWhite is not inverted, 16 bits as RGB's), its alpha
+    spread = None
+    if colour == "grey" and planes > 1:
+        colour, alpha = "rgb", extra[:1] == (2,)
+        spread = [0, 0, 0, 1] if alpha else [0, 0, 0]
+        lut = ((np.arange(1 << 16, dtype=np.uint32) + 128) // 257).astype(
+            np.uint8) if bps == 16 else None
+    # libtiff's putgreytile, put8bitcmaptile and put16bitbwtile step a
+    # clipped tile's rows by the skew in bytes, not in samples: rows after
+    # the first of a tile cut by the right edge are read from there
+    skewed = tiled and (colour == "grey" and bps == 16 or
+                        colour in ("grey", "palette") and per > 1)
     predicted = predictor == 2 and comp in (5, 8, 32946)
     dtype = np.dtype(order + "u2") if bps == 16 else np.uint8
+    # a chunk whose codec failed keeps the file's differences and byte
+    # order: libtiff's put routines read it as host-order (little-endian)
+    raw_dtype = np.dtype("<u2") if bps == 16 else np.uint8
     # converted strip by strip (tile by tile), a band of rows at a time,
     # into the output, as TIFFReadRGBA* converts: only the output and each
     # plane's decoded chunk grow with the image
@@ -1009,52 +1261,59 @@ def _tiff(buf: bytes) -> np.ndarray:
                     sh, sv = blocked
                     need = min(need, -(-rows // sv) * sv * (
                         chunk_bytes(sv) // sv))
-                chunk = _tiff_chunk(buf, offsets[k], counts[k], need, how,
-                                    width=cw, rows=rows, seg=seg)
+                chunk, ok = _tiff_chunk(
+                    buf, offsets[k], counts[k], need, how, width=cw,
+                    rows=rows, seg=seg, plane=p, tiled=tiled)
                 if blocked:
                     chunk = _ycbcr_unblock(np.concatenate([chunk, np.zeros(
                         chunk_bytes(rows) - need, np.uint8)]), rows, cw,
                         *blocked)
                 else:
                     chunk = chunk.reshape(rows, row_bytes)
+                kind = (dtype, predicted) if ok else (raw_dtype, False)
                 if skewed and npix < cw:
-                    chunk = _skew16(chunk, dtype, predicted, npix, per)
-                chunks.append(chunk)
+                    chunk = _skew(chunk, *kind, npix, per)
+                chunks.append((chunk, kind))
             y0, x0 = ty * ch, tx * cw
             last = min(rows, h - y0)
             for b0 in range(0, last, band):
                 b1 = min(b0 + band, last)
                 px = np.concatenate([_tiff_samples(
-                    c[b0:b1], bps, dtype, cw, 3 if blocked else per,
-                    predicted)[:, :npix] for c in chunks], axis=2)
+                    c[b0:b1], bps, dt, cw, 3 if blocked else per,
+                    pred)[:, :npix] for c, (dt, pred) in chunks], axis=2)
+                if spread:
+                    px = px[:, :, spread]
                 out[y0 + b0:y0 + b1, x0:x0 + npix] = _tiff_bgr(
                     px, colour, lut, alpha, conv)
     return _oriented(out, one(274, 1))
 
 
-def _skew16(chunk: np.ndarray, dtype, predicted: bool, npix: int,
-            per: int) -> np.ndarray:
-    """A 16-bit grey tile cut by the right edge as libtiff's
-    put16bitbwtile reads it: row r from byte r · (npix · 2 · per + tw −
-    npix) of the decoded tile (host order, the predictor undone), the
-    first npix pixels of each row kept (the rest is never read)."""
+def _skew(chunk: np.ndarray, dtype, predicted: bool, npix: int,
+          per: int) -> np.ndarray:
+    """A grey tile of `per` samples a pixel cut by the right edge as
+    libtiff's putgreytile / put16bitbwtile read it, whose row skew counts
+    bytes, not samples: row r from byte r · (npix · b · per + tw − npix)
+    of the decoded tile (b the bytes a sample; host order, the predictor
+    undone), the first npix pixels of each row kept (the rest is never
+    read)."""
     rows, row_bytes = chunk.shape
-    tw = row_bytes // (2 * per)
-    v = chunk.view(dtype).astype(np.uint16).reshape(rows, tw, per)
+    b = np.dtype(dtype).itemsize
+    host = np.dtype("<u2") if b == 2 else np.uint8
+    tw = row_bytes // (b * per)
+    v = chunk.view(dtype).astype(host).reshape(rows, tw, per)
     if predicted:
-        v = np.cumsum(v, axis=1, dtype=np.uint16)
-    flat = np.concatenate([v.astype("<u2").reshape(-1).view(np.uint8),
-                           np.zeros(2, np.uint8)])
-    step = npix * 2 * per + (tw - npix)
+        v = np.cumsum(v, axis=1, dtype=host)
+    flat = np.concatenate([v.reshape(-1).view(np.uint8),
+                           np.zeros(b, np.uint8)])
+    step = npix * b * per + (tw - npix)
     out = np.zeros((rows, row_bytes), np.uint8)
     for r in range(rows):
         a = r * step
-        part = flat[a:a + npix * 2 * per]
+        part = flat[a:a + npix * b * per]
         out[r, :part.size] = part
-    out = out.view("<u2").reshape(rows, tw, per)
+    out = out.view(host).reshape(rows, tw, per)
     if predicted:                     # undone already: redo the differences
-        out = np.diff(out, axis=1, prepend=np.zeros((rows, 1, per),
-                                                     np.uint16))
+        out = np.diff(out, axis=1, prepend=np.zeros((rows, 1, per), host))
     return out.astype(dtype).view(np.uint8).reshape(rows, row_bytes)
 
 

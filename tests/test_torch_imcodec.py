@@ -1233,35 +1233,82 @@ def _hostile_tiffs():
     bad_lzw[9] = 0xFF                     # codes past the table
     return {
         "offset-past-end": (_tiff_set(raw, 273, len(raw) + 10), "none"),
-        "count-past-end": (_tiff_set(raw, 279, len(raw)), "none"),
-        "short-strip": (_tiff_set(raw, 279, 100), "none"),
+        "count-past-end": (_tiff_set(raw, 279, len(raw)), "decoded"),
+        "short-strip": (_tiff_set(raw, 279, 100), "decoded"),
         "strip-count-mismatch": (
             strips[:_tiff_entry(strips, 273) + 4] + struct.pack("<I", 2) +
-            strips[_tiff_entry(strips, 273) + 8:], "none"),
-        "lzw-codes-out-of-range": (bytes(bad_lzw), "none"),
+            strips[_tiff_entry(strips, 273) + 8:], "decoded"),
+        "lzw-codes-out-of-range": (bytes(bad_lzw), "decoded"),
         "rows-per-strip-0": (_tiff_set(raw, 278, 0), "none"),
         "width-2^20+1": (_tiff_set(raw, 256, (1 << 20) + 1), "raises"),
         "40000x40000": (_tiff_set(_tiff_set(raw, 256, 40000), 257, 40000),
                         "raises"),
         "ifd-past-end": (raw[:4] + struct.pack("<I", len(raw) + 8) + raw[8:],
                          "none"),
+        # 2^30 tiles of one offset and one count: past a million strips or
+        # tiles libtiff refuses to pad the arrays, so the file bounds them
+        "1x1-tiles-of-32768^2": (_tiff_set(_tiff_set(
+            write_tiff(img[:1, :1], 2, 8, tile=(1, 1)), 256, 32768), 257,
+            32768), "none-within-64mb"),
     }
 
 
+_CAPPED_RSS = """
+import resource, sys
+resource.setrlimit(resource.RLIMIT_AS, (4 << 30, 4 << 30))
+from onnxocr_tpu_torch.utils import imcodec
+imcodec.lib()
+buf = open(sys.argv[1], "rb").read()
+before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+img = imcodec.imdecode(buf)
+peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+print(None if img is None else img.shape, (peak - before) * 1024)
+"""
+
+
 @pytest.mark.parametrize("case", list(_hostile_tiffs()))
-def test_tiff_hostile_headers_answer_as_cv2(case):
-    """Strip offsets and counts past the data, a count that does not match
-    the strips, LZW codes past the table, a zero strip height and an IFD
-    past the end give None; sizes past cv2's limits raise as cv2 raises;
-    nothing is allocated for the image before the header is checked."""
+def test_tiff_hostile_headers_answer_as_cv2(case, tmp_path):
+    """A strip offset past the data, a zero strip height and an IFD past
+    the end give None; a single uncompressed strip whose count runs past
+    the data or falls short of the image (libtiff's "Bogus
+    StripByteCounts" estimate), StripOffsets of fewer values than strips
+    (the rest read as 0) and LZW codes past the table (the strip keeps
+    what decoded before them) decode as cv2 decodes them; sizes past cv2's
+    limits raise as cv2 raises; nothing is allocated for the image before
+    the header is checked, nor for strip arrays the file does not hold:
+    a 136-byte file of 2^30 tiles gives None in a subprocess (its address
+    space capped at 4 GiB) whose peak RSS rises by less than 64 MB."""
     blob, expect = _hostile_tiffs()[case]
+    if expect == "none-within-64mb":
+        import subprocess
+        import sys
+        path = tmp_path / "hostile.tiff"
+        path.write_bytes(blob)
+        repo = Path(__file__).resolve().parents[1]
+        proc = subprocess.run(
+            [sys.executable, "-c", _CAPPED_RSS, str(path)], cwd=repo,
+            env=dict(os.environ, PYTHONPATH=str(repo),
+                     OPENBLAS_NUM_THREADS="1"),
+            capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        got, rise = proc.stdout.split()
+        assert got == "None" and int(rise) < 64 * 2**20
+        assert cv2.imdecode(np.frombuffer(blob, np.uint8),
+                            cv2.IMREAD_COLOR) is None
+        return
     if expect == "raises":
         with pytest.raises(cv2.error, match="validateInputImageSize"):
             cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
         with pytest.raises(ValueError, match="validateInputImageSize"):
             imcodec.imdecode(blob)
+        return
+    want = cv2.imdecode(np.frombuffer(blob, np.uint8), cv2.IMREAD_COLOR)
+    got = imcodec.imdecode(blob)
+    if expect == "none":
+        assert want is None and got is None
     else:
-        assert imcodec.imdecode(blob) is None
+        assert want is not None and got is not None
+        np.testing.assert_array_equal(got, want)
 
 
 def test_tiff_not_read_gives_none():
@@ -2290,22 +2337,24 @@ _SAMPLES = Path(__file__).resolve().parents[1] / "onnxocr_tpu_torch" / \
 
 
 def test_codec_samples_match_cv2():
-    """The fifteen committed samples (an animated, interlaced GIF with
+    """The eighteen committed samples (an animated, interlaced GIF with
     transparency, a 16-bit RGB PAM, a little-endian PFM, an 8-bit Sun
     raster with a colour map, an RLE HDR, a reversible JP2, an
     irreversible tiled JPEG 2000 codestream, an irreversible JP2 of a
     1280 x 960 corpus page and that page as sequential and progressive
-    arithmetic-coded JPEGs, as Group 4 and as JPEG-in-TIFF; a CMYK LZW
-    TIFF, a T.4 2D TIFF with FillOrder 2 and a lossless JPEG of small
-    corpus pages) decode to cv2's decode here and to the shape and sha256
-    recorded beside them, which the chip smoke checks on a machine
-    without cv2."""
+    arithmetic-coded JPEGs, as Group 4, as JPEG-in-TIFF and as planar
+    YCbCr JPEG-in-TIFF; a CMYK LZW TIFF, a T.4 2D TIFF with FillOrder 2,
+    a damaged LZW TIFF and lossless JPEGs in one scan and in a scan a
+    component of small corpus pages) decode to cv2's decode here and to
+    the shape and sha256 recorded beside them, which the chip smoke checks
+    on a machine without cv2."""
     import hashlib
     import json
     recorded = json.loads((_SAMPLES / "codec_samples.json").read_text())
     assert sorted(Path(n).suffix for n in recorded) == [
         ".gif", ".hdr", ".j2k", ".jp2", ".jp2", ".jpg", ".jpg", ".jpg",
-        ".pam", ".pfm", ".ras", ".tif", ".tif", ".tif", ".tif"]
+        ".jpg", ".pam", ".pfm", ".ras", ".tif", ".tif", ".tif", ".tif",
+        ".tif", ".tif"]
     for name, want in recorded.items():
         blob = (_SAMPLES / name).read_bytes()
         assert_decodes_as_cv2(blob)

@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from onnxocr_tpu_torch.ops import native
 from onnxocr_tpu_torch.utils import imcodec
 
 from test_torch_imcodec import _lzw, _packbits, write_tiff
@@ -120,9 +121,20 @@ def tiff_file(w, h, chunks, tags, order="<", big=False, tile=None,
         bytes(blob)
 
 
+def ifd_tags(blob):
+    """A one-IFD TIFF's tags as the decoder reads them, its strip or tile
+    arrays read through the decoder's own deferred readers, each for the
+    values its entry holds."""
+    _, tags, entries, arrays = imcodec._tiff_ifd(blob)
+    held = {}
+    for tag, _, n in entries:
+        held.setdefault(tag, n)
+    return {**tags, **{tag: read(held[tag]) for tag, read in arrays.items()}}
+
+
 def strips_of(blob):
     """The strip bytes and tags of a one-IFD TIFF."""
-    _, tags = imcodec._tiff_ifd(blob)
+    tags = ifd_tags(blob)
     offs, counts = tags.get(273, tags.get(324)), tags.get(279, tags.get(325))
     return [blob[o:o + c] for o, c in zip(offs, counts)], tags
 
@@ -211,7 +223,7 @@ def test_ccitt_tiles_match_cv2(kind):
 
 def _fax_mutants(blob, rng, n):
     strips, _ = strips_of(blob)
-    _, tags = imcodec._tiff_ifd(blob)
+    tags = ifd_tags(blob)
     offs = tags[273]
     for _ in range(n):
         b = bytearray(blob)
@@ -315,7 +327,7 @@ def test_jpeg_in_tiff_cuts_and_mutants_answer_as_cv2():
     verdicts = []
     for cut in (10, 200, len(strips[1]) // 2, len(strips[1]) - 3):
         b = bytearray(blob)
-        _, t = imcodec._tiff_ifd(blob)
+        t = ifd_tags(blob)
         e = blob.index(struct.pack("<HHI", 279, 4, len(strips)))
         cnt_off, = struct.unpack("<I", blob[e + 8:e + 12])
         b[cnt_off + 4:cnt_off + 8] = struct.pack("<I", cut)
@@ -535,7 +547,7 @@ def test_fill_order_2_matches_cv2(comp):
     bits = rng.integers(0, 2, (19, 23, 1)).astype(np.uint8)
     for samples, photo, bps in ((rgb, 2, 8), (bits, 0, 1)):
         blob = write_tiff(samples, photo, bps, comp=comp, rps=5)
-        _, tags = imcodec._tiff_ifd(blob)
+        tags = ifd_tags(blob)
         b = bytearray(blob)
         for o, c in zip(tags[273], tags[279]):       # the data reversed
             b[o:o + c] = imcodec._BIT_REVERSE[np.frombuffer(
@@ -604,13 +616,17 @@ print(counts)
 def test_tiff_mutants_never_crash(tmp_path):
     """Seeded mutants (headers and data) of fax, JPEG-in-TIFF (YCbCr and
     grey, and grey or palette frames labelled 1, 4 or 16 bits a sample),
-    YCbCr, CIELab, CMYK, BigTIFF and lossless JPEG files decode to an image,
-    None or a ValueError with both libraries built with AddressSanitizer."""
+    YCbCr, CIELab, CMYK, BigTIFF, lossless JPEG (one scan, and a scan a
+    component), planar YCbCr JPEG-in-TIFF, damaged LZW, old-style LZW and
+    Deflate files decode to an image, None or a ValueError with both
+    libraries built with AddressSanitizer."""
     import pickle
     import subprocess
     import sys
     from test_torch_imcodec import _mutant
     from test_torch_jpeg_lossless import lossless_jpeg
+    from test_torch_tiff_recovery import (_strip_replaced, planar_jpeg,
+                                          ticket_damaged)
     rng = np.random.default_rng(20)
     img = seeded_bits(8, 30, 70)
     seeds = [pil_tiff(Image.fromarray(img), compression=c,
@@ -626,8 +642,20 @@ def test_tiff_mutants_never_crash(tmp_path):
                        compression="tiff_lzw"),
               pil_tiff(Image.fromarray(rgb), big_tiff=True),
               lossless_jpeg([rgb[:, :, i].astype(np.int64) for i in range(3)],
-                            predictor=4, restart_rows=5)]
-    mutants = [_mutant(blob, rng) for blob in seeds for _ in range(40)]
+                            predictor=4, restart_rows=5),
+              lossless_jpeg([rgb[:, :, i].astype(np.int64) for i in range(3)],
+                            predictor=[4, 1, 7], restart_rows=5,
+                            scans=[[0], [1], [2]]),
+              planar_jpeg(rgb),
+              ticket_damaged(),
+              _strip_replaced(pil_tiff(Image.fromarray(rgb),
+                                       compression="tiff_lzw"), 0,
+                              lambda d: b"\0\1" + d[2:]),
+              pil_tiff(Image.fromarray(rgb), compression="tiff_deflate",
+                       tiffinfo={278: 8, 317: 2})]
+    # 31 mutants a seed (40 before the last five seeds came) keep the
+    # sanitized run's time
+    mutants = [_mutant(blob, rng) for blob in seeds for _ in range(31)]
     mutants += [m for blob in seeds[:6] for m in _fax_mutants(blob, rng, 20)]
     with open(tmp_path / "mutants.pkl", "wb") as f:
         pickle.dump(mutants, f)
@@ -643,7 +671,8 @@ def test_tiff_mutants_never_crash(tmp_path):
     for src in (imcodec.SOURCE, imcodec.TIFF_SOURCE):
         lib = tmp_path / f"{src.stem}.so"
         libs.append(str(lib))
-    procs = [subprocess.Popen(["g++", *flags, "-o", lib, str(src)])
+    procs = [subprocess.Popen(["g++", *flags, "-o", lib, str(src),
+                               *native.LINK.get(src.name, [])])
              for lib, src in zip(libs, (imcodec.SOURCE, imcodec.TIFF_SOURCE))]
     assert all(p.wait(timeout=300) == 0 for p in procs)
     proc = subprocess.run(

@@ -86,6 +86,8 @@
    and cls-only forms of `ocr()`, a tiny page (h + w < 64) at the
    defaults and through path Q's batchers, the det batcher's maps wire
    and boxes mode, each on one page against the same port on the CPU;
+   then holds the host crops of 24 seeded quads to cv2 5.0's digest
+   (HOST_CROP_DIGEST) and times the host twins;
 9. drives path F, the two other families of the JAX package's registry
    with their committed checkpoints on two held-out pages (`phase_f`):
    the ch_ppocr_server_v2.0 pair (ResNet18-vd DBNet, CRNN with two
@@ -253,7 +255,8 @@
    batchers, serial ms a page, det wave sizes, rec groups with real and
    padded rows, CTC-head launches a page), {"wave": {...}, "host": {...}}
    (path W's pages/s against path B's, serial ms a page, wave sizes, warm
-   ms, launches; the host twins' ms a page), {"families": {...}} (path F's
+   ms, launches; the host twins' ms a page and the median crop's ms),
+   {"families": {...}} (path F's
    ms a page, launches, the BiLSTM share and the models' times),
    {"serve": {...}} (path S's requests/s, serial p50 / p95 ms, seconds to
    readiness and CTC-head launches a request by mode, decode and preview
@@ -1359,24 +1362,69 @@ def phase_h(model, pages):
     return launches, host_times(model, pages)
 
 
+# sha256 of the host crops of host_crop_quads on synth_08_table, as cv2
+# 5.0's warpPerspective (INTER_CUBIC, BORDER_REPLICATE) gives them
+# through the JAX package's get_rotate_crop_image
+# (tests/test_torch_host_image.py::test_chip_smoke_crop_digest_is_cv2s)
+HOST_CROP_DIGEST = \
+    "35a4ecd42c8910e3d57bb9bca488619cdf0e1c29fa54e773a93496ee59ba8f4c"
+
+
+def host_crop_quads(h, w):
+    """24 seeded text-line quads on an h × w page: rotated by up to 20°,
+    sheared, 60–300 px long and 16–60 px high, some reaching past the
+    page's edge."""
+    rng = np.random.default_rng(20261018)
+    quads = []
+    for _ in range(24):
+        cx, cy = rng.uniform(0, w), rng.uniform(0, h)
+        length, height = rng.uniform(60, 300), rng.uniform(16, 60)
+        a = np.radians(rng.uniform(-20, 20))
+        u = np.array([np.cos(a), np.sin(a)]) * length / 2
+        v = np.array([-np.sin(a), np.cos(a)]) * height / 2 + \
+            u * rng.uniform(-0.1, 0.1)
+        c = np.array([cx, cy])
+        quads.append(np.stack([c - u - v, c + u - v, c + u + v,
+                               c - u + v]).astype(np.float32))
+    return quads
+
+
+def host_crops_digest(get_rotate_crop_image, page) -> str:
+    import hashlib
+    digest = hashlib.sha256()
+    for quad in host_crop_quads(*page.shape[:2]):
+        crop = np.ascontiguousarray(get_rotate_crop_image(page, quad))
+        digest.update(str(crop.shape).encode() + crop.tobytes())
+    return digest.hexdigest()
+
+
 def host_times(model, pages):
     """Host ms of the numpy twins on the held-out pages (this machine's
     CPU, no device work): the det input (resize to the det target into
-    the canvas), the host crops of each page's det boxes and the
-    recognizer's resize of those crops."""
+    the canvas), the host crops of each page's det boxes (a page's, and
+    the median of one crop's) and the recognizer's resize of those
+    crops. The host crops of host_crop_quads must hash as cv2's."""
     from onnxocr_tpu_torch.ops import det_pre
     from onnxocr_tpu_torch.utils.image import get_rotate_crop_image
+    digest = host_crops_digest(get_rotate_crop_image, pages[PAGES[3]])
+    assert digest == HOST_CROP_DIGEST, ("path H: the host crops differ "
+                                        "from cv2's", digest)
+    print("path H: the host crops of 24 seeded quads hash as cv2 5.0's")
     ocr = model("cuda")
     rec = ocr.text_recognizer
-    t_det, t_crop, t_resize, n_crops = [], [], [], 0
+    t_det, t_crop, t_resize, one_crop = [], [], [], []
     for name in PAGES:
         img = pages[name]
         boxes = ocr.text_detector(img)
         t0 = time.perf_counter()
         det_pre.prepare_det_input(img, ocr.text_detector.limit_side_len)
         t1 = time.perf_counter()
-        crops = [get_rotate_crop_image(img, np.asarray(b, np.float32))
-                 for b in boxes]
+        crops = []
+        for b in boxes:
+            c0 = time.perf_counter()
+            crops.append(get_rotate_crop_image(img, np.asarray(b,
+                                                               np.float32)))
+            one_crop.append((time.perf_counter() - c0) * 1e3)
         t2 = time.perf_counter()
         for c in crops:
             rec.resize_norm_img(c, 640)
@@ -1384,14 +1432,15 @@ def host_times(model, pages):
         t_det.append((t1 - t0) * 1e3)
         t_crop.append((t2 - t1) * 1e3)
         t_resize.append((t3 - t2) * 1e3)
-        n_crops += len(crops)
-    out = {"pages": len(PAGES), "crops": n_crops,
+    out = {"pages": len(PAGES), "crops": len(one_crop),
            "det_input_ms_per_page": float(np.mean(t_det)),
            "host_crops_ms_per_page": float(np.mean(t_crop)),
+           "host_crop_ms_median": float(np.median(one_crop)),
            "rec_resize_ms_per_page": float(np.mean(t_resize))}
     print(f"host twins, ms a page over {len(PAGES)} pages: det input "
           f"{out['det_input_ms_per_page']:.1f}, host crops "
-          f"{out['host_crops_ms_per_page']:.1f} ({n_crops} crops), rec "
+          f"{out['host_crops_ms_per_page']:.1f} ({len(one_crop)} crops, "
+          f"{out['host_crop_ms_median']:.3f} ms the median crop), rec "
           f"resize {out['rec_resize_ms_per_page']:.1f}")
     return out
 

@@ -17,7 +17,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List
 
 import numpy as np
 
@@ -25,10 +25,12 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "host" / "geometry.cc"
 BUILD_DIR = _PKG.parent / "build" / "host"
 CXX_FLAGS = ["-std=c++17", "-shared", "-fPIC", "-O2"]
-# what a source links beyond libm: the TIFF codec's Deflate is zlib's
-LINK = {"tiff.cc": ["-lz"]}
+# what a source's command line adds: the TIFF codec's Deflate is zlib's;
+# the remap twin rounds every product and sum as cv2 does, so g++ fuses
+# none of them
+EXTRA_FLAGS = {"tiff.cc": ["-lz"], "remap.cc": ["-ffp-contract=off"]}
 
-_LIB: Optional[ctypes.CDLL] = None
+_LOADED: Dict[Path, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
@@ -60,7 +62,7 @@ def target(source: Path = SOURCE, stem: str = "libocrhost") -> Path:
     # the headers beside a source (the shared font reader) are part of it
     headers = b"".join(h.read_bytes()
                        for h in sorted(source.parent.glob("*.h")))
-    flags = CXX_FLAGS + LINK.get(source.name, [])
+    flags = CXX_FLAGS + EXTRA_FLAGS.get(source.name, [])
     digest = hashlib.sha1(source.read_bytes() + headers +
                           " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{stem}-{digest}.so"
@@ -77,7 +79,7 @@ def build(source: Path = SOURCE, stem: str = "libocrhost") -> Path:
     try:
         proc = subprocess.run(
             ["g++", *CXX_FLAGS, "-o", str(tmp), str(source), "-lm",
-             *LINK.get(source.name, [])],
+             *EXTRA_FLAGS.get(source.name, [])],
             capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
         raise RuntimeError(f"building {source.name} with g++ failed: {e}")
@@ -88,18 +90,24 @@ def build(source: Path = SOURCE, stem: str = "libocrhost") -> Path:
     return out
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded library, built first if needed."""
-    global _LIB
+def load(source: Path, stem: str, signatures) -> ctypes.CDLL:
+    """A host library, built first if needed and loaded once a process
+    with `signatures` ({function: (restype, argtypes)}) set."""
     with _LOCK:
-        if _LIB is None:
-            loaded = ctypes.CDLL(str(build()))
-            for name, (restype, argtypes) in _SIGNATURES.items():
+        loaded = _LOADED.get(source)
+        if loaded is None:
+            loaded = ctypes.CDLL(str(build(source, stem)))
+            for name, (restype, argtypes) in signatures.items():
                 fn = getattr(loaded, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
-            _LIB = loaded
-    return _LIB
+            _LOADED[source] = loaded
+    return loaded
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded library, built first if needed."""
+    return load(SOURCE, "libocrhost", _SIGNATURES)
 
 
 class NativeOverflow(RuntimeError):

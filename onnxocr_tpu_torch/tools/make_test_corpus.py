@@ -11,9 +11,9 @@ Usage:
 Differences from the JAX tool: the default `--out` is build/test_images/
 of the checkout, never the committed onnxocr_tpu/test_images that the JAX
 tool writes; the "hard" background's cv2.resize(INTER_CUBIC) is the
-port's twin (utils/cv_ops.resize_cubic), within 8e-5 of cv2's IPP path,
-so a hard page may differ from the JAX tool's on a few values by a few
-levels (ROADMAP §3.3).
+port's twin (utils/cv_ops.resize_cubic), value-equal to cv2's IPP path as
+IPP's AVX-512 code computes it; on a host whose IPP takes other code the
+JAX tool's own hard pages differ from these.
 """
 import argparse
 import json

@@ -1,5 +1,6 @@
-"""numpy twins of the cv2 calls of the JAX package's host image paths, giving
-cv2's pixels (the machine with the GPU has no cv2).
+"""numpy twins (the bicubic sampler in host C++) of the cv2 calls of the JAX
+package's host image paths, giving cv2's pixels (the machine with the GPU
+has no cv2).
 
 * `resize_linear`: `cv2.resize` with INTER_LINEAR on uint8 images. cv2's
   fixed-point scheme: the source coordinate of each destination column and
@@ -9,14 +10,17 @@ cv2's pixels (the machine with the GPU has no cv2).
   ((((S0 >> 4) * b0) >> 16) + (((S1 >> 4) * b1) >> 16) + 2) >> 2. Columns
   past either edge take the edge column; rows past either edge are fetched
   clamped but keep their two coefficients, as cv2 keeps them.
-* `warp_perspective_cubic`: `cv2.warpPerspective(..., INTER_CUBIC,
-  BORDER_REPLICATE)` as cv2 5 computes it: the matrix inverted in double by
-  cv2's 3 × 3 formula, each destination pixel's source position in float32
-  (cv2 4 rounded it to 1/32 px and used a 15-bit weight table instead), the
-  4 × 4 taps around it clamped to the border and weighted by cv2's
-  interpolateCubic (a = −0.75) in float32. cv2 5 derives the position by
-  float32 steps this twin does not follow; the double one it takes rounds
-  to another float32 on a few pixels in 10^5, which then differ by one.
+* `warp_perspective_cubic`, `remap_cubic`: `cv2.warpPerspective(...,
+  INTER_CUBIC, BORDER_REPLICATE)` and `cv2.remap` with float32 maps as cv2
+  5.0 computes them on a host with AVX2 and FMA: the matrix inverted in
+  double by cv2's 3 × 3 formula and rounded to float32, each row's
+  constants y·m1 + m2 (and the other two) float32 products and sums, each
+  pixel's x·m0 + row constant and the quotients of those in double,
+  rounded to float32; the position clamped to [−K, 2K] (K = max(side,
+  16)), its 4 × 4 taps clamped to the border and summed by cv2's float32
+  weights and FMAs (host C++, csrc/host/remap.cc), rounded half to even.
+* `resize_cubic` and `resize_linear` on float32 images: IPP's AVX-512
+  kernels as cv2 5.0 calls them (`_resize_float`, `_ipp_cubic`).
 * `rotate_180`: `cv2.rotate(img, cv2.ROTATE_180)`.
 * `bgr2gray`, `erode`, `dilate`, `morph_gradient`, `morph_close`,
   `threshold_otsu`: `cv2.cvtColor(.., COLOR_BGR2GRAY)` in cv2 5.0's
@@ -32,11 +36,22 @@ cv2's pixels (the machine with the GPU has no cv2).
 """
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 _COEF_BITS = 11                  # cv2's INTER_RESIZE_COEF_BITS
+_REMAP_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / \
+    "remap.cc"
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_F32P = ctypes.POINTER(ctypes.c_float)
+_REMAP_SIGNATURES = {
+    "ocr_remap_cubic": (None, [
+        _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # src, h, w, c
+        _F32P, _F32P, ctypes.c_int64, _U8P]),          # maps, n, out
+}
 
 
 def _as_image(img: np.ndarray, dtype=np.uint8) -> Tuple[np.ndarray, bool]:
@@ -140,33 +155,62 @@ def _dst_size(dsize) -> Tuple[int, int]:
 
 
 def _fma(a, b, c) -> np.ndarray:
-    """a · b + c rounded once to float32 (the product of two float32 values
-    is exact in float64)."""
-    return (a.astype(np.float64) * b + c).astype(np.float32)
+    """a · b + c of float32 values (given as float32 or float64 holding
+    float32 values) rounded once to float32, as an FMA instruction rounds
+    it. The product is exact in float64, and so is the float32 rounding of
+    the float64 sum except where that sum lies exactly halfway between two
+    float32 values: there the sum's own rounding error (its TwoSum term)
+    decides the side."""
+    shape = np.broadcast_shapes(np.shape(a), np.shape(b), np.shape(c))
+    s = np.empty(shape, np.float64)
+    np.multiply(a, b, out=s, dtype=np.float64)
+    np.add(s, c, out=s)
+    out = s.astype(np.float32)
+    # a float64 of a float32 halfway point ends in the bits 1000...0 (29 of
+    # them); below 2^-125 float32's spacing is fixed, so those are checked
+    # whole
+    tie = np.bitwise_and(s.view(np.int64), 0x1FFFFFFF) == 0x10000000
+    if out.size and np.abs(out).min() < 2.0 ** -125:
+        tie |= np.abs(s) < 2.0 ** -125
+    if tie.any():
+        p = np.broadcast_to(np.multiply(a, b, dtype=np.float64), shape)[tie]
+        c = np.broadcast_to(np.asarray(c, np.float64), shape)[tie]
+        st = s[tie]
+        cc = st - p
+        err = (p - (st - cc)) + (c - cc)
+        r = out[tie]
+        nb = np.nextafter(r, np.where(st > r, np.float32(np.inf),
+                                      np.float32(-np.inf)))
+        mid = (r.astype(np.float64) + nb.astype(np.float64)) / 2
+        flip = (st == mid) & (err != 0) & ((err > 0) == (nb > r))
+        out[tie] = np.where(flip, nb, r)
+    return out
 
 
 def _resize_float(img: np.ndarray, dsize, kind: str) -> np.ndarray:
     """cv2.resize of a float32 image with INTER_LINEAR or INTER_CUBIC, as
-    cv2 5.0's pip build computes it.
+    cv2 5.0's pip build computes it. Linear resizes, and cubic ones from 4
+    pixels a side, go to IPP, whose float kernels differ with the host's
+    ISA: this twin gives the values of IPP's AVX-512 code (the one
+    `cv2.ipp.getIppVersion()` names on an AVX-512 host; OPENCV_IPP=avx2 or
+    sse42 select others), for images of 1 or 3 channels (cubic: also 4).
 
-    * INTER_LINEAR goes to IPP (cv2's IPP HAL): each destination position
-      in double, its fraction t rounded to float32, taps past the edge
-      clamped to it (a position before the first or at or past the last
-      source column takes that column whole), rows interpolated first, each
-      as one fused multiply-add a + (b − a)·t, then the columns of the
-      result the same way.
+    * INTER_LINEAR: each destination position in double, its fraction t
+      rounded to float32, taps past the edge clamped to it (a position
+      before the first or at or past the last source column takes that
+      column whole), rows interpolated first, each as one fused
+      multiply-add a + (b − a)·t, then the columns of the result the same
+      way. With 3 channels the columns taken whole at either edge run in
+      groups of 16 from the run's start, and when 5 or more are left
+      over, channels 0 and 1 of those are interpolated down the columns
+      as a product and a sum, each rounded.
     * INTER_CUBIC from a source under 4 pixels a side (cv2's generic
       path): the fraction of the float32 position, interpolateCubic's
       float32 weights (a = −0.75), taps clamped; the horizontal sums tap by
       tap from the left, the vertical ones as the 4-lane vector loop takes
       them, S0·b0 + (S1·b1 + (S2·b2 + S3·b3)), and the last (width · C) mod 4
       values of a row from the left as its scalar tail does.
-    * INTER_CUBIC from 4 pixels a side on goes to IPP. Its weights are the
-      Keys kernel (a = −0.75) evaluated exactly at the float32 fraction and
-      rounded to float32 (read off its impulse responses); the order of its
-      sums is not known, so this twin sums each pass in float64 and rounds
-      once: within 8e-5 of cv2 on values of 40–230 (a few float32 ulps;
-      tests/test_torch_synth.py holds the bound, ROADMAP §3)."""
+    * INTER_CUBIC from 4 pixels a side on: `_ipp_cubic`."""
     src, flat = _as_image(img, np.float32)
     H, W, C = src.shape
     dw, dh = _dst_size(dsize)
@@ -176,14 +220,17 @@ def _resize_float(img: np.ndarray, dsize, kind: str) -> np.ndarray:
         xs, x1, tx = _linear_taps(dw, W)
         ys, y1, ty = _linear_taps(dh, H)
         rows = _fma(src[:, x1] - src[:, xs], tx[None, :, None], src[:, xs])
-        out = _fma(rows[y1] - rows[ys], ty[:, None, None], rows[ys])
+        a, b, t = rows[ys], rows[y1], ty[:, None, None]
+        out = _fma(b - a, t, a)
+        if C == 3:
+            pos = (np.arange(dw) + 0.5) * (W / dw) - 0.5
+            for run in (np.nonzero(pos < 0)[0], np.nonzero(pos >= W - 1)[0]):
+                rest = run[len(run) - len(run) % 16:]
+                if len(rest) >= 5:
+                    lo, hi = a[:, rest, :2], b[:, rest, :2]
+                    out[:, rest, :2] = lo + (hi - lo) * t
     elif H >= 4 and W >= 4:
-        xs, wx = _cubic_taps(dw, W, keys=True)
-        ys, wy = _cubic_taps(dh, H, keys=True)
-        hor = sum(src[:, xs[:, k]].astype(np.float64) * wx[None, :, k, None]
-                  for k in range(4)).astype(np.float32)
-        out = sum(hor[ys[:, k]].astype(np.float64) * wy[:, k, None, None]
-                  for k in range(4)).astype(np.float32)
+        out = _ipp_cubic(src, dw, dh)
     else:
         xs, wx = _cubic_taps(dw, W)
         ys, wy = _cubic_taps(dh, H)
@@ -201,6 +248,56 @@ def _resize_float(img: np.ndarray, dsize, kind: str) -> np.ndarray:
     return out[:, :, 0] if flat else out
 
 
+def _ipp_cubic(src: np.ndarray, dw: int, dh: int) -> np.ndarray:
+    """IPP's float32 cubic resize (its AVX-512 code; Keys' a = −0.75) of an
+    (H, W, C) image, as its impulse responses and its sums of two taps
+    show it, with `_ipp_cubic_taps`' weights. A destination pixel
+    whose four taps lie inside the source on both axes is inner, the others
+    take IPP's border code:
+
+    * inner: each of the four source rows summed across — with one channel
+      (p0·w0 + p1·w1) + (p2·w2 + p3·w3) for the values in whole groups of 4
+      from the first inner column and (p0·w0 + p2·w2) + (p1·w1 + p3·w3)
+      past them; with more channels fma(p0, w0, p3·w3) + fma(p1, w1,
+      p2·w2) — then the four rows fma(r0, v0, r1·v1) + fma(r2, v2, r3·v3),
+      past the last whole group of 4 values (columns × channels)
+      fma(r1, v1, r0·v0) + fma(r2, v2, r3·v3).
+    * border: rows 0 and 3 of the taps summed across by FMAs from p0·w0 on
+      (p1, p2, p3 in turn), rows 1 and 2 from p1·w1 (then p0, p2, p3), taps
+      clamped to the edge; then (r0·v0 + r2·v2) + (r1·v1 + r3·v3)."""
+    H, W, C = src.shape
+    xs, wx, inner_x = _ipp_cubic_taps(dw, W)
+    ys, wy, inner_y = _ipp_cubic_taps(dh, H)
+    P = [src[:, xs[:, k]] for k in range(4)]
+    w = [wx[None, :, k, None] for k in range(4)]
+    T = [P[k] * w[k] for k in range(4)]
+    from_p1 = _fma(P[3], w[3], _fma(P[2], w[2], _fma(P[0], w[0], T[1])))
+    from_p0 = _fma(P[3], w[3], _fma(P[2], w[2], _fma(P[1], w[1], T[0])))
+    v = [wy[:, j, None, None] for j in range(4)]
+    r = [(from_p0 if j in (0, 3) else from_p1)[ys[:, j]] for j in range(4)]
+    out = (r[0] * v[0] + r[2] * v[2]) + (r[1] * v[1] + r[3] * v[3])
+    if not (inner_x.any() and inner_y.any()):
+        return out
+    # the inner pixels form one block: its columns, then its rows
+    cols, rows = (slice(np.argmax(m), len(m) - np.argmax(m[::-1]))
+                  for m in (inner_x, inner_y))
+    P, w, T = ([a[:, cols] for a in arrs] for arrs in (P, w, T))
+    # each value's place among the inner ones, columns × channels
+    n = cols.stop - cols.start
+    grouped = (np.arange(n * C).reshape(1, n, C) < n * C // 4 * 4)
+    if C == 1:
+        hor = np.where(grouped, (T[0] + T[1]) + (T[2] + T[3]),
+                       (T[0] + T[2]) + (T[1] + T[3]))
+    else:
+        hor = _fma(P[0], w[0], T[3]) + _fma(P[1], w[1], T[2])
+    r = [hor[ys[rows, j]] for j in range(4)]
+    v = [a[rows] for a in v]
+    out[rows, cols] = np.where(
+        grouped, _fma(r[0], v[0], r[1] * v[1]),
+        _fma(r[1], v[1], r[0] * v[0])) + _fma(r[2], v[2], r[3] * v[3])
+    return out
+
+
 def _linear_taps(dst_n: int, src_n: int):
     """IPP's linear taps along one axis: (first, second source index,
     float32 fraction)."""
@@ -214,25 +311,51 @@ def _linear_taps(dst_n: int, src_n: int):
     return s, np.minimum(s + 1, src_n - 1), t
 
 
-def _cubic_taps(dst_n: int, src_n: int, keys: bool = False):
-    """The cubic taps along one axis: (dst_n, 4) source indices, clamped,
-    and their float32 weights — cv2's interpolateCubic in float32, or with
-    `keys` the Keys kernel in float64 rounded to float32 (IPP's)."""
-    x = ((np.arange(dst_n) + 0.5) * (src_n / dst_n) - 0.5).astype(
-        np.float32)
+def _cubic_weights(t: np.ndarray):
+    """cv2's interpolateCubic (a = −0.75) on float32 fractions → four
+    float32 weight arrays, each operation rounded to float32 as cv2's."""
+    f = np.float32
+    A, one = f(-0.75), f(1)
+    t = t.astype(f)
+    tp = t + one
+    c0 = ((A * tp - f(5) * A) * tp + f(8) * A) * tp - f(4) * A
+    c1 = ((A + f(2)) * t - (A + f(3))) * t * t + one
+    tm = one - t
+    c2 = ((A + f(2)) * tm - (A + f(3))) * tm * tm + one
+    return c0, c1, c2, one - c0 - c1 - c2
+
+
+def _cubic_taps(dst_n: int, src_n: int):
+    """cv2's cubic taps along one axis: (dst_n, 4) source indices, clamped,
+    and their float32 weights, interpolateCubic in float32 at the fraction
+    of the float32 position."""
+    x = ((np.arange(dst_n) + 0.5) * (src_n / dst_n) - 0.5).astype(np.float32)
     s = np.floor(x)
     t = (x - s).astype(np.float32)
-    idx = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3)[None, :],
+    idx = np.clip(s.astype(np.int64)[:, None] - 1 + np.arange(4)[None, :],
                   0, src_n - 1)
-    if keys:
-        t, a = t.astype(np.float64), -0.75
-        w = [a * t ** 3 - 2 * a * t ** 2 + a * t,
-             (a + 2) * t ** 3 - (a + 3) * t ** 2 + 1,
-             -(a + 2) * t ** 3 + (2 * a + 3) * t ** 2 - a * t,
-             -a * t ** 3 + a * t ** 2]
-    else:
-        w = _cubic_weights(t)
-    return idx, np.stack(w, -1).astype(np.float32)
+    return idx, np.stack(_cubic_weights(t), -1).astype(np.float32)
+
+
+def _ipp_cubic_taps(dst_n: int, src_n: int):
+    """IPP's cubic taps along one axis: (dst_n, 4) source indices, clamped;
+    their float32 weights, the Keys kernel (a = −0.75) in float64 at the
+    fraction of the double position rounded to float32 and then to a
+    multiple of 2^-23 (1 + t − 1 in float32), rounded to float32; and
+    whether all four taps lie inside."""
+    x = (np.arange(dst_n) + 0.5) * (src_n / dst_n) - 0.5
+    s = np.floor(x)
+    one = np.float32(1)
+    t = ((one + (x - s).astype(np.float32)) - one).astype(np.float64)
+    first = s.astype(np.int64) - 1
+    idx = np.clip(first[:, None] + np.arange(4)[None, :], 0, src_n - 1)
+    a = -0.75
+    w = [a * t ** 3 - 2 * a * t ** 2 + a * t,
+         (a + 2) * t ** 3 - (a + 3) * t ** 2 + 1,
+         -(a + 2) * t ** 3 + (2 * a + 3) * t ** 2 - a * t,
+         -a * t ** 3 + a * t ** 2]
+    inside = (first >= 0) & (first + 3 <= src_n - 1)
+    return idx, np.stack(w, -1).astype(np.float32), inside
 
 
 def resize_cubic(img: np.ndarray, dsize: Sequence[int]) -> np.ndarray:
@@ -425,20 +548,6 @@ def copy_make_border(img: np.ndarray, top: int, bottom: int, left: int,
 
 
 # ------------------------------------------------------- warpPerspective
-def _cubic_weights(t: np.ndarray):
-    """cv2's interpolateCubic (a = −0.75) on float32 fractions → four
-    float32 weight arrays, each operation rounded to float32 as cv2's."""
-    f = np.float32
-    A, one = f(-0.75), f(1)
-    t = t.astype(f)
-    tp = t + one
-    c0 = ((A * tp - f(5) * A) * tp + f(8) * A) * tp - f(4) * A
-    c1 = ((A + f(2)) * t - (A + f(3))) * t * t + one
-    tm = one - t
-    c2 = ((A + f(2)) * tm - (A + f(3))) * tm * tm + one
-    return c0, c1, c2, one - c0 - c1 - c2
-
-
 def invert_3x3(M: np.ndarray) -> np.ndarray:
     """cv2.invert of a 3 × 3 float64 matrix (DECOMP_LU takes the adjugate
     formula at n = 3); a singular matrix gives zeros, as cv2's."""
@@ -465,46 +574,58 @@ def invert_3x3(M: np.ndarray) -> np.ndarray:
 def remap_cubic(img: np.ndarray, map_x: np.ndarray,
                 map_y: np.ndarray) -> np.ndarray:
     """cv2.remap(img, map_x, map_y, INTER_CUBIC, BORDER_REPLICATE) on a
-    uint8 image with float32 maps: the 4 × 4 taps around each position,
-    clamped to the border, weighted in float32 and rounded half to even."""
+    uint8 image with float32 maps, as cv2 5.0 computes it on a host with
+    AVX2 and FMA (its SSE-only kernels round some values the other way),
+    in host C++ (csrc/host/remap.cc). Each position is first clamped to
+    [−K, 2K], K = max(width, 16) (or height), NaN to −K; its float32
+    fraction t gives the weights a·t·s², ((a + 2)·t − (a + 3))·t² + 1 (two
+    FMAs), a·t²·s and 1 less those three (s = 1 − t, a = −0.75); the 4 × 4
+    taps around it are clamped to the border, each row summed from the
+    left by FMAs after a first product, the four rows from the top the
+    same way, and the sum rounded half to even and saturated. An empty
+    source raises ValueError (cv2.warpPerspective refuses one; cv2.remap
+    reads past it)."""
     src, flat = _as_image(img)
-    H, W, _ = src.shape
-    X = np.asarray(map_x, np.float32)
-    Y = np.asarray(map_y, np.float32)
-    x0, y0 = np.floor(X), np.floor(Y)
-    wx = _cubic_weights(X - x0)
-    wy = _cubic_weights(Y - y0)
-    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
-    acc = np.float32(0)
-    for j in range(4):
-        yy = np.clip(y0 + (j - 1), 0, H - 1)
-        row = np.float32(0)
-        for i in range(4):
-            xx = np.clip(x0 + (i - 1), 0, W - 1)
-            row = row + src[yy, xx].astype(np.float32) * wx[i][..., None]
-        acc = acc + row * wy[j][..., None]
-    out = np.clip(np.rint(acc), 0, 255).astype(np.uint8)
-    return out[:, :, 0] if flat else out
+    src = np.ascontiguousarray(src)
+    H, W, C = src.shape
+    if H == 0 or W == 0:
+        raise ValueError(f"empty source image {src.shape}")
+    X = np.ascontiguousarray(map_x, np.float32)
+    Y = np.ascontiguousarray(map_y, np.float32)
+    if X.shape != Y.shape:
+        raise ValueError(f"map shapes differ: {X.shape} and {Y.shape}")
+    out = np.empty(X.shape + (C,), np.uint8)
+    from ..ops import native
+    native.load(_REMAP_SOURCE, "libocrremap", _REMAP_SIGNATURES) \
+        .ocr_remap_cubic(src.ctypes.data_as(_U8P), H, W, C,
+                         X.ctypes.data_as(_F32P), Y.ctypes.data_as(_F32P),
+                         X.size, out.ctypes.data_as(_U8P))
+    return out[..., 0] if flat else out
 
 
 def warp_perspective_cubic(img: np.ndarray, M: np.ndarray,
                            dsize: Sequence[int]) -> np.ndarray:
     """cv2.warpPerspective(img, M, dsize, flags=INTER_CUBIC,
-    borderMode=BORDER_REPLICATE) on a uint8 image: M maps source to
-    destination, dsize = (width, height). Each destination pixel's source
-    position is computed in double from cv2's inverse of M and sampled at
-    float32 precision as `remap_cubic` samples."""
+    borderMode=BORDER_REPLICATE) on a uint8 image, as cv2 5.0 computes it
+    on a host with AVX2 and FMA: M maps source to destination, dsize =
+    (width, height). cv2's inverse of M is rounded to float32; each row's
+    constants y·m1 + m2, y·m4 + m5, y·m7 + m8 are float32 products and
+    sums; each pixel's x·m0 + row constant (and the other two) and their
+    quotients are taken in double and the quotients rounded to float32
+    (a zero denominator gives an infinite or NaN position, which the
+    sampler clamps); `remap_cubic` samples there."""
     w, h = int(dsize[0]), int(dsize[1])
     if w <= 0 or h <= 0:
         raise ValueError(f"empty destination size {(w, h)}")
-    m = invert_3x3(M)
+    m = invert_3x3(M).astype(np.float32).ravel()
     x = np.arange(w, dtype=np.float64)[None, :]
-    y = np.arange(h, dtype=np.float64)[:, None]
-    den = m[2, 0] * x + m[2, 1] * y + m[2, 2]
+    y = np.arange(h, dtype=np.float32)[:, None]
+    num = [x * np.float64(m[k]) + (y * m[k + 1] + m[k + 2]).astype(
+        np.float64) for k in (0, 3, 6)]
     with np.errstate(divide="ignore", invalid="ignore"):
-        sx = (m[0, 0] * x + m[0, 1] * y + m[0, 2]) / den
-        sy = (m[1, 0] * x + m[1, 1] * y + m[1, 2]) / den
-    return remap_cubic(img, sx.astype(np.float32), sy.astype(np.float32))
+        sx = (num[0] / num[2]).astype(np.float32)
+        sy = (num[1] / num[2]).astype(np.float32)
+    return remap_cubic(img, sx, sy)
 
 
 def rotate_180(img: np.ndarray) -> np.ndarray:

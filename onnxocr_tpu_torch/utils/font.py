@@ -30,7 +30,6 @@ What equals PIL's:
 from __future__ import annotations
 
 import ctypes
-import threading
 import unicodedata
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
@@ -43,8 +42,6 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / "ttf.cc"
 FONT_DIR = Path(__file__).resolve().parents[1] / "assets" / "fonts" / "dejavu"
 SYSTEM_FONT_DIR = Path("/usr/share/fonts/truetype/dejavu")
 
-_LIB: Optional[ctypes.CDLL] = None
-_LOCK = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _IP = ctypes.POINTER(ctypes.c_int)
 _UP = ctypes.POINTER(ctypes.c_uint)
@@ -68,16 +65,7 @@ _SIGNATURES = {
 
 def lib() -> ctypes.CDLL:
     """The loaded font library, built first if needed."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            loaded = ctypes.CDLL(str(native.build(SOURCE, "libocrttf")))
-            for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(loaded, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
-            _LIB = loaded
-    return _LIB
+    return native.load(SOURCE, "libocrttf", _SIGNATURES)
 
 
 def dejavu_path(name: str) -> str:

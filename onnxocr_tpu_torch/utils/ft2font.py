@@ -22,9 +22,8 @@ into build/host/): the auto-hinter, and FreeType 2.6.1's smooth rasteriser.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 
@@ -46,8 +45,6 @@ CMR10 = FONT_DIR / "cm" / "cmr10.ttf"
 # off FT2Font at this factor only)
 HINTING_FACTOR = 8
 
-_LIB: Optional[ctypes.CDLL] = None
-_LOCK = threading.Lock()
 _LL = ctypes.c_longlong
 _VP = ctypes.c_void_p
 _SIGNATURES = {
@@ -67,16 +64,7 @@ _SIGNATURES = {
 
 def lib() -> ctypes.CDLL:
     """The loaded auto-hinter library, built first if needed."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            loaded = ctypes.CDLL(str(native.build(SOURCE, "libocrautohint")))
-            for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(loaded, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
-            _LIB = loaded
-    return _LIB
+    return native.load(SOURCE, "libocrautohint", _SIGNATURES)
 
 
 class FT2Font:
@@ -85,7 +73,9 @@ class FT2Font:
     def __init__(self, path):
         self.fname = str(path)
         self._data = np.frombuffer(Path(path).read_bytes(), np.uint8)
-        self._handle = lib().ah_open(self._data.ctypes.data, self._data.size)
+        self._lib = lib()
+        self._handle = self._lib.ah_open(self._data.ctypes.data,
+                                         self._data.size)
         if not self._handle:
             raise OSError(f"{path}: not a TrueType font this reader takes")
         self._size = None
@@ -97,8 +87,8 @@ class FT2Font:
 
     def __del__(self):
         handle = getattr(self, "_handle", None)
-        if handle and _LIB is not None:
-            _LIB.ah_close(handle)
+        if handle:
+            self._lib.ah_close(handle)
             self._handle = None
 
     def set_size(self, ptsize: float, dpi: float) -> None:

@@ -80,7 +80,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
-import threading
 import zlib
 from pathlib import Path
 from typing import Optional
@@ -93,10 +92,6 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / "imcodec.cc"
 JP2_SOURCE = SOURCE.with_name("jpeg2000.cc")
 TIFF_SOURCE = SOURCE.with_name("tiff.cc")
 
-_LIB: Optional[ctypes.CDLL] = None
-_JP2_LIB: Optional[ctypes.CDLL] = None
-_TIFF_LIB: Optional[ctypes.CDLL] = None
-_LOCK = threading.Lock()
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _IP = ctypes.POINTER(ctypes.c_int)
 _LL = ctypes.c_longlong
@@ -186,31 +181,14 @@ class _Unreadable(ValueError):
     """Bytes that cv2.imdecode would not decode either."""
 
 
-def _load(source: Path, stem: str, signatures) -> ctypes.CDLL:
-    loaded = ctypes.CDLL(str(native.build(source, stem)))
-    for name, (restype, argtypes) in signatures.items():
-        fn = getattr(loaded, name)
-        fn.restype = restype
-        fn.argtypes = argtypes
-    return loaded
-
-
 def lib() -> ctypes.CDLL:
     """The loaded codec library, built first if needed."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            _LIB = _load(SOURCE, "libocrimcodec", _SIGNATURES)
-    return _LIB
+    return native.load(SOURCE, "libocrimcodec", _SIGNATURES)
 
 
 def jp2_lib() -> ctypes.CDLL:
     """The loaded JPEG 2000 library, built first if needed."""
-    global _JP2_LIB
-    with _LOCK:
-        if _JP2_LIB is None:
-            _JP2_LIB = _load(JP2_SOURCE, "libocrjp2", _JP2_SIGNATURES)
-    return _JP2_LIB
+    return native.load(JP2_SOURCE, "libocrjp2", _JP2_SIGNATURES)
 
 
 def _ptr(a: np.ndarray):
@@ -782,11 +760,7 @@ def _tiff_field(buf, order, off_code, inline, kind, spp, typ, n, value,
 def tiff_lib() -> ctypes.CDLL:
     """The loaded TIFF library (CCITT fax, CIELab), built first if
     needed."""
-    global _TIFF_LIB
-    with _LOCK:
-        if _TIFF_LIB is None:
-            _TIFF_LIB = _load(TIFF_SOURCE, "libocrtiff", _TIFF_SIGNATURES)
-    return _TIFF_LIB
+    return native.load(TIFF_SOURCE, "libocrtiff", _TIFF_SIGNATURES)
 
 
 class _Chunk:

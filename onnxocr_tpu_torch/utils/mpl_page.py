@@ -29,9 +29,8 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -41,8 +40,6 @@ from . import ft2font
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / "agg.cc"
 DPI = 100  # the figure's, as the held-out page generator sets it
 
-_LIB: Optional[ctypes.CDLL] = None
-_LOCK = threading.Lock()
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
@@ -55,16 +52,7 @@ _SIGNATURES = {
 
 def lib() -> ctypes.CDLL:
     """The loaded Agg library, built first if needed."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            loaded = ctypes.CDLL(str(native.build(SOURCE, "libocragg")))
-            for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(loaded, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
-            _LIB = loaded
-    return _LIB
+    return native.load(SOURCE, "libocragg", _SIGNATURES)
 
 
 _FONTS: Dict[str, ft2font.FT2Font] = {}

@@ -672,7 +672,7 @@ def test_tiff_mutants_never_crash(tmp_path):
         lib = tmp_path / f"{src.stem}.so"
         libs.append(str(lib))
     procs = [subprocess.Popen(["g++", *flags, "-o", lib, str(src),
-                               *native.LINK.get(src.name, [])])
+                               *native.EXTRA_FLAGS.get(src.name, [])])
              for lib, src in zip(libs, (imcodec.SOURCE, imcodec.TIFF_SOURCE))]
     assert all(p.wait(timeout=300) == 0 for p in procs)
     proc = subprocess.run(

@@ -16,7 +16,8 @@ values differ), or None where cv2 gives None:
   that failed keeps its differences and its file byte order, and the next
   strip decodes on its own.
 * Uncompressed tiles whose byte counts are short or long: the KiB-rounded
-  raw buffer libtiff grows and checks against the tile size.
+  raw buffer libtiff grows and checks against the tile size; planar tiled
+  CMYK with one or two ExtraSamples among them.
 * libtiff's directory repairs: StripByteCounts estimated where it is
   missing, bogus for a single strip or unequal for uncompressed strips;
   tags of a type, count or value its readers refuse (fatal for the tags
@@ -265,6 +266,46 @@ def test_uncompressed_tile_counts_answer_as_cv2(spp, bps):
                 verdicts.append(answers_as_cv2(tiff_file(
                     70, 33, c, keep, tile=(tw, th))))
     assert "decoded" in verdicts and "none" in verdicts
+
+
+@pytest.mark.parametrize("spp,extra", [(4, [0]), (4, [2]), (4, [0, 0]),
+                                       (5, [0]), (5, [2]), (6, [2, 0])],
+                         ids=["4-unspecified", "4-alpha", "4-two-extra",
+                              "5-unspecified", "5-alpha", "6-alpha-and-one"])
+def test_planar_cmyk_tiles_with_extra_samples_answer_as_cv2(spp, extra):
+    """Planar tiled CMYK (Photometric 5) with one or two ExtraSamples,
+    tiles of 16 to 64 pixels, each tile's byte count as written or cut
+    and grown as in test_uncompressed_tile_counts_answer_as_cv2 (across
+    the KiB-rounded raw buffer's rule): cv2 refuses 5 and 6 samples
+    ("Unsupported number of channels"), reads 4 samples under any
+    ExtraSamples as CMYK where the raw buffer is the tile's size; the port
+    answers every file as cv2 does, and both verdicts occur for 4."""
+    rng = np.random.default_rng(spp * 10 + len(extra))
+    s = rng.integers(0, 256, (33, 70, spp)).astype(np.uint8)
+    verdicts = []
+    for tw, th in ((16, 16), (32, 32), (64, 16)):
+        blob = write_tiff(s, 5, 8, tile=(tw, th), planar=2, extra=extra)
+        chunks, t = strips_of(blob)
+        keep = {k: (3, list(v)) for k, v in t.items()
+                if k in (258, 259, 262, 277, 284, 338)}
+        n = len(chunks)
+        for mode in ("as-written",) + TILE_COUNTS:
+            c = list(chunks)
+            if mode != "as-written":
+                at = mode.split("-")[-1]
+                for k in {"first": [0], "mid": [n // 2], "last": [n - 1],
+                          "all": range(n)}[at]:
+                    c[k] = {"short": c[k][:len(c[k]) // 2],
+                            "long": c[k] + bytes(100),
+                            "plus": c[k] + bytes(1024),
+                            "minus": c[k][:max(1, len(c[k]) - 1000)]}[
+                        mode.split("-")[0]]
+            verdicts.append(answers_as_cv2(tiff_file(70, 33, c, keep,
+                                                     tile=(tw, th))))
+    if spp == 4:
+        assert "decoded" in verdicts and "none" in verdicts
+    else:
+        assert set(verdicts) == {"none"}
 
 
 # ------------------------------------------------- extra samples
